@@ -1,0 +1,198 @@
+"""JAX-package parameters -> the port's state_dict (numpy only).
+
+Inputs are the JAX package's flax parameters as nested dicts of numpy arrays:
+the `params` collection of a `ConditionedDiffusionModelWrapper`, and the
+frozen T5 tower's own params (`T5Conditioner._t5.params`), which live outside
+it. The output is a flat {name: numpy array} in the port's names, which are
+the reference torch state-dict names (those io/torch_mapping.py and
+io/checkpoints.py of the JAX package import), ready for
+`model.load_state_dict({k: torch.from_numpy(v) ...})`.
+
+Transforms:
+- dense kernels [in, out] -> torch [out, in];
+- WIO conv kernels [k, in, out] -> [out, in, k]; transposed-conv kernels
+  [k, in, out] -> [in, out, k];
+- weight norm: v as above, g -> [out, 1, 1] (transposed: [in, 1, 1]);
+- log-scale snake alpha / beta as they are;
+- fused projections de-interleaved: the JAX package stores to_qkv / to_kv
+  head-major ([h][q|k|v][dh]) and the GLU pairwise (x_0, g_0, x_1, ...);
+  torch concatenates ([q|k|v], [x|gate]).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+
+StateDict = Dict[str, np.ndarray]
+
+
+def _np(a) -> np.ndarray:
+    return np.asarray(a, dtype=np.float32)
+
+
+def deinterleave_fused(kernel: np.ndarray, n_fused: int, dim_heads: int) -> np.ndarray:
+    """[in, H*n*dh] head-major interleave -> [in, n*H*dh] concat."""
+    din, dout = kernel.shape
+    heads = dout // (n_fused * dim_heads)
+    return kernel.reshape(din, heads, n_fused, dim_heads).transpose(0, 2, 1, 3).reshape(din, dout)
+
+
+def deinterleave_glu(arr: np.ndarray) -> np.ndarray:
+    """pairwise (x_0, g_0, x_1, g_1, ...) -> [x | gate] along the last axis."""
+    inner = arr.shape[-1] // 2
+    return arr.reshape(*arr.shape[:-1], inner, 2).swapaxes(-1, -2).reshape(*arr.shape[:-1], 2 * inner)
+
+
+def dense(out: StateDict, name: str, p: Mapping) -> None:
+    out[f"{name}.weight"] = _np(p["kernel"]).T
+    if "bias" in p:
+        out[f"{name}.bias"] = _np(p["bias"])
+
+
+def transformer_block_state_dict(p: Mapping, prefix: str, dim_heads: int) -> StateDict:
+    out: StateDict = {}
+    out[f"{prefix}.pre_norm.gamma"] = _np(p["pre_norm"]["gamma"])
+    out[f"{prefix}.ff_norm.gamma"] = _np(p["ff_norm"]["gamma"])
+    out[f"{prefix}.self_attn.to_qkv.weight"] = deinterleave_fused(
+        _np(p["self_attn"]["to_qkv"]["kernel"]), 3, dim_heads).T
+    dense(out, f"{prefix}.self_attn.to_out", p["self_attn"]["to_out"])
+    if "cross_attn" in p:
+        out[f"{prefix}.cross_attend_norm.gamma"] = _np(p["cross_attend_norm"]["gamma"])
+        dense(out, f"{prefix}.cross_attn.to_q", p["cross_attn"]["to_q"])
+        out[f"{prefix}.cross_attn.to_kv.weight"] = deinterleave_fused(
+            _np(p["cross_attn"]["to_kv"]["kernel"]), 2, dim_heads).T
+        dense(out, f"{prefix}.cross_attn.to_out", p["cross_attn"]["to_out"])
+    proj = p["ff"]["linear_in"]["proj"]
+    out[f"{prefix}.ff.ff.0.proj.weight"] = deinterleave_glu(_np(proj["kernel"])).T
+    if "bias" in proj:
+        out[f"{prefix}.ff.ff.0.proj.bias"] = deinterleave_glu(_np(proj["bias"]))
+    dense(out, f"{prefix}.ff.ff.2", p["ff"]["linear_out"])
+    return out
+
+
+def dit_state_dict(p: Mapping, dim_heads: int, prefix: str = "") -> StateDict:
+    """DiffusionTransformer params -> port names (with `prefix`)."""
+    out: StateDict = {f"{prefix}timestep_features.weight": _np(p["timestep_features"]["weight"])}
+    dense(out, f"{prefix}to_timestep_embed.0", p["to_timestep_embed_0"])
+    dense(out, f"{prefix}to_timestep_embed.2", p["to_timestep_embed_2"])
+    for name in ("to_cond_embed", "to_global_embed"):
+        if name in p:
+            dense(out, f"{prefix}{name}.0", p[name]["0"])
+            dense(out, f"{prefix}{name}.2", p[name]["2"])
+    for name in ("preprocess_conv", "postprocess_conv"):
+        out[f"{prefix}{name}.weight"] = _np(p[name]["kernel"]).transpose(2, 1, 0)
+    tr = p["transformer"]
+    for name in ("project_in", "project_out"):
+        if name in tr:
+            dense(out, f"{prefix}transformer.{name}", tr[name])
+    i = 0
+    while f"layers_{i}" in tr:
+        out.update(transformer_block_state_dict(
+            tr[f"layers_{i}"], f"{prefix}transformer.layers.{i}", dim_heads))
+        i += 1
+    return out
+
+
+def wn_conv(out: StateDict, name: str, p: Mapping, transposed: bool = False) -> None:
+    v = _np(p["v"])  # [k, in, out]
+    out[f"{name}.weight_v"] = v.transpose(1, 2, 0) if transposed else v.transpose(2, 1, 0)
+    out[f"{name}.weight_g"] = _np(p["g"]).reshape(-1, 1, 1)
+    if "bias" in p:
+        out[f"{name}.bias"] = _np(p["bias"])
+
+
+def snake(out: StateDict, name: str, p: Mapping) -> None:
+    out[f"{name}.alpha"] = _np(p["alpha"])
+    out[f"{name}.beta"] = _np(p["beta"])
+
+
+def residual_unit(out: StateDict, name: str, p: Mapping) -> None:
+    snake(out, f"{name}.layers.0", p["SnakeBeta_0"])
+    wn_conv(out, f"{name}.layers.1", p["conv1"])
+    snake(out, f"{name}.layers.2", p["SnakeBeta_1"])
+    wn_conv(out, f"{name}.layers.3", p["conv2"])
+
+
+def _n_blocks(p: Mapping) -> int:
+    return sum(1 for k in p if k.startswith("block_"))
+
+
+def oobleck_decoder_state_dict(p: Mapping, prefix: str = "") -> StateDict:
+    out: StateDict = {}
+    n = _n_blocks(p)
+    wn_conv(out, f"{prefix}layers.0", p["conv_in"])
+    for j in range(n):
+        blk, name = p[f"block_{j}"], f"{prefix}layers.{j + 1}"
+        snake(out, f"{name}.layers.0", blk["SnakeBeta_0"])
+        wn_conv(out, f"{name}.layers.1", blk["up"], transposed=True)
+        for i in range(3):
+            residual_unit(out, f"{name}.layers.{i + 2}", blk[f"res_{i}"])
+    snake(out, f"{prefix}layers.{n + 1}", p["SnakeBeta_0"])
+    wn_conv(out, f"{prefix}layers.{n + 2}", p["conv_out"])
+    return out
+
+
+def oobleck_encoder_state_dict(p: Mapping, prefix: str = "") -> StateDict:
+    out: StateDict = {}
+    n = _n_blocks(p)
+    wn_conv(out, f"{prefix}layers.0", p["conv_in"])
+    for j in range(n):
+        blk, name = p[f"block_{j}"], f"{prefix}layers.{j + 1}"
+        for i in range(3):
+            residual_unit(out, f"{name}.layers.{i}", blk[f"res_{i}"])
+        snake(out, f"{name}.layers.3", blk["SnakeBeta_0"])
+        wn_conv(out, f"{name}.layers.4", blk["down"])
+    snake(out, f"{prefix}layers.{n + 1}", p["SnakeBeta_0"])
+    wn_conv(out, f"{prefix}layers.{n + 2}", p["conv_out"])
+    return out
+
+
+def autoencoder_state_dict(p: Mapping, prefix: str = "") -> StateDict:
+    out: StateDict = {}
+    if "encoder" in p:
+        out.update(oobleck_encoder_state_dict(p["encoder"], f"{prefix}encoder."))
+    out.update(oobleck_decoder_state_dict(p["decoder"], f"{prefix}decoder."))
+    return out
+
+
+def t5_state_dict(p: Mapping, prefix: str = "") -> StateDict:
+    """Flax T5 encoder params -> Hugging Face torch names."""
+    out: StateDict = {f"{prefix}shared.weight": _np(p["shared"]["embedding"])}
+    enc = p["encoder"]
+    for i, blk in sorted(((int(k), v) for k, v in enc["block"].items())):
+        name = f"{prefix}encoder.block.{i}.layer"
+        attn, ff = blk["layer"]["0"], blk["layer"]["1"]
+        out[f"{name}.0.layer_norm.weight"] = _np(attn["layer_norm"]["weight"])
+        for w in ("q", "k", "v", "o"):
+            out[f"{name}.0.SelfAttention.{w}.weight"] = _np(attn["SelfAttention"][w]["kernel"]).T
+        if "relative_attention_bias" in attn["SelfAttention"]:
+            out[f"{name}.0.SelfAttention.relative_attention_bias.weight"] = _np(
+                attn["SelfAttention"]["relative_attention_bias"]["embedding"])
+        out[f"{name}.1.layer_norm.weight"] = _np(ff["layer_norm"]["weight"])
+        for w, v in ff["DenseReluDense"].items():
+            out[f"{name}.1.DenseReluDense.{w}.weight"] = _np(v["kernel"]).T
+    out[f"{prefix}encoder.final_layer_norm.weight"] = _np(enc["final_layer_norm"]["weight"])
+    return out
+
+
+def diffusion_cond_state_dict(params: Mapping, dim_heads: int,
+                              t5_params: Optional[Mapping[str, Mapping]] = None) -> StateDict:
+    """`params` of a ConditionedDiffusionModelWrapper (DiT) -> the port's
+    ConditionedDiffusionModelWrapper state_dict. `t5_params` maps a T5
+    conditioner id to its tower's flax params."""
+    out = dit_state_dict(params["model"]["dit"], dim_heads, prefix="model.model.")
+    if "pretransform" in params:
+        out.update(autoencoder_state_dict(params["pretransform"]["model"], "pretransform.model."))
+    for key, mod in params.get("conditioner", {}).items():
+        cid = key[len("modules_"):]
+        pfx = f"conditioner.conditioners.{cid}."
+        if "embedder" in mod:  # NumberConditioner
+            out[f"{pfx}embedder.embedding.0.weights"] = _np(mod["embedder"]["weights"])
+            dense(out, f"{pfx}embedder.embedding.1", mod["embedder"]["to_out"])
+        if "proj" in mod:  # T5 projection
+            dense(out, f"{pfx}proj_out", mod["proj"]["proj_out"])
+    for cid, p in (t5_params or {}).items():
+        out.update(t5_state_dict(p, f"conditioner.conditioners.{cid}.model."))
+    return out

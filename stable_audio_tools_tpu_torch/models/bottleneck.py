@@ -1,0 +1,24 @@
+"""VAE bottleneck; counterpart of stable_audio_tools_tpu/models/bottleneck.py
+(`VAEBottleneck`, `vae_sample`). The other bottlenecks are later slices.
+Layout: [B, C, T]; the channel axis holds [mean | scale]."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class VAEBottleneck(nn.Module):
+    def encode(self, x: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        mean, scale = x.chunk(2, dim=1)
+        stdev = F.softplus(scale) + 1e-4
+        noise = torch.randn(mean.shape, generator=generator, device=mean.device,
+                            dtype=mean.dtype)
+        return noise * stdev + mean
+
+    def decode(self, x: torch.Tensor) -> torch.Tensor:
+        return x

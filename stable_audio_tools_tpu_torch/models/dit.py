@@ -1,0 +1,109 @@
+"""DiffusionTransformer (DiT); counterpart of stable_audio_tools_tpu/models/dit.py.
+
+Covers SA-Open's configuration: Fourier timestep features -> MLP, cross-
+attention tokens through `to_cond_embed`, the global condition through
+`to_global_embed` plus the timestep embedding, prepended as one token ahead
+of the latent sequence ("prepend" global conditioning), zero-init 1x1 pre/post
+convs, batch-doubled classifier-free guidance with `scale_phi` rescale and
+`cfg_interval`, and bf16 compute over f32 parameters. Layout: x [B, C, T].
+adaLN conditioning, prepend_cond inputs, input-concat conditioning and
+patching are later slices.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import Linear
+from ..ops.embeddings import FourierFeatures
+from ..ops.transformer import ContinuousTransformer
+
+
+def _mlp(dim_in: int, dim_out: int, bias: bool) -> nn.Sequential:
+    return nn.Sequential(Linear(dim_in, dim_out, bias=bias), nn.SiLU(),
+                         Linear(dim_out, dim_out, bias=bias))
+
+
+class DiffusionTransformer(nn.Module):
+    """Keyword arguments are the JSON config's `diffusion.config` keys; a key
+    this slice does not port raises TypeError. `use_checkpointing` (training
+    rematerialisation in the JAX package) is accepted and has no effect."""
+
+    def __init__(self, io_channels: int = 32, embed_dim: int = 768,
+                 cond_token_dim: int = 0, project_cond_tokens: bool = True,
+                 global_cond_dim: int = 0, project_global_cond: bool = True,
+                 depth: int = 12, num_heads: int = 8,
+                 compute_dtype: Optional[str] = None, use_checkpointing: bool = True):
+        super().__init__()
+        self.io_channels = io_channels
+        self.compute_dtype = getattr(torch, compute_dtype) if compute_dtype else None
+        self.timestep_features = FourierFeatures(1, 256)
+        self.to_timestep_embed = _mlp(256, embed_dim, bias=True)
+        cond_embed_dim = embed_dim if project_cond_tokens else cond_token_dim
+        self.to_cond_embed = (_mlp(cond_token_dim, cond_embed_dim, bias=False)
+                              if cond_token_dim > 0 else None)
+        global_embed_dim = embed_dim if project_global_cond else global_cond_dim
+        self.to_global_embed = (_mlp(global_cond_dim, global_embed_dim, bias=False)
+                                if global_cond_dim > 0 else None)
+        self.preprocess_conv = nn.Conv1d(io_channels, io_channels, 1, bias=False)
+        self.postprocess_conv = nn.Conv1d(io_channels, io_channels, 1, bias=False)
+        nn.init.zeros_(self.preprocess_conv.weight)
+        nn.init.zeros_(self.postprocess_conv.weight)
+        self.transformer = ContinuousTransformer(
+            dim=embed_dim, depth=depth, dim_in=io_channels, dim_out=io_channels,
+            dim_heads=embed_dim // num_heads, cross_attend=cond_token_dim > 0,
+            cond_token_dim=cond_embed_dim if cond_token_dim > 0 else None)
+
+    def _forward(self, x, t, cross_attn_cond=None, global_embed=None):
+        in_dtype = x.dtype
+        if self.compute_dtype is not None:
+            cdt = self.compute_dtype
+            x, t = x.to(cdt), t.to(cdt)
+            cross_attn_cond = cross_attn_cond.to(cdt) if cross_attn_cond is not None else None
+            global_embed = global_embed.to(cdt) if global_embed is not None else None
+        if cross_attn_cond is not None:
+            cross_attn_cond = self.to_cond_embed(cross_attn_cond)
+        if global_embed is not None:
+            global_embed = self.to_global_embed(global_embed)
+        timestep_embed = self.to_timestep_embed(self.timestep_features(t[:, None]))
+        global_embed = timestep_embed if global_embed is None else global_embed + timestep_embed
+        prepend = global_embed[:, None, :]
+
+        x = F.conv1d(x, self.preprocess_conv.weight.to(x.dtype)) + x
+        h = self.transformer(x.transpose(1, 2), prepend_embeds=prepend,
+                             context=cross_attn_cond)
+        out = h.transpose(1, 2)[:, :, prepend.shape[1]:]
+        out = F.conv1d(out, self.postprocess_conv.weight.to(out.dtype)) + out
+        return out.to(in_dtype)
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor,
+                cross_attn_cond: Optional[torch.Tensor] = None,
+                global_embed: Optional[torch.Tensor] = None,
+                cfg_scale: float = 1.0,
+                cfg_interval: Tuple[float, float] = (0.0, 1.0),
+                scale_phi: float = 0.0) -> torch.Tensor:
+        """x [B, C, T], t [B]. CFG doubles the batch with null
+        cross-attention tokens."""
+        if cfg_scale == 1.0 or cross_attn_cond is None:
+            return self._forward(x, t, cross_attn_cond, global_embed)
+        lo, hi = cfg_interval
+        if (lo, hi) != (0.0, 1.0):
+            sigma = math.sin(float(t[0]) * math.pi / 2)
+            if not lo <= sigma <= hi:  # outside the interval: the cond pass only
+                return self._forward(x, t, cross_attn_cond, global_embed)
+        null = torch.zeros_like(cross_attn_cond)
+        out = self._forward(
+            torch.cat([x, x]), torch.cat([t, t]), torch.cat([cross_attn_cond, null]),
+            torch.cat([global_embed, global_embed]) if global_embed is not None else None)
+        cond, uncond = out.chunk(2)
+        cfg = uncond + (cond - uncond) * cfg_scale
+        if scale_phi != 0.0:
+            cond_std = cond.std(dim=1, keepdim=True, correction=0)
+            cfg_std = cfg.std(dim=1, keepdim=True, correction=0)
+            cfg = scale_phi * (cfg * (cond_std / (cfg_std + 1e-12))) + (1 - scale_phi) * cfg
+        return cfg

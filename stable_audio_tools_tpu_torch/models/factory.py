@@ -1,0 +1,118 @@
+"""Config-driven factories; counterpart of stable_audio_tools_tpu/models/factory.py.
+
+The JSON model config is the public API: the shipped
+`stable_audio_open_1_0.json` builds unchanged. This slice builds
+`diffusion_cond` (DiT), `autoencoder` (Oobleck + VAE bottleneck) and the
+`autoencoder` pretransform; other types raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+from typing import Any, Dict
+
+import torch
+from torch import nn
+
+from .autoencoders import AudioAutoencoder, OobleckDecoder, OobleckEncoder
+from .bottleneck import VAEBottleneck
+from .pretransforms import AutoencoderPretransform
+
+_OOBLECK_KEYS = ("channels", "latent_dim", "c_mults", "strides", "use_snake")
+
+
+def create_model_from_config(model_config: Dict[str, Any]) -> nn.Module:
+    model_type = model_config.get("model_type")
+    if model_type == "autoencoder":
+        return create_autoencoder_from_config(model_config)
+    if model_type == "diffusion_cond":
+        from .diffusion import create_diffusion_cond_from_config
+
+        return create_diffusion_cond_from_config(model_config)
+    raise NotImplementedError(f"model type {model_type} is not ported yet")
+
+
+def create_model_from_config_path(path: str) -> nn.Module:
+    with open(path) as f:
+        return create_model_from_config(json.load(f))
+
+
+def _oobleck(section: Dict[str, Any], io_key: str, cls):
+    if section["type"] != "oobleck":
+        raise NotImplementedError(f"{section['type']} encoder/decoder is not ported yet")
+    cfg = section.get("config", {})
+    kwargs = {k: cfg[k] for k in _OOBLECK_KEYS if k in cfg}
+    if io_key in cfg:
+        kwargs[io_key] = cfg[io_key]
+    if cls is OobleckDecoder and "final_tanh" in cfg:
+        kwargs["final_tanh"] = cfg["final_tanh"]
+    return cls(**kwargs)
+
+
+def create_autoencoder_from_config(config: Dict[str, Any]) -> AudioAutoencoder:
+    ae = config["model"]
+    bottleneck = ae.get("bottleneck")
+    if bottleneck is not None and bottleneck["type"] != "vae":
+        raise NotImplementedError(f"{bottleneck['type']} bottleneck is not ported yet")
+    return AudioAutoencoder(
+        encoder=_oobleck(ae["encoder"], "in_channels", OobleckEncoder) if "encoder" in ae else None,
+        decoder=_oobleck(ae["decoder"], "out_channels", OobleckDecoder),
+        latent_dim=ae["latent_dim"],
+        downsampling_ratio=ae["downsampling_ratio"],
+        sample_rate=config["sample_rate"],
+        io_channels=ae["io_channels"],
+        bottleneck=VAEBottleneck() if bottleneck is not None else None,
+        soft_clip=ae.get("soft_clip", False),
+    )
+
+
+def create_pretransform_from_config(config: Dict[str, Any], sample_rate: int) -> AutoencoderPretransform:
+    if config["type"] != "autoencoder":
+        raise NotImplementedError(f"{config['type']} pretransform is not ported yet")
+    ae = create_autoencoder_from_config({"model": config["config"], "sample_rate": sample_rate})
+    return AutoencoderPretransform(ae, scale=config.get("scale", 1.0),
+                                   model_half=config.get("model_half", False))
+
+
+@torch.no_grad()
+def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Re-draw every parameter from `generator` (deterministic random init
+    for benchmarks and smoke runs; real weights are loaded instead):
+    Linear / conv weights ~ N(0, 1/fan_in), biases 0, embeddings ~ N(0, 1),
+    norm scales 1, log-scale snake parameters 0, Fourier weights ~ N(0, 1),
+    weight-norm g = ||v||."""
+    from ..ops.activations import SnakeBeta
+    from ..ops.conv import WNConv1d, WNConvTranspose1d
+    from ..ops.embeddings import FourierFeatures
+    from ..ops.norms import LayerNorm
+    from .conditioners import LearnedPositionalEmbedding
+    from .t5 import T5LayerNorm
+
+    def normal_(p, std):
+        p.copy_(torch.randn(p.shape, generator=generator, dtype=p.dtype,
+                            device=generator.device) * std)
+
+    for m in model.modules():
+        if isinstance(m, (nn.Linear, nn.Conv1d)):
+            normal_(m.weight, 1.0 / math.sqrt(m.weight[0].numel()))
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (WNConv1d, WNConvTranspose1d)):
+            fan_in = m.weight_v.shape[1] * m.weight_v.shape[2]
+            normal_(m.weight_v, 1.0 / math.sqrt(fan_in))
+            m.weight_g.copy_(m.weight_v.norm(dim=(1, 2), keepdim=True))
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.Embedding, FourierFeatures)):
+            normal_(m.weight, 1.0)
+        elif isinstance(m, LearnedPositionalEmbedding):
+            normal_(m.weights, 1.0)
+        elif isinstance(m, LayerNorm):
+            m.gamma.fill_(1.0)
+        elif isinstance(m, T5LayerNorm):
+            m.weight.fill_(1.0)
+        elif isinstance(m, SnakeBeta):
+            m.alpha.zero_()
+            m.beta.zero_()
+    return model

@@ -1,0 +1,58 @@
+"""Timestep and rotary embeddings; counterpart of
+stable_audio_tools_tpu/ops/embeddings.py."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+
+class FourierFeatures(nn.Module):
+    """[..., in] -> [..., out] = [cos(2 pi x W^T), sin(2 pi x W^T)], f32 inside."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.randn(out_features // 2, in_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        f = 2 * math.pi * (x.float() @ self.weight.float().T)
+        return torch.cat([torch.cos(f), torch.sin(f)], dim=-1).to(x.dtype)
+
+
+def rotary_freqs(seq_len: int, rot_dim: int, device=None) -> torch.Tensor:
+    """[seq_len, rot_dim] rotary angle table in f32, base 10000 (freqs
+    repeated over the two halves)."""
+    inv_freq = 1.0 / (10000.0 ** (torch.arange(0, rot_dim, 2, dtype=torch.float32,
+                                            device=device) / rot_dim))
+    t = torch.arange(seq_len, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv_freq)
+    return torch.cat([freqs, freqs], dim=-1)
+
+
+class RotaryEmbedding(nn.Module):
+    """Parameter-free rotary table generator (rotates the first `dim` dims)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, seq_len: int, device=None) -> torch.Tensor:
+        return rotary_freqs(seq_len, self.dim, device)
+
+
+def _rotate_half(x: torch.Tensor) -> torch.Tensor:
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def apply_rotary_pos_emb(t: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
+    """Partial rotary in f32 over t [..., seq, dim_head]; the first
+    freqs.shape[-1] dims rotate, the rest pass through."""
+    rot_dim = freqs.shape[-1]
+    freqs = freqs[-t.shape[-2]:].float()
+    tf = t.float()
+    t_rot, t_pass = tf[..., :rot_dim], tf[..., rot_dim:]
+    t_rot = t_rot * torch.cos(freqs) + _rotate_half(t_rot) * torch.sin(freqs)
+    return torch.cat([t_rot, t_pass], dim=-1).to(t.dtype)

@@ -1,0 +1,105 @@
+"""Build and bind the package's CUDA C++ kernels (`csrc/*.cu`).
+
+Each source compiles on first use with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC
+
+into `build/torch_kernels/<name>-<source hash>.so` at the repository root and
+is loaded with `ctypes`. The sources include no PyTorch header and export a
+plain C interface, so a build takes seconds. A changed source gets a new
+hash and is rebuilt; an unchanged one is loaded from the build directory.
+
+Every exported entry point returns `cudaGetLastError()` after its launch;
+`check()` raises on a nonzero code, so a launch the GPU refused (too many
+threads, too much shared memory) is reported where it happened.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict, Sequence
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+# seconds spent in nvcc by this process, per source (0.0 when loaded from disk)
+BUILD_SECONDS: Dict[str, float] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                           "are built from source at first use")
+    return found
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library built from `csrc/<name>.cu`."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    src = CSRC / f"{name}.cu"
+    deps = sorted(CSRC.glob("*.cuh"))
+    digest = hashlib.sha256()
+    for p in [src, *deps]:
+        digest.update(p.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    t0 = time.perf_counter()
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(src)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stderr}")
+        os.replace(tmp, out)
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+    else:
+        BUILD_SECONDS[name] = 0.0
+    lib = ctypes.CDLL(str(out))
+    _LIBS[name] = lib
+    return lib
+
+
+def bind(name: str, fn: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """`fn` from `csrc/<name>.cu` with its argument types declared; every
+    entry point returns the launch's cudaError_t as an int."""
+    f = getattr(library(name), fn)
+    f.argtypes = list(argtypes)
+    f.restype = ctypes.c_int
+    return f
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        import torch
+
+        raise RuntimeError(f"{what}: CUDA error {code} at launch "
+                           f"({torch.cuda.get_device_name()})")
+
+
+def build_all() -> Dict[str, float]:
+    """Build (or load) every source under csrc/; returns nvcc seconds per
+    source."""
+    for src in sorted(CSRC.glob("*.cu")):
+        library(src.stem)
+    return dict(BUILD_SECONDS)

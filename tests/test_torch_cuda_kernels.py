@@ -1,0 +1,93 @@
+"""The port's hand-written kernels against their plain PyTorch versions on a
+CUDA card, at ragged shapes the main path does not reach (partial tiles,
+channel counts off the 32/64 tiling, every prefix length).
+
+Marked `cuda`: they skip where there is no card. On the card:
+    python -m pytest -m cuda tests/test_torch_cuda_kernels.py -q
+Tolerance: bf16 outputs, 2 units in the last place at the reference's peak.
+"""
+
+import pytest
+import torch
+
+from stable_audio_tools_tpu_torch.ops.kernels import conv1d_snake as cs
+from stable_audio_tools_tpu_torch.ops.kernels import flash_attention as fa
+from stable_audio_tools_tpu_torch.ops.kernels import layer_norm as ln
+from stable_audio_tools_tpu_torch.ops.kernels import snake as sn
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _randn(dev, *shape, scale=1.0, dtype=torch.bfloat16, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed + sum(shape))
+    return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+
+def _close(got, want):
+    tol = 2 * 2.0 ** -7 * max(1.0, want.float().abs().max().item())
+    err = (got.float() - want.float()).abs().max().item()
+    assert torch.isfinite(got.float()).all() and err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("B,H,N,P", [(1, 3, 131, 1), (2, 2, 69, 5), (1, 1, 128, 64),
+                                     (1, 2, 100, 0)])
+def test_flash_attention_prefix(dev, B, H, N, P):
+    q, k, v = (_randn(dev, B, H, N, 64, seed=i) for i in range(3))
+    out, lse = fa.flash_attention_prefix(q, k, v, P)
+    want, want_lse = fa.flash_attention_prefix_plain(q, k, v, P)
+    _close(out, want)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("C,beta", [(1536, False), (1000, True)])
+def test_fused_layer_norm(dev, C, beta):
+    x = _randn(dev, 3, 77, C, scale=3.0)
+    g = _randn(dev, C, dtype=torch.float32, seed=1)
+    b = _randn(dev, C, dtype=torch.float32, seed=2) if beta else None
+    _close(ln.fused_layer_norm(x, g, b), ln.fused_layer_norm_plain(x, g, b))
+
+
+def test_snake_fused(dev):
+    x = _randn(dev, 2, 33, 5000, scale=2.0)
+    a = _randn(dev, 33, dtype=torch.float32, seed=1).exp()
+    b = _randn(dev, 33, dtype=torch.float32, seed=2).exp()
+    _close(sn.snake_fused(x, a, b), sn.snake_fused_plain(x, a, b))
+
+
+@pytest.mark.parametrize("Ci,Co,L,k,d,res,bias", [
+    (40, 70, 129, 7, 5, False, True),
+    (64, 2, 300, 7, 1, False, False),
+    (96, 96, 65, 1, 1, True, True),
+    (128, 128, 1000, 7, 9, True, True),
+])
+def test_snake_conv1d(dev, Ci, Co, L, k, d, res, bias):
+    x = _randn(dev, 2, Ci, L)
+    w = _randn(dev, Co, Ci, k, scale=(Ci * k) ** -0.5, seed=1)
+    bias_t = _randn(dev, Co, dtype=torch.float32, seed=2) if bias else None
+    a = _randn(dev, Ci, dtype=torch.float32, seed=3).exp()
+    b = _randn(dev, Ci, dtype=torch.float32, seed=4).exp()
+    r = _randn(dev, 2, Co, L, seed=5) if res else None
+    pad = d * (k - 1) // 2
+    if res:
+        got = cs.snake_conv1d_res(x, w, bias_t, a, b, r, pad, pad, d)
+    else:
+        got = cs.snake_conv1d(x, w, bias_t, a, b, pad, pad, d)
+    _close(got, cs.snake_conv1d_plain(x, w, bias_t, a, b, pad, pad, d, r))
+
+
+def test_wrappers_raise_on_unsupported_cuda_input(dev):
+    q = torch.zeros(1, 1, 65, 64, device=dev)  # f32: the kernel takes bf16
+    with pytest.raises(TypeError):
+        fa.flash_attention_prefix(q, q, q, 1)
+    x = torch.zeros(1, 8, 32, device=dev)
+    w = torch.zeros(8, 8, 3, device=dev)
+    with pytest.raises(TypeError):
+        cs.snake_conv1d(x, w, None, torch.ones(8, device=dev), torch.ones(8, device=dev),
+                        1, 1, 1)

@@ -1,0 +1,65 @@
+"""The port imports and runs with JAX, flax, transformers and the JAX package
+unimportable (the machine with the card has none of them), and without
+triton: no module imports it at import time."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent("""
+    import importlib, pkgutil, sys
+    for name in ("jax", "jaxlib", "flax", "transformers", "safetensors",
+                 "stable_audio_tools_tpu"):
+        sys.modules[name] = None  # any import of these raises ImportError
+
+    import torch
+    import stable_audio_tools_tpu_torch as pkg
+
+    names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
+             if not m.name.endswith("_triton")]  # Triton sources: need triton
+    for name in names:
+        importlib.import_module(name)
+    assert "triton" not in sys.modules, "a module imported triton at import time"
+
+    from stable_audio_tools_tpu_torch.inference.generation import generate_diffusion_cond
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+
+    config = {
+        "model_type": "diffusion_cond", "sample_size": 512, "sample_rate": 16000,
+        "model": {
+            "io_channels": 4,
+            "pretransform": {"type": "autoencoder", "model_half": True, "config": {
+                "decoder": {"type": "oobleck", "config": {
+                    "out_channels": 2, "channels": 8, "c_mults": [1, 2], "strides": [2, 4],
+                    "latent_dim": 4, "use_snake": True}},
+                "bottleneck": {"type": "vae"}, "latent_dim": 4, "downsampling_ratio": 8,
+                "io_channels": 2}},
+            "conditioning": {"cond_dim": 64, "configs": [
+                {"id": "prompt", "type": "t5", "config": {
+                    "max_length": 8, "allow_random_init": True,
+                    "arch": [64, 128, 1, 2, 32, True]}},
+                {"id": "seconds_total", "type": "number", "config": {"max_val": 512}}]},
+            "diffusion": {"type": "dit", "cross_attention_cond_ids": ["prompt"],
+                          "global_cond_ids": ["seconds_total"],
+                          "config": {"io_channels": 4, "embed_dim": 128, "depth": 1,
+                                     "num_heads": 2, "cond_token_dim": 64,
+                                     "global_cond_dim": 64, "project_cond_tokens": False,
+                                     "compute_dtype": "bfloat16"}}}}
+    model = init_random_(create_model_from_config(config), torch.Generator().manual_seed(0))
+    audio = generate_diffusion_cond(model.eval(), steps=2, conditioning=[
+        {"prompt": "rain on a tin roof", "seconds_total": 10}], sample_size=512, seed=0)
+    assert audio.shape == (1, 2, 512) and torch.isfinite(audio).all()
+    assert "triton" not in sys.modules
+    print("ok", len(names))
+""")
+
+
+def test_port_runs_without_jax_or_triton():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.startswith("ok")
