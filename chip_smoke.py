@@ -3,33 +3,49 @@
     python3 chip_smoke.py
 
 Runs from the repository root on a machine with a CUDA card, `nvcc` and
-`triton`; needs no network and no JAX. Three phases, each printing one line;
+`triton`; needs no network and no JAX. Four phases, each printing one line;
 any failure raises and the exit code is nonzero:
 
 1. Device and build: the card's name and power limit, then every CUDA source
    of the port compiled from the checkout (seconds printed).
-2. Kernels: each hand-written kernel on the main path against its plain
-   PyTorch version on the card, at the main path's shapes, bf16, with the
+2. Kernels: each hand-written kernel on the main paths against its plain
+   PyTorch version on the card, at the main paths' shapes, bf16, with the
    tolerance stated beside it; both timed with CUDA events after a warm-up.
-3. Main path: SA-Open (the shipped stable_audio_open_1_0.json, built by the
+   The flash-attention backward is checked and timed by both of its routes
+   (single pass with atomic dQ; two passes), and the autograd wrappers'
+   gradients (flash attention, LayerNorm) against autograd through the plain
+   versions.
+3. Generation: SA-Open (the shipped stable_audio_open_1_0.json, built by the
    port's factory, random weights from a seeded torch.Generator, random T5)
    runs generate_diffusion_cond with cfg 6, dpmpp-3m-sde, sigma in [0.3, 500],
-   batch 1, 2,097,152 samples, 100 steps. Every kernel's launch count must
-   rise during that call and the audio must be finite [1, 2, 2097152]; a tiny
+   batch 1, 2,097,152 samples, 100 steps. Every kernel of that path must
+   launch during the call and the audio must be finite [1, 2, 2097152]; a tiny
    SA-Open-shaped model must agree between the card (kernels) and the CPU
    (plain versions) on replayed noise.
+4. Training: a tiny SA-Open-shaped training step on the card against the
+   CPU (same weights, batch, t, noise, dropout mask); then SA-Open at full
+   width, batch 4, through the code path of `python -m
+   stable_audio_tools_tpu_torch.train` on 8 seeded synthetic 50 s stereo WAVs:
+   2 warm-up steps and 5 timed ones, a checkpoint, and its reload into a
+   fresh model. Every loss must be finite, every trainable parameter's
+   gradient finite and not all zero, the parameters and the EMA must move,
+   every kernel of the path must launch (the flash backward among them), and
+   the reloaded weights must be identical.
 
-The last lines are the kernels' JSON record and the result line
-{"ok": true, "device": {...}}.
+The last lines are the kernels' JSON record, the card line and the result
+line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import math
 import os
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -69,6 +85,20 @@ def compare(name, got, want, tol):
     return err
 
 
+# the flash backward rounds P and dS to bf16 before its products (as the
+# JAX kernels do) and returns bf16 gradients; the plain version is f32
+# throughout: max|kernel - plain| within 2% of the gradient's peak
+BWD_REL_TOL = 2e-2
+
+
+def rel_err(name, got, want, tol):
+    """max|got - want| / max|want|; raises above `tol` or on a non-finite value."""
+    err = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+    if not torch.isfinite(got.float()).all() or not err <= tol:
+        raise AssertionError(f"{name}: relative max|err| {err:.4g} > tol {tol:.4g}")
+    return err
+
+
 def bf16_tol(want: torch.Tensor, ulps: int = 2) -> float:
     """`ulps` bf16 units in the last place at the reference's largest value
     (bf16 keeps 8 significant bits: one ulp at magnitude m is <= m * 2^-7)."""
@@ -102,6 +132,43 @@ def phase_kernels(dev):
         ms=cuda_ms(lambda: fa.flash_attention_prefix(q, k, v, 1), 50),
         plain_ms=cuda_ms(lambda: fa.flash_attention_prefix_plain(q, k, v, 1), 20))
 
+    # 1b. its backward at the training path's shape (batch 4, no CFG
+    #     doubling): both routes against the plain f32 backward
+    q, k, v, dout = (randn(4, 24, 1025, 64) for _ in range(4))
+    out, lse = fa.flash_attention_prefix(q, k, v, 1)
+    want = fa.flash_attention_prefix_bwd_plain(q, k, v, out, lse, dout)
+    routes = {}
+    for route in fa.BWD_ROUTES:
+        run = lambda route=route: fa.flash_attention_prefix_bwd(q, k, v, out, lse, dout, route=route)
+        got = run()
+        routes[route] = dict(
+            max_rel_err=max(rel_err(f"flash bwd {route} d{n}", a, b, BWD_REL_TOL)
+                            for n, a, b in zip("qkv", got, want)),
+            max_abs_err=max((a.float() - b.float()).abs().max().item()
+                            for a, b in zip(got, want)),
+            ms=cuda_ms(run, 20))
+    chosen = routes[fa.BWD_ROUTE]
+    rec["flash_attention_prefix_bwd"] = dict(
+        route="cuda", source="stable_audio_tools_tpu_torch/csrc/flash_bwd.cu",
+        replaces="stable_audio_tools_tpu/ops/kernels/flash_attention.py:371",
+        also_replaces=["stable_audio_tools_tpu/ops/kernels/flash_attention.py:296",
+                       "stable_audio_tools_tpu/ops/kernels/flash_attention.py:329"],
+        shape="q,k,v,dO [4,24,1025,64] bf16, lse f32", main_route=fa.BWD_ROUTE, routes=routes,
+        max_abs_err=chosen["max_abs_err"], max_rel_err=chosen["max_rel_err"],
+        tol=f"max|err| <= {BWD_REL_TOL} x max|plain| per gradient, both routes",
+        ms=chosen["ms"],
+        plain_ms=cuda_ms(lambda: fa.flash_attention_prefix_bwd_plain(q, k, v, out, lse, dout), 5))
+    # 1c. the autograd Function on the card against autograd through the plain forward
+    qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+    o, _ = fa.flash_attention_prefix(*qkv, 1)
+    if o.grad_fn is None:
+        raise AssertionError("flash_attention_prefix: no grad_fn on a CUDA input that requires grad")
+    got = torch.autograd.grad((o.float() * dout.float()).sum(), qkv)
+    want = torch.autograd.grad((fa.flash_attention_prefix_plain(*qkv, 1)[0].float()
+                                * dout.float()).sum(), qkv)
+    rec["flash_attention_prefix_bwd"]["autograd_rel_err"] = max(
+        rel_err(f"flash autograd d{n}", a, b, BWD_REL_TOL) for n, a, b in zip("qkv", got, want))
+
     # 2. DiT block norms: [2, 1025, 1536] bf16, gamma f32
     x = randn(2, 1025, 1536, scale=3.0)
     gamma = randn(1536, dtype=torch.float32)
@@ -114,6 +181,21 @@ def phase_kernels(dev):
         tol="2 bf16 ulps at max|ref|",
         ms=cuda_ms(lambda: ln.fused_layer_norm(x, gamma), 200),
         plain_ms=cuda_ms(lambda: ln.fused_layer_norm_plain(x, gamma), 200))
+    # 2b. its autograd Function (Triton forward, plain backward as the JAX
+    #     package's) at the training shape against autograd through the plain
+    #     version: bf16 dx, f32 dgamma, 1% of each gradient's peak
+    x = randn(4, 1025, 1536, scale=3.0).requires_grad_()
+    gamma = randn(1536, dtype=torch.float32).requires_grad_()
+    dy = randn(4, 1025, 1536)
+    y = ln.fused_layer_norm(x, gamma)
+    if y.grad_fn is None:
+        raise AssertionError("fused_layer_norm: no grad_fn on a CUDA input that requires grad")
+    got = torch.autograd.grad((y.float() * dy.float()).sum(), (x, gamma))
+    want = torch.autograd.grad((ln.fused_layer_norm_plain(x, gamma).float()
+                                * dy.float()).sum(), (x, gamma))
+    rec["fused_layer_norm"]["autograd_rel_err"] = max(
+        rel_err(f"layer norm autograd {n}", a, b, 1e-2)
+        for n, a, b in zip(("dx", "dgamma"), got, want))
 
     # 3. decoder snakes before each transposed upsample, [1, C, L]
     errs = []
@@ -180,10 +262,15 @@ def counters():
     from stable_audio_tools_tpu_torch.ops.kernels import snake as sn
 
     return {"flash_attention_prefix": fa.flash_attention_prefix,
+            "flash_attention_prefix_bwd": fa.flash_attention_prefix_bwd,
             "fused_layer_norm": ln.fused_layer_norm,
             "snake_conv1d": cs.snake_conv1d,
             "snake_conv1d_res": cs.snake_conv1d_res,
             "snake_fused": sn.snake_fused}
+
+
+GENERATION_KERNELS = ("flash_attention_prefix", "fused_layer_norm", "snake_conv1d",
+                      "snake_conv1d_res", "snake_fused")
 
 
 def sa_open_config():
@@ -212,17 +299,36 @@ def tiny_config():
     return cfg
 
 
+def tiny_model():
+    """The tiny SA-Open-shaped model with seeded random weights, its T5 set to
+    compute in f32: the T5 has no kernel, and its bf16 roundings, which
+    differ between the card's and the CPU's GEMMs, would otherwise dominate
+    what the card-vs-CPU checks measure (the kernels against their plain
+    versions). Its tokenizer hashes words with CRC-32 in place of Python's
+    per-process salted `hash`, so every run sees the same token ids: the
+    card-vs-CPU error depends on the prompt embedding, and over 25 token
+    draws at cfg 6 it spans 0.027 to 0.055 (H100 against an x86 CPU)."""
+    import zlib
+
+    from stable_audio_tools_tpu_torch.models.conditioners import FallbackTokenizer
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+
+    model = init_random_(create_model_from_config(tiny_config()), torch.Generator().manual_seed(1))
+    t5 = model.conditioner.conditioners["prompt"]
+    t5.model.compute_dtype = torch.float32
+    t5.tokenizer = FallbackTokenizer(t5.tokenizer.max_length,
+                                     word_hash=lambda w: zlib.crc32(w.encode("utf-8")))
+    return model
+
+
 @torch.inference_mode()
 def small_check(dev) -> float:
     """Largest relative error (max|card - CPU| / max|CPU|) of a tiny
     SA-Open-shaped model's conditioning + CFG denoiser call and VAE decode,
     with the kernels on the card against the plain versions on the CPU.
     Both run bf16 compute; 5% is a few bf16 roundings through 2 DiT layers
-    and the decoder."""
-    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
-
-    cpu = init_random_(create_model_from_config(tiny_config()),
-                       torch.Generator().manual_seed(1)).eval()
+    and the decoder. The T5 computes in f32 here (see tiny_model)."""
+    cpu = tiny_model().eval()
     gpu = copy.deepcopy(cpu).to(dev)
     g = torch.Generator().manual_seed(2)
     x, z = torch.randn(1, 16, 128, generator=g), torch.randn(1, 16, 128, generator=g)
@@ -310,7 +416,7 @@ def phase_main_path(dev):
         sigma_min=0.3, sigma_max=500.0)
     run(2, 0)  # warm-up: Triton JIT and cuDNN plans at the full shapes
     torch.cuda.synchronize()
-    kernels = counters()
+    kernels = {n: fn for n, fn in counters().items() if n in GENERATION_KERNELS}
     for fn in kernels.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -329,6 +435,222 @@ def phase_main_path(dev):
                 audio_s_per_s=SAMPLE_SIZE / 44100.0 / wall, launches=launches,
                 params=n_params, build_s=build_s, small_err=small_err, small_tol=small_tol,
                 peak_gib=peak_gib, breakdown=stage_breakdown(model, dev))
+
+
+TRAIN_BATCH = 4
+WARM_STEPS, TIMED_STEPS = 2, 5
+N_WAVS, WAV_SECONDS, SR = 8, 50, 44100  # clip i lasts WAV_SECONDS + 5 i seconds
+META_MODULE = """
+def get_custom_metadata(info, audio):
+    return {"prompt": "synthetic partials, clip " + info["relpath"]}
+"""
+
+
+def write_dataset(root: str) -> str:
+    """8 seeded synthetic stereo 44.1 kHz WAVs of 50 to 85 s (four partials
+    under a slow envelope, over noise) written with the port's WAV writer, a
+    metadata module that gives each a prompt, and the `audio_dir` dataset
+    config; returns the config's path. The clips outlast the 47.6 s crop by
+    2.4 to 37.4 s, so the random crops' `seconds_start` is rarely 0 for a
+    whole batch (which would leave that number embedder without a gradient)."""
+    import numpy as np
+
+    from stable_audio_tools_tpu_torch.data.wav import save_wav
+
+    rng = np.random.default_rng(0)
+    os.makedirs(os.path.join(root, "wavs"))
+    for i in range(N_WAVS):
+        t = np.arange((WAV_SECONDS + 5 * i) * SR, dtype=np.float32) / SR
+        tone = sum(np.sin(2 * np.pi * f * t + ph) for f, ph in
+                   zip(rng.uniform(60, 3000, 4), rng.uniform(0, 2 * np.pi, 4))) / 6
+        env = 0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(0.05, 1.0) * t)
+        audio = np.stack([tone * env, np.roll(tone, i + 1) * env])
+        audio += 0.02 * rng.standard_normal(audio.shape).astype(np.float32)
+        save_wav(os.path.join(root, "wavs", f"clip{i}.wav"), audio, SR)
+    with open(os.path.join(root, "metadata.py"), "w") as f:
+        f.write(META_MODULE)
+    path = os.path.join(root, "dataset.json")
+    with open(path, "w") as f:
+        json.dump({"dataset_type": "audio_dir", "random_crop": True, "datasets": [
+            {"id": "synthetic", "path": os.path.join(root, "wavs"),
+             "custom_metadata_module": os.path.join(root, "metadata.py")}]}, f)
+    return path
+
+
+def small_train_check(dev) -> dict:
+    """One training step of a tiny SA-Open-shaped model (bf16 DiT with block
+    rematerialisation, bf16 VAE encode, AdamW + InverseLR, EMA) with the
+    kernels on the card against the plain versions on the CPU: the same
+    weights, batch, t, noise, VAE noise and CFG-dropout mask (one of two
+    samples dropped). Returns the loss's relative error and the largest
+    max|card - CPU| / max|CPU| over the DiT's gradients. The T5 computes in
+    f32 (see tiny_model)."""
+    from stable_audio_tools_tpu_torch.training.factory import create_training_wrapper_from_config
+
+    cfg = tiny_config()
+    cpu = tiny_model()
+    gpu = copy.deepcopy(cpu).to(dev)
+    g = torch.Generator().manual_seed(2)
+    B, T = 2, 32 * 128
+    batch = dict(t=torch.rand(B, generator=g), noise=torch.randn(B, 16, 128, generator=g),
+                 encode_noise=torch.randn(B, 16, 128, generator=g),
+                 cfg_dropout_mask=torch.tensor([False, True]))
+    audio = 0.3 * torch.randn(B, 2, T, generator=g)
+    meta = [PROMPT[0], dict(PROMPT[0], seconds_start=7)]
+    out = {}
+    for name, model, d in (("cpu", cpu, "cpu"), ("card", gpu, dev)):
+        w = create_training_wrapper_from_config(cfg, model)
+        aux = w.train_step(audio.to(d), meta, **{k: v.to(d) for k, v in batch.items()})
+        out[name] = (float(aux["loss"]), w)
+    (lc, wc), (lg, wg) = out["cpu"], out["card"]
+    if not (math.isfinite(lc) and math.isfinite(lg)):
+        raise AssertionError(f"small training step: loss cpu {lc} card {lg}")
+    errs = {}
+    for n, p in wc.params.items():
+        if n.startswith("model.model."):
+            gg = wg.params[n].grad
+            if gg is None or not torch.isfinite(gg).all():
+                raise AssertionError(f"small training step: {n} has no finite gradient on the card")
+            errs[n] = ((gg.float().cpu() - p.grad).abs().max() / p.grad.abs().max()).item()
+    worst = max(errs, key=errs.get)
+    return dict(loss_rel_err=abs(lg - lc) / abs(lc), grad_rel_err=errs[worst], worst_grad=worst)
+
+
+def step_split(trainer, loader) -> dict:
+    """One training step in its pieces, host clock around synchronised work:
+    data (next batch), conditioning (T5 + number conditioners), encode (the
+    frozen VAE, no grad), forward+backward, optimizer (AdamW + LR schedule),
+    EMA. Then torch.profiler over one forward+backward of the same batch:
+    device-busy share and the largest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    w = trainer.wrapper
+    out, t = {}, [time.perf_counter()]
+
+    def lap(name):
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        out[f"{name}_ms"] = (t[-1] - t[-2]) * 1e3
+
+    audio, meta = next(iter(loader))
+    audio = trainer.prepare_batch(audio)
+    lap("data")
+    gen = w.generator(w.step)
+    w.model.train()
+    w.optimizer.zero_grad(set_to_none=True)
+    cond = w.condition(meta)
+    lap("conditioning")
+    latents = w.encode(audio, generator=gen)
+    lap("encode")
+    loss, _ = w.loss(latents, cond, generator=gen, counter=w.step)
+    loss.backward()
+    lap("forward_backward")
+    w.optimizer_step()
+    lap("optimizer")
+    w.ema_step()
+    lap("ema")
+    w.step += 1
+    out["step_ms"] = (t[-1] - t[0]) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss, _ = w.loss(latents, w.condition(meta), generator=gen, counter=w.step)
+        loss.backward()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    w.optimizer.zero_grad(set_to_none=True)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    out["fwd_bwd_profiled_ms"] = wall_us / 1e3
+    out["fwd_bwd_device_busy"] = busy_us / wall_us
+    out["fwd_bwd_top_kernels_ms"] = {
+        e.key[:60]: round(e.self_device_time_total / 1e3, 3)
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]}
+    return out
+
+
+def phase_training(dev) -> dict:
+    from stable_audio_tools_tpu_torch import train
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config
+
+    small = small_train_check(dev)
+    small_tol = 0.05  # as the generation check: a few bf16 roundings through 2 blocks
+    if not (small["loss_rel_err"] <= small_tol and small["grad_rel_err"] <= small_tol):
+        raise AssertionError(f"small training step card vs CPU: {small} > {small_tol}")
+
+    rec = dict(small=small, small_tol=small_tol)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        cfg_path = os.path.join(tmp, "model.json")
+        with open(cfg_path, "w") as f:
+            json.dump(sa_open_config(), f)
+        args = train.parse_args([
+            "--model-config", cfg_path, "--dataset-config", write_dataset(tmp),
+            "--batch-size", str(TRAIN_BATCH), "--num-workers", "4", "--seed", "0",
+            "--max-steps", str(WARM_STEPS + TIMED_STEPS), "--checkpoint-every", "0",
+            "--save-dir", os.path.join(tmp, "run")])
+        t0 = time.perf_counter()
+        trainer, loader = train.build(args, device=dev)
+        torch.cuda.synchronize()
+        rec["build_s"] = time.perf_counter() - t0
+        w = trainer.wrapper
+        before = {n: p.detach().clone() for n, p in w.params.items()}
+        trainer.fit(loader, max_steps=1, save_at_end=False)
+        bad = [n for n, p in w.params.items()
+               if p.grad is None or not torch.isfinite(p.grad).all() or not p.grad.abs().max() > 0]
+        if bad:
+            raise AssertionError(f"after step 1, {len(bad)} trainable parameters have no finite "
+                                 f"nonzero gradient: {bad[:8]}")
+        trainer.fit(loader, max_steps=WARM_STEPS, save_at_end=False)
+        torch.cuda.synchronize()
+        kernels = counters()
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        trainer.fit(loader, max_steps=WARM_STEPS + TIMED_STEPS, save_at_end=False)
+        torch.cuda.synchronize()
+        rec["launches"] = {n: fn.launches for n, fn in kernels.items()}
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        idle = [n for n, c in rec["launches"].items() if c == 0]
+        if idle:
+            raise AssertionError(f"kernels not launched by the training path: {idle}")
+        losses = [h["train/loss"] for h in trainer.history]
+        if len(losses) != WARM_STEPS + TIMED_STEPS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"training losses: {losses}")
+        walls = [1e3 / h["train/steps_per_sec"] for h in trainer.history[WARM_STEPS:]]
+        unmoved = [n for n, p in w.params.items() if torch.equal(p.detach(), before[n])]
+        ema_unmoved = [n for n, e in w.ema.items() if torch.equal(e, before[n])]
+        if unmoved or ema_unmoved:
+            raise AssertionError(f"parameters that did not move: {unmoved[:8]}; "
+                                 f"EMA entries that did not move: {ema_unmoved[:8]}")
+        del before
+        trainable = sum(p.numel() for p in w.params.values())
+        rec.update(
+            losses=losses, step_ms=walls, step_ms_median=statistics.median(walls),
+            audio_s_per_s=TRAIN_BATCH * SAMPLE_SIZE / SR / (statistics.median(walls) / 1e3),
+            trainable_params=trainable,
+            params=sum(p.numel() for p in w.model.parameters()),
+            memory_gib=dict(  # f32 state reckoned from the shapes
+                weights=sum(p.numel() * p.element_size() for p in w.model.parameters()) / 2 ** 30,
+                grads=4 * trainable / 2 ** 30, adam=8 * trainable / 2 ** 30,
+                ema=4 * trainable / 2 ** 30))
+        rec["split"] = step_split(trainer, loader)
+
+        t0 = time.perf_counter()
+        path = trainer.save(w.step)
+        rec["save_s"] = time.perf_counter() - t0
+        rec["ckpt_gib"] = os.path.getsize(path) / 2 ** 30
+        t0 = time.perf_counter()
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        with torch.device("meta"):
+            fresh = create_model_from_config(state["model_config"])
+        fresh.load_state_dict(state["state_dict"], strict=True, assign=True)
+        current = w.model.state_dict()
+        differ = [n for n, v in fresh.state_dict().items() if not torch.equal(v, current[n].cpu())]
+        if differ or state["step"] != w.step or set(state["ema"]) != set(w.ema):
+            raise AssertionError(f"checkpoint reload: {len(differ)} tensors differ "
+                                 f"({differ[:5]}), step {state['step']} vs {w.step}")
+        rec["reload_s"] = time.perf_counter() - t0
+    return rec
 
 
 def main() -> int:
@@ -350,21 +672,48 @@ def main() -> int:
     rec = phase_kernels(dev)
     print("phase 2 kernels: " + "; ".join(
         f"{n} err {r['max_abs_err']:.3g} ({r['tol']}) {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms"
+        + "".join(f" [route {k}: {v['ms']:.4f} ms, rel err {v['max_rel_err']:.3g}]"
+                  for k, v in r.get("routes", {}).items())
         for n, r in rec.items()), flush=True)
 
     main_rec = phase_main_path(dev)
-    print(f"phase 3 main path: SA-Open {main_rec['params'] / 1e9:.3f}B params, {STEPS} steps "
+    print(f"phase 3 generation: SA-Open {main_rec['params'] / 1e9:.3f}B params, {STEPS} steps "
           f"dpmpp-3m-sde cfg 6, {SAMPLE_SIZE} samples: wall {main_rec['wall_s']:.3f} s, "
           f"{main_rec['audio_s_per_s']:.3f} audio-s/s, peak {main_rec['peak_gib']:.2f} GiB, "
           f"launches {json.dumps(main_rec['launches'])}, small card-vs-CPU rel err "
           f"{main_rec['small_err']:.3g} (tol {main_rec['small_tol']:.3g}) on {card}", flush=True)
+    torch.cuda.empty_cache()
 
-    kernels = [dict(name=n, route=r["route"], source=r["source"], replaces=r["replaces"],
-                    launches=main_rec["launches"][n], max_abs_err=r["max_abs_err"],
-                    ms=r["ms"], plain_ms=r["plain_ms"], shape=r["shape"])
-               for n, r in rec.items()]
-    print(json.dumps({"kernels": kernels, "card": card, "main_path": {
-        k: main_rec[k] for k in ("wall_s", "steps", "audio_s_per_s", "peak_gib", "breakdown")}}))
+    train_rec = phase_training(dev)
+    split = train_rec["split"]
+    print(f"phase 4 training: SA-Open {train_rec['trainable_params'] / 1e9:.3f}B trainable of "
+          f"{train_rec['params'] / 1e9:.3f}B, batch {TRAIN_BATCH} x {SAMPLE_SIZE} samples: step "
+          f"{train_rec['step_ms_median']:.1f} ms median of {TIMED_STEPS} "
+          f"({', '.join(f'{x:.1f}' for x in train_rec['step_ms'])}), "
+          f"{train_rec['audio_s_per_s']:.2f} audio-s trained/s, peak {train_rec['peak_gib']:.2f} GiB, "
+          f"losses {', '.join(f'{x:.4g}' for x in train_rec['losses'])}; split ms "
+          + ", ".join(f"{k[:-3]} {v:.1f}" for k, v in split.items()
+                      if k.endswith("_ms") and isinstance(v, float))
+          + f"; fwd+bwd device busy {split['fwd_bwd_device_busy']:.1%}; launches "
+          f"{json.dumps(train_rec['launches'])}; checkpoint {train_rec['ckpt_gib']:.2f} GiB saved "
+          f"{train_rec['save_s']:.1f} s, reloaded identical {train_rec['reload_s']:.1f} s; small "
+          f"card-vs-CPU step: loss rel err {train_rec['small']['loss_rel_err']:.3g}, grad rel err "
+          f"{train_rec['small']['grad_rel_err']:.3g} (tol {train_rec['small_tol']}) on {card}",
+          flush=True)
+
+    kernels = []
+    for n, r in rec.items():
+        by_path = {"generation": main_rec["launches"].get(n, 0),
+                   "training": train_rec["launches"][n]}
+        kernels.append(dict(name=n, route=r["route"], source=r["source"], replaces=r["replaces"],
+                            launches=sum(by_path.values()), launches_by_path=by_path,
+                            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                            shape=r["shape"], **{k: r[k] for k in (
+                                "also_replaces", "main_route", "routes", "max_rel_err",
+                                "autograd_rel_err") if k in r}))
+    print(json.dumps({"kernels": kernels, "card": card, "generation": {
+        k: main_rec[k] for k in ("wall_s", "steps", "audio_s_per_s", "peak_gib", "breakdown")},
+        "training": {k: v for k, v in train_rec.items() if k != "launches"}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,7 +1,9 @@
 """k-diffusion samplers as eager loops; counterpart of
 stable_audio_tools_tpu/inference/sampling.py (get_sigmas_polyexponential :46,
 make_v_denoiser :116, sample_dpmpp_2m :442, sample_dpmpp_3m_sde :508,
-sample_k :678).
+sample_k :678), and the training-time schedule and timestep transforms
+(get_alphas_sigmas :33, DistributionShift :63, sample_timesteps_logsnr :91,
+truncated_logistic_normal_rescaled :98).
 
 Layout: [B, C, T]. The per-step noise of the SDE samplers comes from
 `step_noise(i, shape)` when given (tests replay the JAX package's noise
@@ -19,6 +21,65 @@ import torch
 
 # step_noise(i, x) -> standard normal noise for step i, shaped like x
 StepNoise = Callable[[int, torch.Tensor], torch.Tensor]
+
+
+def get_alphas_sigmas(t: torch.Tensor):
+    """cos/sin schedule of v-diffusion (JAX sampling.py:33)."""
+    return torch.cos(t * math.pi / 2), torch.sin(t * math.pi / 2)
+
+
+class DistributionShift:
+    """Sequence-length-dependent timestep shift (JAX sampling.py:63)."""
+
+    def __init__(self, base_shift: float = 0.5, max_shift: float = 1.15,
+                 max_length: int = 4096, min_length: int = 256, use_sine: bool = False):
+        self.base_shift = base_shift
+        self.max_shift = max_shift
+        self.max_length = max_length
+        self.min_length = min_length
+        self.use_sine = use_sine
+
+    def time_shift(self, t: torch.Tensor, seq_len: int) -> torch.Tensor:
+        seq_len = min(max(seq_len, self.min_length), self.max_length)
+        mu = -(self.base_shift + (self.max_shift - self.base_shift)
+               * (seq_len - self.min_length) / (self.max_length - self.min_length))
+        t_out = 1 - math.exp(mu) / (math.exp(mu) + (1 / (1 - t) - 1))
+        return torch.sin(t_out * math.pi / 2) if self.use_sine else t_out
+
+
+def _normal(shape, generator, device, normal):
+    if normal is not None:
+        return normal.to(device=device, dtype=torch.float32)
+    return torch.randn(shape, generator=generator, device=device)
+
+
+def sample_timesteps_logsnr(batch_size: int, mean_logsnr: float = -1.2, std_logsnr: float = 2.0,
+                            generator: Optional[torch.Generator] = None, device=None,
+                            normal: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """t = sigmoid(-logsnr), logsnr ~ N(mean, std), clipped to [1e-4, 1 - 1e-4]
+    (JAX sampling.py:91). `normal` replaces the standard normal draw."""
+    logsnr = _normal((batch_size,), generator, device, normal) * std_logsnr + mean_logsnr
+    return torch.sigmoid(-logsnr).clamp(1e-4, 1 - 1e-4)
+
+
+def truncated_logistic_normal_rescaled(shape, left_trunc: float = 0.075,
+                                       right_trunc: float = 1.0,
+                                       generator: Optional[torch.Generator] = None,
+                                       device=None,
+                                       normal: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Truncated logit-normal draw rescaled to [0, 1] (JAX sampling.py:98).
+    `normal` replaces the standard normal draw."""
+    def cdf(x):
+        return 0.5 * (1 + torch.erf(x / math.sqrt(2)))
+
+    def logit(p):
+        return torch.tensor(math.log(p / (1 - p)))
+
+    logits = _normal(shape, generator, device, normal)
+    lower, upper = cdf(logit(left_trunc)), cdf(logit(right_trunc - 1e-7))
+    truncated = lower + (upper - lower) * cdf(logits)
+    samples = torch.sigmoid(math.sqrt(2) * torch.erfinv(2 * truncated - 1))
+    return (samples - left_trunc) / (right_trunc - left_trunc)
 
 
 def get_sigmas_polyexponential(n: int, sigma_min: float, sigma_max: float,

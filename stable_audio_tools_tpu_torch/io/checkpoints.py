@@ -1,0 +1,48 @@
+"""Training-state checkpoints of the port (`torch.save` files).
+
+A checkpoint holds the model's `state_dict` under the reference torch names
+(the names the JAX package's importers read: io/torch_mapping.py
+`import_diffusion_cond_state_dict`, io/checkpoints.py), the optimizer's and
+the LR scheduler's state, the EMA of the trainable parameters, the step, and
+the model config embedded, as the JAX trainer's checkpoint does
+(training/trainer.py:149). Files are written to a temporary name and renamed,
+so a cut run never leaves a truncated checkpoint under the final name.
+"""
+
+from __future__ import annotations
+
+import os
+import typing as tp
+
+import torch
+
+
+def save_training_state(path: str, wrapper, model_config: tp.Optional[dict] = None) -> None:
+    """`wrapper`: a training wrapper (training/diffusion.py) with `model`,
+    `optimizer`, `scheduler`, `ema` and `step`."""
+    state = {
+        "state_dict": wrapper.model.state_dict(),
+        "optimizer": wrapper.optimizer.state_dict(),
+        "scheduler": wrapper.scheduler.state_dict(),
+        "ema": wrapper.ema,
+        "step": wrapper.step,
+        "model_config": model_config,
+    }
+    tmp = f"{path}.tmp"
+    torch.save(state, tmp)
+    os.replace(tmp, path)
+
+
+def load_training_state(path: str, wrapper) -> dict:
+    """Restore `wrapper` in place from `path`; returns the loaded dict."""
+    state = torch.load(path, map_location=wrapper.device, weights_only=True)
+    wrapper.model.load_state_dict(state["state_dict"], strict=True)
+    wrapper.optimizer.load_state_dict(state["optimizer"])
+    wrapper.scheduler.load_state_dict(state["scheduler"])
+    if wrapper.ema is not None:
+        if state["ema"] is None:
+            raise ValueError(f"{path} holds no EMA but the trainer keeps one")
+        for name, value in state["ema"].items():
+            wrapper.ema[name].copy_(value)
+    wrapper.step = int(state["step"])
+    return state

@@ -150,11 +150,11 @@ class AudioAutoencoder(nn.Module):
         self.io_channels = io_channels
         self.soft_clip = soft_clip
 
-    def encode(self, audio: torch.Tensor,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def encode(self, audio: torch.Tensor, generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         latents = self.encoder(audio)
         if self.bottleneck is not None:
-            latents = self.bottleneck.encode(latents, generator=generator)
+            latents = self.bottleneck.encode(latents, generator=generator, noise=noise)
         return latents
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:

@@ -12,13 +12,17 @@ from torch import nn
 
 
 class VAEBottleneck(nn.Module):
-    def encode(self, x: torch.Tensor,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def encode(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Sample mean + stdev * noise; `noise` [B, C/2, T] standard normal
+        when given (tests replay the JAX package's), else drawn from
+        `generator`."""
         mean, scale = x.chunk(2, dim=1)
         stdev = F.softplus(scale) + 1e-4
-        noise = torch.randn(mean.shape, generator=generator, device=mean.device,
-                            dtype=mean.dtype)
-        return noise * stdev + mean
+        if noise is None:
+            noise = torch.randn(mean.shape, generator=generator, device=mean.device,
+                                dtype=mean.dtype)
+        return noise.to(mean.dtype) * stdev + mean
 
     def decode(self, x: torch.Tensor) -> torch.Tensor:
         return x

@@ -47,33 +47,40 @@ T5_ARCHS = {
 
 class FallbackTokenizer:
     """Word-hash tokenizer for when no SentencePiece vocabulary is available:
-    ids are hash(word) % 32000 + 2, then EOS (1), zero-padded to max_length.
+    ids are word_hash(word) % 32000 + 2, then EOS (1), zero-padded to
+    max_length.
 
-    Python's `hash` of a str is salted per process (PYTHONHASHSEED), so the
-    ids, like the JAX package's `_FallbackTokenizer`, change from process to
-    process unless the seed is fixed."""
+    The default `word_hash` is Python's `hash`, as the JAX package's
+    `_FallbackTokenizer`'s. A str's `hash` is salted per process
+    (PYTHONHASHSEED), so those ids change from process to process unless the
+    seed is fixed; pass a salt-free hash (e.g. CRC-32 of the UTF-8 bytes) for
+    ids that do not."""
 
-    def __init__(self, max_length: int):
+    def __init__(self, max_length: int, word_hash: tp.Callable[[str], int] = hash):
         self.max_length = max_length
+        self.word_hash = word_hash
 
     def __call__(self, texts: tp.Sequence[str]) -> tp.Tuple[np.ndarray, np.ndarray]:
         ids = np.zeros((len(texts), self.max_length), np.int64)
         mask = np.zeros((len(texts), self.max_length), np.int64)
         for i, t in enumerate(texts):
-            toks = [hash(w) % 32000 + 2 for w in t.split()][: self.max_length - 1] + [1]
+            toks = [self.word_hash(w) % 32000 + 2 for w in t.split()][: self.max_length - 1] + [1]
             ids[i, : len(toks)] = toks
             mask[i, : len(toks)] = 1
         return ids, mask
 
 
 class T5Conditioner(nn.Module):
-    """Frozen T5 encoder + optional projection; out = proj(T5(text)) * mask."""
+    """Frozen T5 encoder + optional projection; out = proj(T5(text)) * mask.
+    The tower runs under no_grad; only the projection can train."""
 
     def __init__(self, output_dim: int, t5_model_name: str = "t5-base",
                  max_length: int = 128, project_out: bool = False,
                  allow_random_init: bool = False, arch: tp.Optional[tp.Sequence] = None):
         """`arch` = (d_model, d_ff, num_layers, num_heads, d_kv, gated)
-        overrides the published architecture of `t5_model_name`."""
+        overrides the published architecture of `t5_model_name`. The tower
+        computes in bf16 over f32 weights, as the JAX package's
+        `FlaxT5EncoderModel(..., dtype=jnp.bfloat16)`."""
         super().__init__()
         if not allow_random_init:
             raise RuntimeError(
@@ -82,7 +89,8 @@ class T5Conditioner(nn.Module):
                 "(a state dict with Hugging Face names) if wanted")
         arch = T5Arch(*(arch if arch is not None else T5_ARCHS[t5_model_name]))
         self.dim = arch.d_model
-        self.model = T5EncoderModel(arch)
+        self.model = T5EncoderModel(arch, compute_dtype=torch.bfloat16)
+        self.model.requires_grad_(False)  # frozen, as in the reference and the JAX package
         self.tokenizer = FallbackTokenizer(max_length)
         self.proj_out = (nn.Linear(self.dim, output_dim)
                          if self.dim != output_dim or project_out else None)
@@ -91,7 +99,8 @@ class T5Conditioner(nn.Module):
         ids, mask = self.tokenizer(list(texts))
         ids = torch.from_numpy(ids).to(device)
         mask = torch.from_numpy(mask).to(device)
-        emb = self.model(ids, mask).float()
+        with torch.no_grad():
+            emb = self.model(ids, mask).float()
         if self.proj_out is not None:
             emb = self.proj_out(emb)
         return emb * mask[..., None].float(), mask.bool()

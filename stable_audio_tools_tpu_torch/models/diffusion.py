@@ -4,6 +4,11 @@ stable_audio_tools_tpu/models/diffusion.py (ConditionedDiffusionModelWrapper
 
 Module names follow the reference checkpoint layout: `model.model.*` (the
 DiT), `conditioner.conditioners.<id>.*`, `pretransform.model.*`.
+
+Trainable: the DiT and the conditioners' own layers (the number embedders, a
+T5 projection), which get gradients in the JAX package and the reference.
+Frozen (`requires_grad` off): the pretransform and the T5 tower, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -25,11 +30,9 @@ class DiTWrapper(nn.Module):
         super().__init__()
         self.model = model
 
-    def forward(self, x, t, cross_attn_cond=None, global_cond=None, cfg_scale=1.0,
-                cfg_interval=(0.0, 1.0), scale_phi=0.0):
+    def forward(self, x, t, cross_attn_cond=None, global_cond=None, **kwargs):
         return self.model(x, t, cross_attn_cond=cross_attn_cond, global_embed=global_cond,
-                          cfg_scale=cfg_scale, cfg_interval=cfg_interval,
-                          scale_phi=scale_phi)
+                          **kwargs)
 
 
 class ConditionedDiffusionModelWrapper(nn.Module):
@@ -66,6 +69,12 @@ class ConditionedDiffusionModelWrapper(nn.Module):
     def forward(self, x: torch.Tensor, t: torch.Tensor, **kwargs) -> torch.Tensor:
         return self.model(x, t, **kwargs)
 
+    @torch.no_grad()
+    def pretransform_encode(self, audio: torch.Tensor, generator=None, noise=None) -> torch.Tensor:
+        """Audio [B, C, T] -> latents, with no gradient (the pretransform is
+        frozen: JAX `pretransform_encode` :167 stops the gradient)."""
+        return self.pretransform.encode(audio, generator=generator, noise=noise)
+
 
 def create_diffusion_cond_from_config(config: tp.Dict[str, tp.Any]) -> ConditionedDiffusionModelWrapper:
     from .factory import create_pretransform_from_config
@@ -77,6 +86,7 @@ def create_diffusion_cond_from_config(config: tp.Dict[str, tp.Any]) -> Condition
     pretransform = model_config.get("pretransform")
     if pretransform is not None:
         pretransform = create_pretransform_from_config(pretransform, config["sample_rate"])
+        pretransform.requires_grad_(False)
     conditioning = model_config.get("conditioning")
     conditioner = (create_multi_conditioner_from_conditioning_config(conditioning)
                    if conditioning is not None else None)

@@ -8,6 +8,12 @@ convs, batch-doubled classifier-free guidance with `scale_phi` rescale and
 `cfg_interval`, and bf16 compute over f32 parameters. Layout: x [B, C, T].
 adaLN conditioning, prepend_cond inputs, input-concat conditioning and
 patching are later slices.
+
+Training: in `train()` mode with `cfg_dropout_prob` > 0 (and no CFG), whole
+samples' cross-attention tokens are replaced with zeros (JAX
+models/dit.py:282-297); the drop mask is passed in or drawn from a
+`torch.Generator`. `use_checkpointing` (the JAX default, true) rematerialises
+every transformer block in training.
 """
 
 from __future__ import annotations
@@ -31,8 +37,7 @@ def _mlp(dim_in: int, dim_out: int, bias: bool) -> nn.Sequential:
 
 class DiffusionTransformer(nn.Module):
     """Keyword arguments are the JSON config's `diffusion.config` keys; a key
-    this slice does not port raises TypeError. `use_checkpointing` (training
-    rematerialisation in the JAX package) is accepted and has no effect."""
+    this slice does not port raises TypeError."""
 
     def __init__(self, io_channels: int = 32, embed_dim: int = 768,
                  cond_token_dim: int = 0, project_cond_tokens: bool = True,
@@ -57,7 +62,8 @@ class DiffusionTransformer(nn.Module):
         self.transformer = ContinuousTransformer(
             dim=embed_dim, depth=depth, dim_in=io_channels, dim_out=io_channels,
             dim_heads=embed_dim // num_heads, cross_attend=cond_token_dim > 0,
-            cond_token_dim=cond_embed_dim if cond_token_dim > 0 else None)
+            cond_token_dim=cond_embed_dim if cond_token_dim > 0 else None,
+            use_checkpointing=use_checkpointing)
 
     def _forward(self, x, t, cross_attn_cond=None, global_embed=None):
         in_dtype = x.dtype
@@ -86,9 +92,22 @@ class DiffusionTransformer(nn.Module):
                 global_embed: Optional[torch.Tensor] = None,
                 cfg_scale: float = 1.0,
                 cfg_interval: Tuple[float, float] = (0.0, 1.0),
-                scale_phi: float = 0.0) -> torch.Tensor:
+                scale_phi: float = 0.0, cfg_dropout_prob: float = 0.0,
+                cfg_dropout_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x [B, C, T], t [B]. CFG doubles the batch with null
-        cross-attention tokens."""
+        cross-attention tokens. In training, each sample's cross-attention
+        tokens are zeroed with probability `cfg_dropout_prob`:
+        `cfg_dropout_mask` [B] (True = drop) when given, else a draw from
+        `generator`."""
+        if (self.training and cfg_dropout_prob > 0.0 and cfg_scale == 1.0
+                and cross_attn_cond is not None):
+            if cfg_dropout_mask is None:
+                u = torch.rand((cross_attn_cond.shape[0],), generator=generator,
+                               device=cross_attn_cond.device)
+                cfg_dropout_mask = u < cfg_dropout_prob
+            cross_attn_cond = torch.where(cfg_dropout_mask.to(cross_attn_cond.device)[:, None, None],
+                                          torch.zeros_like(cross_attn_cond), cross_attn_cond)
         if cfg_scale == 1.0 or cross_attn_cond is None:
             return self._forward(x, t, cross_attn_cond, global_embed)
         lo, hi = cfg_interval

@@ -1,7 +1,9 @@
 """Autoencoder pretransform; counterpart of
 stable_audio_tools_tpu/models/pretransforms.py (`AutoencoderPretransform`).
 `model_half` runs the autoencoder in bf16 with f32 in and out, as the JAX
-package; the parameters stay f32 and are cast at use. Layout: [B, C, T]."""
+package; the parameters stay f32 and are cast at use. Layout: [B, C, T].
+The pretransform is frozen: the diffusion factory turns its gradients off,
+and training encodes under `torch.no_grad()`."""
 
 from __future__ import annotations
 
@@ -22,10 +24,10 @@ class AutoencoderPretransform(nn.Module):
         self.encoded_channels = model.latent_dim
         self.downsampling_ratio = model.downsampling_ratio
 
-    def encode(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+    def encode(self, x: torch.Tensor, generator=None, noise=None) -> torch.Tensor:
         if self.model_half:
             x = x.to(torch.bfloat16)
-        z = self.model.encode(x, generator=generator)
+        z = self.model.encode(x, generator=generator, noise=noise)
         return z.float() / self.scale if self.model_half else z / self.scale
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:

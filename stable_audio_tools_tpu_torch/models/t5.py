@@ -12,6 +12,13 @@ runs as `FlaxT5EncoderModel` (models/conditioners.py `T5Conditioner`):
 - a ReLU feed-forward (t5-*) or a gated tanh-GELU one (v1.1 / flan);
 - a final RMS norm.
 
+`compute_dtype` (None: the parameters' dtype, f32) is the dtype of the
+activations, as `FlaxT5EncoderModel(config, dtype=...)`: f32 master weights
+are cast at use, the RMS norms compute in f32 and round once on their way
+into the next projection, and the final norm's output stays f32. The JAX
+package runs its T5 conditioners in bf16 (models/conditioners.py:427, :486);
+so does `T5Conditioner`.
+
 Parameter names follow Hugging Face's (`shared.weight`,
 `encoder.block.{i}.layer.0.SelfAttention.q.weight`, ...), so a reference
 checkpoint's `conditioner.conditioners.<id>.model.*` tensors load by name.
@@ -21,10 +28,13 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.attention import Linear
 
 
 @dataclass(frozen=True)
@@ -48,8 +58,10 @@ class T5LayerNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        var = x.float().pow(2).mean(-1, keepdim=True)
-        return self.weight * (x.float() * torch.rsqrt(var + self.eps)).to(x.dtype)
+        """f32 out (the Flax T5's norm: f32 statistics, weight * x / rms)."""
+        xf = x.float()
+        var = xf.pow(2).mean(-1, keepdim=True)
+        return self.weight * (xf * torch.rsqrt(var + self.eps))
 
 
 def relative_position_bucket(rel: torch.Tensor, num_buckets: int = 32,
@@ -73,10 +85,10 @@ class T5Attention(nn.Module):
         super().__init__()
         inner = arch.num_heads * arch.d_kv
         self.arch = arch
-        self.q = nn.Linear(arch.d_model, inner, bias=False)
-        self.k = nn.Linear(arch.d_model, inner, bias=False)
-        self.v = nn.Linear(arch.d_model, inner, bias=False)
-        self.o = nn.Linear(inner, arch.d_model, bias=False)
+        self.q = Linear(arch.d_model, inner, bias=False)
+        self.k = Linear(arch.d_model, inner, bias=False)
+        self.v = Linear(arch.d_model, inner, bias=False)
+        self.o = Linear(inner, arch.d_model, bias=False)
         self.relative_attention_bias = (nn.Embedding(arch.num_buckets, arch.num_heads)
                                         if has_relative_bias else None)
 
@@ -90,8 +102,12 @@ class T5Attention(nn.Module):
         b, n, _ = x.shape
         h, d = self.arch.num_heads, self.arch.d_kv
         q, k, v = (t(x).view(b, n, h, d).transpose(1, 2) for t in (self.q, self.k, self.v))
-        scores = torch.matmul(q, k.transpose(-1, -2)).float() + bias
-        weights = torch.softmax(scores, dim=-1).to(v.dtype)
+        scores = torch.matmul(q, k.transpose(-1, -2)) + bias
+        # softmax in the compute dtype, as jax.nn.softmax on the Flax T5's
+        # bf16 scores: the shifted exponentials rounded to it, their sum
+        # accumulated in f32 and rounded, then the quotient
+        e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+        weights = e / e.float().sum(dim=-1, keepdim=True).to(e.dtype)
         out = torch.matmul(weights, v).transpose(1, 2).reshape(b, n, h * d)
         return self.o(out)
 
@@ -103,14 +119,14 @@ class T5LayerSelfAttention(nn.Module):
         self.layer_norm = T5LayerNorm(arch.d_model, arch.eps)
 
     def forward(self, x, bias):
-        return x + self.SelfAttention(self.layer_norm(x), bias)
+        return x + self.SelfAttention(self.layer_norm(x).to(x.dtype), bias)
 
 
 class T5DenseReluDense(nn.Module):
     def __init__(self, arch: T5Arch):
         super().__init__()
-        self.wi = nn.Linear(arch.d_model, arch.d_ff, bias=False)
-        self.wo = nn.Linear(arch.d_ff, arch.d_model, bias=False)
+        self.wi = Linear(arch.d_model, arch.d_ff, bias=False)
+        self.wo = Linear(arch.d_ff, arch.d_model, bias=False)
 
     def forward(self, x):
         return self.wo(F.relu(self.wi(x)))
@@ -119,9 +135,9 @@ class T5DenseReluDense(nn.Module):
 class T5DenseGatedGelu(nn.Module):
     def __init__(self, arch: T5Arch):
         super().__init__()
-        self.wi_0 = nn.Linear(arch.d_model, arch.d_ff, bias=False)
-        self.wi_1 = nn.Linear(arch.d_model, arch.d_ff, bias=False)
-        self.wo = nn.Linear(arch.d_ff, arch.d_model, bias=False)
+        self.wi_0 = Linear(arch.d_model, arch.d_ff, bias=False)
+        self.wi_1 = Linear(arch.d_model, arch.d_ff, bias=False)
+        self.wo = Linear(arch.d_ff, arch.d_model, bias=False)
 
     def forward(self, x):
         return self.wo(F.gelu(self.wi_0(x), approximate="tanh") * self.wi_1(x))
@@ -134,7 +150,7 @@ class T5LayerFF(nn.Module):
         self.layer_norm = T5LayerNorm(arch.d_model, arch.eps)
 
     def forward(self, x):
-        return x + self.DenseReluDense(self.layer_norm(x))
+        return x + self.DenseReluDense(self.layer_norm(x).to(x.dtype))
 
 
 class T5Block(nn.Module):
@@ -155,20 +171,24 @@ class T5Stack(nn.Module):
 
 
 class T5EncoderModel(nn.Module):
-    def __init__(self, arch: T5Arch):
+    def __init__(self, arch: T5Arch, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.arch = arch
+        self.compute_dtype = compute_dtype
         self.shared = nn.Embedding(arch.vocab_size, arch.d_model)
         self.encoder = T5Stack(arch)
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
-        """input_ids, attention_mask [B, n] -> last hidden state [B, n, d_model]."""
-        x = self.shared(input_ids)
+        """input_ids, attention_mask [B, n] -> last hidden state [B, n, d_model]
+        (f32: the final norm's output)."""
+        cdt = self.compute_dtype or self.shared.weight.dtype
+        x = self.shared(input_ids).to(cdt)
         n = input_ids.shape[1]
         blocks = self.encoder.block
-        bias = blocks[0].layer[0].SelfAttention.position_bias(n, x.device)
-        neg = torch.finfo(torch.float32).min
-        bias = bias + torch.where(attention_mask[:, None, None, :].bool(), 0.0, neg)
+        bias = blocks[0].layer[0].SelfAttention.position_bias(n, x.device).to(cdt)
+        neg = torch.finfo(cdt).min
+        mask = torch.where(attention_mask[:, None, None, :].bool(), 0.0, neg).to(cdt)
+        bias = bias + mask
         for block in blocks:
             x = block(x, bias)
         return self.encoder.final_layer_norm(x)

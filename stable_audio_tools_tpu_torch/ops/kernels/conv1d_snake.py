@@ -15,6 +15,10 @@ contribute an exact 0 (the snake is applied before padding).
   none of the TPU's 128-lane or 4 MB weight gates apply.
 - CPU tensors take `snake_conv1d_plain`: the snake in f32, rounded to x's
   dtype, then `torch.nn.functional.conv1d` (f32 accumulation).
+
+The kernel has no backward yet (the TPU `_bwd_dx_kernel` / `_bwd_dw_kernel_*`
+are the AE-training slice's): a CUDA input that requires grad raises.
+SA-Open's frozen encoder runs it under `torch.no_grad()`.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ def snake_conv1d_plain(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Te
 def _launch(x, w, bias, alpha, beta, pad_lo, pad_hi, dilation, residual):
     if x.device.type != "cuda":
         raise ValueError(f"snake_conv1d: unsupported device {x.device}")
+    _build.require_no_grad("snake_conv1d", x, w, bias, alpha, beta, residual)
     if x.dim() != 3 or w.dim() != 3:
         raise ValueError(f"x must be [B, Ci, L] and w [Co, Ci, k]: {x.shape} {w.shape}")
     B, Ci, L = x.shape

@@ -17,11 +17,17 @@ materialises an f32 copy.
 The Triton source is `layer_norm_triton.py`, imported inside the launching
 function so this module imports on machines without `triton`. CPU tensors
 take `fused_layer_norm_plain`.
+
+On the card `fused_layer_norm` is a `torch.autograd.Function`: the forward is
+the Triton kernel, the backward `fused_layer_norm_bwd_plain`, the analytic
+gradient in plain PyTorch with the normalised input recomputed from x, as the
+JAX package's `custom_vjp` (`_ln_backward` :101, `_ln_residuals` :93), whose
+backward is plain XLA too.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -39,19 +45,29 @@ def fused_layer_norm_plain(x: torch.Tensor, gamma: torch.Tensor,
     return out.to(x.dtype)
 
 
-def fused_layer_norm(x: torch.Tensor, gamma: torch.Tensor,
-                     beta: Optional[torch.Tensor] = None,
-                     eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last axis of x [..., C]; gamma/beta [C]."""
-    if x.device.type == "cpu":
-        return fused_layer_norm_plain(x, gamma, beta, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_layer_norm: unsupported device {x.device}")
+def fused_layer_norm_bwd_plain(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
+                               eps: float = 1e-5
+                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Analytic LayerNorm gradient in f32 from x (the residuals recomputed):
+    returns (dx in x's dtype, dgamma f32 [C], dbeta f32 [C])."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    gf = dy.float()
+    dxhat = gf * gamma.float()
+    m1 = dxhat.mean(dim=-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    dx = (rstd * (dxhat - m1 - xhat * m2)).to(x.dtype)
+    rows = tuple(range(x.dim() - 1))
+    return dx, (gf * xhat).sum(dim=rows), gf.sum(dim=rows)
+
+
+def _launch(x, gamma, beta, eps):
     C = x.shape[-1]
     if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
         raise TypeError(f"fused_layer_norm: unsupported dtype {x.dtype}")
-    if gamma.shape != (C,) or (beta is not None and beta.shape != (C,)):
-        raise ValueError(f"gamma/beta must be [{C}]")
     if C > 16384:
         raise ValueError(f"fused_layer_norm: row of {C} exceeds one block")
     import triton
@@ -67,6 +83,36 @@ def fused_layer_norm(x: torch.Tensor, gamma: torch.Tensor,
                            BLOCK=block, num_warps=8 if block >= 2048 else 4)
     fused_layer_norm.launches += 1
     return y.view(x.shape)
+
+
+class _FusedLayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        ctx.save_for_backward(x, gamma)
+        ctx.eps, ctx.has_beta = eps, beta is not None
+        ctx.dtypes = (gamma.dtype, beta.dtype if beta is not None else None)
+        return _launch(x, gamma, beta, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma = ctx.saved_tensors
+        dx, dgamma, dbeta = fused_layer_norm_bwd_plain(x, gamma, dy, ctx.eps)
+        return (dx, dgamma.to(ctx.dtypes[0]),
+                dbeta.to(ctx.dtypes[1]) if ctx.has_beta else None, None)
+
+
+def fused_layer_norm(x: torch.Tensor, gamma: torch.Tensor,
+                     beta: Optional[torch.Tensor] = None,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis of x [..., C]; gamma/beta [C]."""
+    if x.device.type == "cpu":
+        return fused_layer_norm_plain(x, gamma, beta, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_layer_norm: unsupported device {x.device}")
+    C = x.shape[-1]
+    if gamma.shape != (C,) or (beta is not None and beta.shape != (C,)):
+        raise ValueError(f"gamma/beta must be [{C}]")
+    return _FusedLayerNorm.apply(x, gamma, beta, eps)
 
 
 fused_layer_norm.launches = 0

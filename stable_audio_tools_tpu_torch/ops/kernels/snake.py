@@ -20,11 +20,18 @@ PyTorch version makes several passes with f32 temporaries.
 The Triton source is `snake_triton.py`, imported inside the launching function
 so this module imports on machines without `triton`. CPU tensors take
 `snake_fused_plain`.
+
+The kernel has no backward yet (the TPU `_bwd_kernel` is the AE-training
+slice's): a CUDA input that requires grad raises rather than return an output
+that autograd cannot differentiate. SA-Open's frozen encoder runs it under
+`torch.no_grad()`.
 """
 
 from __future__ import annotations
 
 import torch
+
+from . import _build
 
 BLOCK = 4096
 
@@ -45,6 +52,7 @@ def snake_fused(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -> tor
         return snake_fused_plain(x, alpha, beta)
     if x.device.type != "cuda":
         raise ValueError(f"snake_fused: unsupported device {x.device}")
+    _build.require_no_grad("snake_fused", x, alpha, beta)
     if x.dim() != 3:
         raise ValueError(f"snake_fused: x must be [B, C, L], got {tuple(x.shape)}")
     B, C, L = x.shape

@@ -9,6 +9,11 @@ prepended tokens ahead of the sequence. Parameter names are the reference
 torch names (`layers.{i}.self_attn.to_qkv.weight`, `ff.ff.0.proj.weight`,
 ...). adaLN global conditioning, layer scale, conformer blocks, memory
 tokens, qk-norm and sliding windows are later slices.
+
+`use_checkpointing` rematerialises each block in training: under autograd in
+`train()` mode every block runs inside `torch.utils.checkpoint` (non-
+reentrant), so only the block inputs are kept and the block's forward runs
+again in the backward, as the JAX package's `nn.remat` (ops/transformer.py:449).
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import Attention, Linear
 from .embeddings import RotaryEmbedding
@@ -76,8 +82,10 @@ class TransformerBlock(nn.Module):
 class ContinuousTransformer(nn.Module):
     def __init__(self, dim: int, depth: int, dim_in: Optional[int] = None,
                  dim_out: Optional[int] = None, dim_heads: int = 64,
-                 cross_attend: bool = False, cond_token_dim: Optional[int] = None):
+                 cross_attend: bool = False, cond_token_dim: Optional[int] = None,
+                 use_checkpointing: bool = False):
         super().__init__()
+        self.use_checkpointing = use_checkpointing
         self.project_in = Linear(dim_in, dim, bias=False) if dim_in is not None else None
         self.project_out = Linear(dim, dim_out, bias=False) if dim_out is not None else None
         self.rotary_pos_emb = RotaryEmbedding(min(max(dim_heads // 2, 32), dim_heads))
@@ -99,9 +107,10 @@ class ContinuousTransformer(nn.Module):
             x = torch.cat([prepend_embeds.to(x.dtype), x], dim=1)
             prefix_len = prepend_embeds.shape[1]
         rope = self.rotary_pos_emb(x.shape[1], device=x.device)
+        remat = self.use_checkpointing and self.training and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, context=context, context_mask=context_mask,
-                      rotary_pos_emb=rope, prefix_len=prefix_len)
+            args = (x, context, context_mask, rope, prefix_len)
+            x = checkpoint(layer, *args, use_reentrant=False) if remat else layer(*args)
         if self.project_out is not None:
             x = self.project_out(x)
         return x

@@ -1,0 +1,41 @@
+"""Training factory; counterpart of stable_audio_tools_tpu/training/factory.py
+(`create_training_wrapper_from_config` :8). This slice trains
+`diffusion_cond` models; the other model types raise NotImplementedError."""
+
+from __future__ import annotations
+
+import typing as tp
+
+# training-config keys of the JAX DiffusionCondTrainer that this port does not
+# implement yet; a config that sets one (to a true value) is refused rather
+# than half-run
+_UNPORTED = ("arc", "inpainting_config", "mask_padding", "pre_encoded", "p_one_shot",
+             "log_loss_info")
+
+
+def create_training_wrapper_from_config(model_config: tp.Dict[str, tp.Any], model,
+                                        gradient_clip_val: float = 0.0, seed: int = 42):
+    model_type = model_config.get("model_type")
+    training_config = model_config.get("training")
+    if training_config is None:
+        raise ValueError("training config must be specified in model config")
+    if model_type != "diffusion_cond":
+        raise NotImplementedError(f"training {model_type} models is not ported yet")
+    unported = [k for k in _UNPORTED if training_config.get(k)]
+    if model_config["model"]["diffusion"].get("distribution_shift_options"):
+        unported.append("distribution_shift_options")
+    if unported:
+        raise NotImplementedError(f"training config keys not ported yet: {unported}")
+    from .diffusion import DiffusionCondTrainer
+
+    return DiffusionCondTrainer(
+        model,
+        lr=training_config.get("learning_rate"),
+        use_ema=training_config.get("use_ema", True),
+        optimizer_configs=training_config.get("optimizer_configs"),
+        cfg_dropout_prob=training_config.get("cfg_dropout_prob", 0.1),
+        timestep_sampler=training_config.get("timestep_sampler", "uniform"),
+        timestep_sampler_options=training_config.get("timestep_sampler_options"),
+        gradient_clip_val=gradient_clip_val,
+        seed=seed,
+    )

@@ -3,8 +3,11 @@ CUDA card, at ragged shapes the main path does not reach (partial tiles,
 channel counts off the 32/64 tiling, every prefix length).
 
 Marked `cuda`: they skip where there is no card. On the card:
-    python -m pytest -m cuda tests/test_torch_cuda_kernels.py -q
-Tolerance: bf16 outputs, 2 units in the last place at the reference's peak.
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
+Tolerance: bf16 outputs, 2 units in the last place at the reference's peak;
+gradients, a relative bound stated at each test. Also: the autograd
+wrappers' gradients, and the wrappers without a backward refusing inputs
+that require grad.
 """
 
 import pytest
@@ -91,3 +94,64 @@ def test_wrappers_raise_on_unsupported_cuda_input(dev):
     with pytest.raises(TypeError):
         cs.snake_conv1d(x, w, None, torch.ones(8, device=dev), torch.ones(8, device=dev),
                         1, 1, 1)
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("route", ["fused", "two_pass"])
+@pytest.mark.parametrize("B,H,N,P", [(1, 3, 131, 1), (2, 2, 69, 5), (1, 1, 128, 0),
+                                     (2, 4, 1025, 1)])
+def test_flash_attention_prefix_bwd_routes(dev, route, B, H, N, P):
+    # both backward routes against the plain f32 backward on the same bf16
+    # inputs and saved output/lse; P and dS are rounded to bf16 before the
+    # products, so the bound is relative: 2e-2 of each gradient's peak
+    q, k, v, g = (_randn(dev, B, H, N, 64, seed=i) for i in range(4))
+    out, lse = fa.flash_attention_prefix(q, k, v, P)
+    got = fa.flash_attention_prefix_bwd(q, k, v, out, lse, g, route=route)
+    want = fa.flash_attention_prefix_bwd_plain(q, k, v, out, lse, g)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all(), name
+        assert _rel_err(a, b) < 2e-2, (name, _rel_err(a, b))
+
+
+def test_wrapper_gradients_on_card(dev):
+    # the kernels inside autograd: a CUDA input that requires grad gets an
+    # output with a grad_fn, and the gradients match autograd through the
+    # plain versions on the same card (flash: 2e-2 relative, as above;
+    # LayerNorm: bf16 dx, f32 dgamma/dbeta, 1e-2 relative)
+    q, k, v = (_randn(dev, 2, 3, 130, 64, seed=i).requires_grad_() for i in range(3))
+    w = _randn(dev, 2, 3, 130, 64, seed=9)
+    out, _ = fa.flash_attention_prefix(q, k, v, 1)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad((out.float() * w.float()).sum(), (q, k, v))
+    ref_out, _ = fa.flash_attention_prefix_plain(q, k, v, 1)
+    want = torch.autograd.grad((ref_out.float() * w.float()).sum(), (q, k, v))
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) < 2e-2
+    x = _randn(dev, 3, 77, 1536, scale=3.0).requires_grad_()
+    gamma = _randn(dev, 1536, dtype=torch.float32, seed=1).requires_grad_()
+    beta = _randn(dev, 1536, dtype=torch.float32, seed=2).requires_grad_()
+    dy = _randn(dev, 3, 77, 1536, seed=3)
+    y = ln.fused_layer_norm(x, gamma, beta)
+    assert y.grad_fn is not None
+    got = torch.autograd.grad((y.float() * dy.float()).sum(), (x, gamma, beta))
+    want = torch.autograd.grad((ln.fused_layer_norm_plain(x, gamma, beta).float()
+                                * dy.float()).sum(), (x, gamma, beta))
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) < 1e-2
+
+
+def test_snake_wrappers_raise_on_inputs_that_require_grad(dev):
+    x = _randn(dev, 1, 8, 64).requires_grad_()
+    a, b = torch.ones(8, device=dev), torch.ones(8, device=dev)
+    w = _randn(dev, 8, 8, 3, seed=1)
+    r = _randn(dev, 1, 8, 64, seed=2)
+    for call in (lambda: sn.snake_fused(x, a, b),
+                 lambda: cs.snake_conv1d(x, w, None, a, b, 1, 1, 1),
+                 lambda: cs.snake_conv1d_res(x, w, None, a, b, r, 1, 1, 1)):
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+    with torch.no_grad():  # the frozen encoder's way: no autograd, no error
+        assert sn.snake_fused(x, a, b).grad_fn is None

@@ -286,6 +286,22 @@ def test_t5_encoder_matches_flax(gated):
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)
 
 
+def test_fallback_tokenizer_matches_jax_and_takes_a_word_hash():
+    """Default ids equal the JAX `_FallbackTokenizer`'s (same process, same
+    salted `hash`), exactly; a given word hash replaces `hash`."""
+    import zlib
+
+    texts = ["warm analog pads", "", "one two three four five six seven eight nine"]
+    got, got_mask = tcond.FallbackTokenizer(8)(texts)
+    want = jcond._FallbackTokenizer(8)(texts)
+    np.testing.assert_array_equal(got, want["input_ids"])
+    np.testing.assert_array_equal(got_mask, want["attention_mask"])
+    crc = lambda w: zlib.crc32(w.encode("utf-8"))
+    ids, mask = tcond.FallbackTokenizer(8, word_hash=crc)(texts)
+    np.testing.assert_array_equal(ids[0, :4], [crc(w) % 32000 + 2 for w in texts[0].split()] + [1])
+    np.testing.assert_array_equal(mask, got_mask)
+
+
 def test_number_conditioner():
     values = [0.0, 17.5, 600.0]  # the last is clipped to max_val
     jm = jcond.NumberConditionerModule(output_dim=32, min_val=0, max_val=512)

@@ -1,6 +1,7 @@
-"""The port imports and runs with JAX, flax, transformers and the JAX package
-unimportable (the machine with the card has none of them), and without
-triton: no module imports it at import time."""
+"""The port imports and runs (a generation and a training step) with JAX,
+flax, transformers and the JAX package unimportable (the machine with the
+card has none of them), and without triton: no module imports it at import
+time."""
 
 import os
 import subprocess
@@ -32,6 +33,9 @@ SCRIPT = textwrap.dedent("""
         "model": {
             "io_channels": 4,
             "pretransform": {"type": "autoencoder", "model_half": True, "config": {
+                "encoder": {"type": "oobleck", "config": {
+                    "in_channels": 2, "channels": 8, "c_mults": [1, 2], "strides": [2, 4],
+                    "latent_dim": 8, "use_snake": True}},
                 "decoder": {"type": "oobleck", "config": {
                     "out_channels": 2, "channels": 8, "c_mults": [1, 2], "strides": [2, 4],
                     "latent_dim": 4, "use_snake": True}},
@@ -47,11 +51,25 @@ SCRIPT = textwrap.dedent("""
                           "config": {"io_channels": 4, "embed_dim": 128, "depth": 1,
                                      "num_heads": 2, "cond_token_dim": 64,
                                      "global_cond_dim": 64, "project_cond_tokens": False,
-                                     "compute_dtype": "bfloat16"}}}}
+                                     "compute_dtype": "bfloat16"}}},
+        "training": {"cfg_dropout_prob": 0.5, "optimizer_configs": {"diffusion": {
+            "optimizer": {"type": "AdamW", "config": {"lr": 1e-4, "weight_decay": 1e-3}},
+            "scheduler": {"type": "InverseLR", "config": {"inv_gamma": 1e6, "power": 0.5,
+                                                          "warmup": 0.99}}}}}}
     model = init_random_(create_model_from_config(config), torch.Generator().manual_seed(0))
     audio = generate_diffusion_cond(model.eval(), steps=2, conditioning=[
         {"prompt": "rain on a tin roof", "seconds_total": 10}], sample_size=512, seed=0)
     assert audio.shape == (1, 2, 512) and torch.isfinite(audio).all()
+
+    from stable_audio_tools_tpu_torch.training.factory import create_training_wrapper_from_config
+
+    wrapper = create_training_wrapper_from_config(config, model)
+    meta = [{"prompt": "rain", "seconds_total": 10}, {"prompt": "a drum", "seconds_total": 3}]
+    audio = torch.randn(2, 2, 512, generator=torch.Generator().manual_seed(1)) * 0.3
+    losses = [float(wrapper.train_step(audio, meta, accum_steps=s)["loss"]) for s in (1, 2)]
+    assert all(torch.isfinite(torch.tensor(losses))) and wrapper.step == 2
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in wrapper.params.values())
     assert "triton" not in sys.modules
     print("ok", len(names))
 """)

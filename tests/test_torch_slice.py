@@ -126,6 +126,9 @@ def _pair(config, params=None):
     model, t5_params = _jax_model(config)
     params = _init_params(model) if params is None else params
     port = create_model_from_config(config)
+    # f32 T5 compute, as the f32 Flax tower _jax_model puts in place of the
+    # JAX package's bf16 one
+    port.conditioner.conditioners["prompt"].model.compute_dtype = torch.float32
     sd = diffusion_cond_state_dict(params, dim_heads=64, t5_params={"prompt": t5_params})
     port.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in sd.items()}, strict=True)
     return model, {"params": params}, port.eval()
