@@ -3,18 +3,25 @@
     python3 chip_smoke.py
 
 Runs from the repository root on a machine with a CUDA card, `nvcc` and
-`triton`; needs no network and no JAX. Four phases, each printing one line;
+`triton`; needs no network and no JAX. Five phases, each printing one line;
 any failure raises and the exit code is nonzero:
 
 1. Device and build: the card's name and power limit, then every CUDA source
-   of the port compiled from the checkout (seconds printed).
+   of the port compiled from the checkout, all at once (seconds printed).
 2. Kernels: each hand-written kernel on the main paths against its plain
    PyTorch version on the card, at the main paths' shapes, bf16, with the
-   tolerance stated beside it; both timed with CUDA events after a warm-up.
+   tolerance stated beside it; both timed with CUDA events after a warm-up,
+   beside the one PyTorch call that computes the same function where there
+   is one (`scaled_dot_product_attention`, `layer_norm`; a yardstick only,
+   used nowhere in the port) and the least time the card could take (the
+   larger of its bytes over 3.35 TB/s and its operations over 989 TFLOP/s).
    The flash-attention backward is checked and timed by both of its routes
    (single pass with atomic dQ; two passes), and the autograd wrappers'
-   gradients (flash attention, LayerNorm) against autograd through the plain
-   versions.
+   gradients (flash attention in both layouts, LayerNorm) against autograd
+   through the plain versions. The strided-layout flash attention is checked
+   on views of a fused projection output and on contiguous tensors, at
+   SA-2.0's and SA-Open's lengths and causally, and timed against the
+   [B, H, N, 64] entry with the four transposed copies that route pays.
 3. Generation: SA-Open (the shipped stable_audio_open_1_0.json, built by the
    port's factory, random weights from a seeded torch.Generator, random T5)
    runs generate_diffusion_cond with cfg 6, dpmpp-3m-sde, sigma in [0.3, 500],
@@ -31,6 +38,17 @@ any failure raises and the exit code is nonzero:
    gradient finite and not all zero, the parameters and the EMA must move,
    every kernel of the path must launch (the flash backward among them), and
    the reloaded weights must be identical.
+
+5. SA-2.0 generation: a tiny SA-2.0-shaped model (CLAP text tower read from
+   a checkpoint, strided-layout attention, chunked decode over three chunks)
+   must agree between the card and the CPU, and serve an inpainting and an
+   init-audio request; then the shipped stable_audio_2_0.json at full width
+   with `pretransform.chunked`, its CLAP tower read from a seeded random
+   RoBERTa-base state dict written to a temporary file, runs one request:
+   cfg 6, dpmpp-3m-sde, 100 steps, 12,582,912 samples (6144 latents, 64
+   decode chunks). The audio must be finite [1, 2, 12582912], the path must
+   launch `flash_attention_nhd` 2400 times and every other forward kernel,
+   and must not launch `flash_attention_prefix`.
 
 The last lines are the kernels' JSON record, the card line and the result
 line {"ok": true, "device": {...}}.
@@ -53,8 +71,18 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SA_OPEN = os.path.join(ROOT, "stable_audio_tools_tpu", "configs", "model_configs",
                        "txt2audio", "stable_audio_open_1_0.json")
+SA2 = os.path.join(ROOT, "stable_audio_tools_tpu", "configs", "model_configs",
+                   "txt2audio", "stable_audio_2_0.json")
 STEPS = 100
 SAMPLE_SIZE = 2097152
+SA2_SAMPLE_SIZE = 12582912
+SA2_PROMPT = [{"prompt": "A slow ambient piece with warm pads and distant piano",
+               "seconds_start": 0, "seconds_total": 285}]
+# published peaks of one H100 SXM (dense): bf16 tensor-core rate, HBM3 rate
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+# (channels, length) of the five decoder levels of one SA-2.0 chunk of 128 latents
+SA2_CHUNK_LEVELS = ((1024, 1024), (512, 8192), (256, 32768), (128, 131072), (128, 262144))
 PROMPT = [{"prompt": "An upbeat electronic track with a driving bassline",
            "seconds_start": 0, "seconds_total": SAMPLE_SIZE / 44100.0}]
 
@@ -99,6 +127,22 @@ def rel_err(name, got, want, tol):
     return err
 
 
+def bound(flops: float, *tensors) -> dict:
+    """The least time the card could take for a call: the larger of its
+    operations (bf16 tensor-core work) over the peak rate and the bytes of
+    `tensors` (every input read once, every output written once) over the
+    memory rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors if t is not None)
+    ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def attn_flops(B: int, H: int, N: int, D: int, n_matmuls: int = 2) -> float:
+    """`n_matmuls` N x N x D products per (batch, head): 2 forward, 5 backward."""
+    return 2.0 * n_matmuls * B * H * N * N * D
+
+
 def bf16_tol(want: torch.Tensor, ulps: int = 2) -> float:
     """`ulps` bf16 units in the last place at the reference's largest value
     (bf16 keeps 8 significant bits: one ulp at magnitude m is <= m * 2^-7)."""
@@ -110,6 +154,8 @@ def phase_kernels(dev):
     from stable_audio_tools_tpu_torch.ops.kernels import flash_attention as fa
     from stable_audio_tools_tpu_torch.ops.kernels import layer_norm as ln
     from stable_audio_tools_tpu_torch.ops.kernels import snake as sn
+
+    import torch.nn.functional as F
 
     g = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
@@ -130,7 +176,10 @@ def phase_kernels(dev):
         shape="q,k,v [2,24,1025,64] bf16, prefix 1", max_abs_err=err,
         tol="2 bf16 ulps at max|ref| (out), 1e-3 (lse)",
         ms=cuda_ms(lambda: fa.flash_attention_prefix(q, k, v, 1), 50),
-        plain_ms=cuda_ms(lambda: fa.flash_attention_prefix_plain(q, k, v, 1), 20))
+        plain_ms=cuda_ms(lambda: fa.flash_attention_prefix_plain(q, k, v, 1), 20),
+        library="F.scaled_dot_product_attention",
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 50),
+        **bound(attn_flops(2, 24, 1025, 64), q, k, v, out, lse))
 
     # 1b. its backward at the training path's shape (batch 4, no CFG
     #     doubling): both routes against the plain f32 backward
@@ -157,7 +206,8 @@ def phase_kernels(dev):
         max_abs_err=chosen["max_abs_err"], max_rel_err=chosen["max_rel_err"],
         tol=f"max|err| <= {BWD_REL_TOL} x max|plain| per gradient, both routes",
         ms=chosen["ms"],
-        plain_ms=cuda_ms(lambda: fa.flash_attention_prefix_bwd_plain(q, k, v, out, lse, dout), 5))
+        plain_ms=cuda_ms(lambda: fa.flash_attention_prefix_bwd_plain(q, k, v, out, lse, dout), 5),
+        **bound(attn_flops(4, 24, 1025, 64, 5), q, k, v, out, lse, dout, q, k, v))
     # 1c. the autograd Function on the card against autograd through the plain forward
     qkv = [t.detach().requires_grad_() for t in (q, k, v)]
     o, _ = fa.flash_attention_prefix(*qkv, 1)
@@ -168,6 +218,13 @@ def phase_kernels(dev):
                                 * dout.float()).sum(), qkv)
     rec["flash_attention_prefix_bwd"]["autograd_rel_err"] = max(
         rel_err(f"flash autograd d{n}", a, b, BWD_REL_TOL) for n, a, b in zip("qkv", got, want))
+    lib_out = F.scaled_dot_product_attention(*qkv)
+    rec["flash_attention_prefix_bwd"].update(
+        library="autograd through F.scaled_dot_product_attention (backward only)",
+        library_ms=cuda_ms(lambda: torch.autograd.grad(lib_out, qkv, dout, retain_graph=True), 20))
+    del lib_out, o, qkv
+
+    rec["flash_attention_nhd"] = nhd_checks(fa, randn, F)
 
     # 2. DiT block norms: [2, 1025, 1536] bf16, gamma f32
     x = randn(2, 1025, 1536, scale=3.0)
@@ -180,7 +237,17 @@ def phase_kernels(dev):
         shape="x [2,1025,1536] bf16, gamma f32", max_abs_err=err,
         tol="2 bf16 ulps at max|ref|",
         ms=cuda_ms(lambda: ln.fused_layer_norm(x, gamma), 200),
-        plain_ms=cuda_ms(lambda: ln.fused_layer_norm_plain(x, gamma), 200))
+        plain_ms=cuda_ms(lambda: ln.fused_layer_norm_plain(x, gamma), 200),
+        library="F.layer_norm (gamma in bf16)",
+        library_ms=cuda_ms(lambda gb=gamma.to(bf): F.layer_norm(x, (1536,), gb), 200),
+        **bound(8.0 * x.numel(), x, gamma, y))
+    # SA-2.0's rows: 2 x (1 + 6144) of them
+    x2 = randn(2, 6145, 1536, scale=3.0)
+    ref = ln.fused_layer_norm_plain(x2, gamma)
+    rec["fused_layer_norm"]["max_abs_err"] = max(err, compare(
+        "layer norm [2,6145,1536]", ln.fused_layer_norm(x2, gamma), ref, bf16_tol(ref)))
+    rec["fused_layer_norm"]["shape"] += "; [2,6145,1536] checked"
+    del x2, ref
     # 2b. its autograd Function (Triton forward, plain backward as the JAX
     #     package's) at the training shape against autograd through the plain
     #     version: bf16 dx, f32 dgamma, 1% of each gradient's peak
@@ -197,29 +264,34 @@ def phase_kernels(dev):
         rel_err(f"layer norm autograd {n}", a, b, 1e-2)
         for n, a, b in zip(("dx", "dgamma"), got, want))
 
-    # 3. decoder snakes before each transposed upsample, [1, C, L]
+    # 3. decoder snakes before each transposed upsample: SA-2.0's groups of 8
+    #    chunks of 128 latents, then SA-Open's whole clip [1, C, L]
     errs = []
-    for C, L in ((2048, 1024), (1024, 8192), (512, 65536), (256, 262144), (128, 1048576)):
-        x = randn(1, C, L, scale=2.0)
+    for B, C, L in ((8, 2048, 128), (8, 1024, 1024), (8, 512, 8192), (8, 256, 32768),
+                    (8, 128, 131072), (1, 2048, 1024), (1, 1024, 8192), (1, 512, 65536),
+                    (1, 256, 262144), (1, 128, 1048576)):
+        x = randn(B, C, L, scale=2.0)
         a, b = randn(C, dtype=torch.float32).exp(), randn(C, dtype=torch.float32).exp()
         y, ref = sn.snake_fused(x, a, b), sn.snake_fused_plain(x, a, b)
-        errs.append(compare(f"snake [1,{C},{L}]", y, ref, bf16_tol(ref)))
+        errs.append(compare(f"snake [{B},{C},{L}]", y, ref, bf16_tol(ref)))
     rec["snake_fused"] = dict(
         route="triton", source="stable_audio_tools_tpu_torch/ops/kernels/snake_triton.py",
         replaces="stable_audio_tools_tpu/ops/kernels/snake.py:52",
-        shape="x [1,128,1048576] bf16 (timed; 5 decoder shapes checked)",
+        shape="x [1,128,1048576] bf16 (timed; 5 SA-Open and 5 SA-2.0 decoder shapes checked)",
         max_abs_err=max(errs), tol="2 bf16 ulps at max|ref|",
         ms=cuda_ms(lambda: sn.snake_fused(x, a, b), 20),
-        plain_ms=cuda_ms(lambda: sn.snake_fused_plain(x, a, b), 10))
+        plain_ms=cuda_ms(lambda: sn.snake_fused_plain(x, a, b), 10),
+        library=None, library_ms=None,  # no single PyTorch call computes a snake
+        **bound(6.0 * x.numel(), x, a, b, y))
 
     # 4. decoder residual units: conv1 k=7 d in {1,3,9}; conv2 k=1 + skip;
     #    conv_out k=7 128 -> 2 without bias
-    def conv_case(C, Co, L, kk, d, bias=True, res=False):
-        x = randn(1, C, L)
+    def conv_case(C, Co, L, kk, d, bias=True, res=False, B=1):
+        x = randn(B, C, L)
         w = randn(Co, C, kk, scale=(C * kk) ** -0.5)
         bias_t = randn(Co, dtype=torch.float32) * 0.1 if bias else None
         a, b = randn(C, dtype=torch.float32).exp(), randn(C, dtype=torch.float32).exp()
-        r = randn(1, Co, L) if res else None
+        r = randn(B, Co, L) if res else None
         pad = d * (kk - 1) // 2
         if res:
             run = lambda: cs.snake_conv1d_res(x, w, bias_t, a, b, r, pad, pad, d)
@@ -227,31 +299,126 @@ def phase_kernels(dev):
             run = lambda: cs.snake_conv1d(x, w, bias_t, a, b, pad, pad, d)
         plain = lambda: cs.snake_conv1d_plain(x, w, bias_t, a, b, pad, pad, d, r)
         ref = plain()
-        return compare(f"snake_conv1d C={C} Co={Co} L={L} k={kk} d={d} res={res}",
-                       run(), ref, bf16_tol(ref)), run, plain
+        least = bound(2.0 * Co * C * kk * L, x, w, bias_t, a, b, r, ref)
+        return compare(f"snake_conv1d B={B} C={C} Co={Co} L={L} k={kk} d={d} res={res}",
+                       run(), ref, bf16_tol(ref)), run, plain, least
 
     errs = []
     for C, L, d in ((1024, 8192, 1), (512, 65536, 3), (256, 262144, 9), (128, 1048576, 1)):
         errs.append(conv_case(C, C, L, 7, d)[0])
     errs.append(conv_case(128, 2, SAMPLE_SIZE, 7, 1, bias=False)[0])
-    err, run, plain = conv_case(128, 128, SAMPLE_SIZE, 7, 9)
+    # SA-2.0's decode: groups of 8 chunks, 262,144 samples each at the last level
+    for C, L in SA2_CHUNK_LEVELS:
+        errs += [conv_case(C, C, L, 7, d, B=8)[0] for d in (1, 3, 9)]
+    errs.append(conv_case(128, 2, 262144, 7, 1, bias=False, B=8)[0])
+    err, run, plain, least = conv_case(128, 128, SAMPLE_SIZE, 7, 9)
     errs.append(err)
     rec["snake_conv1d"] = dict(
         route="cuda", source="stable_audio_tools_tpu_torch/csrc/snake_conv1d.cu",
         replaces="stable_audio_tools_tpu/ops/kernels/conv1d_snake.py:88",
-        shape="x [1,128,2097152] k=7 d=9 bf16 (timed; 6 decoder shapes checked)",
+        shape="x [1,128,2097152] k=7 d=9 bf16 (timed; 6 SA-Open and 16 SA-2.0 decoder "
+              "cases checked)",
         max_abs_err=max(errs), tol="2 bf16 ulps at max|ref|",
-        ms=cuda_ms(run, 3), plain_ms=cuda_ms(plain, 3))
+        ms=cuda_ms(run, 3), plain_ms=cuda_ms(plain, 3),
+        # cuDNN's conv alone omits the snake: it is in the plain version
+        library=None, library_ms=None, **least)
     errs = [conv_case(C, C, L, 1, 1, res=True)[0]
             for C, L in ((1024, 8192), (512, 65536), (256, 262144))]
-    err, run, plain = conv_case(128, 128, SAMPLE_SIZE, 1, 1, res=True)
+    errs += [conv_case(C, C, L, 1, 1, res=True, B=8)[0] for C, L in SA2_CHUNK_LEVELS]
+    err, run, plain, least = conv_case(128, 128, SAMPLE_SIZE, 1, 1, res=True)
     errs.append(err)
     rec["snake_conv1d_res"] = dict(
         route="cuda", source="stable_audio_tools_tpu_torch/csrc/snake_conv1d.cu",
         replaces="stable_audio_tools_tpu/ops/kernels/conv1d_snake.py:107",
-        shape="x [1,128,2097152] k=1 + residual bf16 (timed; 4 decoder shapes checked)",
+        shape="x [1,128,2097152] k=1 + residual bf16 (timed; 4 SA-Open and 5 SA-2.0 "
+              "decoder shapes checked)",
         max_abs_err=max(errs), tol="2 bf16 ulps at max|ref|",
-        ms=cuda_ms(run, 3), plain_ms=cuda_ms(plain, 3))
+        ms=cuda_ms(run, 3), plain_ms=cuda_ms(plain, 3), library=None, library_ms=None, **least)
+    return rec
+
+
+def nhd_checks(fa, randn, F) -> dict:
+    """`flash_attention_nhd` against its plain version, and timed against the
+    [B, H, N, 64] entry with the copies that route needs, at SA-2.0's and
+    SA-Open's self-attention shapes. q and k are fresh tensors (as after the
+    rotary), v a strided view of the fused projection output, as the
+    attention module hands them over."""
+    H, D = 24, 64
+
+    def operands(B, N):
+        fused = randn(B, N, 3 * H * D)
+        q, k, v = (t.view(B, N, H, D) for t in fused.chunk(3, dim=-1))
+        return fused, q.clone(), k.clone(), v
+
+    def check(name, out, q, k, v, causal=False, heads=4):
+        # the plain version a few heads at a time: 6145^2 f32 logits for all
+        # 48 (batch, head) pairs at once would take 7.2 GB, and as much again
+        errs = []
+        for h in range(0, q.shape[2], heads):
+            sl = slice(h, h + heads)
+            ref, _ = fa.flash_attention_nhd_plain(q[:, :, sl], k[:, :, sl], v[:, :, sl], causal)
+            errs.append(compare(f"{name} heads {h}+", out[:, :, sl], ref, bf16_tol(ref)))
+        return max(errs)
+
+    def via_prefix(q, k, v):
+        # the other route: three transposed copies in, the [B, H, N, 64]
+        # kernel, one transposed copy out
+        out, _ = fa.flash_attention_prefix(*(t.transpose(1, 2) for t in (q, k, v)), 1)
+        return out.transpose(1, 2).reshape(q.shape[0], q.shape[1], H * D)
+
+    rec, errs, ab = {}, {}, {}
+    for N, iters in ((6145, 10), (1025, 50)):
+        fused, q, k, v = operands(2, N)
+        out = fa.flash_attention_nhd(q, k, v, prefix_len=1)
+        errs[f"views N={N}"] = check(f"flash nhd N={N}", out, q, k, v)
+        vc = v.contiguous()
+        if not torch.equal(fa.flash_attention_nhd(q, k, vc, prefix_len=1), out):
+            raise AssertionError(f"flash nhd N={N}: a contiguous v gives another result")
+        q3, k3, v3 = (t.view(2, N, H, D) for t in fused.chunk(3, dim=-1))  # all three strided
+        errs[f"fused N={N}"] = check(f"flash nhd fused N={N}",
+                                     fa.flash_attention_nhd(q3, k3, v3, prefix_len=1), q3, k3, v3)
+        compare(f"flash nhd vs prefix entry N={N}", out.view(2, N, H * D), via_prefix(q, k, v),
+                bf16_tol(out))
+        ab[N] = dict(
+            nhd_ms=cuda_ms(lambda: fa.flash_attention_nhd(q, k, v, prefix_len=1), iters),
+            prefix_with_copies_ms=cuda_ms(lambda: via_prefix(q, k, v), iters),
+            sdpa_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                *(t.transpose(1, 2) for t in (q, k, v))), iters))
+        if N == 6145:
+            lse = torch.empty((2, H, N), dtype=torch.float32, device=q.device)
+            rec.update(bound(attn_flops(2, H, N, D), q, k, v, out, lse),
+                       plain_ms=cuda_ms(lambda: [fa.flash_attention_nhd_plain(
+                           q[:, :, h:h + 4], k[:, :, h:h + 4], v[:, :, h:h + 4])
+                           for h in range(0, H, 4)], 2))
+        del fused, q, k, v, vc, q3, k3, v3, out
+    q, k, v = (randn(2, 300, 4, D) for _ in range(3))
+    errs["causal [2,300,4,64]"] = check(
+        "flash nhd causal", fa.flash_attention_nhd(q, k, v, causal=True), q, k, v, causal=True)
+
+    # gradients through the autograd Function (the [B, H, N, 64] backward
+    # kernels on transposed copies) against autograd through the plain
+    # version, at the training shape; and forward + backward through each
+    # entry, timed
+    fused = randn(4, 1025, 3 * H * D).requires_grad_()
+    dout = randn(4, 1025, H, D)
+    split = lambda: tuple(t.view(4, 1025, H, D) for t in fused.chunk(3, dim=-1))
+    through = lambda fn: torch.autograd.grad((fn(*split()).float() * dout.float()).sum(), fused)[0]
+    nhd = lambda q, k, v: fa.flash_attention_nhd(q, k, v, prefix_len=1)
+    bhnd = lambda q, k, v: fa.flash_attention_prefix(
+        *(t.transpose(1, 2) for t in (q, k, v)), 1)[0].transpose(1, 2)
+    grad_err = rel_err("flash nhd autograd", through(nhd), through(
+        lambda q, k, v: fa.flash_attention_nhd_plain(q, k, v, False, 1)[0]), BWD_REL_TOL)
+    ab["fwd_bwd [4,1025,24,64]"] = dict(nhd_ms=cuda_ms(lambda: through(nhd), 10),
+                                        prefix_with_copies_ms=cuda_ms(lambda: through(bhnd), 10))
+    rec.update(
+        route="cuda", source="stable_audio_tools_tpu_torch/csrc/flash_nhd.cu",
+        replaces="stable_audio_tools_tpu/ops/kernels/flash_attention.py:757",
+        shape="q,k [2,6145,24,64] bf16 contiguous, v a view of the fused [2,6145,4608], prefix 1",
+        max_abs_err=max(errs.values()), errs=errs, autograd_rel_err=grad_err,
+        tol="2 bf16 ulps at max|ref| (out), "
+            f"{BWD_REL_TOL} x max|plain| (gradient of the fused projection)",
+        ms=ab[6145]["nhd_ms"], library="F.scaled_dot_product_attention",
+        library_ms=ab[6145]["sdpa_ms"], ab={str(k): v for k, v in ab.items()})
     return rec
 
 
@@ -263,6 +430,7 @@ def counters():
 
     return {"flash_attention_prefix": fa.flash_attention_prefix,
             "flash_attention_prefix_bwd": fa.flash_attention_prefix_bwd,
+            "flash_attention_nhd": fa.flash_attention_nhd,
             "fused_layer_norm": ln.fused_layer_norm,
             "snake_conv1d": cs.snake_conv1d,
             "snake_conv1d_res": cs.snake_conv1d_res,
@@ -271,6 +439,9 @@ def counters():
 
 GENERATION_KERNELS = ("flash_attention_prefix", "fused_layer_norm", "snake_conv1d",
                       "snake_conv1d_res", "snake_fused")
+TRAINING_KERNELS = GENERATION_KERNELS + ("flash_attention_prefix_bwd",)
+SA2_KERNELS = ("flash_attention_nhd", "fused_layer_norm", "snake_conv1d", "snake_conv1d_res",
+               "snake_fused")
 
 
 def sa_open_config():
@@ -313,7 +484,8 @@ def tiny_model():
     from stable_audio_tools_tpu_torch.models.conditioners import FallbackTokenizer
     from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
 
-    model = init_random_(create_model_from_config(tiny_config()), torch.Generator().manual_seed(1))
+    model = init_random_(create_model_from_config(tiny_config(), "cpu"),
+                         torch.Generator().manual_seed(1))
     t5 = model.conditioner.conditioners["prompt"]
     t5.model.compute_dtype = torch.float32
     t5.tokenizer = FallbackTokenizer(t5.tokenizer.max_length,
@@ -347,12 +519,12 @@ def small_check(dev) -> float:
 
 
 @torch.inference_mode()
-def stage_breakdown(model, dev) -> dict:
-    """Where the main path's time goes, per layer: conditioning (T5 + number
-    conditioners), one sampler step (a CFG denoiser call on the doubled
-    batch), the VAE decode; host clock around synchronised work. Then
-    torch.profiler over one step and one decode: device-busy share (kernel
-    time / wall) and the largest kernels by device time."""
+def stage_breakdown(model, dev, prompt=PROMPT, sample_size=SAMPLE_SIZE) -> dict:
+    """Where a generation path's time goes, per layer: conditioning (the text
+    tower + number conditioners), one sampler step (a CFG denoiser call on
+    the doubled batch), the VAE decode; host clock around synchronised work.
+    Then torch.profiler over one step and one decode: device-busy share
+    (kernel time / wall) and the largest kernels by device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -365,10 +537,10 @@ def stage_breakdown(model, dev) -> dict:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / n * 1e3, out
 
-    cond_ms, tensors = timed(lambda: model.conditioner(PROMPT, dev), 3)
+    cond_ms, tensors = timed(lambda: model.conditioner(prompt, dev), 3)
     cond = model.get_conditioning_inputs(tensors)
     g = torch.Generator(device=dev).manual_seed(3)
-    x = torch.randn(1, 64, SAMPLE_SIZE // 2048, generator=g, device=dev)
+    x = torch.randn(1, 64, sample_size // 2048, generator=g, device=dev)
     t = torch.full((1,), 0.5, device=dev)
     step = lambda: model(x, t, cfg_scale=6.0, **cond)
     decode = lambda: model.pretransform.decode(x)
@@ -404,8 +576,7 @@ def phase_main_path(dev):
 
     # full width: SA-Open from the shipped config
     t0 = time.perf_counter()
-    with torch.device(dev):
-        model = create_model_from_config(sa_open_config())
+    model = create_model_from_config(sa_open_config(), dev)
     init_random_(model, torch.Generator(device=dev).manual_seed(0)).eval()
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -602,7 +773,7 @@ def phase_training(dev) -> dict:
                                  f"nonzero gradient: {bad[:8]}")
         trainer.fit(loader, max_steps=WARM_STEPS, save_at_end=False)
         torch.cuda.synchronize()
-        kernels = counters()
+        kernels = {n: fn for n, fn in counters().items() if n in TRAINING_KERNELS}
         for fn in kernels.values():
             fn.launches = 0
         torch.cuda.reset_peak_memory_stats()
@@ -641,8 +812,7 @@ def phase_training(dev) -> dict:
         rec["ckpt_gib"] = os.path.getsize(path) / 2 ** 30
         t0 = time.perf_counter()
         state = torch.load(path, map_location="cpu", weights_only=True)
-        with torch.device("meta"):
-            fresh = create_model_from_config(state["model_config"])
+        fresh = create_model_from_config(state["model_config"], "meta")
         fresh.load_state_dict(state["state_dict"], strict=True, assign=True)
         current = w.model.state_dict()
         differ = [n for n, v in fresh.state_dict().items() if not torch.equal(v, current[n].cpu())]
@@ -651,6 +821,192 @@ def phase_training(dev) -> dict:
                                  f"({differ[:5]}), step {state['step']} vs {w.step}")
         rec["reload_s"] = time.perf_counter() - t0
     return rec
+
+
+def write_clap_checkpoint(path: str, arch=None, seed: int = 0) -> None:
+    """A seeded random CLAP text branch as a checkpoint file: the port's
+    RoBERTa (default: RoBERTa-base's shape, vocabulary 50265, 768 wide, 12
+    layers, 3072 feed-forward, 514 positions) under laion-clap's
+    `module.text_branch.*` names, and the 512-wide `text_projection`."""
+    from stable_audio_tools_tpu_torch.models.factory import init_random_
+    from stable_audio_tools_tpu_torch.models.roberta import RobertaArch, RobertaModel
+
+    g = torch.Generator().manual_seed(seed)
+    arch = arch or RobertaArch()
+    tower = init_random_(RobertaModel(arch), g)
+    proj = init_random_(torch.nn.Sequential(torch.nn.Linear(arch.hidden_size, 512),
+                                            torch.nn.ReLU(), torch.nn.Linear(512, 512)), g)
+    with torch.no_grad():
+        tower.embeddings.word_embeddings.weight.mul_(0.05)
+        tower.embeddings.position_embeddings.weight.mul_(0.05)
+        tower.embeddings.token_type_embeddings.weight.mul_(0.05)
+    sd = {f"module.text_branch.{k}": v for k, v in tower.state_dict().items()}
+    sd.update({f"module.text_projection.{k}": v for k, v in proj.state_dict().items()})
+    torch.save({"state_dict": sd}, path)
+
+
+def sa2_config(clap_path: str, model_type: str = "diffusion_cond"):
+    """The shipped SA-2.0 config, nothing cut: its CLAP checkpoint path (a
+    placeholder in the file) pointed at `clap_path`, and the chunked decode
+    the long output needs."""
+    with open(SA2) as f:
+        cfg = json.load(f)
+    cfg["model_type"] = model_type
+    cfg["model"]["pretransform"]["chunked"] = True
+    for c in cfg["model"]["conditioning"]["configs"]:
+        if c["type"] == "clap_text":
+            c["config"]["clap_ckpt_path"] = clap_path
+    return cfg
+
+
+def tiny_sa2_model(clap_path: str, model_type: str = "diffusion_cond"):
+    """SA-2.0's shape at toy size on the CPU: the same blocks, conditioners
+    and kernels (head dim 64, prefix 1, the strided-layout attention entry
+    through the attention modules' `nhd_min_seq` set to 0), 2 DiT layers of 128, a 2-level VAE decoding in
+    chunks, the CLAP tower of `clap_path`; CRC-32 word hashing as
+    `tiny_model()`."""
+    import zlib
+
+    from stable_audio_tools_tpu_torch.models.conditioners import FallbackTokenizer
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+
+    cfg = sa2_config(clap_path, model_type)
+    m = cfg["model"]
+    m["conditioning"]["cond_dim"] = 64
+    m["diffusion"]["config"].update(embed_dim=128, depth=2, num_heads=2, cond_token_dim=64,
+                                    global_cond_dim=128, io_channels=16)
+    if model_type == "diffusion_cond_inpaint":
+        m["diffusion"]["config"]["input_concat_dim"] = 17
+    m["io_channels"] = 16
+    ae = m["pretransform"]["config"]
+    ae["encoder"]["config"].update(channels=32, c_mults=[1, 2], strides=[4, 8], latent_dim=32)
+    ae["decoder"]["config"].update(channels=32, c_mults=[1, 2], strides=[4, 8], latent_dim=16)
+    ae.update(latent_dim=16, downsampling_ratio=32)
+    model = create_model_from_config(cfg, "cpu")
+    for block in model.model.model.transformer.layers:
+        block.self_attn.nhd_min_seq = 0
+    clap = model.conditioner.conditioners["prompt"]
+    init_random_(model, torch.Generator().manual_seed(1), skip=[clap.model, clap.text_projection])
+    clap.tokenizer = FallbackTokenizer(clap.tokenizer.max_length,
+                                       word_hash=lambda w: zlib.crc32(w.encode("utf-8")))
+    return model
+
+
+@torch.inference_mode()
+def small_sa2_check(dev, clap_path: str) -> dict:
+    """A tiny SA-2.0-shaped model with the kernels on the card against the
+    plain versions on the CPU, stage by stage on the same inputs (largest
+    max|card - CPU| / max|CPU|): conditioning with the f32 CLAP tower, a CFG
+    denoiser call with a negative prompt on 1 + 288 tokens through
+    `flash_attention_nhd`, and the chunked VAE decode (288 latents, three
+    chunks). Then an init-audio request and an inpainting request on the
+    card return finite audio of the right shape."""
+    from stable_audio_tools_tpu_torch.inference.generation import (
+        generate_diffusion_cond, generate_diffusion_cond_inpaint)
+    from stable_audio_tools_tpu_torch.ops.kernels.flash_attention import flash_attention_nhd
+
+    cpu = tiny_sa2_model(clap_path).eval()
+    gpu = copy.deepcopy(cpu).to(dev)
+    g = torch.Generator().manual_seed(2)
+    x, z = torch.randn(1, 16, 288, generator=g), torch.randn(1, 16, 288, generator=g)
+    t = torch.tensor([0.5])
+    negative = [dict(SA2_PROMPT[0], prompt="harsh distorted noise")]
+
+    def denoise(m, d):
+        cond = m.get_conditioning_inputs(m.conditioner(SA2_PROMPT, d))
+        cond.update(m.get_conditioning_inputs(m.conditioner(negative, d), negative=True))
+        return m(x.to(d), t.to(d), cfg_scale=6.0, **cond)
+
+    errs = {}
+    before = flash_attention_nhd.launches
+    for name, run in (("conditioning", lambda m, d: m.conditioner(SA2_PROMPT, d)["prompt"][0]),
+                      ("denoiser", denoise),
+                      ("decode", lambda m, d: m.pretransform.decode(z.to(d)))):
+        want, got = run(cpu, "cpu").float(), run(gpu, dev).float().cpu()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"small SA-2.0 {name}: non-finite output on the card")
+        errs[name] = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-6)
+    if flash_attention_nhd.launches - before != 2:  # one per DiT layer
+        raise AssertionError("small SA-2.0 denoiser: the card did not take flash_attention_nhd")
+
+    size = 288 * 32
+    init = (44100, 0.3 * torch.randn(2, size, generator=g))
+    kw = dict(steps=4, cfg_scale=6.0, conditioning=SA2_PROMPT, sample_size=size, seed=3)
+    audio = generate_diffusion_cond(gpu, init_audio=init, init_noise_level=5.0, **kw)
+    inpaint = copy.deepcopy(tiny_sa2_model(clap_path, "diffusion_cond_inpaint").eval()).to(dev)
+    painted = generate_diffusion_cond_inpaint(
+        inpaint, init_audio=init, mask_args={"maskstart": size // 4, "maskend": size // 2,
+                                             "softnessL": 0.02, "softnessR": 0.02}, **kw)
+    for name, a in (("init_audio", audio), ("inpaint", painted)):
+        if tuple(a.shape) != (1, 2, size) or not torch.isfinite(a).all():
+            raise AssertionError(f"small SA-2.0 {name} request: audio {tuple(a.shape)} "
+                                 f"finite={bool(torch.isfinite(a).all())}")
+    return errs
+
+
+def phase_sa2(dev) -> dict:
+    from stable_audio_tools_tpu_torch.inference.generation import generate_diffusion_cond
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+    from stable_audio_tools_tpu_torch.models.roberta import RobertaArch
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sa2_") as tmp:
+        small_clap = os.path.join(tmp, "clap_small.pt")
+        write_clap_checkpoint(small_clap, RobertaArch(vocab_size=32002, hidden_size=64,
+                                                      num_layers=2, num_heads=1,
+                                                      intermediate_size=128, max_positions=80))
+        small, small_tol = small_sa2_check(dev, small_clap), 0.05
+        if max(small.values()) > small_tol:
+            raise AssertionError(f"small SA-2.0-shaped model: card vs CPU relative errors "
+                                 f"{small} > {small_tol}")
+
+        # full width: SA-2.0 from the shipped config, its CLAP tower read from a file
+        clap_path = os.path.join(tmp, "clap.pt")
+        t0 = time.perf_counter()
+        write_clap_checkpoint(clap_path)
+        model = create_model_from_config(sa2_config(clap_path), dev)
+        clap = model.conditioner.conditioners["prompt"]
+        init_random_(model, torch.Generator(device=dev).manual_seed(0),
+                     skip=[clap.model, clap.text_projection]).eval()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        saved = torch.load(clap_path, weights_only=True)["state_dict"]
+        name = "encoder.layer.11.output.dense.weight"
+        if not torch.equal(clap.model.state_dict()[name].cpu(), saved[f"module.text_branch.{name}"]):
+            raise AssertionError("SA-2.0: the CLAP tower does not hold the checkpoint's weights")
+    if next(model.parameters()).device.type != "cuda":
+        raise AssertionError("SA-2.0: the factory did not build the model on the card")
+    n_params = sum(p.numel() for p in model.parameters())
+    run = lambda steps, seed: generate_diffusion_cond(
+        model, steps=steps, cfg_scale=6.0, conditioning=SA2_PROMPT, batch_size=1,
+        sample_size=SA2_SAMPLE_SIZE, seed=seed, sampler_type="dpmpp-3m-sde",
+        sigma_min=0.3, sigma_max=500.0)
+    run(2, 0)  # warm-up: Triton JIT and cuDNN plans at the full shapes
+    torch.cuda.synchronize()
+    kernels = {n: fn for n, fn in counters().items()
+               if n in SA2_KERNELS or n == "flash_attention_prefix"}
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    audio = run(STEPS, 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    if tuple(audio.shape) != (1, 2, SA2_SAMPLE_SIZE) or not torch.isfinite(audio).all():
+        raise AssertionError(f"SA-2.0 audio {tuple(audio.shape)} "
+                             f"finite={bool(torch.isfinite(audio).all())}")
+    idle = [n for n in SA2_KERNELS if launches[n] == 0]
+    if idle or launches["flash_attention_nhd"] != 24 * STEPS or launches["flash_attention_prefix"]:
+        raise AssertionError(f"SA-2.0 launches {launches}: expected {24 * STEPS} of "
+                             f"flash_attention_nhd, none of flash_attention_prefix, and some "
+                             f"of every other kernel (idle: {idle})")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    del audio
+    return dict(wall_s=wall, steps=STEPS, audio_s=SA2_SAMPLE_SIZE / 44100.0,
+                audio_s_per_s=SA2_SAMPLE_SIZE / 44100.0 / wall, launches=launches,
+                params=n_params, build_s=build_s, small=small, small_tol=small_tol,
+                peak_gib=peak_gib,
+                breakdown=stage_breakdown(model, dev, SA2_PROMPT, SA2_SAMPLE_SIZE))
 
 
 def main() -> int:
@@ -701,19 +1057,42 @@ def main() -> int:
           f"{train_rec['small']['grad_rel_err']:.3g} (tol {train_rec['small_tol']}) on {card}",
           flush=True)
 
+    torch.cuda.empty_cache()
+
+    sa2_rec = phase_sa2(dev)
+    bd = sa2_rec["breakdown"]
+    print(f"phase 5 SA-2.0 generation: {sa2_rec['params'] / 1e9:.3f}B params, {STEPS} steps "
+          f"dpmpp-3m-sde cfg 6, {SA2_SAMPLE_SIZE} samples (6144 latents, chunked decode): wall "
+          f"{sa2_rec['wall_s']:.3f} s, {sa2_rec['audio_s_per_s']:.3f} audio-s/s, peak "
+          f"{sa2_rec['peak_gib']:.2f} GiB; conditioning {bd['cond_ms']:.1f} ms, sampler step "
+          f"{bd['step_ms']:.1f} ms (device busy {bd['step_device_busy']:.1%}), decode "
+          f"{bd['decode_ms']:.1f} ms (device busy {bd['decode_device_busy']:.1%}); step's top "
+          f"kernels ms {json.dumps(bd['step_top_kernels_ms'])}; launches "
+          f"{json.dumps(sa2_rec['launches'])}; small card-vs-CPU rel errs "
+          f"{json.dumps({k: round(v, 4) for k, v in sa2_rec['small'].items()})} "
+          f"(tol {sa2_rec['small_tol']}) on {card}", flush=True)
+
     kernels = []
     for n, r in rec.items():
         by_path = {"generation": main_rec["launches"].get(n, 0),
-                   "training": train_rec["launches"][n]}
+                   "training": train_rec["launches"].get(n, 0),
+                   "sa2_generation": sa2_rec["launches"].get(n, 0)}
         kernels.append(dict(name=n, route=r["route"], source=r["source"], replaces=r["replaces"],
                             launches=sum(by_path.values()), launches_by_path=by_path,
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                            library_ms=r["library_ms"], library=r["library"],
                             shape=r["shape"], **{k: r[k] for k in (
                                 "also_replaces", "main_route", "routes", "max_rel_err",
-                                "autograd_rel_err") if k in r}))
+                                "autograd_rel_err", "errs", "ab") if k in r}))
+    unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
+    if unlaunched:
+        raise AssertionError(f"kernels that no main path launched: {unlaunched}")
     print(json.dumps({"kernels": kernels, "card": card, "generation": {
         k: main_rec[k] for k in ("wall_s", "steps", "audio_s_per_s", "peak_gib", "breakdown")},
-        "training": {k: v for k, v in train_rec.items() if k != "launches"}}))
+        "training": {k: v for k, v in train_rec.items() if k != "launches"},
+        "sa2_generation": {k: sa2_rec[k] for k in (
+            "wall_s", "steps", "audio_s_per_s", "peak_gib", "breakdown", "small")}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

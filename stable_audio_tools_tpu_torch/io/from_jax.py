@@ -77,7 +77,7 @@ def dit_state_dict(p: Mapping, dim_heads: int, prefix: str = "") -> StateDict:
     out: StateDict = {f"{prefix}timestep_features.weight": _np(p["timestep_features"]["weight"])}
     dense(out, f"{prefix}to_timestep_embed.0", p["to_timestep_embed_0"])
     dense(out, f"{prefix}to_timestep_embed.2", p["to_timestep_embed_2"])
-    for name in ("to_cond_embed", "to_global_embed"):
+    for name in ("to_cond_embed", "to_global_embed", "to_prepend_embed"):
         if name in p:
             dense(out, f"{prefix}{name}.0", p[name]["0"])
             dense(out, f"{prefix}{name}.2", p[name]["2"])
@@ -177,11 +177,36 @@ def t5_state_dict(p: Mapping, prefix: str = "") -> StateDict:
     return out
 
 
+def roberta_state_dict(p: Mapping, prefix: str = "") -> StateDict:
+    """Flax RoBERTa params (`FlaxRobertaModel.params`, the JAX package's CLAP
+    text tower) -> Hugging Face torch names, which models/roberta.py uses:
+    the tree's paths joined with dots, `kernel` -> `weight` transposed,
+    `embedding` and LayerNorm `scale` -> `weight`."""
+    out: StateDict = {}
+
+    def walk(node: Mapping, path: str) -> None:
+        for key, value in node.items():
+            if isinstance(value, Mapping):
+                walk(value, f"{path}{key}.")
+            elif key == "kernel":
+                out[f"{path}weight"] = _np(value).T
+            else:
+                out[f"{path}{'bias' if key == 'bias' else 'weight'}"] = _np(value)
+
+    walk(p, prefix)
+    return out
+
+
 def diffusion_cond_state_dict(params: Mapping, dim_heads: int,
-                              t5_params: Optional[Mapping[str, Mapping]] = None) -> StateDict:
+                              t5_params: Optional[Mapping[str, Mapping]] = None,
+                              roberta_params: Optional[Mapping[str, Mapping]] = None
+                              ) -> StateDict:
     """`params` of a ConditionedDiffusionModelWrapper (DiT) -> the port's
     ConditionedDiffusionModelWrapper state_dict. `t5_params` maps a T5
-    conditioner id to its tower's flax params."""
+    conditioner id to its tower's flax params, `roberta_params` a CLAP text
+    conditioner id to its RoBERTa tower's; the CLAP joint-space projection
+    (`text_projection`) is not part of either and keeps what the port's
+    conditioner loaded from the CLAP checkpoint."""
     out = dit_state_dict(params["model"]["dit"], dim_heads, prefix="model.model.")
     if "pretransform" in params:
         out.update(autoencoder_state_dict(params["pretransform"]["model"], "pretransform.model."))
@@ -191,8 +216,10 @@ def diffusion_cond_state_dict(params: Mapping, dim_heads: int,
         if "embedder" in mod:  # NumberConditioner
             out[f"{pfx}embedder.embedding.0.weights"] = _np(mod["embedder"]["weights"])
             dense(out, f"{pfx}embedder.embedding.1", mod["embedder"]["to_out"])
-        if "proj" in mod:  # T5 projection
+        if "proj" in mod:  # T5 / CLAP projection
             dense(out, f"{pfx}proj_out", mod["proj"]["proj_out"])
     for cid, p in (t5_params or {}).items():
         out.update(t5_state_dict(p, f"conditioner.conditioners.{cid}.model."))
+    for cid, p in (roberta_params or {}).items():
+        out.update(roberta_state_dict(p, f"conditioner.conditioners.{cid}.model."))
     return out

@@ -9,14 +9,22 @@ The residual fusion is explicit: every snake -> WNConv1d pair passes the
 snake's parameters to the conv (`pre_snake`), which runs the fused
 snake-conv kernel; the ResidualUnit's skip add rides conv2's epilogue
 (`residual=`). The snake before each transposed upsample runs the fused
-snake kernel and then cuDNN's transposed conv. This slice covers the snake
-activation (SA-Open's VAE); ELU and anti-aliased activations are later slices.
+snake kernel and then cuDNN's transposed conv. Covered: the snake activation
+(SA-Open's and SA-2.0's VAEs); ELU and anti-aliased activations are later
+slices.
+
+`encode_audio` / `decode_audio` are the chunked overlap-paste codec for long
+audio (JAX :462-553): windows of `chunk_size` latents every `chunk_size -
+overlap`, the last one pinned to the end, run through the model in groups of
+`chunk_batch` along the batch axis (the JAX package's `lax.map(batch_size=8)`),
+and pasted with half the overlap trimmed from each inner edge. The JAX
+package's `chunk_pspec` (sharding chunks over a mesh) is not ported.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -162,3 +170,69 @@ class AudioAutoencoder(nn.Module):
             latents = self.bottleneck.decode(latents)
         decoded = self.decoder(latents)
         return torch.tanh(decoded) if self.soft_clip else decoded
+
+    # -- chunked overlap-paste codec ---------------------------------------
+
+    @staticmethod
+    def _chunk_starts(total: int, chunk: int, hop: int) -> List[int]:
+        starts = list(range(0, total - chunk + 1, hop)) or [0]
+        if starts[-1] + chunk != total:
+            starts.append(total - chunk)  # the last chunk is pinned to the end
+        return starts
+
+    @staticmethod
+    def _run_chunks(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
+                    starts: Sequence[int], chunk: int, chunk_batch: int) -> List[torch.Tensor]:
+        """fn over x[..., s:s+chunk] for each start, `chunk_batch` windows at
+        a time stacked on the batch axis; returns one [B, C', L'] per start."""
+        B = x.shape[0]
+        outs: List[torch.Tensor] = []
+        for g in range(0, len(starts), chunk_batch):
+            group = starts[g:g + chunk_batch]
+            y = fn(torch.cat([x[:, :, s:s + chunk] for s in group], dim=0))
+            outs.extend(y.split(B, dim=0))
+        return outs
+
+    @staticmethod
+    def _overlap_paste(chunks: Sequence[torch.Tensor], starts: Sequence[int], chunk_len: int,
+                       total_len: int, overlap_half: int) -> torch.Tensor:
+        """chunks: [B, C, chunk_len] each -> [B, C, total_len]; every chunk but
+        the first drops `overlap_half` on its left, every chunk but the last on
+        its right, and later chunks overwrite earlier ones."""
+        B, C, _ = chunks[0].shape
+        y = chunks[0].new_zeros((B, C, total_len))
+        for i, (s, c) in enumerate(zip(starts, chunks)):
+            lo = overlap_half if i > 0 else 0
+            hi = chunk_len - (overlap_half if i < len(chunks) - 1 else 0)
+            y[:, :, s + lo:s + hi] = c[:, :, lo:hi]
+        return y
+
+    def encode_audio(self, audio: torch.Tensor, chunked: bool = False, overlap: int = 32,
+                     chunk_size: int = 128, chunk_batch: int = 8, **kwargs) -> torch.Tensor:
+        """audio [B, C, T] -> latents; `chunk_size` and `overlap` in latents.
+        With a VAE bottleneck each chunk group draws its own noise from
+        `generator`; an injected `noise` is not supported when chunking."""
+        spl = self.downsampling_ratio
+        if not chunked or audio.shape[2] <= chunk_size * spl:
+            return self.encode(audio, **kwargs)
+        if kwargs.get("noise") is not None:
+            raise ValueError("encode_audio: pass a generator, not noise, when chunking")
+        total, cs = audio.shape[2], chunk_size * spl
+        starts = self._chunk_starts(total, cs, cs - overlap * spl)
+        chunks = self._run_chunks(lambda c: self.encode(c, **kwargs), audio, starts, cs,
+                                  chunk_batch)
+        return self._overlap_paste(chunks, [s // spl for s in starts], chunk_size,
+                                   total // spl, overlap // 2)
+
+    def decode_audio(self, latents: torch.Tensor, chunked: bool = False, overlap: int = 32,
+                     chunk_size: int = 128, chunk_batch: int = 8) -> torch.Tensor:
+        """latents [B, latent_dim, S] -> audio; `chunk_size` and `overlap` in
+        latents."""
+        if not chunked or latents.shape[2] <= chunk_size:
+            return self.decode(latents)
+        spl = self.downsampling_ratio
+        total = latents.shape[2]
+        starts = self._chunk_starts(total, chunk_size, chunk_size - overlap)
+        chunks = self._run_chunks(self.decode, latents, starts, chunk_size, chunk_batch)
+        return self._overlap_paste(chunks, [s * spl for s in starts], chunk_size * spl,
+                                   total * spl, (overlap // 2) * spl)

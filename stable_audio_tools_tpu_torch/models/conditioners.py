@@ -1,6 +1,7 @@
 """Conditioners: metadata -> conditioning tensors; counterpart of
 stable_audio_tools_tpu/models/conditioners.py (NumberConditioner :214,
-T5Conditioner :323, _FallbackTokenizer :517, MultiConditioner :874).
+T5Conditioner :323, _FallbackTokenizer :517, CLAPTextConditioner :551 with
+CLAPProjModule :148, MultiConditioner :874).
 
 Unlike the JAX package, which splits each conditioner into a host half and a
 flax half, each conditioner here is one `nn.Module` whose
@@ -11,7 +12,10 @@ flax half, each conditioner here is one `nn.Module` whose
 The T5 tower is the port's own (models/t5.py), at the published architecture
 of `t5_model_name`; its weights are random unless loaded (the card has no
 `transformers` and no network), which is what `allow_random_init` accepts.
-This slice covers the `t5` and `number` conditioner types (SA-Open's).
+The CLAP text tower is the port's own RoBERTa (models/roberta.py), loaded from
+the `text_branch.*` tensors of a CLAP checkpoint. Covered: the `t5`, `number`
+(SA-Open's) and `clap_text` (SA-2.0's) conditioner types; the CLAP audio
+branch (HTSAT) and the other types are later slices.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .roberta import RobertaArch, RobertaModel
 from .t5 import T5Arch, T5EncoderModel
 
 # (d_model, d_ff, num_layers, num_heads, d_kv, gated): the published T5
@@ -106,6 +111,130 @@ class T5Conditioner(nn.Module):
         return emb * mask[..., None].float(), mask.bool()
 
 
+def load_clap_state_dict(ckpt_path: str) -> tp.Dict[str, torch.Tensor]:
+    """A laion-clap checkpoint's tensors with the lightning wrapper
+    (`state_dict`) and the `module.` prefixes stripped and the position-id
+    buffer dropped (JAX `_load_clap_state_dict` :535)."""
+    sd = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    out = {}
+    for k, v in sd.items():
+        k = k[len("module."):] if k.startswith("module.") else k
+        if k != "text_branch.embeddings.position_ids":
+            out[k] = v.float()
+    return out
+
+
+class CLAPTextConditioner(nn.Module):
+    """CLAP text branch: a frozen RoBERTa tower in f32, then either its
+    hidden states at `feature_layer_ix` (`use_text_features`, 768 wide; what
+    SA-2.0 cross-attends to) or the 512-wide joint-space embedding
+    relu(pooler @ W1 + b1) @ W2 + b2 (`text_projection`), then the learnable
+    `proj_out` when the widths differ. The mask is all ones, as in the JAX
+    package: CLAP features are not masked.
+
+    The tower comes from `clap_ckpt_path` (dimensions read from the tensors'
+    shapes). Without a checkpoint it is an error unless `allow_random_init`
+    (a 2-layer 768-wide tower as the JAX package's, random weights).
+    `set_embed_fn(fn)` replaces the tower with precomputed features:
+    fn(texts) -> [B, dim] or [B, n, dim].
+
+    Texts are tokenized by `FallbackTokenizer(77)`: the card's machine has no
+    `transformers`, so no BPE vocabulary. With real CLAP weights the
+    embeddings are only meaningful through a RoBERTa tokenizer set as
+    `.tokenizer` (texts -> (ids, mask) numpy arrays)."""
+
+    MAX_LENGTH = 77
+
+    def __init__(self, output_dim: int, clap_ckpt_path: tp.Optional[str] = None,
+                 use_text_features: bool = False, feature_layer_ix: int = -1,
+                 audio_model_type: str = "HTSAT-base", enable_fusion: bool = True,
+                 project_out: bool = False, finetune: bool = False,
+                 allow_random_init: bool = False):
+        super().__init__()
+        del audio_model_type, enable_fusion  # the audio branch's; the text tower ignores them
+        if finetune:
+            raise NotImplementedError("finetune=True: the CLAP tower is frozen in this port")
+        self.use_text_features = use_text_features
+        self.feature_layer_ix = feature_layer_ix
+        self.dim = 768 if use_text_features else 512
+        self._embed_fn = None
+        self.tokenizer = FallbackTokenizer(self.MAX_LENGTH)
+        proj = None
+        if clap_ckpt_path:
+            sd = load_clap_state_dict(clap_ckpt_path)
+            tower = {k[len("text_branch."):]: v for k, v in sd.items()
+                     if k.startswith("text_branch.")}
+            # buffers newer Hugging Face versions save beside the parameters
+            tower = {k: v for k, v in tower.items()
+                     if not k.endswith(("position_ids", "token_type_ids"))}
+            self.model = RobertaModel(RobertaArch.from_state_dict(tower))
+            if self.model.pooler.dense.weight.device.type != "meta":  # meta: shapes only
+                self.model.load_state_dict(tower, strict=True)
+            for stem in ("text_projection", "text_branch_projection"):
+                if f"{stem}.0.weight" in sd:
+                    proj = [sd[f"{stem}.{i}.{n}"] if f"{stem}.{i}.{n}" in sd else None
+                            for i in (0, 2) for n in ("weight", "bias")]
+                    break
+            if proj is None and not allow_random_init:
+                raise RuntimeError(
+                    f"CLAP checkpoint {clap_ckpt_path} has no text_projection.* / "
+                    "text_branch_projection.* keys; refusing to random-init the projection "
+                    "(set allow_random_init=True to override)")
+        elif allow_random_init:
+            self.model = RobertaModel(RobertaArch(num_layers=2, intermediate_size=1536,
+                                                  max_positions=512, type_vocab_size=2))
+        else:
+            raise RuntimeError(
+                "CLAPTextConditioner has no clap_ckpt_path and allow_random_init is False: "
+                "give a local CLAP checkpoint or set allow_random_init=True to accept "
+                "random weights")
+        hid = self.model.arch.hidden_size
+        if proj is None:  # the JAX package's seeded random projection
+            rng = np.random.RandomState(0)
+            w1 = (rng.randn(hid, 512) / np.sqrt(hid)).astype(np.float32)
+            w2 = (rng.randn(512, 512) / np.sqrt(512)).astype(np.float32)
+            proj = [torch.from_numpy(w1.T.copy()), None, torch.from_numpy(w2.T.copy()), None]
+        w1, b1, w2, b2 = proj
+        self.text_projection = nn.Sequential(nn.Linear(w1.shape[1], w1.shape[0]), nn.ReLU(),
+                                             nn.Linear(w2.shape[1], w2.shape[0]))
+        with torch.no_grad():
+            for lin, w, b in ((self.text_projection[0], w1, b1), (self.text_projection[2], w2, b2)):
+                lin.weight.copy_(w)
+                lin.bias.zero_() if b is None else lin.bias.copy_(b)
+        self.model.requires_grad_(False)
+        self.text_projection.requires_grad_(False)
+        # whether to project follows the nominal width (768 / 512), as the JAX
+        # package; the layer's input is the width the tower really gives
+        feat_dim = hid if use_text_features else w2.shape[0]
+        self.proj_out = (nn.Linear(feat_dim, output_dim)
+                         if self.dim != output_dim or project_out else None)
+
+    def set_embed_fn(self, fn: tp.Optional[tp.Callable]) -> None:
+        self._embed_fn = fn
+
+    @torch.no_grad()
+    def features(self, texts: tp.Sequence[str], device) -> torch.Tensor:
+        if self._embed_fn is not None:
+            return torch.as_tensor(np.asarray(self._embed_fn(list(texts)), np.float32),
+                                   device=device)
+        ids, mask = self.tokenizer(list(texts))
+        ids, mask = torch.from_numpy(ids).to(device), torch.from_numpy(mask).to(device)
+        hidden_states, pooled = self.model(ids, mask)
+        if self.use_text_features:
+            return hidden_states[self.feature_layer_ix]
+        return self.text_projection(pooled)
+
+    def forward(self, texts: tp.Sequence[str], device) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+        feats = self.features(texts, device)
+        if feats.dim() == 2:
+            feats = feats[:, None, :]
+        if self.proj_out is not None:
+            feats = self.proj_out(feats)
+        return feats, torch.ones(feats.shape[:2], dtype=torch.bool, device=device)
+
+
 class NumberEmbedder(nn.Module):
     """Learned Fourier features of a scalar + Linear (reference
     NumberEmbedder: `embedding.0.weights`, `embedding.1`)."""
@@ -177,6 +306,8 @@ def create_multi_conditioner_from_conditioning_config(config: tp.Dict[str, tp.An
             conditioners[info["id"]] = T5Conditioner(**ccfg)
         elif info["type"] == "number":
             conditioners[info["id"]] = NumberConditioner(**ccfg)
+        elif info["type"] == "clap_text":
+            conditioners[info["id"]] = CLAPTextConditioner(**ccfg)
         else:
             raise NotImplementedError(f"conditioner type {info['type']} is not ported yet")
     return MultiConditioner(conditioners, config.get("default_keys"))

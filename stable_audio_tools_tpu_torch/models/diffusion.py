@@ -24,14 +24,25 @@ from .pretransforms import AutoencoderPretransform
 
 
 class DiTWrapper(nn.Module):
-    """Adapter: wrapper kwargs -> DiffusionTransformer."""
+    """Adapter: wrapper kwargs -> DiffusionTransformer. As in the JAX package
+    (:175), `cross_attn_mask`, `negative_global_cond` and
+    `negative_input_concat_cond` are accepted and not used by the DiT."""
 
     def __init__(self, model: DiffusionTransformer):
         super().__init__()
         self.model = model
 
-    def forward(self, x, t, cross_attn_cond=None, global_cond=None, **kwargs):
-        return self.model(x, t, cross_attn_cond=cross_attn_cond, global_embed=global_cond,
+    def forward(self, x, t, cross_attn_cond=None, cross_attn_mask=None,
+                negative_cross_attn_cond=None, negative_cross_attn_mask=None,
+                input_concat_cond=None, negative_input_concat_cond=None,
+                global_cond=None, negative_global_cond=None,
+                prepend_cond=None, prepend_cond_mask=None, **kwargs):
+        del cross_attn_mask, negative_input_concat_cond, negative_global_cond
+        return self.model(x, t, cross_attn_cond=cross_attn_cond,
+                          negative_cross_attn_cond=negative_cross_attn_cond,
+                          negative_cross_attn_mask=negative_cross_attn_mask,
+                          input_concat_cond=input_concat_cond, global_embed=global_cond,
+                          prepend_cond=prepend_cond, prepend_cond_mask=prepend_cond_mask,
                           **kwargs)
 
 
@@ -40,7 +51,9 @@ class ConditionedDiffusionModelWrapper(nn.Module):
                  io_channels: int, sample_rate: int, diffusion_objective: str = "v",
                  pretransform: tp.Optional[AutoencoderPretransform] = None,
                  cross_attn_cond_ids: tp.Sequence[str] = (),
-                 global_cond_ids: tp.Sequence[str] = ()):
+                 global_cond_ids: tp.Sequence[str] = (),
+                 input_concat_ids: tp.Sequence[str] = (),
+                 prepend_cond_ids: tp.Sequence[str] = ()):
         super().__init__()
         self.model = model
         self.conditioner = conditioner
@@ -50,21 +63,46 @@ class ConditionedDiffusionModelWrapper(nn.Module):
         self.diffusion_objective = diffusion_objective
         self.cross_attn_cond_ids = tuple(cross_attn_cond_ids)
         self.global_cond_ids = tuple(global_cond_ids)
+        self.input_concat_ids = tuple(input_concat_ids)
+        self.prepend_cond_ids = tuple(prepend_cond_ids)
 
-    def get_conditioning_inputs(self, cond: tp.Dict[str, tp.Tuple[torch.Tensor, torch.Tensor]]
-                                ) -> tp.Dict[str, torch.Tensor]:
-        """Route {key: (tensor, mask)} into the DiT's keyword arguments. The
-        masks are not routed: the DiT does not use a cross-attention mask
-        (as the reference's), and padding tokens arrive zeroed."""
-        cross = glob = None
+    def get_conditioning_inputs(self, cond: tp.Dict[str, tp.Tuple[torch.Tensor, torch.Tensor]],
+                                negative: bool = False) -> tp.Dict[str, torch.Tensor]:
+        """Route {key: (tensor, mask)} into the DiT's keyword arguments (JAX
+        :78): cross-attention tokens and masks concatenated along the
+        sequence, global conditions along the width, input-concat conditions
+        along the channels, prepend conditions along the sequence. With
+        `negative` the same routing under the `negative_*` names (the CFG
+        pass's unconditional half)."""
+        def with_mask(key):
+            c, m = cond[key]
+            if c.dim() == 2:
+                c, m = c[:, None, :], (m[:, None] if m is not None else None)
+            if m is None:
+                m = torch.ones(c.shape[:2], dtype=torch.bool, device=c.device)
+            return c, m
+
+        def along_sequence(keys):
+            pairs = [with_mask(key) for key in keys]
+            return torch.cat([c for c, _ in pairs], dim=1), torch.cat([m for _, m in pairs], dim=1)
+
+        cross = cross_mask = glob = concat = prepend = prepend_mask = None
         if self.cross_attn_cond_ids:
-            cross = torch.cat([cond[key][0] if cond[key][0].dim() == 3 else cond[key][0][:, None]
-                               for key in self.cross_attn_cond_ids], dim=1)
+            cross, cross_mask = along_sequence(self.cross_attn_cond_ids)
         if self.global_cond_ids:
             glob = torch.cat([cond[key][0] for key in self.global_cond_ids], dim=-1)
             if glob.dim() == 3:
                 glob = glob.squeeze(1)
-        return {"cross_attn_cond": cross, "global_cond": glob}
+        if self.input_concat_ids:
+            concat = torch.cat([cond[key][0] for key in self.input_concat_ids], dim=1)
+        if self.prepend_cond_ids:
+            prepend, prepend_mask = along_sequence(self.prepend_cond_ids)
+        if negative:
+            return {"negative_cross_attn_cond": cross, "negative_cross_attn_mask": cross_mask,
+                    "negative_global_cond": glob, "negative_input_concat_cond": concat}
+        return {"cross_attn_cond": cross, "cross_attn_mask": cross_mask, "global_cond": glob,
+                "input_concat_cond": concat, "prepend_cond": prepend,
+                "prepend_cond_mask": prepend_mask}
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, **kwargs) -> torch.Tensor:
         return self.model(x, t, **kwargs)
@@ -76,21 +114,26 @@ class ConditionedDiffusionModelWrapper(nn.Module):
         return self.pretransform.encode(audio, generator=generator, noise=noise)
 
 
-def create_diffusion_cond_from_config(config: tp.Dict[str, tp.Any]) -> ConditionedDiffusionModelWrapper:
-    from .factory import create_pretransform_from_config
+def create_diffusion_cond_from_config(config: tp.Dict[str, tp.Any], device=None
+                                      ) -> ConditionedDiffusionModelWrapper:
+    """`diffusion_cond` / `diffusion_cond_inpaint` configs -> the wrapper,
+    its parameters on `device` (default: the current CUDA card)."""
+    from .factory import create_pretransform_from_config, resolve_device
 
+    device = resolve_device(device)
     model_config = config["model"]
     diffusion = model_config["diffusion"]
     if diffusion["type"] != "dit":
         raise NotImplementedError(f"diffusion model type {diffusion['type']} is not ported yet")
     pretransform = model_config.get("pretransform")
     if pretransform is not None:
-        pretransform = create_pretransform_from_config(pretransform, config["sample_rate"])
+        pretransform = create_pretransform_from_config(pretransform, config["sample_rate"], device)
         pretransform.requires_grad_(False)
     conditioning = model_config.get("conditioning")
-    conditioner = (create_multi_conditioner_from_conditioning_config(conditioning)
-                   if conditioning is not None else None)
-    dit = DiffusionTransformer(**diffusion["config"])
+    with device:
+        conditioner = (create_multi_conditioner_from_conditioning_config(conditioning)
+                       if conditioning is not None else None)
+        dit = DiffusionTransformer(**diffusion["config"])
     return ConditionedDiffusionModelWrapper(
         DiTWrapper(dit), conditioner,
         io_channels=model_config["io_channels"],
@@ -99,4 +142,6 @@ def create_diffusion_cond_from_config(config: tp.Dict[str, tp.Any]) -> Condition
         pretransform=pretransform,
         cross_attn_cond_ids=diffusion.get("cross_attention_cond_ids", ()),
         global_cond_ids=diffusion.get("global_cond_ids", ()),
+        input_concat_ids=diffusion.get("input_concat_ids", ()),
+        prepend_cond_ids=diffusion.get("prepend_cond_ids", ()),
     )

@@ -1,16 +1,21 @@
 """Config-driven factories; counterpart of stable_audio_tools_tpu/models/factory.py.
 
 The JSON model config is the public API: the shipped
-`stable_audio_open_1_0.json` builds unchanged. This slice builds
-`diffusion_cond` (DiT), `autoencoder` (Oobleck + VAE bottleneck) and the
-`autoencoder` pretransform; other types raise NotImplementedError.
+`stable_audio_open_1_0.json` and `stable_audio_2_0.json` build unchanged.
+Built: `diffusion_cond` and `diffusion_cond_inpaint` (DiT), `autoencoder`
+(Oobleck + VAE bottleneck) and the `autoencoder` pretransform; other types
+raise NotImplementedError.
+
+Every factory takes the `device` the parameters are created on. The default
+is the current CUDA card, and without one the call raises: a model lands on
+the CPU (or on `meta`, for shapes only) only when the caller names it.
 """
 
 from __future__ import annotations
 
 import json
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -20,22 +25,33 @@ from .bottleneck import VAEBottleneck
 from .pretransforms import AutoencoderPretransform
 
 _OOBLECK_KEYS = ("channels", "latent_dim", "c_mults", "strides", "use_snake")
+Device = Optional[Union[str, torch.device]]
 
 
-def create_model_from_config(model_config: Dict[str, Any]) -> nn.Module:
+def resolve_device(device: Device = None) -> torch.device:
+    """`device`, or the current CUDA card when it is None."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card: the port builds its models on the GPU unless "
+                           "asked otherwise; pass device=\"cpu\" to build on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def create_model_from_config(model_config: Dict[str, Any], device: Device = None) -> nn.Module:
     model_type = model_config.get("model_type")
     if model_type == "autoencoder":
-        return create_autoencoder_from_config(model_config)
-    if model_type == "diffusion_cond":
+        return create_autoencoder_from_config(model_config, device)
+    if model_type in ("diffusion_cond", "diffusion_cond_inpaint"):
         from .diffusion import create_diffusion_cond_from_config
 
-        return create_diffusion_cond_from_config(model_config)
+        return create_diffusion_cond_from_config(model_config, device)
     raise NotImplementedError(f"model type {model_type} is not ported yet")
 
 
-def create_model_from_config_path(path: str) -> nn.Module:
+def create_model_from_config_path(path: str, device: Device = None) -> nn.Module:
     with open(path) as f:
-        return create_model_from_config(json.load(f))
+        return create_model_from_config(json.load(f), device)
 
 
 def _oobleck(section: Dict[str, Any], io_key: str, cls):
@@ -50,7 +66,13 @@ def _oobleck(section: Dict[str, Any], io_key: str, cls):
     return cls(**kwargs)
 
 
-def create_autoencoder_from_config(config: Dict[str, Any]) -> AudioAutoencoder:
+def create_autoencoder_from_config(config: Dict[str, Any], device: Device = None
+                                   ) -> AudioAutoencoder:
+    with resolve_device(device):
+        return _autoencoder(config)
+
+
+def _autoencoder(config: Dict[str, Any]) -> AudioAutoencoder:
     ae = config["model"]
     bottleneck = ae.get("bottleneck")
     if bottleneck is not None and bottleneck["type"] != "vae":
@@ -67,18 +89,25 @@ def create_autoencoder_from_config(config: Dict[str, Any]) -> AudioAutoencoder:
     )
 
 
-def create_pretransform_from_config(config: Dict[str, Any], sample_rate: int) -> AutoencoderPretransform:
+def create_pretransform_from_config(config: Dict[str, Any], sample_rate: int,
+                                    device: Device = None) -> AutoencoderPretransform:
     if config["type"] != "autoencoder":
         raise NotImplementedError(f"{config['type']} pretransform is not ported yet")
-    ae = create_autoencoder_from_config({"model": config["config"], "sample_rate": sample_rate})
+    ae = create_autoencoder_from_config({"model": config["config"], "sample_rate": sample_rate},
+                                        device)
     return AutoencoderPretransform(ae, scale=config.get("scale", 1.0),
-                                   model_half=config.get("model_half", False))
+                                   model_half=config.get("model_half", False),
+                                   chunked=config.get("chunked", False),
+                                   iterate_batch=config.get("iterate_batch", False))
 
 
 @torch.no_grad()
-def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Re-draw every parameter from `generator` (deterministic random init
-    for benchmarks and smoke runs; real weights are loaded instead):
+def init_random_(model: nn.Module, generator: torch.Generator,
+                 skip: Sequence[nn.Module] = ()) -> nn.Module:
+    """Re-draw every parameter from `generator`, but for the modules in
+    `skip` and their children, e.g. a tower loaded from a checkpoint
+    (deterministic random init for benchmarks and smoke runs; real weights
+    are loaded instead):
     Linear / conv weights ~ N(0, 1/fan_in), biases 0, embeddings ~ N(0, 1),
     norm scales 1, log-scale snake parameters 0, Fourier weights ~ N(0, 1),
     weight-norm g = ||v||."""
@@ -93,7 +122,10 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         p.copy_(torch.randn(p.shape, generator=generator, dtype=p.dtype,
                             device=generator.device) * std)
 
+    kept = {id(c) for m in skip for c in m.modules()}
     for m in model.modules():
+        if id(m) in kept:
+            continue
         if isinstance(m, (nn.Linear, nn.Conv1d)):
             normal_(m.weight, 1.0 / math.sqrt(m.weight[0].numel()))
             if m.bias is not None:

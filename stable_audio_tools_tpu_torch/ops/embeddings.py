@@ -56,3 +56,14 @@ def apply_rotary_pos_emb(t: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
     t_rot, t_pass = tf[..., :rot_dim], tf[..., rot_dim:]
     t_rot = t_rot * torch.cos(freqs) + _rotate_half(t_rot) * torch.sin(freqs)
     return torch.cat([t_rot, t_pass], dim=-1).to(t.dtype)
+
+
+def apply_rotary_pos_emb_nhd(t: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
+    """The same rotation over t [B, N, H, dim_head] (sequence on axis 1): the
+    frequencies broadcast over the head axis (JAX ops/embeddings.py:74)."""
+    rot_dim = freqs.shape[-1]
+    freqs = freqs[-t.shape[1]:].float()[:, None, :]
+    tf = t.float()
+    t_rot, t_pass = tf[..., :rot_dim], tf[..., rot_dim:]
+    t_rot = t_rot * torch.cos(freqs) + _rotate_half(t_rot) * torch.sin(freqs)
+    return torch.cat([t_rot, t_pass], dim=-1).to(t.dtype)

@@ -98,10 +98,13 @@ def check(code: int, what: str) -> None:
 
 
 def build_all() -> Dict[str, float]:
-    """Build (or load) every source under csrc/; returns nvcc seconds per
-    source."""
-    for src in sorted(CSRC.glob("*.cu")):
-        library(src.stem)
+    """Build (or load) every source under csrc/, one nvcc per source and all
+    started together; returns nvcc seconds per source."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = [src.stem for src in sorted(CSRC.glob("*.cu"))]
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(library, names))
     return dict(BUILD_SECONDS)
 
 

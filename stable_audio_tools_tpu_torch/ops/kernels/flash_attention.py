@@ -1,5 +1,5 @@
-"""Prefix flash attention: the Hopper port of the TPU `flash_attention_prefix`
-and of its backward.
+"""Flash attention: the Hopper ports of the TPU `flash_attention_prefix`, of
+its backward, and of the strided-layout entry `flash_attention_nhd`.
 
 `flash_attention_prefix(q, k, v, prefix_len)` computes non-causal, unmasked
 softmax(QK^T / sqrt(d)) V over [B, H, N, D] where the first `prefix_len`
@@ -24,6 +24,19 @@ JAX package's `_flash_backward` has its fused and two-pass kernels:
   `_bwd_dkv_kernel` + `_bwd_dq_kernel`.
 `BWD_ROUTE` is the one the training path runs (picked by an A/B on the H100,
 PERF.md).
+
+`flash_attention_nhd(q, k, v, causal=False, prefix_len=0)` is the same
+attention over q, k, v in the activation layout [B, N, H, 64], returned in
+that layout: non-causal with a prefix of at most 128 rows, or causal with no
+prefix. On CUDA it launches `csrc/flash_nhd.cu`, which reads each operand
+through its own strides (q, k, v may be views of one fused [B, N, 3*H*64]
+projection output, or fresh tensors) and writes [B, N, H*64], the operand of
+the output projection: no transposed or contiguous copy on either side. A
+layout the kernel cannot read (last stride not 1, rows off 16 bytes) raises;
+nothing is copied silently. Its backward transposes to [B, H, N, 64] and
+reuses `flash_attention_prefix_bwd`, as the JAX package's `_nhd_bwd` reuses
+`_flash_backward`; the causal backward has no kernel yet and raises on CUDA.
+CPU tensors take `flash_attention_nhd_plain`.
 """
 
 from __future__ import annotations
@@ -37,6 +50,7 @@ import torch
 from . import _build
 
 MAX_PREFIX = 64
+MAX_PREFIX_NHD = 128
 HEAD_DIM = 64
 BWD_ROUTES = ("fused", "two_pass")
 # the two-pass route measured 2.030 ms against the single pass's 2.145 ms at
@@ -58,15 +72,18 @@ def flash_attention_prefix_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
 
 def flash_attention_prefix_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      out: torch.Tensor, lse: torch.Tensor,
-                                     dout: torch.Tensor
+                                     dout: torch.Tensor, causal: bool = False
                                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Reference backward in f32 from the saved logsumexp: with
-    P = exp(QK^T s - lse) and dsum = rowsum(dO * O),
+    P = exp(QK^T s - lse) (0 above the diagonal when `causal`) and
+    dsum = rowsum(dO * O),
     dV = P^T dO, dS = P (dO V^T - dsum) s, dK = dS^T Q, dQ = dS K.
     Returns (dq, dk, dv) in the inputs' dtypes."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     qf, kf, vf, gf = q.float(), k.float(), v.float(), dout.float()
     p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale - lse.float()[..., None])
+    if causal:
+        p = p.tril()
     dsum = (gf * out.float()).sum(-1, keepdim=True)
     ds = p * (torch.matmul(gf, vf.transpose(-1, -2)) - dsum) * scale
     dq = torch.matmul(ds, kf)
@@ -196,3 +213,105 @@ def flash_attention_prefix(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_prefix.launches = 0
+
+
+def flash_attention_nhd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              causal: bool = False, prefix_len: int = 0
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reference over [B, N, H, D]: f32 logits, the causal mask, softmax and
+    PV in plain PyTorch (the prefix split does not change the function).
+    Returns (out in q.dtype [B,N,H,D], lse f32 [B,H,N])."""
+    del prefix_len
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
+    if causal:
+        n = q.shape[1]
+        keep = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~keep, float("-inf"))
+    lse = torch.logsumexp(logits, dim=-1)
+    p = torch.exp(logits - lse[..., None])
+    return torch.einsum("bhnm,bmhd->bnhd", p, v.float()).to(q.dtype).contiguous(), lse
+
+
+def _nhd_strides(name: str, t: torch.Tensor):
+    """(batch, row, head) element strides of a [B, N, H, 64] operand the
+    kernel can read as it lies: last axis contiguous, every 64-element row
+    starting on a 16-byte boundary."""
+    sb, sn, sh, sd = t.stride()
+    if sd != 1:
+        raise ValueError(f"flash_attention_nhd: {name} has last-axis stride {sd}; the kernel "
+                         "reads contiguous 64-element rows and makes no copy")
+    if t.data_ptr() % 16 or any(s % 8 for s in (sb, sn, sh)):
+        raise ValueError(f"flash_attention_nhd: {name} rows are not 16-byte aligned "
+                         f"(data_ptr % 16 = {t.data_ptr() % 16}, strides {t.stride()})")
+    return sb, sn, sh
+
+
+def _launch_nhd(q, k, v, causal, prefix_len):
+    B, N, H, D = q.shape
+    if D != HEAD_DIM:
+        raise ValueError(f"flash_attention_nhd: head dim {D}, kernel needs {HEAD_DIM}")
+    _check_cuda("flash_attention_nhd", (("q", q), ("k", k), ("v", v)), q.shape, torch.bfloat16)
+    out = torch.empty((B, N, H, D), device=q.device, dtype=q.dtype)
+    lse = torch.empty((B, H, N), device=q.device, dtype=torch.float32)
+    strides = [s for name, t in (("q", q), ("k", k), ("v", v), ("out", out))
+               for s in _nhd_strides(name, t)]
+    fn = _build.bind("flash_nhd", "flash_nhd_fwd", [ctypes.c_void_p] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 5 + [ctypes.c_float,
+                                                                   ctypes.c_void_p])
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+              (ctypes.c_longlong * 12)(*strides), B, H, N, prefix_len, int(causal),
+              1.0 / math.sqrt(D), _stream(q))
+    _build.check(code, "flash_nhd_fwd")
+    flash_attention_nhd.launches += 1
+    return out, lse
+
+
+class _FlashAttentionNHD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, prefix_len):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_nhd_plain(q, k, v, causal, prefix_len)
+        else:
+            out, lse = _launch_nhd(q, k, v, causal, prefix_len)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        bhnd = [t.transpose(1, 2) for t in (q, k, v, out, dout)]
+        if q.device.type == "cpu":
+            grads = flash_attention_prefix_bwd_plain(*bhnd[:4], lse, bhnd[4], causal=ctx.causal)
+        elif ctx.causal:
+            raise RuntimeError(
+                "flash_attention_nhd: the causal backward has no CUDA kernel yet (it comes "
+                "with the causal flash-attention slice); call it under torch.no_grad()")
+        else:
+            grads = flash_attention_prefix_bwd(*bhnd[:4], lse, bhnd[4])
+        return (*(g.transpose(1, 2) for g in grads), None, None)
+
+
+def flash_attention_nhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = False, prefix_len: int = 0) -> torch.Tensor:
+    """q, k, v: [B, N, H, D] (any strides with a contiguous last axis); the
+    first `prefix_len` (<= 128, non-causal only) rows are a prepended prefix.
+    Returns out [B, N, H, D], contiguous, in q.dtype."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q/k/v must share one [B, N, H, D] shape: {tuple(q.shape)} "
+                         f"{tuple(k.shape)} {tuple(v.shape)}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention_nhd: unsupported device {q.device}")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+    if prefix_len and causal:
+        raise ValueError("flash_attention_nhd: the prefix fold is non-causal")
+    if not 0 <= prefix_len <= MAX_PREFIX_NHD or prefix_len >= q.shape[1]:
+        raise ValueError(f"prefix_len {prefix_len} outside [0, {MAX_PREFIX_NHD}] or not "
+                         f"below N={q.shape[1]}")
+    return _FlashAttentionNHD.apply(q, k, v, bool(causal), int(prefix_len))
+
+
+flash_attention_nhd.launches = 0

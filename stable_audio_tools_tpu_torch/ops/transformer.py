@@ -2,7 +2,7 @@
 stable_audio_tools_tpu/ops/transformer.py (TransformerBlock :150,
 ContinuousTransformer :329, the GLU feed-forward).
 
-This slice covers the configuration SA-Open's DiT runs: pre-norm blocks with
+This covers the configuration SA-Open's and SA-2.0's DiTs run: pre-norm blocks with
 bias-less LayerNorms, self-attention with partial rotary embeddings,
 cross-attention to the conditioning tokens, a GLU (SiLU) feed-forward, and
 prepended tokens ahead of the sequence. Parameter names are the reference

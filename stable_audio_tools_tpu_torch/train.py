@@ -6,8 +6,8 @@
 Builds the model from its JSON config (random weights drawn from a
 `torch.Generator` seeded with --seed; the T5 tower is random unless the
 config's conditioner loads weights), the training wrapper from the config's
-`training` section and an `audio_dir` dataloader, then trains on the CUDA
-card (the CPU when there is none), writing `train_log.jsonl` and
+`training` section and an `audio_dir` dataloader, then trains on the current
+CUDA card (on the CPU only with `--device cpu`), writing `train_log.jsonl` and
 `step=N.ckpt` files to --save-dir. Defaults come from the repository's
 `defaults.ini`. Flags of the JAX entry point that the port does not implement
 yet are refused.
@@ -62,6 +62,8 @@ def parse_args(argv: tp.Optional[tp.Sequence[str]] = None) -> argparse.Namespace
     p.add_argument("--accum-batches", type=int, default=int(d.get("accum_batches", 1)))
     p.add_argument("--ckpt-path", default=d.get("ckpt_path", ""))
     p.add_argument("--precision", default=d.get("precision", "16-mixed"))
+    p.add_argument("--device", default=None,
+                   help="torch device of the model (default: the current CUDA card)")
     p.add_argument("--gradient-clip-val", type=float,
                    default=float(d.get("gradient_clip_val", 0.0)))
     for flag in UNPORTED_FLAGS:
@@ -80,15 +82,14 @@ def parse_args(argv: tp.Optional[tp.Sequence[str]] = None) -> argparse.Namespace
 
 def build(args: argparse.Namespace, device: tp.Optional[torch.device] = None):
     """(Trainer, dataloader) for the parsed arguments; the model lives on
-    `device` (default: the current CUDA card, else the CPU)."""
+    `device` (default: --device, else the current CUDA card)."""
     from .data.dataset import create_dataloader_from_config
-    from .models.factory import create_model_from_config, init_random_
+    from .models.factory import create_model_from_config, init_random_, resolve_device
     from .training.factory import create_training_wrapper_from_config
     from .training.trainer import Trainer
     from .training.utils import get_rank
 
-    if device is None:
-        device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = resolve_device(device if device is not None else args.device)
     with open(args.model_config) as f:
         model_config = json.load(f)
     with open(args.dataset_config) as f:
@@ -97,8 +98,7 @@ def build(args: argparse.Namespace, device: tp.Optional[torch.device] = None):
     dit_config.setdefault("compute_dtype", PRECISION_DTYPE[args.precision])
     random.seed(args.seed)
     np.random.seed(args.seed)
-    with torch.device(device):
-        model = create_model_from_config(model_config)
+    model = create_model_from_config(model_config, device)
     init_random_(model, torch.Generator(device=device).manual_seed(args.seed))
     wrapper = create_training_wrapper_from_config(
         model_config, model, gradient_clip_val=args.gradient_clip_val, seed=args.seed)

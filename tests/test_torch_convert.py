@@ -101,7 +101,7 @@ def test_autoencoder_state_dict_imports_back_through_jax_importer():
     jax.tree_util.tree_map(np.testing.assert_array_equal,
                            jax.tree_util.tree_map(np.asarray, back), p)
     # the port's autoencoder has exactly these names and shapes
-    port = create_model_from_config(AE_CONFIG)
+    port = create_model_from_config(AE_CONFIG, "cpu")
     port.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in sd.items()}, strict=True)
 
 

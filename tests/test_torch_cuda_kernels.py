@@ -155,3 +155,81 @@ def test_snake_wrappers_raise_on_inputs_that_require_grad(dev):
             call()
     with torch.no_grad():  # the frozen encoder's way: no autograd, no error
         assert sn.snake_fused(x, a, b).grad_fn is None
+
+
+def _nhd_inputs(dev, B, N, H, layout):
+    """q, k, v [B, N, H, 64]: fresh contiguous tensors, strided views of one
+    fused [B, N, 3*H*64] projection output, or a mix (q and k fresh as after
+    the rotary, v still a view)."""
+    if layout == "contiguous":
+        return tuple(_randn(dev, B, N, H, 64, seed=i) for i in range(3))
+    fused = _randn(dev, B, N, 3 * H * 64, seed=7)
+    q, k, v = (t.view(B, N, H, 64) for t in fused.chunk(3, dim=-1))
+    if layout == "mixed":
+        q, k = q.clone(), k.clone()
+    return q, k, v
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "fused_views", "mixed"])
+@pytest.mark.parametrize("B,N,H,P,causal", [
+    (1, 131, 3, 1, False), (2, 69, 2, 0, False), (1, 200, 1, 64, False),
+    (1, 257, 5, 128, False), (2, 193, 3, 100, False), (1, 131, 3, 0, True),
+    (2, 64, 2, 0, True), (1, 1025, 4, 1, False)])
+def test_flash_attention_nhd(dev, layout, B, N, H, P, causal):
+    # ragged N (partial query and key tiles), every prefix regime (none, one
+    # token, one full tile, two tiles, a partial second tile), causal, odd
+    # head counts, and the three layouts the attention module produces
+    q, k, v = _nhd_inputs(dev, B, N, H, layout)
+    before = [t.clone() for t in (q, k, v)]
+    out = fa.flash_attention_nhd(q, k, v, causal=causal, prefix_len=P)
+    want, want_lse = fa.flash_attention_nhd_plain(q, k, v, causal, P)
+    assert out.shape == (B, N, H, 64) and out.is_contiguous()
+    _close(out, want)
+    for t, b in zip((q, k, v), before):
+        assert torch.equal(t, b)
+    _, lse = fa._launch_nhd(q, k, v, causal, P)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+
+
+def test_flash_attention_nhd_matches_prefix_entry(dev):
+    # the same function as the [B, H, N, 64] entry on transposed copies
+    q, k, v = _nhd_inputs(dev, 2, 1025, 4, "fused_views")
+    out = fa.flash_attention_nhd(q, k, v, prefix_len=1)
+    want, _ = fa.flash_attention_prefix(*(t.transpose(1, 2) for t in (q, k, v)), 1)
+    _close(out, want.transpose(1, 2))
+
+
+def test_flash_attention_nhd_gradients(dev):
+    # the autograd Function on the card (NHD forward, the [B, H, N, 64]
+    # backward kernels on transposed copies) against autograd through the
+    # plain version: 2e-2 of each gradient's peak, as the flash backward
+    fused = _randn(dev, 2, 130, 3 * 3 * 64, seed=1).requires_grad_()
+    w = _randn(dev, 2, 130, 3, 64, seed=9)
+
+    def grads(fn):
+        q, k, v = (t.view(2, 130, 3, 64) for t in fused.chunk(3, dim=-1))
+        return torch.autograd.grad((fn(q, k, v).float() * w.float()).sum(), fused)[0]
+
+    got = grads(lambda q, k, v: fa.flash_attention_nhd(q, k, v, prefix_len=1))
+    want = grads(lambda q, k, v: fa.flash_attention_nhd_plain(q, k, v, False, 1)[0])
+    assert _rel_err(got, want) < 2e-2
+    q, k, v = (_randn(dev, 1, 70, 2, 64, seed=i).requires_grad_() for i in range(3))
+    out = fa.flash_attention_nhd(q, k, v, causal=True)
+    with pytest.raises(RuntimeError, match="causal backward"):
+        out.sum().backward()
+
+
+def test_flash_attention_nhd_raises_on_unreadable_input(dev):
+    q = _randn(dev, 1, 70, 2, 64)
+    with pytest.raises(TypeError):  # f32: the kernel takes bf16
+        fa.flash_attention_nhd(q.float(), q.float(), q.float())
+    t = _randn(dev, 1, 70, 64, 2).transpose(2, 3)  # last-axis stride 2
+    with pytest.raises(ValueError, match="last-axis stride"):
+        fa.flash_attention_nhd(t, q, q)
+    odd = _randn(dev, 1, 70, 2 * 64 + 4)[..., 4:].view(1, 70, 2, 64)  # rows off 16 bytes
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_nhd(q, odd, q)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_nhd(*(_randn(dev, 1, 70, 2, 32),) * 3)
+    with pytest.raises(ValueError, match="non-causal"):
+        fa.flash_attention_nhd(q, q, q, causal=True, prefix_len=1)

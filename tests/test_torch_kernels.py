@@ -7,6 +7,7 @@ keeps activations [B, L, C] and conv kernels [k, Ci, Co]; the port's conv and
 snake take [B, C, L] and [Co, Ci, k], so the tests transpose.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -39,6 +40,41 @@ def test_flash_attention_prefix_plain_matches_pallas(P):
     got, got_lse = tfa.flash_attention_prefix(_t(q), _t(k), _t(v), P)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-5)
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse)[..., 0], atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("causal,N,P", [(False, 256, 0), (True, 256, 0), (False, 300, 0),
+                                        (False, 256, 9)])
+def test_flash_attention_nhd_plain_matches_pallas(causal, N, P):
+    # f32 on both sides; the Pallas head-pair kernel (interpret mode) folds
+    # 256- to 1024-key blocks with an online softmax, the plain version takes
+    # one softmax: f32 reassociation only, 2e-5 abs on O(1) outputs
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.standard_normal((2, N, 4, 64)).astype(np.float32) for _ in range(3))
+    want = jfa.flash_attention_nhd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, P)
+    got = tfa.flash_attention_nhd(_t(q), _t(k), _t(v), causal=causal, prefix_len=P)
+    assert got.shape == (2, N, 4, 64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("causal,P", [(False, 0), (True, 0), (False, 9)])
+def test_flash_attention_nhd_gradients_match_pallas(causal, P):
+    # the port's autograd Function on the CPU (plain backward from the saved
+    # logsumexp, on transposed views) against jax.grad through the Pallas
+    # forward and backward kernels in interpret mode, f32: 1e-4 of the
+    # gradients' peak (sums over 256 keys reassociate)
+    rng = np.random.default_rng(1)
+    q, k, v, w = (rng.standard_normal((1, 256, 2, 64)).astype(np.float32) for _ in range(4))
+
+    def jax_loss(q, k, v):
+        return jnp.sum(jnp.asarray(w) * jfa.flash_attention_nhd(q, k, v, causal, P) ** 2)
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (_t(a).requires_grad_() for a in (q, k, v))
+    out = tfa.flash_attention_nhd(tq, tk, tv, causal=causal, prefix_len=P)
+    got = torch.autograd.grad((_t(w) * out ** 2).sum(), (tq, tk, tv))
+    for g, r in zip(got, want):
+        r = np.asarray(r)
+        np.testing.assert_allclose(g.numpy(), r, atol=1e-4 * np.abs(r).max())
 
 
 @pytest.mark.parametrize("with_beta", [False, True])

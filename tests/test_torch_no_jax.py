@@ -56,7 +56,7 @@ SCRIPT = textwrap.dedent("""
             "optimizer": {"type": "AdamW", "config": {"lr": 1e-4, "weight_decay": 1e-3}},
             "scheduler": {"type": "InverseLR", "config": {"inv_gamma": 1e6, "power": 0.5,
                                                           "warmup": 0.99}}}}}}
-    model = init_random_(create_model_from_config(config), torch.Generator().manual_seed(0))
+    model = init_random_(create_model_from_config(config, "cpu"), torch.Generator().manual_seed(0))
     audio = generate_diffusion_cond(model.eval(), steps=2, conditioning=[
         {"prompt": "rain on a tin roof", "seconds_total": 10}], sample_size=512, seed=0)
     assert audio.shape == (1, 2, 512) and torch.isfinite(audio).all()
@@ -78,6 +78,91 @@ SCRIPT = textwrap.dedent("""
 def test_port_runs_without_jax_or_triton():
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.startswith("ok")
+
+
+SA2_SCRIPT = textwrap.dedent("""
+    import sys, tempfile, os
+    for name in ("jax", "jaxlib", "flax", "transformers", "safetensors",
+                 "stable_audio_tools_tpu"):
+        sys.modules[name] = None  # any import of these raises ImportError
+
+    import numpy as np
+    import torch
+    from stable_audio_tools_tpu_torch.inference.generation import (
+        generate_diffusion_cond, generate_diffusion_cond_inpaint)
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+    from stable_audio_tools_tpu_torch.models.roberta import RobertaArch, RobertaModel
+
+    # a CLAP checkpoint written without transformers: the port's own RoBERTa
+    # under CLAP's names
+    torch.manual_seed(0)
+    tower = RobertaModel(RobertaArch(vocab_size=32002, hidden_size=64, num_layers=2,
+                                     num_heads=1, intermediate_size=128, max_positions=80))
+    sd = {f"module.text_branch.{k}": v for k, v in tower.state_dict().items()}
+    sd["module.text_projection.0.weight"], sd["module.text_projection.0.bias"] = (
+        torch.randn(24, 64), torch.zeros(24))
+    sd["module.text_projection.2.weight"], sd["module.text_projection.2.bias"] = (
+        torch.randn(24, 24), torch.zeros(24))
+    tmp = tempfile.TemporaryDirectory()  # removed when the process ends
+    path = os.path.join(tmp.name, "clap.pt")
+    torch.save({"state_dict": sd}, path)
+
+    oobleck = {"channels": 8, "c_mults": [1, 2], "strides": [2, 4], "use_snake": True}
+    config = {
+        "model_type": "diffusion_cond_inpaint", "sample_size": 2048, "sample_rate": 16000,
+        "model": {
+            "io_channels": 4,
+            "pretransform": {"type": "autoencoder", "model_half": True, "chunked": True,
+                             "iterate_batch": True, "config": {
+                "encoder": {"type": "oobleck", "config": dict(oobleck, in_channels=2,
+                                                              latent_dim=8)},
+                "decoder": {"type": "oobleck", "config": dict(oobleck, out_channels=2,
+                                                              latent_dim=4)},
+                "bottleneck": {"type": "vae"}, "latent_dim": 4, "downsampling_ratio": 8,
+                "io_channels": 2}},
+            "conditioning": {"cond_dim": 64, "configs": [
+                {"id": "prompt", "type": "clap_text", "config": {
+                    "clap_ckpt_path": path, "use_text_features": True, "feature_layer_ix": -2}},
+                {"id": "seconds_total", "type": "number", "config": {"max_val": 512}}]},
+            "diffusion": {"type": "dit", "cross_attention_cond_ids": ["prompt", "seconds_total"],
+                          "global_cond_ids": ["seconds_total"],
+                          "config": {"io_channels": 4, "embed_dim": 128, "depth": 1,
+                                     "num_heads": 2, "cond_token_dim": 64, "global_cond_dim": 64,
+                                     "project_cond_tokens": False, "input_concat_dim": 5,
+                                     "compute_dtype": "bfloat16"}}}}
+    meta = [{"prompt": "rain on a tin roof", "seconds_total": 10}]
+    negative = [dict(meta[0], prompt="hiss")]
+    init = (16000, 0.1 * np.random.default_rng(0).standard_normal((2, 2048)).astype("float32"))
+
+    def build(model_type, input_concat_dim):
+        config["model_type"] = model_type
+        config["model"]["diffusion"]["config"]["input_concat_dim"] = input_concat_dim
+        model = create_model_from_config(config, "cpu")
+        for block in model.model.model.transformer.layers:
+            block.self_attn.nhd_min_seq = 0  # the strided-layout attention entry
+        return init_random_(model, torch.Generator().manual_seed(0)).eval()
+
+    audio = generate_diffusion_cond(build("diffusion_cond", 0), steps=2, conditioning=meta,
+                                    negative_conditioning=negative, sample_size=2048, seed=0,
+                                    sampler_type="k-heun", init_audio=init, init_noise_level=3.0)
+    assert audio.shape == (1, 2, 2048) and torch.isfinite(audio).all()
+    audio = generate_diffusion_cond_inpaint(
+        build("diffusion_cond_inpaint", 5), steps=2, conditioning=meta, sample_size=2048, seed=0,
+        init_audio=init, mask_args={"maskstart": 500, "maskend": 1500, "softnessL": 0.05})
+    assert audio.shape == (1, 2, 2048) and torch.isfinite(audio).all()
+    assert "triton" not in sys.modules
+    print("ok")
+""")
+
+
+def test_sa2_path_runs_without_jax_or_triton():
+    # SA-2.0's shape at toy size (CLAP text conditioner from a checkpoint,
+    # NHD attention, chunked codec, negative conditioning, inpainting)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", SA2_SCRIPT], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.startswith("ok")

@@ -19,10 +19,10 @@ import pytest
 import torch
 
 from stable_audio_tools_tpu.inference.generation import generate_diffusion_cond as jax_generate
-from stable_audio_tools_tpu.models.conditioners import _FallbackTokenizer
 from stable_audio_tools_tpu.models.factory import create_model_from_config as jax_create
 from stable_audio_tools_tpu_torch.inference.generation import generate_diffusion_cond
 from stable_audio_tools_tpu_torch.io.from_jax import diffusion_cond_state_dict
+from stable_audio_tools_tpu_torch.models.conditioners import FallbackTokenizer
 from stable_audio_tools_tpu_torch.models.factory import create_model_from_config
 
 T5_ARCH = dict(d_model=64, d_ff=128, num_layers=2, num_heads=2, d_kv=32)
@@ -76,6 +76,38 @@ GEN = dict(steps=6, cfg_scale=4.0, batch_size=1, sample_size=1024, seed=SEED,
            sigma_min=0.3, sigma_max=50.0)
 
 
+def stable_tokenizer(max_length):
+    """The fallback word-hash tokenizer with CRC-32 in place of Python's
+    `hash`, which is salted per process: every run and every test worker sees
+    the same token ids, so the comparisons below do not move with them (over
+    8 salts the f32 end-to-end error spans 1.7e-5 to 8e-5 of the peak)."""
+    import zlib
+
+    return FallbackTokenizer(max_length, word_hash=lambda w: zlib.crc32(w.encode("utf-8")))
+
+
+def jax_tokenizer(max_length):
+    """The JAX package's own `_FallbackTokenizer`, its word hash made the same
+    CRC-32: the name `hash` is set in that module's namespace for the length
+    of a call, where it shadows the salted builtin. The port's tokenizer
+    takes no part on the JAX side, so a fault in its padding, end id or mask
+    shows in the end-to-end comparisons."""
+    import zlib
+
+    import stable_audio_tools_tpu.models.conditioners as jcond
+
+    tok = jcond._FallbackTokenizer(max_length)
+
+    def call(texts, **kwargs):
+        jcond.hash = lambda w: zlib.crc32(w.encode("utf-8"))
+        try:
+            return tok(texts, **kwargs)
+        finally:
+            del jcond.hash
+
+    return call
+
+
 def _jax_model(config):
     """The JAX model with a small T5 tower in place of t5-base's (the JAX
     conditioner ignores the port-only `arch` key), and the tower's params."""
@@ -88,7 +120,7 @@ def _jax_model(config):
     t5_params = jax.jit(lambda r: flax_t5.init_weights(r, (1, 1)))(jax.random.PRNGKey(3))
     encode = jax.jit(lambda i, m: flax_t5(input_ids=i, attention_mask=m, params=t5_params)
                      .last_hidden_state)
-    t5._t5, t5._tokenizer, t5._encode = flax_t5, _FallbackTokenizer(8), encode
+    t5._t5, t5._tokenizer, t5._encode = flax_t5, jax_tokenizer(8), encode
     t5.dim = T5_ARCH["d_model"]
     model = model.clone(conditioner=mc.make_bank())
     object.__setattr__(model, "_multi_conditioner", mc)
@@ -125,10 +157,11 @@ def _pair(config, params=None):
     `params` reuses another pair's parameters (same config up to dtypes)."""
     model, t5_params = _jax_model(config)
     params = _init_params(model) if params is None else params
-    port = create_model_from_config(config)
+    port = create_model_from_config(config, "cpu")
     # f32 T5 compute, as the f32 Flax tower _jax_model puts in place of the
     # JAX package's bf16 one
     port.conditioner.conditioners["prompt"].model.compute_dtype = torch.float32
+    port.conditioner.conditioners["prompt"].tokenizer = stable_tokenizer(8)
     sd = diffusion_cond_state_dict(params, dim_heads=64, t5_params={"prompt": t5_params})
     port.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in sd.items()}, strict=True)
     return model, {"params": params}, port.eval()
@@ -222,8 +255,7 @@ def test_shipped_sa_open_config_builds_unchanged():
     with open(path) as f:
         config = json.load(f)
     config["model"]["conditioning"]["configs"][0]["config"]["allow_random_init"] = True
-    with torch.device("meta"):
-        model = create_model_from_config(config)
+    model = create_model_from_config(config, "meta")
     dit = model.model.model
     assert len(dit.transformer.layers) == 24
     block = dit.transformer.layers[0]
