@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Runs from the repository root on a machine with a CUDA card, `nvcc` and
-`triton`; needs no network and no JAX. Five phases, each printing one line;
+`triton`; needs no network and no JAX. Six phases, each printing one line;
 any failure raises and the exit code is nonzero:
 
 1. Device and build: the card's name and power limit, then every CUDA source
@@ -21,7 +21,11 @@ any failure raises and the exit code is nonzero:
    through the plain versions. The strided-layout flash attention is checked
    on views of a fused projection output and on contiguous tensors, at
    SA-2.0's and SA-Open's lengths and causally, and timed against the
-   [B, H, N, 64] entry with the four transposed copies that route pays.
+   [B, H, N, 64] entry with the four transposed copies that route pays. The
+   backward kernels of autoencoder training (snake backward, snake-conv dx,
+   snake-conv and plain weight gradients) are held at the SA-2.0 VAE's
+   shapes at batch 4: dx within 2 bf16 ulps, the f32 gradient sums within 1%
+   of their peaks.
 3. Generation: SA-Open (the shipped stable_audio_open_1_0.json, built by the
    port's factory, random weights from a seeded torch.Generator, random T5)
    runs generate_diffusion_cond with cfg 6, dpmpp-3m-sde, sigma in [0.3, 500],
@@ -49,6 +53,22 @@ any failure raises and the exit code is nonzero:
    decode chunks). The audio must be finite [1, 2, 12582912], the path must
    launch `flash_attention_nhd` 2400 times and every other forward kernel,
    and must not launch `flash_attention_prefix`.
+
+6. Autoencoder GAN training: one generator and one discriminator step of a
+   tiny SA-2.0-VAE-shaped model agree between the card and the CPU (losses,
+   each generator gradient and the discriminator's whole gradient within
+   5%), and at the init's own gains the card's generator gradient lies
+   within twice the CPU's bf16 spread of the CPU's f32 one; then the shipped
+   stable_audio_2_0_vae.json at full width (156 M parameters, the EnCodec
+   discriminator with 64 filters over 5 scales, MRSTFT with A-weighting,
+   bf16 compute) trains through the code path of `python -m
+   stable_audio_tools_tpu_torch.train` on the synthetic WAVs, batch 4 x
+   65,536 samples: 2 warm-up and 5 timed generator + discriminator pairs,
+   the pieces of one generator step as the step itself times them, one
+   generator step under the profiler, a checkpoint and its reload. Losses must be finite, every
+   parameter of each side must get a finite nonzero gradient in its step,
+   the parameters and the EMA must move, and the kernels must launch exactly
+   as counted from the model.
 
 The last lines are the kernels' JSON record, the card line and the result
 line {"ok": true, "device": {...}}.
@@ -334,6 +354,165 @@ def phase_kernels(dev):
               "decoder shapes checked)",
         max_abs_err=max(errs), tol="2 bf16 ulps at max|ref|",
         ms=cuda_ms(run, 3), plain_ms=cuda_ms(plain, 3), library=None, library_ms=None, **least)
+    rec.update(ae_backward_checks(sn, cs, randn, rec))
+    return rec
+
+
+# (channels, length) of the SA-2.0 VAE's residual-unit levels at batch 4 x
+# 65,536 samples: the encoder's and, in reverse, the decoder's
+AE_LEVELS = ((128, 65536), (128, 32768), (256, 8192), (512, 2048), (1024, 256))
+# inputs of its snake_fused sites: before the encoder's downsampling convs and
+# the decoder's upsampling ones
+AE_SNAKES = AE_LEVELS + ((2048, 32),)
+AE_BATCH = 4
+# the backward kernels' f32 gradient sums (up to 4 x 65,536 terms, in another
+# order than the plain version's): max|err| within 1% of the gradient's peak
+GRAD_REL_TOL = 1e-2
+
+
+def ae_backward_checks(sn, cs, randn, fwd: dict) -> dict:
+    """The four backward kernels of the autoencoder-training path against
+    their plain versions at its shapes (batch 4, bf16): dx within 2 bf16 ulps,
+    dW, db, dalpha, dbeta within 1% of their peaks; each timed at its largest
+    shape beside its plain version and its bound, and the plain weight
+    gradient beside `torch.nn.grad.conv1d_weight` (a yardstick only). The
+    forward kernels of the path (`snake_fused`, `snake_conv1d`, `_res`) are
+    held at the same shapes, 2 bf16 ulps, and their errors join `fwd`'s
+    records."""
+    rec, B = {}, AE_BATCH
+
+    def params(C):
+        return (randn(C, dtype=torch.float32).exp(), randn(C, dtype=torch.float32).exp())
+
+    def join_fwd(name, errs, what):
+        fwd[name]["max_abs_err"] = max(fwd[name]["max_abs_err"], *errs)
+        fwd[name]["shape"] += f"; {what} of the SA-2.0 VAE at batch {B} checked"
+
+    # A. snake backward (and forward) at every snake_fused site
+    errs, fwd_errs = [], []
+    for C, L in AE_SNAKES:
+        x, g = randn(B, C, L, scale=2.0), randn(B, C, L)
+        a, b = params(C)
+        y = sn.snake_fused_plain(x, a, b)
+        fwd_errs.append(compare(f"snake [{B},{C},{L}]", sn.snake_fused(x, a, b), y, bf16_tol(y)))
+        del y
+        got, want = sn.snake_fused_bwd(x, a, b, g), sn.snake_fused_bwd_plain(x, a, b, g)
+        errs.append(compare(f"snake bwd dx [{B},{C},{L}]", got[0], want[0], bf16_tol(want[0])))
+        for n, p, q in zip(("dalpha", "dbeta"), got[1:], want[1:]):
+            rel_err(f"snake bwd {n} [{B},{C},{L}]", p, q, GRAD_REL_TOL)
+    join_fwd("snake_fused", fwd_errs, f"the {len(AE_SNAKES)} snake_fused shapes")
+    x, g = randn(B, 128, 65536, scale=2.0), randn(B, 128, 65536)
+    a, b = params(128)
+    dx = sn.snake_fused_bwd(x, a, b, g)[0]
+    rec["snake_fused_bwd"] = dict(
+        route="triton", source="stable_audio_tools_tpu_torch/ops/kernels/snake_triton.py",
+        replaces="stable_audio_tools_tpu/ops/kernels/snake.py:64",
+        shape=f"x, g [{B},128,65536] bf16 (timed; the 6 snake_fused shapes of the SA-2.0 "
+              "VAE checked)",
+        max_abs_err=max(errs), tol=f"2 bf16 ulps at max|ref| (dx), {GRAD_REL_TOL} x "
+                                   "max|plain| (dalpha, dbeta)",
+        ms=cuda_ms(lambda: sn.snake_fused_bwd(x, a, b, g), 20),
+        plain_ms=cuda_ms(lambda: sn.snake_fused_bwd_plain(x, a, b, g), 10),
+        library=None, library_ms=None,  # no single PyTorch call computes it
+        **bound(20.0 * x.numel(), x, g, a, b, dx))
+    del x, g, dx
+
+    # B, C. snake-conv dx and weight gradient (and the forward) at every
+    # snake-conv shape: k = 7 at d 1/3/9 and k = 1 with the residual per
+    # level, the encoder's conv_out (2048 -> 128, k 3 at L = 32, a ragged
+    # tile) and the decoder's (128 -> 2, k 7 at 65,536, no bias)
+    def snake_conv_case(C, Co, L, kk, d):
+        x = randn(B, C, L, scale=2.0)
+        w = randn(Co, C, kk, scale=(C * kk) ** -0.5)
+        a, b = params(C)
+        pad = d * (kk - 1) // 2
+        name = f"[{B},{C},{L}] -> {Co} k={kk} d={d}"
+        bias = randn(Co, dtype=torch.float32) * 0.1 if Co > 2 else None
+        r = randn(B, Co, L) if kk == 1 else None
+        y = cs.snake_conv1d_plain(x, w, bias, a, b, pad, pad, d, r)
+        if r is None:
+            err = compare(f"snake_conv1d {name}",
+                          cs.snake_conv1d(x, w, bias, a, b, pad, pad, d), y, bf16_tol(y))
+            conv_fwd_errs["snake_conv1d"].append(err)
+        else:
+            err = compare(f"snake_conv1d_res {name}",
+                          cs.snake_conv1d_res(x, w, bias, a, b, r, pad, pad, d), y, bf16_tol(y))
+            conv_fwd_errs["snake_conv1d_res"].append(err)
+        del y, r
+        dy = randn(B, Co, L)
+        got = cs.snake_conv1d_dx(dy, x, w, a, b, pad, pad, d)
+        want = cs.snake_conv1d_dx_plain(dy, x, w, a, b, pad, pad, d)
+        dx_err = compare(f"snake_conv1d_dx dx {name}", got[0], want[0], bf16_tol(want[0]))
+        for n, p, q in zip(("dalpha", "dbeta"), got[1:], want[1:]):
+            rel_err(f"snake_conv1d_dx {n} {name}", p, q, GRAD_REL_TOL)
+        got = cs.snake_conv1d_wgrad(dy, x, kk, a, b, pad, pad, d)
+        want = cs.conv1d_wgrad_plain(dy, x, kk, pad, pad, d, (a, b))
+        w_err = max(rel_err(f"snake_conv1d_wgrad {n} {name}", p, q, GRAD_REL_TOL)
+                    for n, p, q in zip(("dW", "db"), got, want))
+        w_abs = max((p - q).abs().max().item() for p, q in zip(got, want))
+        return dx_err, w_err, w_abs, (x, w, a, b, pad, d, dy, got[0])
+
+    cases = [(C, C, L, kk, d) for C, L in AE_LEVELS for kk, d in ((7, 1), (7, 3), (7, 9), (1, 1))]
+    cases += [(2048, 128, 32, 3, 1), (128, 2, 65536, 7, 1)]
+    dx_errs, w_errs, w_abs = [], [], []
+    conv_fwd_errs = {"snake_conv1d": [], "snake_conv1d_res": []}
+    for case in cases:
+        e_dx, e_w, a_w, _ = snake_conv_case(*case)
+        dx_errs.append(e_dx)
+        w_errs.append(e_w)
+        w_abs.append(a_w)
+    for n, what in (("snake_conv1d", "k = 7 and k = 3"), ("snake_conv1d_res", "k = 1")):
+        join_fwd(n, conv_fwd_errs[n], f"the {len(conv_fwd_errs[n])} {what} cases")
+    _, _, _, (x, w, a, b, pad, d, dy, dW) = snake_conv_case(128, 128, 65536, 7, 9)
+    flops = 2.0 * B * 65536 * 128 * 128 * 7
+    dx_run = lambda: cs.snake_conv1d_dx(dy, x, w, a, b, pad, pad, d)
+    rec["snake_conv1d_dx"] = dict(
+        route="cuda", source="stable_audio_tools_tpu_torch/csrc/snake_conv1d_dx.cu",
+        replaces="stable_audio_tools_tpu/ops/kernels/conv1d_snake.py:199",
+        shape=f"dy, x [{B},128,65536] k=7 d=9 bf16 (timed; {len(cases)} cases of the SA-2.0 "
+              "VAE checked)",
+        max_abs_err=max(dx_errs), tol=f"2 bf16 ulps at max|ref| (dx), {GRAD_REL_TOL} x "
+                                      "max|plain| (dalpha, dbeta)",
+        ms=cuda_ms(dx_run, 5),
+        plain_ms=cuda_ms(lambda: cs.snake_conv1d_dx_plain(dy, x, w, a, b, pad, pad, d), 3),
+        library=None, library_ms=None,  # cuDNN's input gradient omits the snake
+        **bound(flops, dy, x, w, a, b, x))
+    rec["snake_conv1d_wgrad"] = dict(
+        route="cuda", source="stable_audio_tools_tpu_torch/csrc/conv1d_wgrad.cu",
+        replaces="stable_audio_tools_tpu/ops/kernels/conv1d_snake.py:303",
+        shape=f"dy, x [{B},128,65536] k=7 d=9 bf16 -> dW f32 (timed; {len(cases)} cases "
+              "checked)",
+        max_abs_err=max(w_abs), max_rel_err=max(w_errs),
+        tol=f"{GRAD_REL_TOL} x max|plain| (dW, db)",
+        ms=cuda_ms(lambda: cs.snake_conv1d_wgrad(dy, x, 7, a, b, pad, pad, d), 5),
+        plain_ms=cuda_ms(lambda: cs.conv1d_wgrad_plain(dy, x, 7, pad, pad, d, (a, b)), 3),
+        library=None, library_ms=None,  # conv1d_weight omits the snake
+        **bound(flops, dy, x, a, b, dW))
+    del x, w, dy, dW
+
+    # D. the plain weight gradient of the encoder's and decoder's conv_in
+    errs, abs_errs = [], []
+    for C, Co, L in ((2, 128, 65536), (64, 2048, 32)):
+        x, dy = randn(B, C, L), randn(B, Co, L)
+        got, want = cs.conv1d_wgrad(dy, x, 7, 3, 3, 1), cs.conv1d_wgrad_plain(dy, x, 7, 3, 3, 1)
+        errs.append(max(rel_err(f"conv1d_wgrad {n} [{B},{C},{L}] -> {Co}", p, q, GRAD_REL_TOL)
+                        for n, p, q in zip(("dW", "db"), got, want)))
+        abs_errs.append(max((p - q).abs().max().item() for p, q in zip(got, want)))
+    x, dy = randn(B, 2, 65536), randn(B, 128, 65536)
+    dW = cs.conv1d_wgrad(dy, x, 7, 3, 3, 1)[0]
+    rec["conv1d_wgrad"] = dict(
+        route="cuda", source="stable_audio_tools_tpu_torch/csrc/conv1d_wgrad.cu",
+        replaces="stable_audio_tools_tpu/ops/kernels/conv1d_snake.py:311",
+        shape=f"dy [{B},128,65536], x [{B},2,65536] k=7 bf16 -> dW f32 (timed; the "
+              "encoder's and the decoder's conv_in checked)",
+        max_abs_err=max(abs_errs), max_rel_err=max(errs),
+        tol=f"{GRAD_REL_TOL} x max|plain| (dW, db)",
+        ms=cuda_ms(lambda: cs.conv1d_wgrad(dy, x, 7, 3, 3, 1), 10),
+        plain_ms=cuda_ms(lambda: cs.conv1d_wgrad_plain(dy, x, 7, 3, 3, 1), 5),
+        library="torch.nn.grad.conv1d_weight (bf16, weight only)",
+        library_ms=cuda_ms(lambda: torch.nn.grad.conv1d_weight(x, (128, 2, 7), dy, padding=3),
+                           10),
+        **bound(2.0 * B * 65536 * 2 * 128 * 7, dy, x, dW))
     return rec
 
 
@@ -434,7 +613,11 @@ def counters():
             "fused_layer_norm": ln.fused_layer_norm,
             "snake_conv1d": cs.snake_conv1d,
             "snake_conv1d_res": cs.snake_conv1d_res,
-            "snake_fused": sn.snake_fused}
+            "snake_fused": sn.snake_fused,
+            "snake_fused_bwd": sn.snake_fused_bwd,
+            "snake_conv1d_dx": cs.snake_conv1d_dx,
+            "snake_conv1d_wgrad": cs.snake_conv1d_wgrad,
+            "conv1d_wgrad": cs.conv1d_wgrad}
 
 
 GENERATION_KERNELS = ("flash_attention_prefix", "fused_layer_norm", "snake_conv1d",
@@ -617,11 +800,13 @@ def get_custom_metadata(info, audio):
 """
 
 
-def write_dataset(root: str) -> str:
-    """8 seeded synthetic stereo 44.1 kHz WAVs of 50 to 85 s (four partials
-    under a slow envelope, over noise) written with the port's WAV writer, a
-    metadata module that gives each a prompt, and the `audio_dir` dataset
-    config; returns the config's path. The clips outlast the 47.6 s crop by
+def write_dataset(root: str, n_wavs: int = N_WAVS, seconds: int = WAV_SECONDS,
+                  step: float = 5) -> str:
+    """`n_wavs` seeded synthetic stereo 44.1 kHz WAVs of `seconds` + `step` i
+    seconds (by default 8 of 50 to 85 s; four partials under a slow
+    envelope, over noise) written with the port's WAV writer, a metadata
+    module that gives each a prompt, and the `audio_dir` dataset config;
+    returns the config's path. The default clips outlast the 47.6 s crop by
     2.4 to 37.4 s, so the random crops' `seconds_start` is rarely 0 for a
     whole batch (which would leave that number embedder without a gradient)."""
     import numpy as np
@@ -630,8 +815,8 @@ def write_dataset(root: str) -> str:
 
     rng = np.random.default_rng(0)
     os.makedirs(os.path.join(root, "wavs"))
-    for i in range(N_WAVS):
-        t = np.arange((WAV_SECONDS + 5 * i) * SR, dtype=np.float32) / SR
+    for i in range(n_wavs):
+        t = np.arange((seconds + step * i) * SR, dtype=np.float32) / SR
         tone = sum(np.sin(2 * np.pi * f * t + ph) for f, ph in
                    zip(rng.uniform(60, 3000, 4), rng.uniform(0, 2 * np.pi, 4))) / 6
         env = 0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(0.05, 1.0) * t)
@@ -1009,6 +1194,296 @@ def phase_sa2(dev) -> dict:
                 breakdown=stage_breakdown(model, dev, SA2_PROMPT, SA2_SAMPLE_SIZE))
 
 
+SA2_VAE = os.path.join(ROOT, "stable_audio_tools_tpu", "configs", "model_configs",
+                       "autoencoders", "stable_audio_2_0_vae.json")
+AE_WARM_PAIRS, AE_TIMED_PAIRS = 2, 5
+# kernel launches of one generator and one discriminator step of the SA-2.0
+# VAE, counted from the model: 5 encoder and 5 decoder blocks; 3 residual
+# units each (a k = 7 snake-conv, a k = 1 one with the residual); the
+# encoder's and the decoder's conv_out (snake-conv), conv_in (plain conv);
+# a snake before each strided and transposed conv. The discriminator step
+# runs the autoencoder forward under no_grad, so its forward kernels only.
+AE_GEN_LAUNCHES = {"snake_conv1d": 32, "snake_conv1d_res": 30, "snake_fused": 10,
+                   "snake_conv1d_dx": 62, "snake_conv1d_wgrad": 62, "conv1d_wgrad": 2,
+                   "snake_fused_bwd": 10}
+AE_DISC_LAUNCHES = {"snake_conv1d": 32, "snake_conv1d_res": 30, "snake_fused": 10}
+AE_KERNELS = tuple(AE_GEN_LAUNCHES)
+
+
+def sa2_vae_config():
+    with open(SA2_VAE) as f:
+        return json.load(f)
+
+
+def tiny_ae_config():
+    """The SA-2.0 VAE config at toy size: the same blocks, losses and
+    kernels (snake-convs at k 7 / 1 / 3, the plain conv_in), channels 32,
+    c_mults [1, 2], strides [2, 4], latent 8, a discriminator of 8 filters
+    over two STFT scales, three MRSTFT resolutions, bf16 compute."""
+    cfg = sa2_vae_config()
+    cfg["sample_size"] = 4096
+    m = cfg["model"]
+    m["encoder"]["config"].update(channels=32, c_mults=[1, 2], strides=[2, 4], latent_dim=16)
+    m["decoder"]["config"].update(channels=32, c_mults=[1, 2], strides=[2, 4], latent_dim=8)
+    m.update(latent_dim=8, downsampling_ratio=8)
+    losses = cfg["training"]["loss_configs"]
+    losses["discriminator"]["config"] = dict(filters=8, n_ffts=[256, 128], hop_lengths=[64, 32],
+                                             win_lengths=[256, 128])
+    losses["spectral"]["config"].update(fft_sizes=[256, 64, 32], hop_sizes=[64, 16, 8],
+                                        win_lengths=[256, 64, 32])
+    return cfg
+
+
+# the weight-norm gains of the tiny card-vs-CPU check are scaled by this
+# after the random init (see `small_ae_check`)
+SMALL_AE_GAIN = 0.3
+# at the init's own gains, the card's bf16 generator gradient may lie at most
+# this many times as far from the CPU's f32 one as the CPU's bf16 one does
+INIT_SCALE_SPREAD = 2.0
+
+
+def tiny_ae_trainer(dev, gain: float = SMALL_AE_GAIN, compute_dtype: str = "bfloat16",
+                    disc: dict | None = None):
+    """The tiny config's trainer on `dev`: weights made on the CPU from seed
+    1, weight-norm gains times `gain`; the discriminator's weights from
+    `disc` (a state dict) where given, else its own seeded init."""
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+    from stable_audio_tools_tpu_torch.training.factory import create_training_wrapper_from_config
+
+    cfg = tiny_ae_config()
+    cfg["training"]["compute_dtype"] = compute_dtype
+    model = init_random_(create_model_from_config(cfg, "cpu"), torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.endswith("weight_g"):
+                p.mul_(gain)
+    w = create_training_wrapper_from_config(cfg, model.to(dev))
+    if disc is not None:
+        w.discriminator.load_state_dict(disc)
+    return w
+
+
+def tiny_ae_batch():
+    """The tiny check's audio [2, 2, 4096] and the VAE noise of its two steps."""
+    g = torch.Generator().manual_seed(2)
+    audio = 0.3 * torch.randn(2, 2, 4096, generator=g)
+    return audio, [torch.randn(2, 8, 512, generator=g) for _ in range(2)]
+
+
+def grad_rel_errs(got: dict, want: dict) -> tuple:
+    """||got - want|| / ||want|| of each parameter's gradient: (the worst
+    tensor's name, its error, the error of all of them together)."""
+    diff = norm = 0.0
+    per_tensor = {}
+    for n, p in want.items():
+        q = got[n].grad
+        if q is None or not torch.isfinite(q).all():
+            raise AssertionError(f"{n} has no finite gradient")
+        d = (q.float().cpu() - p.grad.cpu()).square().sum().item()
+        n2 = p.grad.square().sum().item()
+        diff, norm = diff + d, norm + n2
+        per_tensor[n] = math.sqrt(d / n2) if n2 > 0 else (0.0 if d == 0 else math.inf)
+    worst = max(per_tensor, key=per_tensor.get)
+    return worst, per_tensor[worst], math.sqrt(diff / norm)
+
+
+def small_ae_check(dev) -> dict:
+    """One generator step and one discriminator step of a tiny SA-2.0-VAE-
+    shaped model with the kernels on the card against the plain versions on
+    the CPU: the same weights (both sides), batch and VAE noise, bf16
+    compute. Returns the largest relative error of each step's named losses
+    and of its side's gradient, ||card - CPU|| / ||CPU||: for the generator
+    (whose backward runs the kernels) the worst single parameter tensor, for
+    the discriminator (cuDNN and autograd only) all its parameters together,
+    since its last biases' gradients are sums whose terms cancel (39% apart
+    per tensor between bf16 and f32 on the CPU, 1.3% over the whole side).
+
+    The weight-norm gains are scaled by SMALL_AE_GAIN after the random init:
+    at the init's own scale the stack amplifies audio of std 0.3 to a decoded
+    std of 26, where bf16 cannot resolve the snake's period (spacing 0.125 at
+    |x| ~ 26 against sin(alpha x)), and two bf16 runs that round in other
+    places give generator gradients as far apart as their size; at 0.3 bf16
+    stays within 1.2% of f32 per tensor (both readings are
+    tests/test_torch_ae_training.py::test_tiny_ae_check_needs_the_reduced_gain).
+    So the init's scale is read as well, against the CPU's f32 step: the
+    card's bf16 generator gradient must lie no farther than INIT_SCALE_SPREAD
+    times the CPU's bf16 one from it, over the whole generator. The
+    kernels' snake terms at full swing are held in phase 2 (x of std 2)."""
+    audio, noises = tiny_ae_batch()
+    wc = tiny_ae_trainer("cpu")
+    wg = tiny_ae_trainer(dev, disc=wc.discriminator.state_dict())
+    out = {}
+    for side, noise in zip(("gen", "disc"), noises):
+        ac = wc.train_step(audio, noise=noise)
+        ag = wg.train_step(audio.to(dev), noise=noise.to(dev))
+        if not all(math.isfinite(float(v)) for v in ag.values()):
+            raise AssertionError(f"small AE {side} step: non-finite losses on the card {ag}")
+        out[f"{side}_loss_rel_err"] = max(abs(float(ag[k]) - float(v)) / max(abs(float(v)), 1e-6)
+                                          for k, v in ac.items())
+        pc, pg = (wc.params, wg.params) if side == "gen" else (wc.disc_params, wg.disc_params)
+        worst, worst_err, whole = grad_rel_errs(pg, pc)
+        out[f"{side}_worst_tensor"] = [worst, worst_err]
+        out[f"{side}_grad_rel_err"] = worst_err if side == "gen" else whole
+
+    # the init's own gains: the card's bf16 and the CPU's bf16 against the CPU's f32
+    ref = tiny_ae_trainer("cpu", gain=1.0, compute_dtype="float32")
+    cpu16 = tiny_ae_trainer("cpu", gain=1.0)
+    card = tiny_ae_trainer(dev, gain=1.0, disc=cpu16.discriminator.state_dict())
+    for w in (ref, cpu16, card):
+        w.train_step(audio.to(w.device), noise=noises[0].to(w.device))
+    cpu_spread, card_spread = (grad_rel_errs(w.params, ref.params) for w in (cpu16, card))
+    out["init_scale"] = dict(cpu_bf16_vs_f32=cpu_spread, card_bf16_vs_cpu_f32=card_spread)
+    if not card_spread[2] <= INIT_SCALE_SPREAD * cpu_spread[2]:
+        raise AssertionError(f"small AE at the init's gains: the card's generator gradient is "
+                             f"{card_spread[2]:.3g} from the CPU's f32 one, more than "
+                             f"{INIT_SCALE_SPREAD} x the CPU's bf16 spread {cpu_spread[2]:.3g}")
+    return out
+
+
+def gen_step_split(trainer, loader) -> dict:
+    """One generator step of the trainer in its pieces, read from the step
+    itself (`AutoencoderTrainer.gen_split`: host clock, the card
+    synchronised at each boundary): the autoencoder forward, the
+    discriminator (its loss() on reals and fakes), the losses (MRSTFT with
+    the A-weighting FIR, KL, their sum with the GAN terms), backward,
+    optimizer (clip, AdamW, LR schedule), EMA; beside it the data (the next
+    batch of a running loader, to the card). Then torch.profiler over the
+    next whole generator step: device-busy share and the largest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    w = trainer.wrapper
+    batches = iter(loader)
+    next(batches)  # starts the workers
+    t0 = time.perf_counter()
+    audio = trainer.prepare_batch(next(batches)[0])
+    torch.cuda.synchronize()
+    out = {"data_ms": (time.perf_counter() - t0) * 1e3}
+    while w.uses_disc(w.step):
+        w.train_step(audio)
+    w.gen_split = {}
+    t0 = time.perf_counter()
+    w.train_step(audio)
+    torch.cuda.synchronize()
+    out.update(w.gen_split, step_ms=(time.perf_counter() - t0) * 1e3)
+    w.gen_split = None
+    while w.uses_disc(w.step):
+        w.train_step(audio)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        w.train_step(audio)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    out["gen_step_profiled_ms"] = wall_us / 1e3
+    out["gen_step_device_busy"] = busy_us / wall_us
+    out["gen_step_top_kernels_ms"] = {
+        e.key[:60]: round(e.self_device_time_total / 1e3, 3)
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]}
+    return out
+
+
+def phase_ae_training(dev) -> dict:
+    """Phase 6: the tiny card-vs-CPU check, then the shipped SA-2.0 VAE
+    config at full width through `train.build` and `Trainer.fit`."""
+    from stable_audio_tools_tpu_torch import train
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config
+
+    small = small_ae_check(dev)
+    small_tol = 0.05
+    if not max(v for k, v in small.items() if k.endswith("_rel_err")) <= small_tol:
+        raise AssertionError(f"small AE steps card vs CPU: {small} > {small_tol}")
+    rec = dict(small=small, small_tol=small_tol)
+    cfg = sa2_vae_config()
+    T = cfg["sample_size"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ae_") as tmp:
+        cfg_path = os.path.join(tmp, "model.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        n_steps = 2 * (AE_WARM_PAIRS + AE_TIMED_PAIRS)
+        args = train.parse_args([
+            # 40 clips of 3-7 s: an epoch of 10 batches, 5 pairs
+            "--model-config", cfg_path, "--dataset-config", write_dataset(tmp, 40, 3, 0.1),
+            "--batch-size", str(AE_BATCH), "--num-workers", "4", "--seed", "0",
+            "--max-steps", str(n_steps), "--checkpoint-every", "0",
+            "--save-dir", os.path.join(tmp, "run")])
+        t0 = time.perf_counter()
+        trainer, loader = train.build(args, device=dev)
+        torch.cuda.synchronize()
+        rec["build_s"] = time.perf_counter() - t0
+        w = trainer.wrapper
+        if w.compute_dtype != torch.bfloat16 or next(w.model.parameters()).device.type != "cuda":
+            raise AssertionError("SA-2.0 VAE: not built on the card with bf16 compute")
+        before = {n: p.detach().clone() for n, p in w.params.items()}
+        disc_before = {n: p.detach().clone() for n, p in w.disc_params.items()}
+        for step, params in ((1, w.params), (2, w.disc_params)):
+            trainer.fit(loader, max_steps=step, save_at_end=False)
+            bad = [n for n, p in params.items()
+                   if p.grad is None or not torch.isfinite(p.grad).all()
+                   or not p.grad.abs().max() > 0]
+            if bad:
+                raise AssertionError(f"after step {step}, {len(bad)} parameters have no finite "
+                                     f"nonzero gradient: {bad[:8]}")
+        trainer.fit(loader, max_steps=2 * AE_WARM_PAIRS, save_at_end=False)
+        torch.cuda.synchronize()
+        kernels = {n: fn for n, fn in counters().items() if n in AE_KERNELS}
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        trainer.fit(loader, max_steps=n_steps, save_at_end=False)
+        torch.cuda.synchronize()
+        rec["launches"] = {n: fn.launches for n, fn in kernels.items()}
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = {n: AE_TIMED_PAIRS * (AE_GEN_LAUNCHES[n] + AE_DISC_LAUNCHES.get(n, 0))
+                for n in AE_KERNELS}
+        if rec["launches"] != want:
+            raise AssertionError(f"AE training launches {rec['launches']}, expected {want}")
+        hist = trainer.history
+        losses = {k: [h[k] for h in hist if k in h]
+                  for k in sorted({k for h in hist for k in h if k.startswith("train/")})}
+        if len(hist) != n_steps or not all(math.isfinite(v) for h in hist for v in h.values()):
+            raise AssertionError(f"AE training log: {hist}")
+        walls = [1e3 / h["train/steps_per_sec"] for h in hist[2 * AE_WARM_PAIRS:]]
+        pairs = [walls[i] + walls[i + 1] for i in range(0, len(walls), 2)]
+        unmoved = [n for n, p in w.params.items() if torch.equal(p.detach(), before[n])]
+        unmoved += [n for n, p in w.disc_params.items() if torch.equal(p.detach(), disc_before[n])]
+        ema_unmoved = [n for n, e in w.ema.items() if torch.equal(e, before[n])]
+        if unmoved or ema_unmoved:
+            raise AssertionError(f"parameters that did not move: {unmoved[:8]}; "
+                                 f"EMA entries that did not move: {ema_unmoved[:8]}")
+        del before, disc_before
+        pair_ms = statistics.median(pairs)
+        rec.update(
+            pair_ms=pairs, pair_ms_median=pair_ms,
+            gen_ms_median=statistics.median(walls[0::2]),
+            disc_ms_median=statistics.median(walls[1::2]),
+            audio_s_per_s=AE_BATCH * T / SR / (pair_ms / 1e3),
+            gen_losses={k: v for k, v in losses.items() if k in (
+                "train/loss", "train/mrstft_loss", "train/kl_loss", "train/loss_adv",
+                "train/feature_matching_loss")},
+            disc_losses=losses.get("train/discriminator_loss"),
+            params=sum(p.numel() for p in w.params.values()),
+            disc_params=sum(p.numel() for p in w.disc_params.values()))
+        rec["split"] = gen_step_split(trainer, loader)
+
+        t0 = time.perf_counter()
+        path = trainer.save(w.step)
+        rec["save_s"] = time.perf_counter() - t0
+        rec["ckpt_gib"] = os.path.getsize(path) / 2 ** 30
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        fresh = create_model_from_config(state["model_config"], "meta")
+        fresh.load_state_dict(state["state_dict"], strict=True, assign=True)
+        differ = [n for n, v in fresh.state_dict().items()
+                  if not torch.equal(v, w.model.state_dict()[n].cpu())]
+        disc = w.discriminator.state_dict()
+        differ += [n for n, v in state["discriminator"].items() if not torch.equal(v, disc[n].cpu())]
+        if differ or state["step"] != w.step or set(state["ema"]) != set(w.ema):
+            raise AssertionError(f"AE checkpoint reload: {len(differ)} tensors differ "
+                                 f"({differ[:5]}), step {state['step']} vs {w.step}")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card",
@@ -1072,11 +1547,30 @@ def main() -> int:
           f"{json.dumps({k: round(v, 4) for k, v in sa2_rec['small'].items()})} "
           f"(tol {sa2_rec['small_tol']}) on {card}", flush=True)
 
+    torch.cuda.empty_cache()
+
+    ae_rec = phase_ae_training(dev)
+    split = ae_rec["split"]
+    print(f"phase 6 AE training: SA-2.0 VAE {ae_rec['params'] / 1e6:.1f}M params + EnCodec "
+          f"discriminator {ae_rec['disc_params'] / 1e6:.2f}M, batch {AE_BATCH} x 65536 samples, "
+          f"bf16: gen+disc pair {ae_rec['pair_ms_median']:.1f} ms median of {AE_TIMED_PAIRS} "
+          f"({', '.join(f'{x:.1f}' for x in ae_rec['pair_ms'])}); gen step "
+          f"{ae_rec['gen_ms_median']:.1f} ms, disc step {ae_rec['disc_ms_median']:.1f} ms; "
+          f"{ae_rec['audio_s_per_s']:.2f} audio-s trained/s, peak {ae_rec['peak_gib']:.2f} GiB; "
+          "gen step split ms " + ", ".join(f"{k[:-3]} {v:.1f}" for k, v in split.items()
+                                           if k.endswith("_ms") and isinstance(v, float))
+          + f"; gen step device busy {split['gen_step_device_busy']:.1%}; top kernels ms "
+          f"{json.dumps(split['gen_step_top_kernels_ms'])}; launches "
+          f"{json.dumps(ae_rec['launches'])}; checkpoint {ae_rec['ckpt_gib']:.2f} GiB reloaded "
+          f"identical; small card-vs-CPU {json.dumps(ae_rec['small'])} (tol "
+          f"{ae_rec['small_tol']}) on {card}", flush=True)
+
     kernels = []
     for n, r in rec.items():
         by_path = {"generation": main_rec["launches"].get(n, 0),
                    "training": train_rec["launches"].get(n, 0),
-                   "sa2_generation": sa2_rec["launches"].get(n, 0)}
+                   "sa2_generation": sa2_rec["launches"].get(n, 0),
+                   "ae_training": ae_rec["launches"].get(n, 0)}
         kernels.append(dict(name=n, route=r["route"], source=r["source"], replaces=r["replaces"],
                             launches=sum(by_path.values()), launches_by_path=by_path,
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
@@ -1092,7 +1586,8 @@ def main() -> int:
         k: main_rec[k] for k in ("wall_s", "steps", "audio_s_per_s", "peak_gib", "breakdown")},
         "training": {k: v for k, v in train_rec.items() if k != "launches"},
         "sa2_generation": {k: sa2_rec[k] for k in (
-            "wall_s", "steps", "audio_s_per_s", "peak_gib", "breakdown", "small")}}))
+            "wall_s", "steps", "audio_s_per_s", "peak_gib", "breakdown", "small")},
+        "ae_training": {k: v for k, v in ae_rec.items() if k != "launches"}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

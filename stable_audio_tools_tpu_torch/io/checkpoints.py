@@ -5,7 +5,9 @@ A checkpoint holds the model's `state_dict` under the reference torch names
 `import_diffusion_cond_state_dict`, io/checkpoints.py), the optimizer's and
 the LR scheduler's state, the EMA of the trainable parameters, the step, and
 the model config embedded, as the JAX trainer's checkpoint does
-(training/trainer.py:149). Files are written to a temporary name and renamed,
+(training/trainer.py:149). An autoencoder GAN wrapper adds its
+discriminator's state_dict, optimizer and scheduler (`discriminator`,
+`disc_optimizer`, `disc_scheduler`); a diffusion checkpoint has none of them. Files are written to a temporary name and renamed,
 so a cut run never leaves a truncated checkpoint under the final name.
 """
 
@@ -18,8 +20,9 @@ import torch
 
 
 def save_training_state(path: str, wrapper, model_config: tp.Optional[dict] = None) -> None:
-    """`wrapper`: a training wrapper (training/diffusion.py) with `model`,
-    `optimizer`, `scheduler`, `ema` and `step`."""
+    """`wrapper`: a training wrapper (training/diffusion.py,
+    training/autoencoders.py) with `model`, `optimizer`, `scheduler`, `ema`
+    and `step`, and a `discriminator` for a GAN."""
     state = {
         "state_dict": wrapper.model.state_dict(),
         "optimizer": wrapper.optimizer.state_dict(),
@@ -28,6 +31,10 @@ def save_training_state(path: str, wrapper, model_config: tp.Optional[dict] = No
         "step": wrapper.step,
         "model_config": model_config,
     }
+    if getattr(wrapper, "discriminator", None) is not None:
+        state.update(discriminator=wrapper.discriminator.state_dict(),
+                     disc_optimizer=wrapper.disc_optimizer.state_dict(),
+                     disc_scheduler=wrapper.disc_scheduler.state_dict())
     tmp = f"{path}.tmp"
     torch.save(state, tmp)
     os.replace(tmp, path)
@@ -39,6 +46,10 @@ def load_training_state(path: str, wrapper) -> dict:
     wrapper.model.load_state_dict(state["state_dict"], strict=True)
     wrapper.optimizer.load_state_dict(state["optimizer"])
     wrapper.scheduler.load_state_dict(state["scheduler"])
+    if getattr(wrapper, "discriminator", None) is not None:
+        wrapper.discriminator.load_state_dict(state["discriminator"], strict=True)
+        wrapper.disc_optimizer.load_state_dict(state["disc_optimizer"])
+        wrapper.disc_scheduler.load_state_dict(state["disc_scheduler"])
     if wrapper.ema is not None:
         if state["ema"] is None:
             raise ValueError(f"{path} holds no EMA but the trainer keeps one")

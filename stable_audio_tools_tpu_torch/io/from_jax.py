@@ -1,7 +1,8 @@
 """JAX-package parameters -> the port's state_dict (numpy only).
 
 Inputs are the JAX package's flax parameters as nested dicts of numpy arrays:
-the `params` collection of a `ConditionedDiffusionModelWrapper`, and the
+the `params` collection of a `ConditionedDiffusionModelWrapper`, of an
+`AudioAutoencoder` or of an `EncodecDiscriminator`, and the
 frozen T5 tower's own params (`T5Conditioner._t5.params`), which live outside
 it. The output is a flat {name: numpy array} in the port's names, which are
 the reference torch state-dict names (those io/torch_mapping.py and
@@ -11,7 +12,8 @@ io/checkpoints.py of the JAX package import), ready for
 Transforms:
 - dense kernels [in, out] -> torch [out, in];
 - WIO conv kernels [k, in, out] -> [out, in, k]; transposed-conv kernels
-  [k, in, out] -> [in, out, k];
+  [k, in, out] -> [in, out, k]; HWIO 2-D kernels [kh, kw, in, out] ->
+  [out, in, kh, kw];
 - weight norm: v as above, g -> [out, 1, 1] (transposed: [in, 1, 1]);
 - log-scale snake alpha / beta as they are;
 - fused projections de-interleaved: the JAX package stores to_qkv / to_kv
@@ -154,6 +156,30 @@ def autoencoder_state_dict(p: Mapping, prefix: str = "") -> StateDict:
     if "encoder" in p:
         out.update(oobleck_encoder_state_dict(p["encoder"], f"{prefix}encoder."))
     out.update(oobleck_decoder_state_dict(p["decoder"], f"{prefix}decoder."))
+    return out
+
+
+def wn_conv2d(out: StateDict, name: str, p: Mapping) -> None:
+    """JAX WNConv2d (v HWIO [kh, kw, in, out], g [out]) -> [out, in, kh, kw]."""
+    out[f"{name}.weight_v"] = _np(p["v"]).transpose(3, 2, 0, 1)
+    out[f"{name}.weight_g"] = _np(p["g"]).reshape(-1, 1, 1, 1)
+    if "bias" in p:
+        out[f"{name}.bias"] = _np(p["bias"])
+
+
+def encodec_discriminator_state_dict(params: Mapping, prefix: str = "") -> StateDict:
+    """`params` of the JAX EncodecDiscriminator -> the port's
+    (models/discriminators.py): scale i's conv_in, conv_0.., conv_pre_post
+    become `convs.0..`, conv_post stays."""
+    out: StateDict = {}
+    scales = params["discriminators"]
+    for i in range(sum(1 for k in scales if k.startswith("disc_"))):
+        p, name = scales[f"disc_{i}"], f"{prefix}discriminators.discriminators.{i}"
+        n_dil = sum(1 for k in p if k.startswith("conv_") and k[5:].isdigit())
+        order = ["conv_in"] + [f"conv_{j}" for j in range(n_dil)] + ["conv_pre_post"]
+        for j, key in enumerate(order):
+            wn_conv2d(out, f"{name}.convs.{j}", p[key])
+        wn_conv2d(out, f"{name}.conv_post", p["conv_post"])
     return out
 
 

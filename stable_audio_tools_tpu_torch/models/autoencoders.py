@@ -8,10 +8,13 @@ Sequential layout (`layers.{i}`), so published checkpoints map by name.
 The residual fusion is explicit: every snake -> WNConv1d pair passes the
 snake's parameters to the conv (`pre_snake`), which runs the fused
 snake-conv kernel; the ResidualUnit's skip add rides conv2's epilogue
-(`residual=`). The snake before each transposed upsample runs the fused
-snake kernel and then cuDNN's transposed conv. Covered: the snake activation
-(SA-Open's and SA-2.0's VAEs); ELU and anti-aliased activations are later
-slices.
+(`residual=`). The snake before each strided or transposed conv runs the
+fused snake kernel and then cuDNN's conv. Every one of these is
+differentiable: the snake and snake-conv kernels are autograd Functions with
+backward kernels, and the plain convs without a snake (`conv_in`) take the
+hand-written weight gradient (ops/conv.py `Conv1dS1`), so the autoencoder
+trains (training/autoencoders.py). Covered: the snake activation (SA-Open's
+and SA-2.0's VAEs); ELU and anti-aliased activations are later slices.
 
 `encode_audio` / `decode_audio` are the chunked overlap-paste codec for long
 audio (JAX :462-553): windows of `chunk_size` latents every `chunk_size -
@@ -159,11 +162,16 @@ class AudioAutoencoder(nn.Module):
         self.soft_clip = soft_clip
 
     def encode(self, audio: torch.Tensor, generator: Optional[torch.Generator] = None,
-               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+               noise: Optional[torch.Tensor] = None, return_info: bool = False):
+        """audio [B, C, T] -> latents; with `return_info`, (latents, info) with
+        the bottleneck's losses (the VAE's "kl")."""
         latents = self.encoder(audio)
+        info = {}
         if self.bottleneck is not None:
-            latents = self.bottleneck.encode(latents, generator=generator, noise=noise)
-        return latents
+            out = self.bottleneck.encode(latents, generator=generator, noise=noise,
+                                         return_info=return_info)
+            latents, info = out if return_info else (out, info)
+        return (latents, info) if return_info else latents
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         if self.bottleneck is not None:

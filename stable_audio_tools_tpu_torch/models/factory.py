@@ -112,7 +112,7 @@ def init_random_(model: nn.Module, generator: torch.Generator,
     norm scales 1, log-scale snake parameters 0, Fourier weights ~ N(0, 1),
     weight-norm g = ||v||."""
     from ..ops.activations import SnakeBeta
-    from ..ops.conv import WNConv1d, WNConvTranspose1d
+    from ..ops.conv import WNConv1d, WNConv2d, WNConvTranspose1d
     from ..ops.embeddings import FourierFeatures
     from ..ops.norms import LayerNorm
     from .conditioners import LearnedPositionalEmbedding
@@ -130,10 +130,10 @@ def init_random_(model: nn.Module, generator: torch.Generator,
             normal_(m.weight, 1.0 / math.sqrt(m.weight[0].numel()))
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, (WNConv1d, WNConvTranspose1d)):
-            fan_in = m.weight_v.shape[1] * m.weight_v.shape[2]
-            normal_(m.weight_v, 1.0 / math.sqrt(fan_in))
-            m.weight_g.copy_(m.weight_v.norm(dim=(1, 2), keepdim=True))
+        elif isinstance(m, (WNConv1d, WNConvTranspose1d, WNConv2d)):
+            normal_(m.weight_v, 1.0 / math.sqrt(m.weight_v[0].numel()))
+            m.weight_g.copy_(torch.linalg.vector_norm(
+                m.weight_v, dim=tuple(range(1, m.weight_v.dim())), keepdim=True))
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, (nn.Embedding, FourierFeatures)):

@@ -107,14 +107,3 @@ def build_all() -> Dict[str, float]:
         list(pool.map(library, names))
     return dict(BUILD_SECONDS)
 
-
-def require_no_grad(name: str, *tensors) -> None:
-    """Raise if autograd would record a kernel that has no backward yet: its
-    output would carry no grad_fn and the gradient would vanish silently."""
-    import torch
-
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name}: the CUDA kernel has no backward yet (the snake and snake-conv "
-            "backward kernels come with the autoencoder-training slice); call it "
-            "under torch.no_grad() or on frozen inputs")

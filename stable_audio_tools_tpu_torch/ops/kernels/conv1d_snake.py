@@ -1,37 +1,46 @@
-"""Fused snake -> conv1d: the Hopper port of the TPU `snake_conv1d` and
-`snake_conv1d_res`.
+"""Fused snake -> conv1d and its gradients: the Hopper port of the TPU
+`snake_conv1d`, `snake_conv1d_res` and `conv1d_wgrad`.
 
     snake_conv1d(x, w, b, alpha, beta, pad_lo, pad_hi, d)
         = conv1d(snake(x; alpha, beta), w, stride 1, dilation d) + b
     snake_conv1d_res(..., residual) = the same + residual
 
-x is [B, Ci, L] and w is [Co, Ci, k] (torch conv layouts, the port's decoder
+x is [B, Ci, L] and w is [Co, Ci, k] (torch conv layouts, the port's
 layout); alpha, beta are the post-exp per-channel values. Padding rows
 contribute an exact 0 (the snake is applied before padding).
 
-- CUDA bf16 tensors launch `csrc/snake_conv1d.cu` (its source note says what
-  it replaces, what bounds it and how it is tiled). It covers every width on
-  the Oobleck decoder's path (Ci = Co = 128..1024, and Co = 2 for conv_out);
-  none of the TPU's 128-lane or 4 MB weight gates apply.
-- CPU tensors take `snake_conv1d_plain`: the snake in f32, rounded to x's
-  dtype, then `torch.nn.functional.conv1d` (f32 accumulation).
+Both are `torch.autograd.Function`s (JAX `_snake_conv1d_bwd` :508,
+`_snake_conv1d_res_bwd` :595). They save x, w, alpha and beta and recompute
+the snake in the backward, which launches two kernels:
+- `snake_conv1d_dx` (`csrc/snake_conv1d_dx.cu`, replaces `_bwd_dx_kernel`):
+  dx and the dalpha/dbeta partials;
+- `snake_conv1d_wgrad` (`csrc/conv1d_wgrad.cu` with the snake, replaces
+  `_bwd_dw_kernel_snake`): dW and db in f32.
+The residual's gradient is dy itself. `conv1d_wgrad` (the same source
+without the snake, replaces `_bwd_dw_kernel_plain`) is the weight gradient
+of the plain stride-1 convs (ops/conv.py `Conv1dS1`).
 
-The kernel has no backward yet (the TPU `_bwd_dx_kernel` / `_bwd_dw_kernel_*`
-are the AE-training slice's): a CUDA input that requires grad raises.
-SA-Open's frozen encoder runs it under `torch.no_grad()`.
+CUDA bf16 tensors launch the kernels (each source's note says what it
+replaces, what bounds it and how it is tiled); they take every width on the
+Oobleck path (Ci, Co = 2..2048), none of the TPU's 128-lane, VMEM or
+big-channel gates apply. CPU tensors take the plain versions, through the same
+autograd Functions: the snake in f32 rounded to x's dtype, then
+`torch.nn.functional.conv1d` or f32 products.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
 
-MAX_SPAN = 192  # (k - 1) * d the kernel's shared-memory window admits
+MAX_SPAN = 192  # (k - 1) * d the kernels' shared-memory window admits
+# blocks of the weight-gradient kernel to keep in flight: ~4 per SM of an H100
+WGRAD_BLOCKS = 4 * 132
 
 
 def _snake_f32(x, alpha, beta):
@@ -54,10 +63,52 @@ def snake_conv1d_plain(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Te
     return out.to(x.dtype)
 
 
+def snake_conv1d_dx_plain(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                          alpha: torch.Tensor, beta: torch.Tensor, pad_lo: int, pad_hi: int,
+                          d: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx in x's dtype, dalpha f32 [Ci], dbeta f32 [Ci]) of snake_conv1d for
+    dy [B, Co, Lout]: the conv of dy with the flipped, transposed weights
+    (f32), then the snake's derivative in f32."""
+    span = (w.shape[-1] - 1) * d
+    # pads of (k-1)*d - pad on each side give length L; a negative pad crops
+    dyp = F.pad(dy.float(), (span - pad_lo, span - pad_hi))
+    ds = F.conv1d(dyp, w.float().flip(-1).transpose(0, 1), dilation=d)
+    xf = x.float()
+    a = alpha.float()[:, None]
+    binv = 1.0 / (beta.float()[:, None] + 1e-9)
+    s, c = torch.sin(xf * a), torch.cos(xf * a)
+    ds2 = 2.0 * s * c
+    dx = ds * (1.0 + a * binv * ds2)
+    dalpha = (ds * xf * binv * ds2).sum(dim=(0, 2))
+    dbeta = (-ds * (s * s) * (binv * binv)).sum(dim=(0, 2))
+    return dx.to(x.dtype), dalpha, dbeta
+
+
+def conv1d_wgrad_plain(dy: torch.Tensor, x: torch.Tensor, k: int, pad_lo: int, pad_hi: int,
+                       d: int, pre_snake: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dW f32 [Co, Ci, k], db f32 [Co]) of a stride-1 conv1d of x [B, Ci, L]
+    (after snake(x) rounded to x's dtype, with `pre_snake`) for dy
+    [B, Co, Lout]: one f32 product over batch and time per tap."""
+    sx = x if pre_snake is None else _snake_f32(x, *pre_snake).to(x.dtype)
+    sxp = F.pad(sx, (pad_lo, pad_hi)).float()
+    dyf = dy.float()
+    Lout = dy.shape[-1]
+    dW = torch.stack([torch.einsum("bot,bit->oi", dyf, sxp[..., j * d:j * d + Lout])
+                      for j in range(k)], dim=-1)
+    return dW, dyf.sum(dim=(0, 2))
+
+
+def _require_bf16(name: str, *tensors) -> None:
+    for t in tensors:
+        if t is not None and (t.device.type != "cuda" or t.dtype != torch.bfloat16):
+            raise TypeError(f"{name}: the kernel takes bfloat16 CUDA tensors, got "
+                            f"{t.dtype} on {t.device}")
+
+
 def _launch(x, w, bias, alpha, beta, pad_lo, pad_hi, dilation, residual):
     if x.device.type != "cuda":
         raise ValueError(f"snake_conv1d: unsupported device {x.device}")
-    _build.require_no_grad("snake_conv1d", x, w, bias, alpha, beta, residual)
     if x.dim() != 3 or w.dim() != 3:
         raise ValueError(f"x must be [B, Ci, L] and w [Co, Ci, k]: {x.shape} {w.shape}")
     B, Ci, L = x.shape
@@ -82,9 +133,9 @@ def _launch(x, w, bias, alpha, beta, pad_lo, pad_hi, dilation, residual):
         residual = residual.contiguous()
     x = x.contiguous()
     w_kio = w.permute(2, 1, 0).contiguous()  # [k, Ci, Co]
-    a = alpha.contiguous().float()
-    b = beta.contiguous().float()
-    bias_f = bias.contiguous().float() if bias is not None else None
+    a = alpha.detach().contiguous().float()
+    b = beta.detach().contiguous().float()
+    bias_f = bias.detach().contiguous().float() if bias is not None else None
     y = torch.empty((B, Co, Lout), device=x.device, dtype=x.dtype)
     fn = _build.bind("snake_conv1d", "snake_conv1d_fwd",
                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
@@ -97,28 +148,146 @@ def _launch(x, w, bias, alpha, beta, pad_lo, pad_hi, dilation, residual):
     return y
 
 
+def snake_conv1d_dx(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
+                    beta: torch.Tensor, pad_lo: int, pad_hi: int, d: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dalpha f32 [Ci], dbeta f32 [Ci]) of snake_conv1d for dy
+    [B, Co, Lout]; CUDA tensors launch `csrc/snake_conv1d_dx.cu`."""
+    if x.device.type == "cpu":
+        return snake_conv1d_dx_plain(dy, x, w, alpha, beta, pad_lo, pad_hi, d)
+    _require_bf16("snake_conv1d_dx", dy, x, w)
+    B, Ci, L = x.shape
+    Co, _, k = w.shape
+    Lout = L + pad_lo + pad_hi - (k - 1) * d
+    if dy.shape != (B, Co, Lout):
+        raise ValueError(f"snake_conv1d_dx: dy must be [{B}, {Co}, {Lout}], got {tuple(dy.shape)}")
+    if (k - 1) * d > MAX_SPAN:
+        raise ValueError(f"(k-1)*d = {(k - 1) * d} exceeds {MAX_SPAN}")
+    dy, x = dy.contiguous(), x.contiguous()
+    wt = w.detach().flip(-1).permute(2, 0, 1).contiguous()  # [k, Co, Ci]
+    nblk = _build.bind("snake_conv1d_dx", "snake_conv1d_dx_blocks", [ctypes.c_int] * 2)(L, k)
+    dx = torch.empty_like(x)
+    pa = torch.empty((B, nblk, Ci), device=x.device, dtype=torch.float32)
+    pb = torch.empty_like(pa)
+    fn = _build.bind("snake_conv1d_dx", "snake_conv1d_dx",
+                     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    code = fn(dy.data_ptr(), wt.data_ptr(), x.data_ptr(),
+              alpha.detach().contiguous().float().data_ptr(),
+              beta.detach().contiguous().float().data_ptr(), dx.data_ptr(), pa.data_ptr(),
+              pb.data_ptr(), B, Co, Ci, Lout, L, k, d, pad_lo,
+              torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(code, "snake_conv1d_dx")
+    snake_conv1d_dx.launches += 1
+    return dx, pa.sum(dim=(0, 1)), pb.sum(dim=(0, 1))
+
+
+def _wgrad(name, dy, x, k, pad_lo, pad_hi, d, pre_snake):
+    _require_bf16(name, dy, x)
+    B, Ci, L = x.shape
+    Co = dy.shape[1]
+    Lout = L + pad_lo + pad_hi - (k - 1) * d
+    if dy.dim() != 3 or dy.shape != (B, Co, Lout):
+        raise ValueError(f"{name}: dy must be [{B}, Co, {Lout}], got {tuple(dy.shape)}")
+    dy, x = dy.contiguous(), x.contiguous()
+    tiles = _build.bind("conv1d_wgrad", "conv1d_wgrad_tiles", [ctypes.c_int] * 3)(Co, Ci, k)
+    steps = B * -(-Lout // 64)
+    S = max(1, min(steps, -(-WGRAD_BLOCKS // tiles)))
+    dev = x.device
+    ws = torch.empty((S, k, Co, Ci), device=dev, dtype=torch.float32)
+    dbws = torch.empty((S, Co), device=dev, dtype=torch.float32)
+    dW = torch.empty((Co, Ci, k), device=dev, dtype=torch.float32)
+    db = torch.empty((Co,), device=dev, dtype=torch.float32)
+    if pre_snake is not None:
+        a, b = (p.detach().contiguous().float() for p in pre_snake)
+        if a.shape != (Ci,) or b.shape != (Ci,):
+            raise ValueError(f"{name}: alpha/beta must be [{Ci}]")
+        ptrs = (a.data_ptr(), b.data_ptr())
+    else:
+        ptrs = (None, None)
+    fn = _build.bind("conv1d_wgrad", "conv1d_wgrad",
+                     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    code = fn(dy.data_ptr(), x.data_ptr(), *ptrs, ws.data_ptr(), dbws.data_ptr(),
+              dW.data_ptr(), db.data_ptr(), B, Co, Ci, L, Lout, k, d, pad_lo, S,
+              torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, name)
+    return dW, db
+
+
+def snake_conv1d_wgrad(dy: torch.Tensor, x: torch.Tensor, k: int, alpha: torch.Tensor,
+                       beta: torch.Tensor, pad_lo: int, pad_hi: int, d: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dW f32 [Co, Ci, k], db f32 [Co]) of snake_conv1d for dy; CUDA tensors
+    launch `csrc/conv1d_wgrad.cu` with the snake recomputed in its loads."""
+    if x.device.type == "cpu":
+        return conv1d_wgrad_plain(dy, x, k, pad_lo, pad_hi, d, (alpha, beta))
+    out = _wgrad("snake_conv1d_wgrad", dy, x, k, pad_lo, pad_hi, d, (alpha, beta))
+    snake_conv1d_wgrad.launches += 1
+    return out
+
+
+def conv1d_wgrad(dy: torch.Tensor, x: torch.Tensor, k: int, pad_lo: int, pad_hi: int,
+                 d: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dW f32 [Co, Ci, k], db f32 [Co]) of a plain stride-1 conv1d of x for
+    dy; CUDA tensors launch `csrc/conv1d_wgrad.cu` without the snake."""
+    if x.device.type == "cpu":
+        return conv1d_wgrad_plain(dy, x, k, pad_lo, pad_hi, d)
+    out = _wgrad("conv1d_wgrad", dy, x, k, pad_lo, pad_hi, d, None)
+    conv1d_wgrad.launches += 1
+    return out
+
+
+class _SnakeConv1d(torch.autograd.Function):
+    """conv1d(snake(x), w) + bias (+ residual), forward and backward by the
+    kernels on CUDA and by the plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, alpha, beta, residual, pad_lo, pad_hi, dilation):
+        ctx.save_for_backward(x, w, alpha, beta)
+        ctx.conv = (pad_lo, pad_hi, dilation)
+        ctx.dtypes = (None if bias is None else bias.dtype,
+                      None if residual is None else residual.dtype)
+        if x.device.type == "cpu":
+            return snake_conv1d_plain(x, w, bias, alpha, beta, pad_lo, pad_hi, dilation,
+                                      residual)
+        y = _launch(x, w, bias, alpha, beta, pad_lo, pad_hi, dilation, residual)
+        (snake_conv1d if residual is None else snake_conv1d_res).launches += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, alpha, beta = ctx.saved_tensors
+        pad_lo, pad_hi, d = ctx.conv
+        bias_dtype, res_dtype = ctx.dtypes
+        need = ctx.needs_input_grad
+        dy = dy.contiguous()
+        dx = dalpha = dbeta = dW = db = None
+        if need[0] or need[3] or need[4]:
+            dx, dalpha, dbeta = snake_conv1d_dx(dy, x, w, alpha, beta, pad_lo, pad_hi, d)
+            dalpha, dbeta = dalpha.to(alpha.dtype), dbeta.to(beta.dtype)
+        if need[1] or need[2]:
+            dW, db = snake_conv1d_wgrad(dy, x, w.shape[-1], alpha, beta, pad_lo, pad_hi, d)
+            dW = dW.to(w.dtype)
+            db = None if bias_dtype is None else db.to(bias_dtype)
+        dres = None if res_dtype is None else dy.to(res_dtype)
+        return dx, dW, db, dalpha, dbeta, dres, None, None, None
+
+
 def snake_conv1d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
                  alpha: torch.Tensor, beta: torch.Tensor, pad_lo: int, pad_hi: int,
                  dilation: int) -> torch.Tensor:
     """conv1d(snake(x), w) + bias; x [B, Ci, L], w [Co, Ci, k] -> [B, Co, Lout]."""
-    if x.device.type == "cpu":
-        return snake_conv1d_plain(x, w, bias, alpha, beta, pad_lo, pad_hi, dilation)
-    y = _launch(x, w, bias, alpha, beta, pad_lo, pad_hi, dilation, None)
-    snake_conv1d.launches += 1
-    return y
+    return _SnakeConv1d.apply(x, w, bias, alpha, beta, None, pad_lo, pad_hi, dilation)
 
 
 def snake_conv1d_res(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
                      alpha: torch.Tensor, beta: torch.Tensor, residual: torch.Tensor,
                      pad_lo: int, pad_hi: int, dilation: int) -> torch.Tensor:
     """snake_conv1d with the residual [B, Co, Lout] added in the epilogue."""
-    if x.device.type == "cpu":
-        return snake_conv1d_plain(x, w, bias, alpha, beta, pad_lo, pad_hi, dilation,
-                                  residual)
-    y = _launch(x, w, bias, alpha, beta, pad_lo, pad_hi, dilation, residual)
-    snake_conv1d_res.launches += 1
-    return y
+    return _SnakeConv1d.apply(x, w, bias, alpha, beta, residual, pad_lo, pad_hi, dilation)
 
 
 snake_conv1d.launches = 0
 snake_conv1d_res.launches = 0
+snake_conv1d_dx.launches = 0
+snake_conv1d_wgrad.launches = 0
+conv1d_wgrad.launches = 0

@@ -3,10 +3,12 @@
     python -m stable_audio_tools_tpu_torch.train --model-config MODEL.json \\
         --dataset-config DATASET.json [--batch-size 4] [--max-steps N] ...
 
-Builds the model from its JSON config (random weights drawn from a
-`torch.Generator` seeded with --seed; the T5 tower is random unless the
-config's conditioner loads weights), the training wrapper from the config's
-`training` section and an `audio_dir` dataloader, then trains on the current
+Builds the model from its JSON config (a conditioned diffusion model or an
+autoencoder; random weights drawn from a `torch.Generator` seeded with
+--seed; the T5 tower is random unless the config's conditioner loads
+weights), the training wrapper from the config's `training` section (for an
+autoencoder, the GAN trainer with its discriminator) and an `audio_dir`
+dataloader, then trains on the current
 CUDA card (on the CPU only with `--device cpu`), writing `train_log.jsonl` and
 `step=N.ckpt` files to --save-dir. Defaults come from the repository's
 `defaults.ini`. Flags of the JAX entry point that the port does not implement
@@ -27,8 +29,9 @@ import torch
 
 DEFAULTS_INI = Path(__file__).resolve().parents[1] / "defaults.ini"
 
-# --precision values -> the DiT's compute dtype when its config sets none
-# (the JAX entry's mapping)
+# --precision values -> the compute dtype when the config sets none: the
+# DiT's, or the autoencoder trainer's `training.compute_dtype` (the JAX
+# entry's mapping)
 PRECISION_DTYPE = {
     "16-mixed": "bfloat16", "16-true": "bfloat16", "16": "bfloat16",
     "bf16-mixed": "bfloat16", "bf16-true": "bfloat16", "bf16": "bfloat16",
@@ -94,8 +97,11 @@ def build(args: argparse.Namespace, device: tp.Optional[torch.device] = None):
         model_config = json.load(f)
     with open(args.dataset_config) as f:
         dataset_config = json.load(f)
-    dit_config = model_config["model"]["diffusion"]["config"]
-    dit_config.setdefault("compute_dtype", PRECISION_DTYPE[args.precision])
+    if model_config.get("model_type") == "autoencoder":
+        compute = model_config.setdefault("training", {})
+    else:
+        compute = model_config["model"]["diffusion"]["config"]
+    compute.setdefault("compute_dtype", PRECISION_DTYPE[args.precision])
     random.seed(args.seed)
     np.random.seed(args.seed)
     model = create_model_from_config(model_config, device)

@@ -115,6 +115,9 @@ class DiffusionCondTrainer:
     def device(self) -> torch.device:
         return next(iter(self.params.values())).device
 
+    def learning_rates(self) -> tp.Dict[str, float]:
+        return {"lr": self.optimizer.param_groups[0]["lr"]}
+
     def generator(self, counter: int) -> torch.Generator:
         """The generator of draw `counter` (step * accum_steps + microbatch)."""
         seed = (self.seed * 0x9E3779B1 + counter) % (2 ** 63)

@@ -1,6 +1,7 @@
 """Training factory; counterpart of stable_audio_tools_tpu/training/factory.py
-(`create_training_wrapper_from_config` :8). This slice trains
-`diffusion_cond` models; the other model types raise NotImplementedError."""
+(`create_training_wrapper_from_config` :8). The port trains `autoencoder`
+(:17) and `diffusion_cond` models; the other model types raise
+NotImplementedError."""
 
 from __future__ import annotations
 
@@ -19,6 +20,25 @@ def create_training_wrapper_from_config(model_config: tp.Dict[str, tp.Any], mode
     training_config = model_config.get("training")
     if training_config is None:
         raise ValueError("training config must be specified in model config")
+    if model_type == "autoencoder":
+        from .autoencoders import AutoencoderTrainer
+
+        return AutoencoderTrainer(
+            model,
+            lr=training_config.get("learning_rate"),
+            warmup_steps=training_config.get("warmup_steps", 0),
+            warmup_mode=training_config.get("warmup_mode", "adv"),
+            encoder_freeze_on_warmup=training_config.get("encoder_freeze_on_warmup", False),
+            sample_rate=model_config["sample_rate"],
+            loss_config=training_config.get("loss_configs"),
+            optimizer_configs=training_config.get("optimizer_configs"),
+            use_ema=training_config.get("use_ema", True),
+            latent_mask_ratio=training_config.get("latent_mask_ratio", 0.0),
+            teacher_model=training_config.get("teacher_model"),
+            compute_dtype=training_config.get("compute_dtype"),
+            clip_grad_norm=gradient_clip_val,
+            seed=seed,
+        )
     if model_type != "diffusion_cond":
         raise NotImplementedError(f"training {model_type} models is not ported yet")
     unported = [k for k in _UNPORTED if training_config.get(k)]

@@ -3,8 +3,9 @@
 One card, no data parallelism (multi-GPU is a later slice). The loop: fetch a
 batch, move it to the card (`prepare_batch`, JAX `_prepare_batch` :77; the
 conditioners run inside the step, the T5 tower under no_grad), run the
-wrapper's `train_step`, log every step to `train_log.jsonl` (the losses read
-back from the card, which synchronises it),
+wrapper's `train_step` (a diffusion or an autoencoder GAN step), log every
+step to `train_log.jsonl` (the losses read back from the card, which
+synchronises it, and the learning rate of each optimizer),
 checkpoint every `checkpoint_every` steps and at the end (with the model
 config embedded, JAX :149), stop at `max_steps`, resume from a checkpoint.
 Demo callbacks are a later slice.
@@ -77,7 +78,7 @@ class Trainer:
                 step = wrapper.step
                 if self.rank == 0:
                     metrics = {f"train/{k}": float(v) for k, v in aux.items()}
-                    metrics["train/lr"] = wrapper.optimizer.param_groups[0]["lr"]
+                    metrics.update({f"train/{k}": v for k, v in wrapper.learning_rates().items()})
                     now = time.perf_counter()
                     metrics["train/steps_per_sec"] = 1.0 / max(now - t_last, 1e-9)
                     t_last = now

@@ -6,8 +6,7 @@ Marked `cuda`: they skip where there is no card. On the card:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 Tolerance: bf16 outputs, 2 units in the last place at the reference's peak;
 gradients, a relative bound stated at each test. Also: the autograd
-wrappers' gradients, and the wrappers without a backward refusing inputs
-that require grad.
+wrappers' gradients against autograd through the plain versions.
 """
 
 import pytest
@@ -69,6 +68,10 @@ def test_snake_fused(dev):
     (64, 2, 300, 7, 1, False, False),
     (96, 96, 65, 1, 1, True, True),
     (128, 128, 1000, 7, 9, True, True),
+    # k = 3: the SA-2.0 VAE encoder's conv_out (2048 -> 128 at L = 32, one
+    # ragged tile) and widths off the tiling
+    (2048, 128, 32, 3, 1, False, True),
+    (200, 64, 77, 3, 1, False, True),
 ])
 def test_snake_conv1d(dev, Ci, Co, L, k, d, res, bias):
     x = _randn(dev, 2, Ci, L)
@@ -143,18 +146,114 @@ def test_wrapper_gradients_on_card(dev):
         assert _rel_err(a, b) < 1e-2
 
 
-def test_snake_wrappers_raise_on_inputs_that_require_grad(dev):
-    x = _randn(dev, 1, 8, 64).requires_grad_()
-    a, b = torch.ones(8, device=dev), torch.ones(8, device=dev)
-    w = _randn(dev, 8, 8, 3, seed=1)
-    r = _randn(dev, 1, 8, 64, seed=2)
-    for call in (lambda: sn.snake_fused(x, a, b),
-                 lambda: cs.snake_conv1d(x, w, None, a, b, 1, 1, 1),
-                 lambda: cs.snake_conv1d_res(x, w, None, a, b, r, 1, 1, 1)):
-        with pytest.raises(RuntimeError, match="no backward"):
-            call()
-    with torch.no_grad():  # the frozen encoder's way: no autograd, no error
+def test_snake_wrapper_gradients_on_card(dev):
+    # the snake and snake-conv autograd Functions on the card (forward and
+    # backward kernels) against autograd through the plain versions on the
+    # same bf16 inputs: bf16 dx, f32 parameter gradients summed over the batch
+    # and time in another order: 1e-2 of each gradient's peak
+    a = _randn(dev, 48, dtype=torch.float32, seed=3).exp().requires_grad_()
+    b = _randn(dev, 48, dtype=torch.float32, seed=4).exp().requires_grad_()
+    x = _randn(dev, 2, 48, 700, scale=2.0).requires_grad_()
+    w = _randn(dev, 40, 48, 7, scale=(48 * 7) ** -0.5, seed=1).requires_grad_()
+    bias = _randn(dev, 40, dtype=torch.float32, seed=2).requires_grad_()
+    r = _randn(dev, 2, 40, 700, seed=5).requires_grad_()
+    g = _randn(dev, 2, 40, 700, seed=6)
+    gs = _randn(dev, 2, 48, 700, seed=7)
+    cases = (
+        ("snake_fused", (x, a, b), lambda: sn.snake_fused(x, a, b),
+         lambda: sn.snake_fused_plain(x, a, b), gs),
+        ("snake_conv1d", (x, w, bias, a, b), lambda: cs.snake_conv1d(x, w, bias, a, b, 9, 9, 3),
+         lambda: cs.snake_conv1d_plain(x, w, bias, a, b, 9, 9, 3), g),
+        ("snake_conv1d_res", (x, w, bias, a, b, r),
+         lambda: cs.snake_conv1d_res(x, w, bias, a, b, r, 9, 9, 3),
+         lambda: cs.snake_conv1d_plain(x, w, bias, a, b, 9, 9, 3, r), g),
+    )
+    for name, inputs, kernel, plain, cot in cases:
+        y = kernel()
+        assert y.grad_fn is not None, name
+        got = torch.autograd.grad((y.float() * cot.float()).sum(), inputs)
+        want = torch.autograd.grad((plain().float() * cot.float()).sum(), inputs)
+        for i, (p, q) in enumerate(zip(got, want)):
+            assert p.dtype == inputs[i].dtype and _rel_err(p, q) < 1e-2, (name, i, _rel_err(p, q))
+    with torch.no_grad():  # the frozen encoder's way: no autograd
         assert sn.snake_fused(x, a, b).grad_fn is None
+
+
+@pytest.mark.parametrize("B,C,L", [(2, 33, 5000), (1, 128, 4096), (3, 7, 100)])
+def test_snake_fused_bwd(dev, B, C, L):
+    # kernel A: dx within 2 bf16 ulps; dalpha/dbeta f32 sums in another
+    # order, 1e-2 of their peak
+    x, g = _randn(dev, B, C, L, scale=2.0), _randn(dev, B, C, L, seed=1)
+    a = _randn(dev, C, dtype=torch.float32, seed=2).exp()
+    b = _randn(dev, C, dtype=torch.float32, seed=3).exp()
+    got = sn.snake_fused_bwd(x, a, b, g)
+    want = sn.snake_fused_bwd_plain(x, a, b, g)
+    _close(got[0], want[0])
+    for p, q in zip(got[1:], want[1:]):
+        assert _rel_err(p, q) < 1e-2
+
+
+# (Ci, Co, L, k, d, pad): widths off the 32/64 tiling, Co = 2 (the decoder's
+# conv_out), a dilated k = 7 with a ragged tail, k = 1, k = 3 with Lout < L
+# tiles (the encoder's conv_out), an asymmetric pad
+DX_CASES = [(36, 70, 129, 7, 5, 15), (128, 2, 300, 7, 1, 3), (96, 96, 65, 1, 1, 0),
+            (128, 128, 1000, 7, 9, 27), (200, 64, 32, 3, 1, 1), (64, 48, 77, 4, 2, 2)]
+
+
+@pytest.mark.parametrize("Ci,Co,L,k,d,pad", DX_CASES)
+def test_snake_conv1d_dx(dev, Ci, Co, L, k, d, pad):
+    # kernel B: dx within 2 bf16 ulps of the plain version, dalpha/dbeta
+    # within 1e-2 of their peak
+    x = _randn(dev, 2, Ci, L, scale=2.0)
+    w = _randn(dev, Co, Ci, k, scale=(Ci * k) ** -0.5, seed=1)
+    a = _randn(dev, Ci, dtype=torch.float32, seed=3).exp()
+    b = _randn(dev, Ci, dtype=torch.float32, seed=4).exp()
+    Lout = L + 2 * pad - (k - 1) * d
+    dy = _randn(dev, 2, Co, Lout, seed=5)
+    got = cs.snake_conv1d_dx(dy, x, w, a, b, pad, pad, d)
+    want = cs.snake_conv1d_dx_plain(dy, x, w, a, b, pad, pad, d)
+    _close(got[0], want[0])
+    for p, q in zip(got[1:], want[1:]):
+        assert _rel_err(p, q) < 1e-2
+
+
+@pytest.mark.parametrize("snake", [False, True])
+@pytest.mark.parametrize("Ci,Co,L,k,d,pad", DX_CASES + [(2, 128, 3000, 7, 1, 3),
+                                                        (64, 200, 32, 7, 1, 3)])
+def test_conv1d_wgrad(dev, snake, Ci, Co, L, k, d, pad):
+    # kernels C (snake) and D (plain), with Ci = 2 (the encoder's conv_in) and
+    # Ci = 64 -> 200 at L = 32: dW and db are f32 sums over B*Lout in
+    # another order, 1e-2 of each one's peak
+    x = _randn(dev, 2, Ci, L, scale=2.0)
+    a = _randn(dev, Ci, dtype=torch.float32, seed=3).exp()
+    b = _randn(dev, Ci, dtype=torch.float32, seed=4).exp()
+    Lout = L + 2 * pad - (k - 1) * d
+    dy = _randn(dev, 2, Co, Lout, seed=5)
+    if snake:
+        got = cs.snake_conv1d_wgrad(dy, x, k, a, b, pad, pad, d)
+    else:
+        got = cs.conv1d_wgrad(dy, x, k, pad, pad, d)
+    want = cs.conv1d_wgrad_plain(dy, x, k, pad, pad, d, (a, b) if snake else None)
+    for p, q in zip(got, want):
+        assert p.dtype == torch.float32 and p.shape == q.shape and _rel_err(p, q) < 1e-2
+
+
+def test_a_weighting_fir_is_full_f32_on_card(dev):
+    # the MRSTFT loss's FIR (cuDNN) in both directions against f64 on the
+    # CPU: 1e-5 of the peak, which TF32's 10-bit mantissa would miss by ~100x
+    from stable_audio_tools_tpu_torch.ops import stft
+
+    taps = stft.a_weighting_fir(101, 44100)
+    x = _randn(dev, 2, 2, 5000, dtype=torch.float32).requires_grad_()
+    g = _randn(dev, 2, 2, 5000, dtype=torch.float32, seed=1)
+    y = stft.apply_fir(x, taps)
+    (dx,) = torch.autograd.grad((y * g).sum(), x)
+    k = torch.from_numpy(taps).double()[None, None]
+    x64 = x.detach().cpu().double().reshape(-1, 1, 5000).requires_grad_()
+    y64 = torch.nn.functional.conv1d(x64, k, padding=50)
+    (dx64,) = torch.autograd.grad((y64 * g.cpu().double().reshape(-1, 1, 5000)).sum(), x64)
+    assert _rel_err(y.cpu().reshape(-1, 1, 5000), y64) < 1e-5
+    assert _rel_err(dx.cpu().reshape(-1, 1, 5000), dx64) < 1e-5
 
 
 def _nhd_inputs(dev, B, N, H, layout):

@@ -1,4 +1,5 @@
-"""The port imports and runs (a generation and a training step) with JAX,
+"""The port imports and runs (generation, a diffusion training step, an
+autoencoder GAN generator and discriminator step) with JAX,
 flax, transformers and the JAX package unimportable (the machine with the
 card has none of them), and without triton: no module imports it at import
 time."""
@@ -163,6 +164,58 @@ def test_sa2_path_runs_without_jax_or_triton():
     # NHD attention, chunked codec, negative conditioning, inpainting)
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", SA2_SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.startswith("ok")
+
+
+AE_SCRIPT = textwrap.dedent("""
+    import sys
+    for name in ("jax", "jaxlib", "flax", "transformers", "safetensors",
+                 "stable_audio_tools_tpu"):
+        sys.modules[name] = None  # any import of these raises ImportError
+
+    import torch
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+    from stable_audio_tools_tpu_torch.training.factory import create_training_wrapper_from_config
+
+    oobleck = {"channels": 8, "c_mults": [1, 2], "strides": [2, 2], "use_snake": True}
+    scales = {"n_ffts": [64, 32], "hop_lengths": [16, 8], "win_lengths": [64, 32]}
+    config = {
+        "model_type": "autoencoder", "sample_size": 512, "sample_rate": 44100,
+        "model": {"encoder": {"type": "oobleck", "config": dict(oobleck, in_channels=2,
+                                                                latent_dim=8)},
+                  "decoder": {"type": "oobleck", "config": dict(oobleck, out_channels=2,
+                                                                latent_dim=4)},
+                  "bottleneck": {"type": "vae"}, "latent_dim": 4, "downsampling_ratio": 4,
+                  "io_channels": 2},
+        "training": {"learning_rate": 1e-4, "compute_dtype": "bfloat16", "loss_configs": {
+            "discriminator": {"type": "encodec", "config": dict(scales, filters=4),
+                              "weights": {"adversarial": 0.1, "feature_matching": 5.0}},
+            "spectral": {"type": "mrstft", "config": {
+                "fft_sizes": [64, 32], "hop_sizes": [16, 8], "win_lengths": [64, 32],
+                "perceptual_weighting": True}, "weights": {"mrstft": 1.0}},
+            "bottleneck": {"type": "kl", "weights": {"kl": 1e-4}}}}}
+    model = init_random_(create_model_from_config(config, "cpu"), torch.Generator().manual_seed(0))
+    wrapper = create_training_wrapper_from_config(config, model)
+    audio = torch.randn(2, 2, 512, generator=torch.Generator().manual_seed(1)) * 0.3
+    gen = wrapper.train_step(audio)
+    disc = wrapper.train_step(audio)
+    assert wrapper.step == 2 and "mrstft_loss" in gen and "discriminator_loss" in disc
+    assert all(torch.isfinite(v) for v in (*gen.values(), *disc.values()))
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in (*wrapper.params.values(), *wrapper.disc_params.values()))
+    assert "triton" not in sys.modules
+    print("ok")
+""")
+
+
+def test_ae_training_runs_without_jax_or_triton():
+    # the autoencoder GAN path at toy size in bf16 (snake and snake-conv
+    # Functions with their plain backwards, Conv1dS1, STFT losses, EnCodec
+    # discriminator): one generator step and one discriminator step
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", AE_SCRIPT], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.startswith("ok")
