@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Runs from the repository root on a machine with a CUDA card, `nvcc` and
-`triton`; needs no network and no JAX. Six phases, each printing one line;
+`triton`; needs no network and no JAX. Eight phases, each printing one line;
 any failure raises and the exit code is nonzero:
 
 1. Device and build: the card's name and power limit, then every CUDA source
@@ -21,11 +21,15 @@ any failure raises and the exit code is nonzero:
    through the plain versions. The strided-layout flash attention is checked
    on views of a fused projection output and on contiguous tensors, at
    SA-2.0's and SA-Open's lengths and causally, and timed against the
-   [B, H, N, 64] entry with the four transposed copies that route pays. The
+   [B, H, N, 64] entry with the transposed copy of its output that route
+   pays (both entries launch the same kernel). The
    backward kernels of autoencoder training (snake backward, snake-conv dx,
    snake-conv and plain weight gradients) are held at the SA-2.0 VAE's
    shapes at batch 4: dx within 2 bf16 ulps, the f32 gradient sums within 1%
-   of their peaks.
+   of their peaks. The causal / sliding-window `flash_attention` and the
+   banded backward (both routes) are held at the LM's causal shapes and
+   TAAE's windowed ones (FLASH_SHAPES), each timed beside SDPA with the same
+   mask, and `flash_attention_nhd`'s causal backward at [1, 4096, 16, 64].
 3. Generation: SA-Open (the shipped stable_audio_open_1_0.json, built by the
    port's factory, random weights from a seeded torch.Generator, random T5)
    runs generate_diffusion_cond with cfg 6, dpmpp-3m-sde, sigma in [0.3, 500],
@@ -69,6 +73,25 @@ any failure raises and the exit code is nonzero:
    parameter of each side must get a finite nonzero gradient in its step,
    the parameters and the EMA must move, and the kernels must launch exactly
    as counted from the model.
+
+7. LM generation: a tiny MusicGen-shaped LM's teacher-forced logits (the
+   KV-cached decode and the full forward) agree between the card and the
+   CPU within 5%; then the shipped lm/musicgen_small_rvq.json at full width
+   (24 x 1024, 16 heads of 64, the SEANet + RVQ codec; seeded random weights,
+   random T5) generates 10 s (500 frames, 32 kHz) from a prompt with
+   `lm_generate_audio`, batch 1, cfg 3, top_k 250: KV-cached, then by the
+   full forward at every step. The audio must be finite [1, 1, 320000], and
+   the kernels must launch exactly as counted from the model (the cached
+   path: no `flash_attention`).
+
+8. LM training: one step of the tiny LM agrees between the card and the CPU
+   (loss and every LM gradient within 5%); then the shipped config at full
+   width through the code path of `python -m
+   stable_audio_tools_tpu_torch.train` on seeded synthetic mono 32 kHz WAVs
+   with prompts, batch 4 x 320,000 samples: 2 warm-up and 5 timed steps, the
+   pieces of one step, its forward+backward under the profiler, a checkpoint
+   and its reload. Every LM parameter must get a finite nonzero gradient and
+   move, and the kernels must launch exactly as counted from the model.
 
 The last lines are the kernels' JSON record, the card line and the result
 line {"ok": true, "device": {...}}.
@@ -191,7 +214,7 @@ def phase_kernels(dev):
     err = compare("flash out", out, ref, bf16_tol(ref))
     compare("flash lse", lse, ref_lse, 1e-3)
     rec["flash_attention_prefix"] = dict(
-        route="cuda", source="stable_audio_tools_tpu_torch/csrc/flash_prefix.cu",
+        route="cuda", source="stable_audio_tools_tpu_torch/csrc/flash_fwd.cu",
         replaces="stable_audio_tools_tpu/ops/kernels/flash_attention.py:181",
         shape="q,k,v [2,24,1025,64] bf16, prefix 1", max_abs_err=err,
         tol="2 bf16 ulps at max|ref| (out), 1e-3 (lse)",
@@ -245,6 +268,8 @@ def phase_kernels(dev):
     del lib_out, o, qkv
 
     rec["flash_attention_nhd"] = nhd_checks(fa, randn, F)
+    rec["flash_attention"], rec["flash_attention_prefix_bwd"]["banded"] = flash_checks(
+        fa, randn, F)
 
     # 2. DiT block norms: [2, 1025, 1536] bf16, gamma f32
     x = randn(2, 1025, 1536, scale=3.0)
@@ -540,8 +565,8 @@ def nhd_checks(fa, randn, F) -> dict:
         return max(errs)
 
     def via_prefix(q, k, v):
-        # the other route: three transposed copies in, the [B, H, N, 64]
-        # kernel, one transposed copy out
+        # the other route: the [B, H, N, 64] entry on transposed views (the
+        # kernel reads them through their strides), one transposed copy out
         out, _ = fa.flash_attention_prefix(*(t.transpose(1, 2) for t in (q, k, v)), 1)
         return out.transpose(1, 2).reshape(q.shape[0], q.shape[1], H * D)
 
@@ -590,7 +615,7 @@ def nhd_checks(fa, randn, F) -> dict:
     ab["fwd_bwd [4,1025,24,64]"] = dict(nhd_ms=cuda_ms(lambda: through(nhd), 10),
                                         prefix_with_copies_ms=cuda_ms(lambda: through(bhnd), 10))
     rec.update(
-        route="cuda", source="stable_audio_tools_tpu_torch/csrc/flash_nhd.cu",
+        route="cuda", source="stable_audio_tools_tpu_torch/csrc/flash_fwd.cu",
         replaces="stable_audio_tools_tpu/ops/kernels/flash_attention.py:757",
         shape="q,k [2,6145,24,64] bf16 contiguous, v a view of the fused [2,6145,4608], prefix 1",
         max_abs_err=max(errs.values()), errs=errs, autograd_rel_err=grad_err,
@@ -601,13 +626,143 @@ def nhd_checks(fa, randn, F) -> dict:
     return rec
 
 
+# (name, B, H, N, D, causal, window) of `flash_attention` and its banded
+# backward: the LM's causal shapes (training at batch 4 over the first 500
+# steps of the pattern sequence, and the 503 steps the issue names;
+# `lm_generate` with CFG at 10 s and at 30 s) and TAAE's windowed first level
+# (2 heads of 128 at 8192 latents, windows (31, 32) and (63, 64), and a
+# ragged N); the first is the one timed into the kernels line
+FLASH_SHAPES = (
+    ("lm_training", 4, 16, 500, 64, True, None),
+    ("lm_training_503", 4, 16, 503, 64, True, None),
+    ("lm_generate_cfg", 2, 16, 503, 64, True, None),
+    ("lm_generate_30s_cfg", 2, 16, 1503, 64, True, None),
+    ("taae_w31", 1, 2, 8192, 128, False, (31, 32)),
+    ("taae_w63", 1, 2, 8192, 128, False, (63, 64)),
+    ("taae_w31_ragged", 1, 2, 8191, 128, False, (31, 32)),
+)
+
+
+def band_pairs(fa, N: int, causal: bool, window) -> int:
+    """(query, key) pairs of an [N, N] band that are visible: the work a
+    banded kernel must do, counted from these inputs."""
+    import numpy as np
+
+    left, right = fa.band(causal, window)
+    i = np.arange(N)
+    lo = np.maximum(i - left, 0) if left >= 0 else np.zeros(N, np.int64)
+    hi = np.minimum(i + right, N - 1) if right >= 0 else np.full(N, N - 1)
+    return int((hi - lo + 1).sum())
+
+
+def flash_checks(fa, randn, F):
+    """`flash_attention` (row 5's forward) and the banded backward (row 6's
+    kernels under the causal / window mask, both routes) against their plain
+    versions at FLASH_SHAPES; each shape's kernel, plain and library times
+    (SDPA with is_causal, or with the band as a boolean mask) and bound. The
+    plain versions run one head at a time (8192^2 f32 logits per head). Then
+    `flash_attention_nhd`'s causal backward (these kernels under the causal
+    band on transposed copies) at [1, 4096, 16, 64] through autograd."""
+    fwd, bwd, errs, grad_errs = {}, {}, {}, {}
+    for name, B, H, N, D, causal, window in FLASH_SHAPES:
+        q, k, v, dout = (randn(B, H, N, D) for _ in range(4))
+        out, lse = fa.flash_attention(q, k, v, causal, window)
+        heads = [fa.flash_attention_plain(q[:, h:h + 1], k[:, h:h + 1], v[:, h:h + 1], causal,
+                                          window) for h in range(H)]
+        ref, ref_lse = torch.cat([o for o, _ in heads], 1), torch.cat([s for _, s in heads], 1)
+        errs[name] = compare(f"flash_attention {name}", out, ref, bf16_tol(ref))
+        compare(f"flash_attention {name} lse", lse, ref_lse, 1e-3)
+        mask = None if causal else fa.band_mask(N, causal, window, q.device)
+        library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                         is_causal=mask is None)
+        pairs = B * H * band_pairs(fa, N, causal, window)
+        iters = 20 if N * H * B < 50000 else 5
+        fwd[name] = dict(
+            ms=cuda_ms(lambda: fa.flash_attention(q, k, v, causal, window), iters),
+            plain_ms=cuda_ms(lambda: [fa.flash_attention_plain(
+                q[:, h:h + 1], k[:, h:h + 1], v[:, h:h + 1], causal, window) for h in range(H)], 2),
+            library_ms=cuda_ms(library, iters), max_abs_err=errs[name],
+            visible_pairs=pairs, **bound(4.0 * D * pairs, q, k, v, out, lse))
+        del heads, ref, ref_lse
+        want = [torch.cat(g, 1) for g in zip(*(fa.flash_attention_prefix_bwd_plain(
+            *(t[:, h:h + 1] for t in (q, k, v, out, lse, dout)), causal, window)
+            for h in range(H)))]
+        rec = dict(routes={}, visible_pairs=pairs,
+                   **bound(10.0 * D * pairs, q, k, v, out, lse, dout, q, k, v))
+        for route in fa.BWD_ROUTES:
+            run = lambda route=route: fa.flash_attention_prefix_bwd(
+                q, k, v, out, lse, dout, route=route, causal=causal, window=window)
+            rel = max(rel_err(f"flash bwd {name} {route} d{n}", a, b, BWD_REL_TOL)
+                      for n, a, b in zip("qkv", run(), want))
+            rec["routes"][route] = dict(max_rel_err=rel, ms=cuda_ms(run, iters))
+        grad_errs[name] = max(r["max_rel_err"] for r in rec["routes"].values())
+        rec["plain_ms"] = cuda_ms(lambda: [fa.flash_attention_prefix_bwd_plain(
+            *(t[:, h:h + 1] for t in (q, k, v, out, lse, dout)), causal, window)
+            for h in range(H)], 2)
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*qkv, attn_mask=mask, is_causal=mask is None)
+        rec["library_ms"] = cuda_ms(
+            lambda: torch.autograd.grad(lib_out, qkv, dout, retain_graph=True), iters)
+        bwd[name] = rec
+        del q, k, v, dout, out, lse, want, qkv, lib_out, mask
+
+    # the autograd Function on the card against autograd through the plain
+    # version, at the LM training shape
+    q, k, v = (randn(4, 16, 500, 64).requires_grad_() for _ in range(3))
+    dout = randn(4, 16, 500, 64)
+    got = torch.autograd.grad((fa.flash_attention(q, k, v, True)[0].float()
+                               * dout.float()).sum(), (q, k, v))
+    want = torch.autograd.grad((fa.flash_attention_plain(q, k, v, True)[0].float()
+                                * dout.float()).sum(), (q, k, v))
+    autograd_err = max(rel_err(f"flash_attention autograd d{n}", a, b, BWD_REL_TOL)
+                       for n, a, b in zip("qkv", got, want))
+    del q, k, v, dout, got, want
+
+    # flash_attention_nhd's causal backward: fused-projection views in, the
+    # gradient of the projection out, against autograd through the plain
+    # version four heads at a time
+    fused = randn(1, 4096, 3 * 16 * 64).requires_grad_()
+    dout = randn(1, 4096, 16, 64)
+    split = lambda: tuple(t.view(1, 4096, 16, 64) for t in fused.chunk(3, dim=-1))
+    through = lambda fn: torch.autograd.grad((fn(*split()).float() * dout.float()).sum(),
+                                             fused)[0]
+    nhd = lambda q, k, v: fa.flash_attention_nhd(q, k, v, causal=True)
+    plain = lambda q, k, v: torch.cat([fa.flash_attention_nhd_plain(
+        q[:, :, h:h + 4], k[:, :, h:h + 4], v[:, :, h:h + 4], True)[0] for h in range(0, 16, 4)], 2)
+    nhd_causal = dict(shape="q,k,v [1,4096,16,64] views of the fused projection, causal",
+                      grad_rel_err=rel_err("flash nhd causal autograd", through(nhd),
+                                           through(plain), BWD_REL_TOL),
+                      fwd_bwd_ms=cuda_ms(lambda: through(nhd), 10),
+                      plain_fwd_bwd_ms=cuda_ms(lambda: through(plain), 2))
+    del fused, dout
+
+    main = fwd[FLASH_SHAPES[0][0]]
+    forward = dict(
+        route="cuda", source="stable_audio_tools_tpu_torch/csrc/flash_fwd.cu",
+        replaces="stable_audio_tools_tpu/ops/kernels/flash_attention.py:128",
+        shape="q,k,v [4,16,500,64] bf16 causal (timed; " + ", ".join(
+            f"{n} [{B},{H},{N},{D}] {'causal' if c else w}"
+            for n, B, H, N, D, c, w in FLASH_SHAPES) + " checked)",
+        max_abs_err=max(errs.values()), errs=errs, autograd_rel_err=autograd_err,
+        tol="2 bf16 ulps at max|ref| (out), 1e-3 (lse); gradients through the Function "
+            f"{BWD_REL_TOL} x max|plain|",
+        ms=main["ms"], plain_ms=main["plain_ms"],
+        library="F.scaled_dot_product_attention (is_causal, or the band as a bool mask)",
+        library_ms=main["library_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        shapes=fwd)
+    banded = dict(shapes=bwd, max_rel_err=max(grad_errs.values()), nhd_causal=nhd_causal,
+                  tol=f"max|err| <= {BWD_REL_TOL} x max|plain| per gradient, both routes")
+    return forward, banded
+
+
 def counters():
     from stable_audio_tools_tpu_torch.ops.kernels import conv1d_snake as cs
     from stable_audio_tools_tpu_torch.ops.kernels import flash_attention as fa
     from stable_audio_tools_tpu_torch.ops.kernels import layer_norm as ln
     from stable_audio_tools_tpu_torch.ops.kernels import snake as sn
 
-    return {"flash_attention_prefix": fa.flash_attention_prefix,
+    return {"flash_attention": fa.flash_attention,
+            "flash_attention_prefix": fa.flash_attention_prefix,
             "flash_attention_prefix_bwd": fa.flash_attention_prefix_bwd,
             "flash_attention_nhd": fa.flash_attention_nhd,
             "fused_layer_norm": ln.fused_layer_norm,
@@ -801,14 +956,15 @@ def get_custom_metadata(info, audio):
 
 
 def write_dataset(root: str, n_wavs: int = N_WAVS, seconds: int = WAV_SECONDS,
-                  step: float = 5) -> str:
-    """`n_wavs` seeded synthetic stereo 44.1 kHz WAVs of `seconds` + `step` i
-    seconds (by default 8 of 50 to 85 s; four partials under a slow
-    envelope, over noise) written with the port's WAV writer, a metadata
-    module that gives each a prompt, and the `audio_dir` dataset config;
-    returns the config's path. The default clips outlast the 47.6 s crop by
-    2.4 to 37.4 s, so the random crops' `seconds_start` is rarely 0 for a
-    whole batch (which would leave that number embedder without a gradient)."""
+                  step: float = 5, sr: int = SR, channels: int = 2) -> str:
+    """`n_wavs` seeded synthetic WAVs (stereo 44.1 kHz by default) of
+    `seconds` + `step` i seconds (by default 8 of 50 to 85 s; four partials
+    under a slow envelope, over noise) written with the port's WAV writer, a
+    metadata module that gives each a prompt, and the `audio_dir` dataset
+    config; returns the config's path. The default clips outlast the 47.6 s
+    crop by 2.4 to 37.4 s, so the random crops' `seconds_start` is rarely 0
+    for a whole batch (which would leave that number embedder without a
+    gradient)."""
     import numpy as np
 
     from stable_audio_tools_tpu_torch.data.wav import save_wav
@@ -816,13 +972,13 @@ def write_dataset(root: str, n_wavs: int = N_WAVS, seconds: int = WAV_SECONDS,
     rng = np.random.default_rng(0)
     os.makedirs(os.path.join(root, "wavs"))
     for i in range(n_wavs):
-        t = np.arange((seconds + step * i) * SR, dtype=np.float32) / SR
+        t = np.arange((seconds + step * i) * sr, dtype=np.float32) / sr
         tone = sum(np.sin(2 * np.pi * f * t + ph) for f, ph in
                    zip(rng.uniform(60, 3000, 4), rng.uniform(0, 2 * np.pi, 4))) / 6
         env = 0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(0.05, 1.0) * t)
-        audio = np.stack([tone * env, np.roll(tone, i + 1) * env])
+        audio = np.stack([tone * env, np.roll(tone, i + 1) * env])[:channels]
         audio += 0.02 * rng.standard_normal(audio.shape).astype(np.float32)
-        save_wav(os.path.join(root, "wavs", f"clip{i}.wav"), audio, SR)
+        save_wav(os.path.join(root, "wavs", f"clip{i}.wav"), audio, sr)
     with open(os.path.join(root, "metadata.py"), "w") as f:
         f.write(META_MODULE)
     path = os.path.join(root, "dataset.json")
@@ -1484,6 +1640,412 @@ def phase_ae_training(dev) -> dict:
     return rec
 
 
+LM_CONFIG = os.path.join(ROOT, "stable_audio_tools_tpu", "configs", "model_configs", "lm",
+                         "musicgen_small_rvq.json")
+LM_SR, LM_SAMPLES, LM_FRAMES = 32000, 320000, 500  # 10 s at hop 640
+LM_PROMPT = [{"prompt": "A cheerful pop tune with bright synths and a steady beat"}]
+# the defaults of scripts/bench_lm_decode.py
+LM_CFG, LM_TOP_K = 3.0, 250
+LM_BATCH, LM_WARM_STEPS, LM_TIMED_STEPS = 4, 2, 5
+
+
+def lm_config():
+    with open(LM_CONFIG) as f:
+        cfg = json.load(f)
+    for c in cfg["model"]["conditioning"]["configs"]:
+        if c["type"] == "t5":
+            c["config"]["allow_random_init"] = True
+    return cfg
+
+
+def tiny_lm():
+    """MusicGen's shape at toy size, seeded random weights: the same codec
+    kinds (SEANet with LSTMs, RVQ of 4 codebooks), pattern, causal backbone
+    with heads of 64 in bf16 and T5 conditioning; its T5 computes in f32 and
+    tokenizes with CRC-32 (see tiny_model)."""
+    import zlib
+
+    from stable_audio_tools_tpu_torch.models.conditioners import FallbackTokenizer
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+
+    cfg = lm_config()
+    m = cfg["model"]
+    m["conditioning"]["configs"][0]["config"].update(max_length=16,
+                                                     arch=[64, 128, 2, 2, 32, False])
+    m["conditioning"]["cond_dim"] = 64
+    ae = m["pretransform"]["config"]
+    for side, ratios in (("encoder", [2, 4]), ("decoder", [4, 2])):
+        ae[side]["config"].update(n_filters=8, dimension=32, ratios=ratios)
+    ae["bottleneck"]["config"].update(dim=32, codebook_size=64)
+    ae.update(latent_dim=32, downsampling_ratio=8)
+    m["lm"]["config"].update(embed_dim=128, depth=2, num_heads=2, cross_attn_cond_dim=64)
+    cfg["sample_size"] = 8 * 32
+    model = init_random_(create_model_from_config(cfg, "cpu"), torch.Generator().manual_seed(4))
+    t5 = model.conditioner.conditioners["prompt"]
+    t5.model.compute_dtype = torch.float32
+    t5.tokenizer = FallbackTokenizer(16, word_hash=lambda w: zlib.crc32(w.encode("utf-8")))
+    return cfg, model
+
+
+@torch.inference_mode()
+def cached_logits(model, seq, cond):
+    """Teacher-forced logits [B, K, S, card] of the KV-cached decode step (the
+    pieces `lm_generate_cached` runs: summed embeddings, the backbone's
+    cached step over per-layer caches with the cross-attention K/V
+    projected once, the heads), fed the pattern sequence `seq` [B, K, S]."""
+    from stable_audio_tools_tpu_torch.ops.attention import init_kv_cache
+
+    lm, bb = model.lm, model.lm.backbone
+    kvs = bb.compute_cross_kv(model.get_conditioning_inputs(cond)["cross_attn_cond"])
+    caches = [init_kv_cache(seq.shape[0], bb.num_heads, seq.shape[2],
+                            bb.embed_dim // bb.num_heads, bb.compute_dtype, seq.device)
+              for _ in range(bb.depth)]
+    out = []
+    for s in range(seq.shape[2]):
+        x = sum(e(seq[:, i, s]) for i, e in enumerate(lm.embeds))[:, None]
+        h = bb(x, caches=caches, cache_index=s, cross_kvs=kvs)[:, 0]
+        out.append(torch.stack([head(h) for head in lm.quantizer_heads], 1))
+    return torch.stack(out, 2).float()
+
+
+def small_lm_generation_check(dev) -> dict:
+    """The tiny LM's teacher-forced logits, card (kernels) against CPU (plain
+    versions): the KV-cached decode over a 27-step pattern sequence and the
+    full forward (`flash_attention` on the card), bf16, the same codes and
+    prompt; max|card - CPU| / max|CPU| of each."""
+    _, cpu = tiny_lm()
+    cpu.eval()
+    gpu = copy.deepcopy(cpu).to(dev)
+    g = torch.Generator().manual_seed(5)
+    codes = torch.randint(0, 64, (2, 4, 24), generator=g)
+    seq = cpu.pattern_provider.get_pattern(24).build_pattern_sequence(codes, 64)[0]
+    out = {}
+    for name, run in (("cached", lambda m, d, c: cached_logits(m, seq.to(d), c)),
+                      ("full", lambda m, d, c: m(seq.to(d), cond_tensors=c).float())):
+        with torch.inference_mode():
+            want = run(cpu, "cpu", cpu.conditioner(LM_PROMPT * 2, "cpu"))
+            got = run(gpu, dev, gpu.conditioner(LM_PROMPT * 2, dev)).cpu()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"small LM {name} logits: non-finite on the card")
+        out[f"{name}_rel_err"] = ((got - want).abs().max() / want.abs().max()).item()
+    return out
+
+
+# CUDA runtime calls that the profiler records on the host: the launches,
+# and the copies and waits that make the host stop for the device
+RUNTIME_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx",
+                 "cudaMemcpyAsync", "cudaStreamSynchronize", "cudaDeviceSynchronize",
+                 "cudaMemsetAsync", "cudaFuncSetAttribute")
+
+
+def profile_reading(events, wall_us: float, steps: int = 1) -> dict:
+    """One profiled window read per step from its `key_averages()`: device
+    time (kernels, copies and fills), kernels launched, the count and host
+    time of each CUDA runtime call in RUNTIME_CALLS, the device-busy share of
+    the window's wall, the largest kernels and the host ops with the most
+    self time."""
+    from torch.autograd import DeviceType
+
+    # a scheduled profile also puts each step's span on the device timeline
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.key.startswith("ProfilerStep")]
+    kernels = [e for e in device if not e.key.startswith(("Memcpy", "Memset"))]
+    device_us = sum(e.self_device_time_total for e in device)
+    runtime = {e.key: dict(count=e.count / steps, host_ms=e.self_cpu_time_total / steps / 1e3)
+               for e in events if e.key in RUNTIME_CALLS}
+    ops = [e for e in events if e.device_type == DeviceType.CPU and e.key.startswith("aten::")]
+    return dict(
+        wall_ms=wall_us / steps / 1e3, device_ms=device_us / steps / 1e3,
+        device_busy=device_us / wall_us, kernel_launches=sum(e.count for e in kernels) / steps,
+        runtime_calls=runtime,
+        top_kernels_ms={e.key[:60]: round(e.self_device_time_total / steps / 1e3, 4)
+                        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]},
+        top_host_ops_ms={e.key: round(e.self_cpu_time_total / steps / 1e3, 4)
+                         for e in sorted(ops, key=lambda e: -e.self_cpu_time_total)[:6]})
+
+
+# decode steps run before the profiled window of a generation request, and
+# the steps in it
+LM_PROFILE_WAIT, LM_PROFILE_STEPS = 20, 10
+
+
+class _ProfileDone(Exception):
+    """Ends a profiled generation request once its window is recorded."""
+
+
+def lm_decode_profile(model, generate) -> dict:
+    """torch.profiler over LM_PROFILE_STEPS decode steps of a full-size
+    request, after LM_PROFILE_WAIT unrecorded ones: `generate()` runs the
+    request, and a hook at each call of the backbone (one per step, on
+    either path) marks the step boundaries and ends the request once the
+    window is read. The window covers whole steps: backbone, heads, CFG and
+    the sampler."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    marks, readings = [], []
+    # profiler step s + 1 starts at the hook of decode step s: the recorded
+    # steps are decode steps first .. last - 1, between their hooks' marks
+    first, last = LM_PROFILE_WAIT, LM_PROFILE_WAIT + LM_PROFILE_STEPS
+
+    def hook(*_):
+        marks.append(time.perf_counter())
+        prof.step()
+        if readings:
+            raise _ProfileDone
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=first, warmup=1, active=LM_PROFILE_STEPS, repeat=1),
+                 on_trace_ready=lambda p: readings.append(p.key_averages())) as prof:
+        handle = model.lm.backbone.register_forward_pre_hook(hook)
+        try:
+            generate()
+        except _ProfileDone:
+            pass
+        finally:
+            handle.remove()
+    if len(marks) != last + 1 or len(readings) != 1:
+        raise AssertionError(f"LM decode profile: {len(marks)} steps marked, "
+                             f"{len(readings)} windows read")
+    return profile_reading(readings[0], (marks[last] - marks[first]) * 1e6, LM_PROFILE_STEPS)
+
+
+def phase_lm_generation(dev) -> dict:
+    """Phase 7: the tiny card-vs-CPU check, then the shipped MusicGen-small
+    config at full width (seeded random weights) generating 10 s from a
+    prompt with `lm_generate_audio`: KV-cached (the default), then the full
+    forward at every step (`use_cache=False`)."""
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+    from stable_audio_tools_tpu_torch.models.lm import lm_generate_audio
+
+    small = small_lm_generation_check(dev)
+    small_tol = 0.05
+    if not max(small.values()) <= small_tol:
+        raise AssertionError(f"small LM card vs CPU: {small} > {small_tol}")
+    t0 = time.perf_counter()
+    model = create_model_from_config(lm_config(), dev)
+    init_random_(model, torch.Generator(device=dev).manual_seed(0)).eval()
+    torch.cuda.synchronize()
+    rec = dict(small=small, small_tol=small_tol, build_s=time.perf_counter() - t0,
+               params=sum(p.numel() for p in model.parameters()))
+    cond = model.conditioner(LM_PROMPT, dev)
+    gen = lambda frames, seed, cache=True: lm_generate_audio(
+        model, cond, use_cache=cache, max_gen_len=frames, batch_size=1, cfg_scale=LM_CFG,
+        top_k=LM_TOP_K, generator=torch.Generator(device=dev).manual_seed(seed))
+    gen(8, 0)  # warm-up: Triton JIT, cuDNN plans
+    gen(8, 0, cache=False)
+    S = model.pattern_provider.get_pattern(LM_FRAMES).S
+    depth = model.lm.backbone.depth
+    names = ("flash_attention", "flash_attention_nhd", "flash_attention_prefix",
+             "fused_layer_norm")
+    kernels = {n: fn for n, fn in counters().items() if n in names}
+    for cache in (True, False):
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        audio = gen(LM_FRAMES, 1, cache)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in kernels.items()}
+        if tuple(audio.shape) != (1, 1, LM_SAMPLES) or not torch.isfinite(audio).all():
+            raise AssertionError(f"LM audio {tuple(audio.shape)} "
+                                 f"finite={bool(torch.isfinite(audio).all())}")
+        # pinned from the model: every step runs 3 norms a block; the full
+        # forward's causal self-attention launches the kernel once a block
+        # a step, the cached step none
+        want = {"flash_attention": 0 if cache else depth * (S - 1), "flash_attention_nhd": 0,
+                "flash_attention_prefix": 0, "fused_layer_norm": 3 * depth * (S - 1)}
+        if launches != want:
+            raise AssertionError(f"LM generation (cache={cache}) launches {launches}, "
+                                 f"expected {want}")
+        rec["cached" if cache else "full"] = dict(
+            wall_s=wall, steps=S - 1, ms_per_step=wall / (S - 1) * 1e3,
+            audio_s_per_s=LM_SAMPLES / LM_SR / wall,
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, launches=launches,
+            profile=lm_decode_profile(model, lambda: gen(LM_FRAMES, 1, cache)))
+    # the codec's decode of 500 frames alone (random codes), host clock
+    # around synchronised work; the rest of a request's wall is the tokens
+    codes = torch.randint(0, model.codebook_size, (1, model.num_quantizers, LM_FRAMES),
+                          generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    model.pretransform_decode_tokens(codes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.pretransform_decode_tokens(codes)
+    torch.cuda.synchronize()
+    rec["decode_ms"] = (time.perf_counter() - t0) * 1e3
+    return rec
+
+
+def small_lm_train_check(dev) -> dict:
+    """One training step of the tiny LM (bf16 backbone with block
+    rematerialisation, AdamW), kernels on the card against plain versions on
+    the CPU, on the same codes (the codec's f32 convs run in TF32 on the
+    card, and one flipped RVQ code would change the targets) and prompts:
+    the loss's relative error and the largest max|card - CPU| / max|CPU|
+    over the LM's gradients."""
+    from stable_audio_tools_tpu_torch.training.factory import create_training_wrapper_from_config
+
+    cfg, cpu = tiny_lm()
+    gpu = copy.deepcopy(cpu).to(dev)
+    audio = 0.3 * torch.randn(2, 1, 8 * 32, generator=torch.Generator().manual_seed(6))
+    codes = cpu.pretransform_tokenize(audio)
+    meta = [LM_PROMPT[0], {"prompt": "rain on a window"}]
+    out = {}
+    for name, model, d in (("cpu", cpu, "cpu"), ("card", gpu, dev)):
+        w = create_training_wrapper_from_config(cfg, model)
+        w.pre_tokenized = True
+        out[name] = (float(w.train_step(codes.to(d), meta)["loss"]), w)
+    (lc, wc), (lg, wg) = out["cpu"], out["card"]
+    errs = {}
+    for n, p in wc.params.items():
+        gg = wg.params[n].grad
+        if gg is None or not torch.isfinite(gg).all():
+            raise AssertionError(f"small LM step: {n} has no finite gradient on the card")
+        errs[n] = ((gg.float().cpu() - p.grad).abs().max() / p.grad.abs().max()).item()
+    worst = max(errs, key=errs.get)
+    return dict(loss_rel_err=abs(lg - lc) / abs(lc), grad_rel_err=errs[worst], worst_grad=worst)
+
+
+def lm_step_split(trainer, loader) -> dict:
+    """One LM training step in its pieces, host clock around synchronised
+    work: data (the next batch of a fresh loader iterator), tokenize (the
+    frozen codec), conditioning (T5), forward+backward, optimizer. Then
+    torch.profiler over one forward+backward of the same batch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    w = trainer.wrapper
+    out, t = {}, [time.perf_counter()]
+
+    def lap(name):
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        out[f"{name}_ms"] = (t[-1] - t[-2]) * 1e3
+
+    audio, meta = next(iter(loader))
+    audio = trainer.prepare_batch(audio)
+    lap("data")
+    w.model.train()
+    w.optimizer.zero_grad(set_to_none=True)
+    codes = w.tokenize(audio)
+    lap("tokenize")
+    cond = w.condition(meta)
+    lap("conditioning")
+    loss, _ = w.loss(codes, cond)
+    loss.backward()
+    lap("forward_backward")
+    w.optimizer_step()
+    lap("optimizer")
+    w.step += 1
+    out["step_ms"] = (t[-1] - t[0]) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss, _ = w.loss(codes, cond)
+        loss.backward()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    w.optimizer.zero_grad(set_to_none=True)
+    out["fwd_bwd_profiled_ms"] = wall_us / 1e3
+    out["fwd_bwd_profile"] = profile_reading(prof.key_averages(), wall_us)
+    return out
+
+
+def phase_lm_training(dev) -> dict:
+    """Phase 8: the tiny card-vs-CPU step, then the shipped MusicGen-small
+    config at full width through `train.build` and `Trainer.fit`: batch 4 x
+    320,000 samples of seeded synthetic mono 32 kHz WAVs with prompts, 2
+    warm-up and 5 timed steps, the pieces of one step, a checkpoint and its
+    reload."""
+    from stable_audio_tools_tpu_torch import train
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config
+
+    small = small_lm_train_check(dev)
+    small_tol = 0.05
+    if not (small["loss_rel_err"] <= small_tol and small["grad_rel_err"] <= small_tol):
+        raise AssertionError(f"small LM step card vs CPU: {small} > {small_tol}")
+    rec = dict(small=small, small_tol=small_tol)
+    n_steps = LM_WARM_STEPS + LM_TIMED_STEPS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as tmp:
+        cfg_path = os.path.join(tmp, "model.json")
+        with open(cfg_path, "w") as f:
+            json.dump(lm_config(), f)
+        args = train.parse_args([
+            # 16 mono clips of 12-19.5 s: an epoch of 4 batches
+            "--model-config", cfg_path, "--dataset-config",
+            write_dataset(tmp, 16, 12, 0.5, sr=LM_SR, channels=1),
+            "--batch-size", str(LM_BATCH), "--num-workers", "4", "--seed", "0",
+            "--max-steps", str(n_steps), "--checkpoint-every", "0",
+            "--save-dir", os.path.join(tmp, "run")])
+        t0 = time.perf_counter()
+        trainer, loader = train.build(args, device=dev)
+        torch.cuda.synchronize()
+        rec["build_s"] = time.perf_counter() - t0
+        w = trainer.wrapper
+        bb = w.model.lm.backbone
+        if bb.compute_dtype != torch.bfloat16 or w.device != dev:
+            raise AssertionError(f"MusicGen-small: built on {w.device} with "
+                                 f"{bb.compute_dtype} compute, not on {dev} in bf16")
+        before = {n: p.detach().clone() for n, p in w.params.items()}
+        trainer.fit(loader, max_steps=1, save_at_end=False)
+        bad = [n for n, p in w.params.items()
+               if p.grad is None or not torch.isfinite(p.grad).all() or not p.grad.abs().max() > 0]
+        if bad:
+            raise AssertionError(f"after step 1, {len(bad)} trainable parameters have no finite "
+                                 f"nonzero gradient: {bad[:8]}")
+        trainer.fit(loader, max_steps=LM_WARM_STEPS, save_at_end=False)
+        torch.cuda.synchronize()
+        names = ("flash_attention", "flash_attention_prefix_bwd", "fused_layer_norm",
+                 "flash_attention_nhd", "flash_attention_prefix")
+        kernels = {n: fn for n, fn in counters().items() if n in names}
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        trainer.fit(loader, max_steps=n_steps, save_at_end=False)
+        torch.cuda.synchronize()
+        rec["launches"] = {n: fn.launches for n, fn in kernels.items()}
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        # pinned from the model: a step runs each block's causal
+        # self-attention forward twice (remat) and its backward once, and
+        # its 3 norms twice; nothing takes the NHD or prefix entries
+        d = bb.depth
+        want = {"flash_attention": LM_TIMED_STEPS * 2 * d,
+                "flash_attention_prefix_bwd": LM_TIMED_STEPS * d,
+                "fused_layer_norm": LM_TIMED_STEPS * 2 * 3 * d,
+                "flash_attention_nhd": 0, "flash_attention_prefix": 0}
+        if rec["launches"] != want:
+            raise AssertionError(f"LM training launches {rec['launches']}, expected {want}")
+        hist = trainer.history
+        if len(hist) != n_steps or not all(math.isfinite(v) for h in hist for v in h.values()):
+            raise AssertionError(f"LM training log: {hist}")
+        walls = [1e3 / h["train/steps_per_sec"] for h in hist[LM_WARM_STEPS:]]
+        unmoved = [n for n, p in w.params.items() if torch.equal(p.detach(), before[n])]
+        if unmoved:
+            raise AssertionError(f"parameters that did not move: {unmoved[:8]}")
+        del before
+        trainable = sum(p.numel() for p in w.params.values())
+        rec.update(
+            losses=[h["train/loss"] for h in hist],
+            ce=[[h[f"train/ce_q{i}"] for i in range(4)] for h in hist[-1:]][0],
+            step_ms=walls, step_ms_median=statistics.median(walls),
+            audio_s_per_s=LM_BATCH * LM_SAMPLES / LM_SR / (statistics.median(walls) / 1e3),
+            trainable_params=trainable, params=sum(p.numel() for p in w.model.parameters()))
+        rec["split"] = lm_step_split(trainer, loader)
+
+        t0 = time.perf_counter()
+        path = trainer.save(w.step)
+        rec["save_s"] = time.perf_counter() - t0
+        rec["ckpt_gib"] = os.path.getsize(path) / 2 ** 30
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        fresh = create_model_from_config(state["model_config"], "meta")
+        fresh.load_state_dict(state["state_dict"], strict=True, assign=True)
+        current = w.model.state_dict()
+        differ = [n for n, v in fresh.state_dict().items() if not torch.equal(v, current[n].cpu())]
+        if differ or state["step"] != w.step:
+            raise AssertionError(f"LM checkpoint reload: {len(differ)} tensors differ "
+                                 f"({differ[:5]}), step {state['step']} vs {w.step}")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card",
@@ -1565,12 +2127,53 @@ def main() -> int:
           f"identical; small card-vs-CPU {json.dumps(ae_rec['small'])} (tol "
           f"{ae_rec['small_tol']}) on {card}", flush=True)
 
+    torch.cuda.empty_cache()
+
+    lmg = phase_lm_generation(dev)
+    print(f"phase 7 LM generation: MusicGen-small {lmg['params'] / 1e9:.3f}B params, batch 1, "
+          f"cfg {LM_CFG}, top_k {LM_TOP_K}, {LM_FRAMES} frames = {LM_SAMPLES} samples at "
+          f"{LM_SR} Hz: " + "; ".join(
+              f"{k} {r['wall_s']:.3f} s wall, {r['ms_per_step']:.2f} ms/step over {r['steps']} "
+              f"steps, {r['audio_s_per_s']:.3f} audio-s/s, peak {r['peak_gib']:.2f} GiB, "
+              f"launches {json.dumps(r['launches'])}; under the profiler "
+              f"{r['profile']['wall_ms']:.2f} ms/step, device {r['profile']['device_ms']:.2f} "
+              f"ms/step (busy {r['profile']['device_busy']:.1%}), "
+              f"{r['profile']['kernel_launches']:.0f} kernels/step, runtime calls/step "
+              f"{json.dumps({n: round(c['count'], 1) for n, c in r['profile']['runtime_calls'].items()})}"
+              for k, r in ((k, lmg[k]) for k in ("cached", "full")))
+          + f"; the codec's decode of {LM_FRAMES} frames {lmg['decode_ms']:.1f} ms; small "
+          f"card-vs-CPU "
+          f"{json.dumps({k: round(v, 4) for k, v in lmg['small'].items()})} "
+          f"(tol {lmg['small_tol']}) on {card}", flush=True)
+
+    torch.cuda.empty_cache()
+
+    lmt = phase_lm_training(dev)
+    split = lmt["split"]
+    print(f"phase 8 LM training: MusicGen-small {lmt['trainable_params'] / 1e9:.3f}B trainable "
+          f"of {lmt['params'] / 1e9:.3f}B, batch {LM_BATCH} x {LM_SAMPLES} samples, bf16: step "
+          f"{lmt['step_ms_median']:.1f} ms median of {LM_TIMED_STEPS} "
+          f"({', '.join(f'{x:.1f}' for x in lmt['step_ms'])}), "
+          f"{lmt['audio_s_per_s']:.2f} audio-s trained/s, peak {lmt['peak_gib']:.2f} GiB, "
+          f"losses {', '.join(f'{x:.4g}' for x in lmt['losses'])}; split ms "
+          + ", ".join(f"{k[:-3]} {v:.1f}" for k, v in split.items()
+                      if k.endswith("_ms") and isinstance(v, float))
+          + f"; fwd+bwd device busy {split['fwd_bwd_profile']['device_busy']:.1%}, "
+          f"{split['fwd_bwd_profile']['kernel_launches']:.0f} kernels; top kernels ms "
+          f"{json.dumps(split['fwd_bwd_profile']['top_kernels_ms'])}; launches "
+          f"{json.dumps(lmt['launches'])}; checkpoint {lmt['ckpt_gib']:.2f} GiB reloaded "
+          f"identical; small card-vs-CPU step {json.dumps(lmt['small'])} "
+          f"(tol {lmt['small_tol']}) on {card}", flush=True)
+
     kernels = []
     for n, r in rec.items():
         by_path = {"generation": main_rec["launches"].get(n, 0),
                    "training": train_rec["launches"].get(n, 0),
                    "sa2_generation": sa2_rec["launches"].get(n, 0),
-                   "ae_training": ae_rec["launches"].get(n, 0)}
+                   "ae_training": ae_rec["launches"].get(n, 0),
+                   "lm_generation_cached": lmg["cached"]["launches"].get(n, 0),
+                   "lm_generation_full": lmg["full"]["launches"].get(n, 0),
+                   "lm_training": lmt["launches"].get(n, 0)}
         kernels.append(dict(name=n, route=r["route"], source=r["source"], replaces=r["replaces"],
                             launches=sum(by_path.values()), launches_by_path=by_path,
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
@@ -1578,7 +2181,8 @@ def main() -> int:
                             library_ms=r["library_ms"], library=r["library"],
                             shape=r["shape"], **{k: r[k] for k in (
                                 "also_replaces", "main_route", "routes", "max_rel_err",
-                                "autograd_rel_err", "errs", "ab") if k in r}))
+                                "autograd_rel_err", "errs", "ab", "shapes", "banded")
+                                if k in r}))
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
     if unlaunched:
         raise AssertionError(f"kernels that no main path launched: {unlaunched}")
@@ -1587,7 +2191,8 @@ def main() -> int:
         "training": {k: v for k, v in train_rec.items() if k != "launches"},
         "sa2_generation": {k: sa2_rec[k] for k in (
             "wall_s", "steps", "audio_s_per_s", "peak_gib", "breakdown", "small")},
-        "ae_training": {k: v for k, v in ae_rec.items() if k != "launches"}}))
+        "ae_training": {k: v for k, v in ae_rec.items() if k != "launches"},
+        "lm_generation": lmg, "lm_training": {k: v for k, v in lmt.items() if k != "launches"}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

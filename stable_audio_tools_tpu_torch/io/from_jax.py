@@ -2,9 +2,11 @@
 
 Inputs are the JAX package's flax parameters as nested dicts of numpy arrays:
 the `params` collection of a `ConditionedDiffusionModelWrapper`, of an
-`AudioAutoencoder` or of an `EncodecDiscriminator`, and the
-frozen T5 tower's own params (`T5Conditioner._t5.params`), which live outside
-it. The output is a flat {name: numpy array} in the port's names, which are
+`AudioLanguageModelWrapper` (with its codec's `quantizer_state` collection,
+where the RVQ codebooks live), of an `AudioAutoencoder` or of an
+`EncodecDiscriminator`, and the frozen T5 tower's own params
+(`T5Conditioner._t5.params`), which live outside it. The output is a flat
+{name: numpy array} in the port's names, which are
 the reference torch state-dict names (those io/torch_mapping.py and
 io/checkpoints.py of the JAX package import), ready for
 `model.load_state_dict({k: torch.from_numpy(v) ...})`.
@@ -18,7 +20,11 @@ Transforms:
 - log-scale snake alpha / beta as they are;
 - fused projections de-interleaved: the JAX package stores to_qkv / to_kv
   head-major ([h][q|k|v][dh]) and the GLU pairwise (x_0, g_0, x_1, ...);
-  torch concatenates ([q|k|v], [x|gate]).
+  torch concatenates ([q|k|v], [x|gate]);
+- flax `OptimizedLSTMCell`s (separate i / f / g / o kernels, the bias on the
+  hidden side only) -> one `nn.LSTM` layer each: `weight_ih_l{n}` /
+  `weight_hh_l{n}` stack the gates in torch's order i, f, g, o, `bias_hh_l{n}`
+  takes the bias and `bias_ih_l{n}` is zero.
 """
 
 from __future__ import annotations
@@ -151,11 +157,68 @@ def oobleck_encoder_state_dict(p: Mapping, prefix: str = "") -> StateDict:
     return out
 
 
-def autoencoder_state_dict(p: Mapping, prefix: str = "") -> StateDict:
+def lstm_state_dict(out: StateDict, name: str, p: Mapping) -> None:
+    """SEANetLSTM params {lstm_0: cell, lstm_1: ...} -> `name`.weight_ih_l0 ..."""
+    n = 0
+    while f"lstm_{n}" in p:
+        cell = p[f"lstm_{n}"]
+        out[f"{name}.weight_ih_l{n}"] = np.concatenate(
+            [_np(cell[g]["kernel"]).T for g in ("ii", "if", "ig", "io")])
+        out[f"{name}.weight_hh_l{n}"] = np.concatenate(
+            [_np(cell[g]["kernel"]).T for g in ("hi", "hf", "hg", "ho")])
+        out[f"{name}.bias_hh_l{n}"] = np.concatenate(
+            [_np(cell[g]["bias"]) for g in ("hi", "hf", "hg", "ho")])
+        out[f"{name}.bias_ih_l{n}"] = np.zeros_like(out[f"{name}.bias_hh_l{n}"])
+        n += 1
+
+
+def _seanet_res(out: StateDict, name: str, p: Mapping) -> None:
+    for conv in ("conv1", "conv2", "shortcut"):
+        if conv in p:
+            wn_conv(out, f"{name}.{conv}.conv", p[conv]["conv"])
+
+
+def seanet_state_dict(p: Mapping, prefix: str = "") -> StateDict:
+    """SEANetEncoder or SEANetDecoder params -> the port's (models/seanet.py)."""
+    out: StateDict = {}
+    wn_conv(out, f"{prefix}conv_in.conv", p["conv_in"]["conv"])
+    wn_conv(out, f"{prefix}conv_out.conv", p["conv_out"]["conv"])
+    if "lstm" in p:
+        lstm_state_dict(out, f"{prefix}lstm.lstm", p["lstm"])
+    i = 0
+    while f"down_{i}" in p or f"up_{i}" in p:
+        name = f"{prefix}blocks.{i}"
+        if f"down_{i}" in p:
+            wn_conv(out, f"{name}.down.conv", p[f"down_{i}"]["conv"])
+        else:
+            wn_conv(out, f"{name}.up.conv", p[f"up_{i}"]["conv"], transposed=True)
+        j = 0
+        while f"res_{i}_{j}" in p:
+            _seanet_res(out, f"{name}.res.{j}", p[f"res_{i}_{j}"])
+            j += 1
+        i += 1
+    return out
+
+
+def _tower_state_dict(p: Mapping, prefix: str, oobleck) -> StateDict:
+    return seanet_state_dict(p, prefix) if "res_0_0" in p else oobleck(p, prefix)
+
+
+def autoencoder_state_dict(p: Mapping, prefix: str = "",
+                           quantizer_state: Optional[Mapping] = None) -> StateDict:
+    """An AudioAutoencoder's params (Oobleck or SEANet towers) -> the port's;
+    `quantizer_state` (the autoencoder's collection of that name) brings the
+    RVQ codebooks."""
     out: StateDict = {}
     if "encoder" in p:
-        out.update(oobleck_encoder_state_dict(p["encoder"], f"{prefix}encoder."))
-    out.update(oobleck_decoder_state_dict(p["decoder"], f"{prefix}decoder."))
+        out.update(_tower_state_dict(p["encoder"], f"{prefix}encoder.",
+                                     oobleck_encoder_state_dict))
+    if "decoder" in p:
+        out.update(_tower_state_dict(p["decoder"], f"{prefix}decoder.",
+                                     oobleck_decoder_state_dict))
+    if quantizer_state is not None:
+        out[f"{prefix}bottleneck.quantizer.codebooks"] = _np(
+            quantizer_state["bottleneck"]["quantizer"]["codebooks"])
     return out
 
 
@@ -248,4 +311,38 @@ def diffusion_cond_state_dict(params: Mapping, dim_heads: int,
         out.update(t5_state_dict(p, f"conditioner.conditioners.{cid}.model."))
     for cid, p in (roberta_params or {}).items():
         out.update(roberta_state_dict(p, f"conditioner.conditioners.{cid}.model."))
+    return out
+
+
+def audio_lm_state_dict(params: Mapping, dim_heads: int,
+                        quantizer_state: Optional[Mapping] = None,
+                        t5_params: Optional[Mapping[str, Mapping]] = None) -> StateDict:
+    """`params` of an AudioLanguageModelWrapper (and its `quantizer_state`
+    collection) -> the port's AudioLanguageModelWrapper state_dict: the LM
+    (`lm.embeds.{i}`, `lm.quantizer_heads.{i}`, `lm.backbone.*`), the codec
+    (`pretransform.model.*`, its RVQ codebooks from `quantizer_state`) and,
+    per T5 conditioner id in `t5_params`, its tower."""
+    lm = params["lm"]
+    out: StateDict = {}
+    i = 0
+    while f"embeds_{i}" in lm:
+        out[f"lm.embeds.{i}.weight"] = _np(lm[f"embeds_{i}"]["embedding"])
+        dense(out, f"lm.quantizer_heads.{i}", lm[f"quantizer_heads_{i}"])
+        i += 1
+    bb = lm["backbone"]
+    for name in ("to_cross_attn_embed", "to_prepend_embed"):
+        if name in bb:
+            dense(out, f"lm.backbone.{name}", bb[name])
+    tr = bb["transformer"]
+    i = 0
+    while f"layers_{i}" in tr:
+        out.update(transformer_block_state_dict(
+            tr[f"layers_{i}"], f"lm.backbone.transformer.layers.{i}", dim_heads))
+        i += 1
+    if "pretransform" in params:
+        qs = quantizer_state["pretransform"]["model"] if quantizer_state is not None else None
+        out.update(autoencoder_state_dict(params["pretransform"]["model"],
+                                          "pretransform.model.", qs))
+    for cid, p in (t5_params or {}).items():
+        out.update(t5_state_dict(p, f"conditioner.conditioners.{cid}.model."))
     return out

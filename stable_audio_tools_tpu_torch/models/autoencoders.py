@@ -34,7 +34,6 @@ from torch import nn
 
 from ..ops.activations import SnakeBeta
 from ..ops.conv import WNConv1d, WNConvTranspose1d
-from .bottleneck import VAEBottleneck
 
 
 def _require_snake(use_snake: bool) -> None:
@@ -146,11 +145,15 @@ class OobleckDecoder(nn.Module):
 
 
 class AudioAutoencoder(nn.Module):
-    """Encoder + bottleneck + decoder; encode/decode take and return [B, C, T]."""
+    """Encoder + bottleneck + decoder; encode/decode take and return [B, C, T].
+    The encoder and decoder are Oobleck's or SEANet's (models/seanet.py), the
+    bottleneck a VAE or, for a discrete codec, an RVQ (`is_discrete`:
+    `encode(..., return_info=True)` gives its codes, `decode_tokens` decodes
+    them)."""
 
     def __init__(self, encoder: Optional[nn.Module], decoder: nn.Module, latent_dim: int,
                  downsampling_ratio: int, sample_rate: int, io_channels: int = 2,
-                 bottleneck: Optional[VAEBottleneck] = None, soft_clip: bool = False):
+                 bottleneck: Optional[nn.Module] = None, soft_clip: bool = False):
         super().__init__()
         self.encoder = encoder
         self.decoder = decoder
@@ -173,11 +176,21 @@ class AudioAutoencoder(nn.Module):
             latents, info = out if return_info else (out, info)
         return (latents, info) if return_info else latents
 
-    def decode(self, latents: torch.Tensor) -> torch.Tensor:
-        if self.bottleneck is not None:
+    @property
+    def is_discrete(self) -> bool:
+        return getattr(self.bottleneck, "is_discrete", False)
+
+    def decode(self, latents: torch.Tensor, skip_bottleneck: bool = False) -> torch.Tensor:
+        if self.bottleneck is not None and not skip_bottleneck:
             latents = self.bottleneck.decode(latents)
         decoded = self.decoder(latents)
         return torch.tanh(decoded) if self.soft_clip else decoded
+
+    def decode_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Codes [B, Q, T] of a discrete bottleneck -> audio [B, C, T * ratio]."""
+        if not self.is_discrete:
+            raise ValueError("decode_tokens needs a discrete (RVQ) bottleneck")
+        return self.decode(self.bottleneck.decode_tokens(tokens), skip_bottleneck=True)
 
     # -- chunked overlap-paste codec ---------------------------------------
 

@@ -1,10 +1,13 @@
 """Config-driven factories; counterpart of stable_audio_tools_tpu/models/factory.py.
 
 The JSON model config is the public API: the shipped
-`stable_audio_open_1_0.json` and `stable_audio_2_0.json` build unchanged.
-Built: `diffusion_cond` and `diffusion_cond_inpaint` (DiT), `autoencoder`
-(Oobleck + VAE bottleneck) and the `autoencoder` pretransform; other types
-raise NotImplementedError.
+`stable_audio_open_1_0.json`, `stable_audio_2_0.json`,
+`autoencoders/stable_audio_2_0_vae.json`, `autoencoders/encodec_musicgen_rvq.json`
+and `lm/musicgen_small_rvq.json` build unchanged.
+Built: `diffusion_cond` and `diffusion_cond_inpaint` (DiT), `lm` (the
+MusicGen-style token LM, models/lm.py), `autoencoder` (Oobleck or SEANet
+encoder and decoder; VAE or RVQ bottleneck) and the `autoencoder`
+pretransform; other types raise NotImplementedError.
 
 Every factory takes the `device` the parameters are created on. The default
 is the current CUDA card, and without one the call raises: a model lands on
@@ -21,10 +24,14 @@ import torch
 from torch import nn
 
 from .autoencoders import AudioAutoencoder, OobleckDecoder, OobleckEncoder
-from .bottleneck import VAEBottleneck
+from .bottleneck import RVQBottleneck, VAEBottleneck
 from .pretransforms import AutoencoderPretransform
+from .seanet import SEANetDecoder, SEANetEncoder
 
 _OOBLECK_KEYS = ("channels", "latent_dim", "c_mults", "strides", "use_snake")
+_SEANET_KEYS = ("channels", "dimension", "n_filters", "ratios", "n_residual_layers",
+                "dilation_base", "norm", "lstm", "kernel_size", "last_kernel_size",
+                "residual_kernel_size", "causal", "pad_mode", "true_skip", "compress")
 Device = Optional[Union[str, torch.device]]
 
 
@@ -46,6 +53,10 @@ def create_model_from_config(model_config: Dict[str, Any], device: Device = None
         from .diffusion import create_diffusion_cond_from_config
 
         return create_diffusion_cond_from_config(model_config, device)
+    if model_type == "lm":
+        from .lm import create_audio_lm_from_config
+
+        return create_audio_lm_from_config(model_config, device)
     raise NotImplementedError(f"model type {model_type} is not ported yet")
 
 
@@ -55,8 +66,6 @@ def create_model_from_config_path(path: str, device: Device = None) -> nn.Module
 
 
 def _oobleck(section: Dict[str, Any], io_key: str, cls):
-    if section["type"] != "oobleck":
-        raise NotImplementedError(f"{section['type']} encoder/decoder is not ported yet")
     cfg = section.get("config", {})
     kwargs = {k: cfg[k] for k in _OOBLECK_KEYS if k in cfg}
     if io_key in cfg:
@@ -64,6 +73,32 @@ def _oobleck(section: Dict[str, Any], io_key: str, cls):
     if cls is OobleckDecoder and "final_tanh" in cfg:
         kwargs["final_tanh"] = cfg["final_tanh"]
     return cls(**kwargs)
+
+
+def _seanet(section: Dict[str, Any], cls):
+    """The JAX factory's keys (reference names); the ratios go through in
+    config order (models/seanet.py)."""
+    cfg = section.get("config", {})
+    keys = _SEANET_KEYS + (("trim_right_ratio", "final_tanh") if cls is SEANetDecoder else ())
+    return cls(**{k: cfg[k] for k in keys if k in cfg})
+
+
+def _tower(section: Dict[str, Any], io_key: str, oobleck, seanet):
+    if section["type"] == "oobleck":
+        return _oobleck(section, io_key, oobleck)
+    if section["type"] == "seanet":
+        return _seanet(section, seanet)
+    raise NotImplementedError(f"{section['type']} encoder/decoder is not ported yet")
+
+
+def _bottleneck(section: Optional[Dict[str, Any]]):
+    if section is None:
+        return None
+    if section["type"] == "vae":
+        return VAEBottleneck()
+    if section["type"] == "rvq":
+        return RVQBottleneck(**section.get("config", {}))
+    raise NotImplementedError(f"{section['type']} bottleneck is not ported yet")
 
 
 def create_autoencoder_from_config(config: Dict[str, Any], device: Device = None
@@ -74,17 +109,15 @@ def create_autoencoder_from_config(config: Dict[str, Any], device: Device = None
 
 def _autoencoder(config: Dict[str, Any]) -> AudioAutoencoder:
     ae = config["model"]
-    bottleneck = ae.get("bottleneck")
-    if bottleneck is not None and bottleneck["type"] != "vae":
-        raise NotImplementedError(f"{bottleneck['type']} bottleneck is not ported yet")
     return AudioAutoencoder(
-        encoder=_oobleck(ae["encoder"], "in_channels", OobleckEncoder) if "encoder" in ae else None,
-        decoder=_oobleck(ae["decoder"], "out_channels", OobleckDecoder),
+        encoder=(_tower(ae["encoder"], "in_channels", OobleckEncoder, SEANetEncoder)
+                 if "encoder" in ae else None),
+        decoder=_tower(ae["decoder"], "out_channels", OobleckDecoder, SEANetDecoder),
         latent_dim=ae["latent_dim"],
         downsampling_ratio=ae["downsampling_ratio"],
         sample_rate=config["sample_rate"],
         io_channels=ae["io_channels"],
-        bottleneck=VAEBottleneck() if bottleneck is not None else None,
+        bottleneck=_bottleneck(ae.get("bottleneck")),
         soft_clip=ae.get("soft_clip", False),
     )
 
@@ -110,11 +143,13 @@ def init_random_(model: nn.Module, generator: torch.Generator,
     are loaded instead):
     Linear / conv weights ~ N(0, 1/fan_in), biases 0, embeddings ~ N(0, 1),
     norm scales 1, log-scale snake parameters 0, Fourier weights ~ N(0, 1),
-    weight-norm g = ||v||."""
+    weight-norm g = ||v||, LSTM weights ~ N(0, 1/fan_in) with zero biases,
+    RVQ codebooks ~ N(0, 1)."""
     from ..ops.activations import SnakeBeta
     from ..ops.conv import WNConv1d, WNConv2d, WNConvTranspose1d
     from ..ops.embeddings import FourierFeatures
     from ..ops.norms import LayerNorm
+    from .bottleneck import ResidualVQ
     from .conditioners import LearnedPositionalEmbedding
     from .t5 import T5LayerNorm
 
@@ -147,4 +182,12 @@ def init_random_(model: nn.Module, generator: torch.Generator,
         elif isinstance(m, SnakeBeta):
             m.alpha.zero_()
             m.beta.zero_()
+        elif isinstance(m, nn.LSTM):
+            for name, p in m.named_parameters():
+                if name.startswith("weight"):
+                    normal_(p, 1.0 / math.sqrt(p.shape[1]))
+                else:
+                    p.zero_()
+        elif isinstance(m, ResidualVQ):
+            normal_(m.codebooks, 1.0)
     return model

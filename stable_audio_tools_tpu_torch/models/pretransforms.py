@@ -10,7 +10,10 @@ codec (`encode_audio` / `decode_audio`: long audio in windows of 128 latents),
 as the JAX package's. `iterate_batch` (the reference's flag, set by the
 shipped SA-1.0 / SA-2.0 configs; the JAX package accepts and ignores it, its
 compiled program batches what it likes) runs the batch items one at a time
-through the codec, which bounds the decoder's activation memory by one item's."""
+through the codec, which bounds the decoder's activation memory by one item's.
+A discrete codec (SEANet + RVQ, the LM's) adds `tokenize` and
+`decode_tokens`; the JAX package runs neither chunked nor in half precision,
+and neither does the port."""
 
 from __future__ import annotations
 
@@ -48,6 +51,23 @@ class AutoencoderPretransform(nn.Module):
             x[i], chunked=self.chunked, generator=generator,
             noise=None if noise is None else noise[i]) for i in self._items(x.shape[0])])
         return z.float() / self.scale if self.model_half else z / self.scale
+
+    @property
+    def is_discrete(self) -> bool:
+        return self.model.is_discrete
+
+    def tokenize(self, x: torch.Tensor) -> torch.Tensor:
+        """Audio [B, C, T] -> the codec's codes [B, Q, T / ratio] (JAX
+        `tokenize` :70)."""
+        if not self.is_discrete:
+            raise ValueError("tokenize needs a discrete pretransform")
+        return self.model.encode(x, return_info=True)[1][self.model.bottleneck.tokens_id]
+
+    def decode_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Codes [B, Q, T] -> audio (JAX `decode_tokens` :75)."""
+        if not self.is_discrete:
+            raise ValueError("decode_tokens needs a discrete pretransform")
+        return self.model.decode_tokens(tokens)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         z = z * self.scale

@@ -1,23 +1,41 @@
-"""Flash attention: the Hopper ports of the TPU `flash_attention_prefix`, of
-its backward, and of the strided-layout entry `flash_attention_nhd`.
+"""Flash attention: the Hopper ports of the TPU `flash_attention` (causal /
+sliding window), `flash_attention_prefix`, their backward, and the
+strided-layout entry `flash_attention_nhd`.
+
+The three forward entries compute one function and launch one kernel,
+`csrc/flash_fwd.cu`, which reads each operand through its own (batch, head,
+row) strides (views of the projections need no copy) and visits only the key
+tiles of each query tile's band. Each entry keeps the TPU kernel it
+replaces, its checks and its launch counter.
+
+`flash_attention(q, k, v, causal=False, window=None)` computes
+softmax(QK^T / sqrt(d) + mask) V over [B, H, N, D], D in {64, 128}, any N,
+where key j is visible from query i iff j < N, (not causal or j <= i),
+i - left <= j (left >= 0) and j <= i + right (right >= 0) for
+window = (left, right), -1 leaving a side open (JAX `_pos_mask` :114). It
+returns the output and the f32 logsumexp and is a `torch.autograd.Function`;
+the backward is `flash_attention_prefix_bwd` under the same band.
 
 `flash_attention_prefix(q, k, v, prefix_len)` computes non-causal, unmasked
-softmax(QK^T / sqrt(d)) V over [B, H, N, D] where the first `prefix_len`
+softmax(QK^T / sqrt(d)) V over [B, H, N, 64] where the first `prefix_len`
 tokens are a short prepended prefix (SA-Open's DiT: one global-cond token
 ahead of 1024 latent tokens). It returns the output and the f32 logsumexp,
 and is a `torch.autograd.Function`: the gradient of the output flows to q, k
 and v (the logsumexp is not differentiable), as the JAX package's
 `custom_vjp` (`_prefix_fwd` / `_prefix_bwd`).
 
-- CUDA bf16 tensors launch `csrc/flash_prefix.cu` forward and
+- CUDA bf16 tensors launch `csrc/flash_fwd.cu` forward and
   `csrc/flash_bwd.cu` backward (each source note says what it replaces, what
   bounds it and how it is tiled). A build or launch failure raises.
-- CPU tensors take the plain versions, `flash_attention_prefix_plain` and
-  `flash_attention_prefix_bwd_plain`: the same functions in plain PyTorch
-  with f32 math; the CPU tests and chip_smoke.py compare against them.
+- CPU tensors take the plain versions, `flash_attention_plain`,
+  `flash_attention_prefix_plain` and `flash_attention_prefix_bwd_plain`: the
+  same functions in plain PyTorch with f32 math; the CPU tests and
+  chip_smoke.py compare against them.
 
-The backward has two routes over the same function (`BWD_ROUTES`), as the
-JAX package's `_flash_backward` has its fused and two-pass kernels:
+The backward (`flash_attention_prefix_bwd`, the backward of all three
+entries, with the causal / window band and D in {64, 128}) has two routes
+over the same function (`BWD_ROUTES`), as the JAX package's
+`_flash_backward` has its fused and two-pass kernels:
 - "fused": one pass over key tiles (dK/dV per tile, dQ added into an f32
   buffer with atomics), the counterpart of `_bwd_fused_kernel`;
 - "two_pass": a dK/dV pass and a dQ pass with no atomics, the counterpart of
@@ -28,22 +46,21 @@ PERF.md).
 `flash_attention_nhd(q, k, v, causal=False, prefix_len=0)` is the same
 attention over q, k, v in the activation layout [B, N, H, 64], returned in
 that layout: non-causal with a prefix of at most 128 rows, or causal with no
-prefix. On CUDA it launches `csrc/flash_nhd.cu`, which reads each operand
-through its own strides (q, k, v may be views of one fused [B, N, 3*H*64]
-projection output, or fresh tensors) and writes [B, N, H*64], the operand of
-the output projection: no transposed or contiguous copy on either side. A
-layout the kernel cannot read (last stride not 1, rows off 16 bytes) raises;
-nothing is copied silently. Its backward transposes to [B, H, N, 64] and
-reuses `flash_attention_prefix_bwd`, as the JAX package's `_nhd_bwd` reuses
-`_flash_backward`; the causal backward has no kernel yet and raises on CUDA.
-CPU tensors take `flash_attention_nhd_plain`.
+prefix. The kernel reads [B, H, N, 64] views of q, k, v (which may be views
+of one fused [B, N, 3*H*64] projection output, or fresh tensors) and writes
+out as [B, N, H*64], the operand of the output projection: no transposed or
+contiguous copy on either side. A layout the kernel cannot read (last stride
+not 1, rows off 16 bytes) raises; nothing is copied silently. Its backward
+transposes to [B, H, N, 64] and reuses `flash_attention_prefix_bwd` (causal:
+under the causal band), as the JAX package's `_nhd_bwd` reuses
+`_flash_backward`. CPU tensors take `flash_attention_nhd_plain`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -52,6 +69,7 @@ from . import _build
 MAX_PREFIX = 64
 MAX_PREFIX_NHD = 128
 HEAD_DIM = 64
+HEAD_DIMS = (64, 128)  # head dims of `flash_attention` and the backward
 BWD_ROUTES = ("fused", "two_pass")
 # the two-pass route measured 2.030 ms against the single pass's 2.145 ms at
 # [4,24,1025,64] on an H100 (PERF.md), and needs no atomics: deterministic
@@ -70,20 +88,62 @@ def flash_attention_prefix_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     return torch.matmul(p, v.float()).to(q.dtype), lse
 
 
+def band(causal: bool, window: Optional[Tuple[int, int]]) -> Tuple[int, int]:
+    """(left, right) of the kernels' band, -1 for an open side: causal folds
+    into right = 0 (j <= i and j <= i + right with right >= 0 is j <= i)."""
+    left, right = (-1, -1) if window is None else (int(window[0]), int(window[1]))
+    left, right = max(left, -1), max(right, -1)
+    return left, 0 if causal else right
+
+
+def band_mask(n: int, causal: bool = False, window: Optional[Tuple[int, int]] = None,
+              device=None) -> Optional[torch.Tensor]:
+    """[n, n] bool, True where key j (column) is visible from query i (row);
+    None when nothing is masked."""
+    left, right = band(causal, window)
+    if left < 0 and right < 0:
+        return None
+    i = torch.arange(n, device=device)[:, None]
+    j = torch.arange(n, device=device)[None, :]
+    keep = torch.ones(n, n, dtype=torch.bool, device=device)
+    if left >= 0:
+        keep &= j >= i - left
+    if right >= 0:
+        keep &= j <= i + right
+    return keep
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = False, window: Optional[Tuple[int, int]] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reference of `flash_attention` over [B, H, N, D]: f32 logits, the band
+    mask, softmax and PV. Returns (out in q.dtype, lse f32 [B, H, N])."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    keep = band_mask(q.shape[-2], causal, window, q.device)
+    if keep is not None:
+        logits = logits.masked_fill(~keep, float("-inf"))
+    lse = torch.logsumexp(logits, dim=-1)
+    p = torch.exp(logits - lse[..., None])
+    return torch.matmul(p, v.float()).to(q.dtype), lse
+
+
 def flash_attention_prefix_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      out: torch.Tensor, lse: torch.Tensor,
-                                     dout: torch.Tensor, causal: bool = False
+                                     dout: torch.Tensor, causal: bool = False,
+                                     window: Optional[Tuple[int, int]] = None
                                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Reference backward in f32 from the saved logsumexp: with
-    P = exp(QK^T s - lse) (0 above the diagonal when `causal`) and
+    P = exp(QK^T s - lse) (0 outside the causal / window band) and
     dsum = rowsum(dO * O),
     dV = P^T dO, dS = P (dO V^T - dsum) s, dK = dS^T Q, dQ = dS K.
     Returns (dq, dk, dv) in the inputs' dtypes."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     qf, kf, vf, gf = q.float(), k.float(), v.float(), dout.float()
     p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale - lse.float()[..., None])
-    if causal:
-        p = p.tril()
+    keep = band_mask(q.shape[-2], causal, window, q.device)
+    if keep is not None:
+        p = p.masked_fill(~keep, 0.0)
     dsum = (gf * out.float()).sum(-1, keepdim=True)
     ds = p * (torch.matmul(gf, vf.transpose(-1, -2)) - dsum) * scale
     dq = torch.matmul(ds, kf)
@@ -106,10 +166,8 @@ def _check_cuda(name: str, tensors, shape, dtype) -> None:
             raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
-def _launch_fwd(q, k, v, prefix_len):
+def _launch_prefix(q, k, v, prefix_len):
     B, H, N, D = q.shape
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_prefix: unsupported device {q.device}")
     if D != HEAD_DIM:
         raise ValueError(f"flash_attention_prefix: head dim {D}, kernel needs {HEAD_DIM}")
     if not 0 <= prefix_len <= MAX_PREFIX or prefix_len >= N:
@@ -117,61 +175,60 @@ def _launch_fwd(q, k, v, prefix_len):
                          f"or not below N={N}")
     _check_cuda("flash_attention_prefix", (("q", q), ("k", k), ("v", v)), q.shape,
                 torch.bfloat16)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
+    out = torch.empty((B, H, N, D), device=q.device, dtype=q.dtype)
     lse = torch.empty((B, H, N), device=q.device, dtype=torch.float32)
-    fn = _build.bind("flash_prefix", "flash_prefix_fwd", [ctypes.c_void_p] * 5 + [
-        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
-    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-              B, H, N, prefix_len, 1.0 / math.sqrt(D), _stream(q))
-    _build.check(code, "flash_prefix_fwd")
+    _run_flash_fwd("flash_attention_prefix", q, k, v, out, lse, False, None)
     flash_attention_prefix.launches += 1
     return out, lse
 
 
 def flash_attention_prefix_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
-                               route: str = None
+                               route: str = None, causal: bool = False,
+                               window: Optional[Tuple[int, int]] = None
                                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of `flash_attention_prefix` from its saved output and
-    logsumexp; q, k, v, out, dout [B, H, N, 64] bf16, lse [B, H, N] f32.
-    `route` is one of BWD_ROUTES (default BWD_ROUTE)."""
+    """(dq, dk, dv) of `flash_attention` (and of the prefix and NHD entries)
+    from its saved output and logsumexp under the causal / window band;
+    q, k, v, out, dout [B, H, N, D] bf16 with D in HEAD_DIMS, lse [B, H, N]
+    f32. `route` is one of BWD_ROUTES (default BWD_ROUTE)."""
     if q.device.type == "cpu":
-        return flash_attention_prefix_bwd_plain(q, k, v, out, lse, dout)
+        return flash_attention_prefix_bwd_plain(q, k, v, out, lse, dout, causal, window)
     route = BWD_ROUTE if route is None else route
     if route not in BWD_ROUTES:
         raise ValueError(f"flash_attention_prefix_bwd: route {route!r} not in {BWD_ROUTES}")
     B, H, N, D = q.shape
-    if D != HEAD_DIM:
-        raise ValueError(f"flash_attention_prefix_bwd: head dim {D}, kernel needs {HEAD_DIM}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_prefix_bwd: head dim {D}, kernel takes {HEAD_DIMS}")
     _check_cuda("flash_attention_prefix_bwd",
                 (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)), q.shape,
                 torch.bfloat16)
     _check_cuda("flash_attention_prefix_bwd", (("lse", lse),), (B, H, N), torch.float32)
     q, k, v, out, lse, dout = (t.contiguous() for t in (q, k, v, out, lse, dout))
     stream, scale, BH = _stream(q), 1.0 / math.sqrt(D), B * H
-    ptr = ctypes.c_void_p
+    left, right = band(causal, window)
+    ptr, c_int = ctypes.c_void_p, ctypes.c_int
     dsum = torch.empty((B, H, N), device=q.device, dtype=torch.float32)
-    fn = _build.bind("flash_bwd", "flash_bwd_dsum", [ptr] * 3 + [ctypes.c_int, ptr])
-    _build.check(fn(out.data_ptr(), dout.data_ptr(), dsum.data_ptr(), BH * N, stream),
+    fn = _build.bind("flash_bwd", "flash_bwd_dsum", [ptr] * 3 + [c_int] * 2 + [ptr])
+    _build.check(fn(out.data_ptr(), dout.data_ptr(), dsum.data_ptr(), BH * N, D, stream),
                  "flash_bwd_dsum")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     fused = route == "fused"
     dq_acc = torch.zeros(q.shape, device=q.device, dtype=torch.float32) if fused else None
-    fn = _build.bind("flash_bwd", "flash_bwd_dkv", [ptr] * 9 + [ctypes.c_int] * 2 + [
-        ctypes.c_float, ctypes.c_int, ptr])
+    fn = _build.bind("flash_bwd", "flash_bwd_dkv", [ptr] * 9 + [c_int] * 3 + [
+        ctypes.c_float] + [c_int] * 3 + [ptr])
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
               dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-              dq_acc.data_ptr() if fused else None, BH, N, scale, int(fused), stream)
+              dq_acc.data_ptr() if fused else None, BH, N, D, scale, left, right, int(fused),
+              stream)
     _build.check(code, "flash_bwd_dkv")
     if fused:
         dq = dq_acc.to(q.dtype)
     else:
         dq = torch.empty_like(q)
-        fn = _build.bind("flash_bwd", "flash_bwd_dq", [ptr] * 7 + [ctypes.c_int] * 2 + [
-            ctypes.c_float, ptr])
+        fn = _build.bind("flash_bwd", "flash_bwd_dq", [ptr] * 7 + [c_int] * 3 + [
+            ctypes.c_float] + [c_int] * 2 + [ptr])
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                  dsum.data_ptr(), dq.data_ptr(), BH, N, scale, stream)
+                  dsum.data_ptr(), dq.data_ptr(), BH, N, D, scale, left, right, stream)
         _build.check(code, "flash_bwd_dq")
     flash_attention_prefix_bwd.launches += 1
     return dq, dk, dv
@@ -186,7 +243,7 @@ class _FlashAttentionPrefix(torch.autograd.Function):
         if q.device.type == "cpu":
             out, lse = flash_attention_prefix_plain(q, k, v, prefix_len)
         else:
-            out, lse = _launch_fwd(q, k, v, prefix_len)
+            out, lse = _launch_prefix(q, k, v, prefix_len)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mark_non_differentiable(lse)
         return out, lse
@@ -215,6 +272,90 @@ def flash_attention_prefix(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_prefix.launches = 0
 
 
+def _bhnd_strides(entry: str, name: str, t: torch.Tensor):
+    """(batch, head, row) element strides of a [B, H, N, D] operand the
+    kernel can read as it lies: last axis contiguous, every row starting on a
+    16-byte boundary."""
+    sb, sh, sn, sd = t.stride()
+    if sd != 1:
+        raise ValueError(f"{entry}: {name} has last-axis stride {sd}; the kernel "
+                         "reads contiguous rows and makes no copy")
+    if t.data_ptr() % 16 or any(s % 8 for s in (sb, sh, sn)):
+        raise ValueError(f"{entry}: {name} rows are not 16-byte aligned "
+                         f"(data_ptr % 16 = {t.data_ptr() % 16}, strides {t.stride()})")
+    return sb, sh, sn
+
+
+def _run_flash_fwd(entry, q, k, v, out, lse, causal, window) -> None:
+    """Launch `csrc/flash_fwd.cu` on q, k, v, out [B, H, N, D] (views through
+    their own strides) and lse [B, H, N] f32 under the causal / window band."""
+    B, H, N, D = q.shape
+    strides = [s for name, t in (("q", q), ("k", k), ("v", v), ("out", out))
+               for s in _bhnd_strides(entry, name, t)]
+    left, right = band(causal, window)
+    fn = _build.bind("flash_fwd", "flash_fwd", [ctypes.c_void_p] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 6 + [ctypes.c_float,
+                                                                   ctypes.c_void_p])
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+              (ctypes.c_longlong * 12)(*strides), B, H, N, D, left, right,
+              1.0 / math.sqrt(D), _stream(q))
+    _build.check(code, f"{entry} (flash_fwd)")
+
+
+def _launch_flash(q, k, v, causal, window):
+    B, H, N, D = q.shape
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D}, kernel takes {HEAD_DIMS}")
+    _check_cuda("flash_attention", (("q", q), ("k", k), ("v", v)), q.shape, torch.bfloat16)
+    out = torch.empty((B, H, N, D), device=q.device, dtype=q.dtype)
+    lse = torch.empty((B, H, N), device=q.device, dtype=torch.float32)
+    _run_flash_fwd("flash_attention", q, k, v, out, lse, causal, window)
+    flash_attention.launches += 1
+    return out, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v, causal, window)
+        else:
+            out, lse = _launch_flash(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mark_non_differentiable(lse)
+        ctx.band = (causal, window)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window = ctx.band
+        dq, dk, dv = flash_attention_prefix_bwd(q, k, v, out, lse, dout, causal=causal,
+                                                window=window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
+                    window: Optional[Tuple[int, int]] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q, k, v: [B, H, N, D] (any strides with a contiguous last axis on
+    CUDA), D in HEAD_DIMS; `window` = (left, right), -1 for an open side.
+    Returns (out [B, H, N, D] in q.dtype, lse [B, H, N] f32)."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q/k/v must share one [B, H, N, D] shape: {tuple(q.shape)} "
+                         f"{tuple(k.shape)} {tuple(v.shape)}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+    window = None if window is None else (int(window[0]), int(window[1]))
+    return _FlashAttention.apply(q, k, v, bool(causal), window)
+
+
+flash_attention.launches = 0
+
+
 def flash_attention_nhd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               causal: bool = False, prefix_len: int = 0
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -233,36 +374,15 @@ def flash_attention_nhd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhnm,bmhd->bnhd", p, v.float()).to(q.dtype).contiguous(), lse
 
 
-def _nhd_strides(name: str, t: torch.Tensor):
-    """(batch, row, head) element strides of a [B, N, H, 64] operand the
-    kernel can read as it lies: last axis contiguous, every 64-element row
-    starting on a 16-byte boundary."""
-    sb, sn, sh, sd = t.stride()
-    if sd != 1:
-        raise ValueError(f"flash_attention_nhd: {name} has last-axis stride {sd}; the kernel "
-                         "reads contiguous 64-element rows and makes no copy")
-    if t.data_ptr() % 16 or any(s % 8 for s in (sb, sn, sh)):
-        raise ValueError(f"flash_attention_nhd: {name} rows are not 16-byte aligned "
-                         f"(data_ptr % 16 = {t.data_ptr() % 16}, strides {t.stride()})")
-    return sb, sn, sh
-
-
-def _launch_nhd(q, k, v, causal, prefix_len):
+def _launch_nhd(q, k, v, causal):
     B, N, H, D = q.shape
     if D != HEAD_DIM:
         raise ValueError(f"flash_attention_nhd: head dim {D}, kernel needs {HEAD_DIM}")
     _check_cuda("flash_attention_nhd", (("q", q), ("k", k), ("v", v)), q.shape, torch.bfloat16)
     out = torch.empty((B, N, H, D), device=q.device, dtype=q.dtype)
     lse = torch.empty((B, H, N), device=q.device, dtype=torch.float32)
-    strides = [s for name, t in (("q", q), ("k", k), ("v", v), ("out", out))
-               for s in _nhd_strides(name, t)]
-    fn = _build.bind("flash_nhd", "flash_nhd_fwd", [ctypes.c_void_p] * 5 + [
-        ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 5 + [ctypes.c_float,
-                                                                   ctypes.c_void_p])
-    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-              (ctypes.c_longlong * 12)(*strides), B, H, N, prefix_len, int(causal),
-              1.0 / math.sqrt(D), _stream(q))
-    _build.check(code, "flash_nhd_fwd")
+    _run_flash_fwd("flash_attention_nhd", *(t.transpose(1, 2) for t in (q, k, v, out)), lse,
+                   causal, None)
     flash_attention_nhd.launches += 1
     return out, lse
 
@@ -273,7 +393,7 @@ class _FlashAttentionNHD(torch.autograd.Function):
         if q.device.type == "cpu":
             out, lse = flash_attention_nhd_plain(q, k, v, causal, prefix_len)
         else:
-            out, lse = _launch_nhd(q, k, v, causal, prefix_len)
+            out, lse = _launch_nhd(q, k, v, causal)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         return out
@@ -282,14 +402,7 @@ class _FlashAttentionNHD(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         bhnd = [t.transpose(1, 2) for t in (q, k, v, out, dout)]
-        if q.device.type == "cpu":
-            grads = flash_attention_prefix_bwd_plain(*bhnd[:4], lse, bhnd[4], causal=ctx.causal)
-        elif ctx.causal:
-            raise RuntimeError(
-                "flash_attention_nhd: the causal backward has no CUDA kernel yet (it comes "
-                "with the causal flash-attention slice); call it under torch.no_grad()")
-        else:
-            grads = flash_attention_prefix_bwd(*bhnd[:4], lse, bhnd[4])
+        grads = flash_attention_prefix_bwd(*bhnd[:4], lse, bhnd[4], causal=ctx.causal)
         return (*(g.transpose(1, 2) for g in grads), None, None)
 
 

@@ -3,11 +3,12 @@
     python -m stable_audio_tools_tpu_torch.train --model-config MODEL.json \\
         --dataset-config DATASET.json [--batch-size 4] [--max-steps N] ...
 
-Builds the model from its JSON config (a conditioned diffusion model or an
-autoencoder; random weights drawn from a `torch.Generator` seeded with
---seed; the T5 tower is random unless the config's conditioner loads
-weights), the training wrapper from the config's `training` section (for an
-autoencoder, the GAN trainer with its discriminator) and an `audio_dir`
+Builds the model from its JSON config (a conditioned diffusion model, an
+autoencoder or a token LM; random weights drawn from a `torch.Generator`
+seeded with --seed; the T5 tower is random unless the config's conditioner
+loads weights), the training wrapper from the config's `training` section
+(for an autoencoder, the GAN trainer with its discriminator; for an LM, the
+next-token trainer over the frozen codec's codes) and an `audio_dir`
 dataloader, then trains on the current
 CUDA card (on the CPU only with `--device cpu`), writing `train_log.jsonl` and
 `step=N.ckpt` files to --save-dir. Defaults come from the repository's
@@ -31,7 +32,7 @@ DEFAULTS_INI = Path(__file__).resolve().parents[1] / "defaults.ini"
 
 # --precision values -> the compute dtype when the config sets none: the
 # DiT's, or the autoencoder trainer's `training.compute_dtype` (the JAX
-# entry's mapping)
+# entry's mapping; it does not reach an LM, whose backbone config rules)
 PRECISION_DTYPE = {
     "16-mixed": "bfloat16", "16-true": "bfloat16", "16": "bfloat16",
     "bf16-mixed": "bfloat16", "bf16-true": "bfloat16", "bf16": "bfloat16",
@@ -97,11 +98,15 @@ def build(args: argparse.Namespace, device: tp.Optional[torch.device] = None):
         model_config = json.load(f)
     with open(args.dataset_config) as f:
         dataset_config = json.load(f)
-    if model_config.get("model_type") == "autoencoder":
+    model_type = model_config.get("model_type")
+    if model_type == "autoencoder":
         compute = model_config.setdefault("training", {})
+    elif model_type == "lm":
+        compute = None  # the backbone config's compute_dtype alone, as the JAX entry
     else:
         compute = model_config["model"]["diffusion"]["config"]
-    compute.setdefault("compute_dtype", PRECISION_DTYPE[args.precision])
+    if compute is not None:
+        compute.setdefault("compute_dtype", PRECISION_DTYPE[args.precision])
     random.seed(args.seed)
     np.random.seed(args.seed)
     model = create_model_from_config(model_config, device)

@@ -1,6 +1,6 @@
 """Training factory; counterpart of stable_audio_tools_tpu/training/factory.py
 (`create_training_wrapper_from_config` :8). The port trains `autoencoder`
-(:17) and `diffusion_cond` models; the other model types raise
+(:17), `diffusion_cond` and `lm` (:116) models; the other model types raise
 NotImplementedError."""
 
 from __future__ import annotations
@@ -38,6 +38,16 @@ def create_training_wrapper_from_config(model_config: tp.Dict[str, tp.Any], mode
             compute_dtype=training_config.get("compute_dtype"),
             clip_grad_norm=gradient_clip_val,
             seed=seed,
+        )
+    if model_type == "lm":
+        from .lm import AudioLanguageModelTrainer
+
+        return AudioLanguageModelTrainer(
+            model,
+            lr=training_config.get("learning_rate"),
+            use_ema=training_config.get("use_ema", False),
+            optimizer_configs=training_config.get("optimizer_configs"),
+            pre_tokenized=training_config.get("pre_tokenized", False),
         )
     if model_type != "diffusion_cond":
         raise NotImplementedError(f"training {model_type} models is not ported yet")

@@ -48,6 +48,17 @@ def test_flash_attention_prefix(dev, B, H, N, P):
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
 
 
+def test_flash_attention_prefix_reads_views(dev):
+    # [B, H, N, 64] views of one fused [B, N, 3*H*64] projection output, as
+    # the attention module hands them over: read through their strides
+    fused = _randn(dev, 2, 131, 3 * 3 * 64, seed=3)
+    q, k, v = (t.view(2, 131, 3, 64).transpose(1, 2) for t in fused.chunk(3, dim=-1))
+    out, lse = fa.flash_attention_prefix(q, k, v, 1)
+    want, want_lse = fa.flash_attention_prefix_plain(q, k, v, 1)
+    _close(out, want)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+
+
 @pytest.mark.parametrize("C,beta", [(1536, False), (1000, True)])
 def test_fused_layer_norm(dev, C, beta):
     x = _randn(dev, 3, 77, C, scale=3.0)
@@ -286,7 +297,7 @@ def test_flash_attention_nhd(dev, layout, B, N, H, P, causal):
     _close(out, want)
     for t, b in zip((q, k, v), before):
         assert torch.equal(t, b)
-    _, lse = fa._launch_nhd(q, k, v, causal, P)
+    _, lse = fa._launch_nhd(q, k, v, causal)
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
 
 
@@ -312,10 +323,15 @@ def test_flash_attention_nhd_gradients(dev):
     got = grads(lambda q, k, v: fa.flash_attention_nhd(q, k, v, prefix_len=1))
     want = grads(lambda q, k, v: fa.flash_attention_nhd_plain(q, k, v, False, 1)[0])
     assert _rel_err(got, want) < 2e-2
+    # the causal backward: the banded backward kernels under the causal mask
     q, k, v = (_randn(dev, 1, 70, 2, 64, seed=i).requires_grad_() for i in range(3))
-    out = fa.flash_attention_nhd(q, k, v, causal=True)
-    with pytest.raises(RuntimeError, match="causal backward"):
-        out.sum().backward()
+    dout = _randn(dev, 1, 70, 2, 64, seed=5)
+    got = torch.autograd.grad((fa.flash_attention_nhd(q, k, v, causal=True).float()
+                               * dout.float()).sum(), (q, k, v))
+    want = torch.autograd.grad((fa.flash_attention_nhd_plain(q, k, v, True)[0].float()
+                                * dout.float()).sum(), (q, k, v))
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) < 2e-2
 
 
 def test_flash_attention_nhd_raises_on_unreadable_input(dev):
@@ -332,3 +348,71 @@ def test_flash_attention_nhd_raises_on_unreadable_input(dev):
         fa.flash_attention_nhd(*(_randn(dev, 1, 70, 2, 32),) * 3)
     with pytest.raises(ValueError, match="non-causal"):
         fa.flash_attention_nhd(q, q, q, causal=True, prefix_len=1)
+
+
+# (B, H, N, D, causal, window): the LM's causal shapes cut in size, the TAAE
+# windows at D = 128, one-sided and causal windows, ragged N, the unmasked
+# function, a window wider than N
+BAND_CASES = [
+    (2, 3, 131, 64, True, None), (1, 2, 503, 64, True, None), (1, 2, 200, 128, True, None),
+    (1, 2, 700, 128, False, (31, 32)), (1, 2, 520, 128, False, (63, 64)),
+    (2, 1, 333, 64, False, (63, 64)), (1, 2, 257, 64, False, (16, -1)),
+    (1, 2, 257, 128, False, (-1, 16)), (1, 3, 300, 64, True, (40, 7)),
+    (1, 2, 190, 64, False, None), (1, 1, 100, 128, False, (500, 500))]
+
+
+@pytest.mark.parametrize("B,H,N,D,causal,window", BAND_CASES)
+def test_flash_attention(dev, B, H, N, D, causal, window):
+    q, k, v = (_randn(dev, B, H, N, D, seed=i) for i in range(3))
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want, want_lse = fa.flash_attention_plain(q, k, v, causal, window)
+    assert out.shape == (B, H, N, D) and out.dtype == torch.bfloat16
+    _close(out, want)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+    # strided operands: [B, H, N, D] views of [B, N, H, D] tensors, read as
+    # they lie, give the same result
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+    assert torch.equal(fa.flash_attention(*views, causal=causal, window=window)[0], out)
+
+
+@pytest.mark.parametrize("route", ["fused", "two_pass"])
+@pytest.mark.parametrize("B,H,N,D,causal,window", BAND_CASES)
+def test_flash_attention_bwd_routes(dev, route, B, H, N, D, causal, window):
+    # both backward routes under the band against the plain f32 backward:
+    # 2e-2 of each gradient's peak, as the unmasked backward
+    q, k, v, g = (_randn(dev, B, H, N, D, seed=i) for i in range(4))
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=window)
+    got = fa.flash_attention_prefix_bwd(q, k, v, out, lse, g, route=route, causal=causal,
+                                        window=window)
+    want = fa.flash_attention_prefix_bwd_plain(q, k, v, out, lse, g, causal, window)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all(), name
+        assert _rel_err(a, b) < 2e-2, (name, _rel_err(a, b))
+
+
+def test_flash_attention_gradients_on_card(dev):
+    # the autograd Function (forward kernel, banded backward kernels) against
+    # autograd through the plain version, 2e-2 of each gradient's peak
+    for causal, window, D in ((True, None, 64), (False, (31, 32), 128)):
+        q, k, v = (_randn(dev, 2, 2, 150, D, seed=i).requires_grad_() for i in range(3))
+        dout = _randn(dev, 2, 2, 150, D, seed=7)
+        got = torch.autograd.grad((fa.flash_attention(q, k, v, causal, window)[0].float()
+                                   * dout.float()).sum(), (q, k, v))
+        want = torch.autograd.grad((fa.flash_attention_plain(q, k, v, causal, window)[0]
+                                    .float() * dout.float()).sum(), (q, k, v))
+        for a, b in zip(got, want):
+            assert _rel_err(a, b) < 2e-2
+
+
+def test_flash_attention_raises_on_unreadable_input(dev):
+    q = _randn(dev, 1, 2, 70, 64)
+    with pytest.raises(TypeError):  # f32: the kernel takes bf16
+        fa.flash_attention(q.float(), q.float(), q.float(), causal=True)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(*(_randn(dev, 1, 2, 70, 32),) * 3, causal=True)
+    t = _randn(dev, 1, 2, 64, 70).transpose(2, 3)  # last-axis stride 70
+    with pytest.raises(ValueError, match="last-axis stride"):
+        fa.flash_attention(t, q, q, causal=True)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_prefix_bwd(*(_randn(dev, 1, 2, 70, 96),) * 5,
+                                      torch.zeros(1, 2, 70, device=dev))

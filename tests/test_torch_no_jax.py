@@ -1,5 +1,6 @@
 """The port imports and runs (generation, a diffusion training step, an
-autoencoder GAN generator and discriminator step) with JAX,
+autoencoder GAN generator and discriminator step, an LM training step and a
+KV-cached LM generation) with JAX,
 flax, transformers and the JAX package unimportable (the machine with the
 card has none of them), and without triton: no module imports it at import
 time."""
@@ -216,6 +217,60 @@ def test_ae_training_runs_without_jax_or_triton():
     # discriminator): one generator step and one discriminator step
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", AE_SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.startswith("ok")
+
+
+LM_SCRIPT = textwrap.dedent("""
+    import sys
+    for name in ("jax", "jaxlib", "flax", "transformers", "safetensors",
+                 "stable_audio_tools_tpu"):
+        sys.modules[name] = None  # any import of these raises ImportError
+
+    import torch
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+    from stable_audio_tools_tpu_torch.models.lm import lm_generate_audio
+    from stable_audio_tools_tpu_torch.training.factory import create_training_wrapper_from_config
+
+    seanet = {"channels": 1, "dimension": 16, "n_filters": 4, "lstm": 1}
+    config = {
+        "model_type": "lm", "sample_size": 128, "sample_rate": 8000, "audio_channels": 1,
+        "model": {
+            "pretransform": {"type": "autoencoder", "config": {
+                "encoder": {"type": "seanet", "config": dict(seanet, ratios=[2, 4])},
+                "decoder": {"type": "seanet", "config": dict(seanet, ratios=[4, 2])},
+                "bottleneck": {"type": "rvq", "config": {"dim": 16, "codebook_size": 32,
+                                                         "num_quantizers": 2}},
+                "latent_dim": 16, "downsampling_ratio": 8, "io_channels": 1}},
+            "conditioning": {"cond_dim": 32, "configs": [{"id": "prompt", "type": "t5", "config": {
+                "max_length": 6, "allow_random_init": True, "arch": [32, 64, 1, 2, 16, False]}}]},
+            "lm": {"codebook_pattern": {"type": "delay"}, "cross_attention_cond_ids": ["prompt"],
+                   "config": {"embed_dim": 128, "depth": 1, "num_heads": 2,
+                              "cross_attn_cond_dim": 32, "compute_dtype": "bfloat16"}}},
+        "training": {"learning_rate": 1e-4}}
+    model = init_random_(create_model_from_config(config, "cpu"), torch.Generator().manual_seed(0))
+    wrapper = create_training_wrapper_from_config(config, model)
+    audio = torch.randn(2, 1, 128, generator=torch.Generator().manual_seed(1)) * 0.3
+    aux = wrapper.train_step(audio, [{"prompt": "rain"}, {"prompt": "a drum"}])
+    assert wrapper.step == 1 and all(torch.isfinite(v) for v in aux.values())
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in wrapper.params.values())
+    cond = model.conditioner([{"prompt": "rain"}], "cpu")
+    out = lm_generate_audio(model.eval(), cond, max_gen_len=6, cfg_scale=3.0, top_k=8,
+                            generator=torch.Generator().manual_seed(2))
+    assert out.shape == (1, 1, 48) and torch.isfinite(out).all()
+    assert "triton" not in sys.modules
+    print("ok")
+""")
+
+
+def test_lm_path_runs_without_jax_or_triton():
+    # the token LM at toy size in bf16 (SEANet + RVQ codec, T5, the causal
+    # backbone through the flash function's plain version): one training
+    # step and a KV-cached CFG generation decoded to audio
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", LM_SCRIPT], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.startswith("ok")
