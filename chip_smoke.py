@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Runs from the repository root on a machine with a CUDA card, `nvcc` and
-`triton`; needs no network and no JAX. Eight phases, each printing one line;
+`triton`; needs no network and no JAX. Nine phases, each printing one line;
 any failure raises and the exit code is nonzero:
 
 1. Device and build: the card's name and power limit, then every CUDA source
@@ -30,6 +30,14 @@ any failure raises and the exit code is nonzero:
    banded backward (both routes) are held at the LM's causal shapes and
    TAAE's windowed ones (FLASH_SHAPES), each timed beside SDPA with the same
    mask, and `flash_attention_nhd`'s causal backward at [1, 4096, 16, 64].
+   The fused-QKV entry `flash_attention_fused_qkv` (the rotary inside the
+   kernel) is held at SA-2.0's training shape [4, 6145, 24, 64] with rotary
+   32 and at FUSED_CASES, its Function's gradient against autograd through
+   the plain version (at the training shape too, a few heads at a time),
+   timed beside SDPA on pre-rotated q, k, v, and against the rotary pass +
+   `flash_attention_nhd`: at the training shape forward, forward + backward
+   and memory, at the generation shape forward. The backward kernels are
+   also held at that training shape, [4, 24, 6145, 64], on their own.
 3. Generation: SA-Open (the shipped stable_audio_open_1_0.json, built by the
    port's factory, random weights from a seeded torch.Generator, random T5)
    runs generate_diffusion_cond with cfg 6, dpmpp-3m-sde, sigma in [0.3, 500],
@@ -92,6 +100,22 @@ any failure raises and the exit code is nonzero:
    pieces of one step, its forward+backward under the profiler, a checkpoint
    and its reload. Every LM parameter must get a finite nonzero gradient and
    move, and the kernels must launch exactly as counted from the model.
+
+9. SA-2.0 training: one step of a tiny SA-2.0-shaped model (rotary
+   self-attention on the fused-QKV entry, pre-encoded latents with a padding
+   mask) agrees between the card and the CPU within 5%; then the shipped
+   stable_audio_2_0.json, nothing cut, its CLAP tower from the seeded
+   RoBERTa-base file: (a) its pretransform saved as a port checkpoint and
+   `python -m stable_audio_tools_tpu_torch.pre_encode` over 8 synthetic
+   stereo WAVs of 290-300 s (latents [64, 6144], finite, masks of 6144);
+   (b) training from those latents through the code path of `python -m
+   stable_audio_tools_tpu_torch.train` with `pre_encoded` and `mask_padding`,
+   batch 4 x 6144 latents: 2 warm-up and 5 timed steps, the pieces of one
+   step, its forward+backward under the profiler, launches exactly as
+   counted from the model (row 8's forward 240, row 6's backward 120), moved
+   weights and EMA, a checkpoint that reloads identical; (c) training from
+   audio, batch 1 x 12,582,912 samples (the in-step encode): 1 warm-up and 2
+   timed steps.
 
 The last lines are the kernels' JSON record, the card line and the result
 line {"ok": true, "device": {...}}.
@@ -266,8 +290,10 @@ def phase_kernels(dev):
         library="autograd through F.scaled_dot_product_attention (backward only)",
         library_ms=cuda_ms(lambda: torch.autograd.grad(lib_out, qkv, dout, retain_graph=True), 20))
     del lib_out, o, qkv
+    rec["flash_attention_prefix_bwd"]["sa2_training_shape"] = long_bwd_checks(fa, randn, F)
 
     rec["flash_attention_nhd"] = nhd_checks(fa, randn, F)
+    rec["flash_attention_fused_qkv"] = fused_qkv_checks(fa, randn, F)
     rec["flash_attention"], rec["flash_attention_prefix_bwd"]["banded"] = flash_checks(
         fa, randn, F)
 
@@ -626,6 +652,199 @@ def nhd_checks(fa, randn, F) -> dict:
     return rec
 
 
+def long_bwd_checks(fa, randn, F) -> dict:
+    """Row 6's kernels at SA-2.0's training shape [4, 24, 6145, 64] (what row
+    8's Function calls there: 97 key tiles a query tile), both routes against
+    the plain f32 backward 4 heads at a time; timed beside the plain version
+    and SDPA's backward."""
+    B, H, N, D, heads = 4, 24, 6145, 64, 4
+    q, k, v, dout = (randn(B, H, N, D) for _ in range(4))
+    out, lse = fa.flash_attention(q, k, v)
+    plain = lambda: [fa.flash_attention_prefix_bwd_plain(
+        *(t[:, h:h + heads] for t in (q, k, v, out, lse, dout))) for h in range(0, H, heads)]
+    want = [torch.cat(g, 1) for g in zip(*plain())]
+    routes = {}
+    for route in fa.BWD_ROUTES:
+        run = lambda route=route: fa.flash_attention_prefix_bwd(q, k, v, out, lse, dout,
+                                                                route=route)
+        got = run()
+        routes[route] = dict(
+            max_rel_err=max(rel_err(f"flash bwd [4,24,6145,64] {route} d{n}", a, b, BWD_REL_TOL)
+                            for n, a, b in zip("qkv", got, want)),
+            max_abs_err=max((a.float() - b.float()).abs().max().item()
+                            for a, b in zip(got, want)),
+            ms=cuda_ms(run, 5))
+        del got
+    del want
+    qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*qkv)
+    rec = dict(shape="q,k,v,dO [4,24,6145,64] bf16, lse f32, unmasked", routes=routes,
+               ms=routes[fa.BWD_ROUTE]["ms"], max_rel_err=routes[fa.BWD_ROUTE]["max_rel_err"],
+               plain_ms=cuda_ms(plain, 1),
+               library="autograd through F.scaled_dot_product_attention (backward only)",
+               library_ms=cuda_ms(lambda: torch.autograd.grad(lib_out, qkv, dout,
+                                                              retain_graph=True), 5),
+               **bound(attn_flops(B, H, N, D, 5), q, k, v, out, lse, dout, q, k, v))
+    del q, k, v, dout, out, lse, qkv, lib_out
+    return rec
+
+
+# (B, N, H, D, rot_dim, causal, window) of `flash_attention_fused_qkv`
+# checked beside the training shape: the JAX test's four cases
+# (tests/test_flash_attention.py:199), D = 128, and a ragged N
+FUSED_CASES = (
+    (1, 512, 2, 64, 32, True, None), (1, 512, 2, 64, 32, False, None),
+    (1, 512, 2, 64, 0, False, (63, 64)), (1, 512, 2, 64, 0, True, None),
+    (1, 1000, 4, 128, 64, True, None), (2, 1537, 24, 64, 32, False, None))
+
+
+def fused_qkv_checks(fa, randn, F) -> dict:
+    """`flash_attention_fused_qkv` (row 8: the rotary inside the kernel)
+    against its plain version (unpack, rotary, plain attention) at SA-2.0's
+    training shape [4, 6145, 24, 64] with rotary 32 and at FUSED_CASES; its
+    autograd Function (forward kernel; rotary re-run, row 6's backward and the
+    rotary's VJP) against autograd through the plain version, at the training
+    shape too; timed beside SDPA on pre-rotated q, k, v (no PyTorch call
+    computes rotary + attention) and against the rotary pass +
+    `flash_attention_nhd` in turns (A B B A): at the training shape forward,
+    forward + backward and memory, at the generation shape [2, 6145, 24, 64]
+    the forward that generation runs."""
+    from stable_audio_tools_tpu_torch.ops.embeddings import rotary_freqs, rotary_tables, rotate_nhd
+
+    def operands(B, N, H, D, rot):
+        qkv = randn(B, N, 3 * H * D)
+        cos, sin = rotary_tables(rotary_freqs(N, rot, device=qkv.device)) if rot else (None, None)
+        return qkv, cos, sin
+
+    def plain_heads(qkv, cos, sin, H, causal, window, heads):
+        """The plain version `heads` heads at a time (6145^2 f32 logits for
+        all 96 (batch, head) pairs would take 14.5 GB, and more again)."""
+        B, N, _ = qkv.shape
+        per = qkv.view(B, N, 3, H, -1)
+        for h in range(0, H, heads):
+            sub = per[:, :, :, h:h + heads].reshape(B, N, -1)
+            yield h, fa.flash_attention_fused_qkv_plain(sub, cos, sin, sub.shape[-1] // (
+                3 * per.shape[-1]), causal, window)
+
+    def check(name, B, N, H, D, rot, causal=False, window=None, heads=4):
+        qkv, cos, sin = operands(B, N, H, D, rot)
+        out, lse = fa._launch_fused(qkv, cos, sin, H, causal, window)
+        errs = []
+        for h, (ref, ref_lse) in plain_heads(qkv, cos, sin, H, causal, window, heads):
+            errs.append(compare(f"{name} heads {h}+", out[:, :, h:h + heads], ref, bf16_tol(ref)))
+            compare(f"{name} lse heads {h}+", lse[:, h:h + heads], ref_lse, 1e-3)
+        return max(errs), (qkv, cos, sin, out, lse)
+
+    def fused_route(x, cos, sin, H):
+        return fa.flash_attention_fused_qkv(x, cos, sin, H)
+
+    def nhd_route(x, cos, sin, H):
+        """The rotary pass + the NHD entry: what generation runs, and what
+        training would run without row 8."""
+        B, N, _ = x.shape
+        q, k, v = (t.view(B, N, H, -1) for t in x.chunk(3, dim=-1))
+        return fa.flash_attention_nhd(rotate_nhd(q, cos, sin), rotate_nhd(k, cos, sin), v,
+                                      prefix_len=1)
+
+    errs = {}
+    for B, N, H, D, rot, causal, window in FUSED_CASES:
+        name = f"[{B},{N},{H},{D}] rot {rot} {'causal' if causal else window or 'unmasked'}"
+        errs[name] = check(f"fused_qkv {name}", B, N, H, D, rot, causal, window)[0]
+    B, N, H, D = 4, 6145, 24, 64
+    errs["[4,6145,24,64] rot 32"], (qkv, cos, sin, out, lse) = check(
+        "fused_qkv training shape", B, N, H, D, 32)
+    rec = dict(
+        route="cuda", source="stable_audio_tools_tpu_torch/csrc/flash_fwd.cu",
+        replaces="stable_audio_tools_tpu/ops/kernels/flash_attention.py:1040",
+        shape="qkv [4,6145,4608] bf16 (24 heads of 64, [q | k | v]), cos/sin [6145,32] f32, "
+              "unmasked (timed; " + ", ".join(errs) + " checked)",
+        errs=errs, max_abs_err=max(errs.values()),
+        ms=cuda_ms(lambda: fused_route(qkv, cos, sin, H), 10),
+        plain_ms=cuda_ms(lambda: list(plain_heads(qkv, cos, sin, H, False, None, 4)), 2),
+        **bound(attn_flops(B, H, N, D), qkv, cos, sin, out, lse))
+    q, k, v = (t.view(B, N, H, D) for t in qkv.chunk(3, dim=-1))
+    qr, kr = rotate_nhd(q, cos, sin), rotate_nhd(k, cos, sin)
+    rec.update(library="none (no PyTorch call computes rotary + attention); "
+                       "F.scaled_dot_product_attention on pre-rotated q, k, v",
+               library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                   *(t.transpose(1, 2) for t in (qr, kr, v))), 10))
+    del q, k, v, qr, kr, out, lse
+
+    # the training A/B: forward, forward + backward through each Function,
+    # and the memory each keeps from its forward for its backward (the fused
+    # route keeps no rotated q, k) and adds at its peak
+    w = qkv.detach().requires_grad_()
+    dout = randn(B, N, H, D)
+
+    def memory_mib(route):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        o = route(w, cos, sin, H)
+        kept = torch.cuda.memory_allocated() - base
+        torch.autograd.grad(o, w, dout)
+        return dict(kept_after_forward_mib=kept / 2 ** 20,
+                    peak_fwd_bwd_mib=(torch.cuda.max_memory_allocated() - base) / 2 ** 20)
+
+    with torch.no_grad():
+        compare("fused_qkv vs rotary + nhd [4,6145,24,64]", fused_route(qkv, cos, sin, H),
+                nhd_route(qkv, cos, sin, H), bf16_tol(nhd_route(qkv, cos, sin, H)))
+    turns = (fused_route, nhd_route, nhd_route, fused_route)
+    fwd = [cuda_ms(lambda r=r: r(w, cos, sin, H), 10) for r in turns]
+    both = [cuda_ms(lambda r=r: torch.autograd.grad(r(w, cos, sin, H), w, dout)[0], 3)
+            for r in turns]
+    rec["fwd_bwd_ms"] = (both[0] + both[3]) / 2
+    rec["ab"] = {"[4,6145,24,64] rot 32, training": dict(
+        fused_qkv_ms=[fwd[0], fwd[3]], rotary_plus_nhd_ms=[fwd[1], fwd[2]],
+        fused_qkv_fwd_bwd_ms=[both[0], both[3]], rotary_plus_nhd_fwd_bwd_ms=[both[1], both[2]],
+        fused_qkv_memory=memory_mib(fused_route), rotary_plus_nhd_memory=memory_mib(nhd_route))}
+
+    # the Function's gradient of the projection against autograd through the
+    # plain version, f32 sums: at the training shape (row 6's dQ sums over
+    # 97 key tiles; the plain version 4 heads at a time, heads being
+    # independent), at SA-2.0's heads and rotary at 2049 rows, and causal at
+    # D 128
+    heads, dout = 4, dout.float()
+    got = torch.autograd.grad((fused_route(w, cos, sin, H).float() * dout).sum(), w)[0]
+    per, want = qkv.view(B, N, 3, H, D), torch.empty((B, N, 3, H, D), device=qkv.device)
+    for h in range(0, H, heads):
+        sub = per[:, :, :, h:h + heads].reshape(B, N, -1).requires_grad_()
+        (g,) = torch.autograd.grad((fa.flash_attention_fused_qkv_plain(sub, cos, sin, heads)[0]
+                                    .float() * dout[:, :, h:h + heads]).sum(), sub)
+        want[:, :, :, h:h + heads] = g.view(B, N, 3, heads, D)
+    grad_errs = {"[4,6145,24,64] rot 32": rel_err("fused_qkv autograd [4,6145,24,64]", got,
+                                                  want.view(B, N, -1), BWD_REL_TOL)}
+    del qkv, w, dout, got, want, per, sub, g
+    for B, N, H, D, rot, causal in ((1, 2049, 24, 64, 32, False), (1, 700, 4, 128, 64, True)):
+        qkv, cos, sin = operands(B, N, H, D, rot)
+        w = qkv.detach().requires_grad_()
+        dout = randn(B, N, H, D).float()
+        got = torch.autograd.grad((fa.flash_attention_fused_qkv(
+            w, cos, sin, H, causal).float() * dout).sum(), w)[0]
+        want = torch.autograd.grad((fa.flash_attention_fused_qkv_plain(
+            w, cos, sin, H, causal)[0].float() * dout).sum(), w)[0]
+        grad_errs[f"[{B},{N},{H},{D}] rot {rot}{' causal' if causal else ''}"] = rel_err(
+            f"fused_qkv autograd [{B},{N},{H},{D}]", got, want, BWD_REL_TOL)
+    rec.update(autograd_rel_err=max(grad_errs.values()), autograd_errs=grad_errs,
+               tol="2 bf16 ulps at max|ref| (out), 1e-3 (lse); gradient of the projection "
+                   f"{BWD_REL_TOL} x max|plain|")
+
+    # the generation A/B (forward only)
+    B, N, H, D = 2, 6145, 24, 64
+    qkv, cos, sin = operands(B, N, H, D, 32)
+    with torch.no_grad():
+        compare("fused_qkv vs rotary + nhd [2,6145,24,64]", fused_route(qkv, cos, sin, H),
+                nhd_route(qkv, cos, sin, H), bf16_tol(nhd_route(qkv, cos, sin, H)))
+        turns = [cuda_ms(lambda r=r: r(qkv, cos, sin, H), 10)
+                 for r in (fused_route, nhd_route, nhd_route, fused_route)]
+        rec["ab"]["[2,6145,24,64] rot 32"] = dict(
+            fused_qkv_ms=[turns[0], turns[3]], rotary_plus_nhd_ms=[turns[1], turns[2]],
+            rotary_pass_ms=cuda_ms(lambda: [rotate_nhd(t.view(B, N, H, D), cos, sin)
+                                            for t in qkv.chunk(3, dim=-1)[:2]], 10))
+    del qkv
+    return rec
+
+
 # (name, B, H, N, D, causal, window) of `flash_attention` and its banded
 # backward: the LM's causal shapes (training at batch 4 over the first 500
 # steps of the pattern sequence, and the 503 steps the issue names;
@@ -765,6 +984,7 @@ def counters():
             "flash_attention_prefix": fa.flash_attention_prefix,
             "flash_attention_prefix_bwd": fa.flash_attention_prefix_bwd,
             "flash_attention_nhd": fa.flash_attention_nhd,
+            "flash_attention_fused_qkv": fa.flash_attention_fused_qkv,
             "fused_layer_norm": ln.fused_layer_norm,
             "snake_conv1d": cs.snake_conv1d,
             "snake_conv1d_res": cs.snake_conv1d_res,
@@ -1055,7 +1275,8 @@ def step_split(trainer, loader) -> dict:
     lap("conditioning")
     latents = w.encode(audio, generator=gen)
     lap("encode")
-    loss, _ = w.loss(latents, cond, generator=gen, counter=w.step)
+    mask = w.padding_mask(meta, latents.shape[2])
+    loss, _ = w.loss(latents, cond, generator=gen, counter=w.step, padding_mask=mask)
     loss.backward()
     lap("forward_backward")
     w.optimizer_step()
@@ -1066,7 +1287,8 @@ def step_split(trainer, loader) -> dict:
     out["step_ms"] = (t[-1] - t[0]) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        loss, _ = w.loss(latents, w.condition(meta), generator=gen, counter=w.step)
+        loss, _ = w.loss(latents, w.condition(meta), generator=gen, counter=w.step,
+                         padding_mask=mask)
         loss.backward()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -1324,7 +1546,7 @@ def phase_sa2(dev) -> dict:
     run(2, 0)  # warm-up: Triton JIT and cuDNN plans at the full shapes
     torch.cuda.synchronize()
     kernels = {n: fn for n, fn in counters().items()
-               if n in SA2_KERNELS or n == "flash_attention_prefix"}
+               if n in SA2_KERNELS or n in ("flash_attention_prefix", "flash_attention_fused_qkv")}
     for fn in kernels.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1337,10 +1559,12 @@ def phase_sa2(dev) -> dict:
         raise AssertionError(f"SA-2.0 audio {tuple(audio.shape)} "
                              f"finite={bool(torch.isfinite(audio).all())}")
     idle = [n for n in SA2_KERNELS if launches[n] == 0]
-    if idle or launches["flash_attention_nhd"] != 24 * STEPS or launches["flash_attention_prefix"]:
+    if (idle or launches["flash_attention_nhd"] != 24 * STEPS or launches["flash_attention_prefix"]
+            or launches["flash_attention_fused_qkv"]):
         raise AssertionError(f"SA-2.0 launches {launches}: expected {24 * STEPS} of "
-                             f"flash_attention_nhd, none of flash_attention_prefix, and some "
-                             f"of every other kernel (idle: {idle})")
+                             f"flash_attention_nhd, none of flash_attention_prefix or "
+                             f"flash_attention_fused_qkv (training's route), and some of every "
+                             f"other kernel (idle: {idle})")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     del audio
     return dict(wall_s=wall, steps=STEPS, audio_s=SA2_SAMPLE_SIZE / 44100.0,
@@ -2046,6 +2270,285 @@ def phase_lm_training(dev) -> dict:
     return rec
 
 
+SA2_TRAIN_BATCH = 4
+SA2_LATENTS = SA2_SAMPLE_SIZE // 2048
+# 8 clips of 290 to 300 s: longer than the 285.3 s crop, so the random crops
+# (pre-encoding keeps the dataset's) give the clips' latents several
+# `seconds_start` values
+SA2_WAVS, SA2_WAV_SECONDS, SA2_WAV_STEP = 8, 290, 10 / 7
+SA2_AUDIO_WARM, SA2_AUDIO_TIMED = 1, 2
+
+
+def sa2_train_config(clap_path: str, pre_encoded: bool) -> dict:
+    """The shipped SA-2.0 config, nothing cut (no chunked codec: training
+    encodes whole clips), its CLAP checkpoint at `clap_path`, and the
+    trainer's `pre_encoded` and `mask_padding` on."""
+    with open(SA2) as f:
+        cfg = json.load(f)
+    for c in cfg["model"]["conditioning"]["configs"]:
+        if c["type"] == "clap_text":
+            c["config"]["clap_ckpt_path"] = clap_path
+    cfg["training"].update(pre_encoded=pre_encoded, mask_padding=True)
+    return cfg
+
+
+def small_sa2_train_check(dev, clap_path: str) -> dict:
+    """One training step of a tiny SA-2.0-shaped model (rotary self-attention
+    on the fused-QKV entry, block remat, bf16 DiT, pre-encoded latents with a
+    padding mask, AdamW + InverseLR, EMA) with the kernels on the card against
+    the plain versions on the CPU: the same weights, latents, masks, t, noise
+    and CFG-dropout mask. Returns the loss's relative error and the largest
+    max|card - CPU| / max|CPU| over the DiT's gradients."""
+    from stable_audio_tools_tpu_torch.ops.kernels.flash_attention import flash_attention_fused_qkv
+    from stable_audio_tools_tpu_torch.training.factory import create_training_wrapper_from_config
+
+    cfg = sa2_train_config(clap_path, pre_encoded=True)
+    cpu = tiny_sa2_model(clap_path)
+    gpu = copy.deepcopy(cpu).to(dev)
+    g = torch.Generator().manual_seed(4)
+    B, T = 2, 288
+    batch = dict(t=torch.rand(B, generator=g), noise=torch.randn(B, 16, T, generator=g),
+                 cfg_dropout_mask=torch.tensor([False, True]))
+    latents = torch.randn(B, 16, T, generator=g)
+    meta = [dict(SA2_PROMPT[0], padding_mask=torch.arange(T).lt(200).float().numpy()),
+            dict(SA2_PROMPT[0], seconds_start=7, padding_mask=torch.ones(T).numpy())]
+    out = {}
+    before = flash_attention_fused_qkv.launches
+    for name, model, d in (("cpu", cpu, "cpu"), ("card", gpu, dev)):
+        w = create_training_wrapper_from_config(cfg, model)
+        aux = w.train_step(latents.to(d), meta, **{k: v.to(d) for k, v in batch.items()})
+        out[name] = (float(aux["loss"]), w)
+    if flash_attention_fused_qkv.launches - before != 2 * 2:  # 2 blocks, forward + recompute
+        raise AssertionError("small SA-2.0 training step: the card did not take the fused entry")
+    (lc, wc), (lg, wg) = out["cpu"], out["card"]
+    if not (math.isfinite(lc) and math.isfinite(lg)):
+        raise AssertionError(f"small SA-2.0 training step: loss cpu {lc} card {lg}")
+    errs = {}
+    for n, p in wc.params.items():
+        if n.startswith("model.model."):
+            gg = wg.params[n].grad
+            if gg is None or not torch.isfinite(gg).all():
+                raise AssertionError(f"small SA-2.0 training step: {n} has no finite gradient "
+                                     "on the card")
+            errs[n] = ((gg.float().cpu() - p.grad).abs().max() / p.grad.abs().max()).item()
+    worst = max(errs, key=errs.get)
+    return dict(loss_rel_err=abs(lg - lc) / abs(lc), grad_rel_err=errs[worst], worst_grad=worst)
+
+
+def sa2_training_launches(model, steps: int) -> dict:
+    """Kernel launches of `steps` SA-2.0 training steps from latents,
+    counted from the model: every DiT block's self-attention takes the
+    fused-QKV forward twice a step (the forward and the remat recompute) and
+    row 6's backward once; the DiT's LayerNorms run twice inside the
+    blocks, once outside; no snake kernel (the pretransform does not run) and
+    no other attention entry."""
+    from stable_audio_tools_tpu_torch.ops.norms import LayerNorm
+
+    dit = model.model.model
+    blocks = len(dit.transformer.layers)
+    in_blocks = sum(isinstance(m, LayerNorm) for m in dit.transformer.layers.modules())
+    outside = sum(isinstance(m, LayerNorm) for m in dit.modules()) - in_blocks
+    zero = ("flash_attention", "flash_attention_prefix", "flash_attention_nhd", "snake_conv1d",
+            "snake_conv1d_res", "snake_fused", "snake_fused_bwd", "snake_conv1d_dx",
+            "snake_conv1d_wgrad", "conv1d_wgrad")
+    return dict({n: 0 for n in zero}, flash_attention_fused_qkv=2 * blocks * steps,
+                flash_attention_prefix_bwd=blocks * steps,
+                fused_layer_norm=(2 * in_blocks + outside) * steps)
+
+
+def phase_sa2_training(dev) -> dict:
+    """9a: pre-encode the WAVs with the SA-2.0 model's pretransform; 9b: train
+    from the latents at batch 4 x 6144; 9c: train from audio at batch 1 x
+    12,582,912 samples (the in-step encode)."""
+    from stable_audio_tools_tpu_torch import pre_encode, train
+    from stable_audio_tools_tpu_torch.data.dataset import create_dataloader_from_config
+    from stable_audio_tools_tpu_torch.io.checkpoints import load_model_state, save_model_state
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+    from stable_audio_tools_tpu_torch.models.roberta import RobertaArch
+
+    import numpy as np
+
+    rec = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sa2_train_") as tmp:
+        small_clap = os.path.join(tmp, "clap_small.pt")
+        write_clap_checkpoint(small_clap, RobertaArch(vocab_size=32002, hidden_size=64,
+                                                      num_layers=2, num_heads=1,
+                                                      intermediate_size=128, max_positions=80))
+        small, small_tol = small_sa2_train_check(dev, small_clap), 0.05
+        if not (small["loss_rel_err"] <= small_tol and small["grad_rel_err"] <= small_tol):
+            raise AssertionError(f"small SA-2.0 training step card vs CPU: {small} > {small_tol}")
+        rec.update(small=small, small_tol=small_tol)
+
+        clap_path = os.path.join(tmp, "clap.pt")
+        write_clap_checkpoint(clap_path)
+        t0 = time.perf_counter()
+        audio_cfg = write_dataset(tmp, SA2_WAVS, SA2_WAV_SECONDS, SA2_WAV_STEP)
+        rec["write_wavs_s"] = time.perf_counter() - t0
+
+        # 9a: the SA-2.0 model's pretransform saved as a port checkpoint, then
+        # `python -m stable_audio_tools_tpu_torch.pre_encode` over the WAVs
+        model = create_model_from_config(sa2_train_config(clap_path, True), dev)
+        clap = model.conditioner.conditioners["prompt"]
+        init_random_(model, torch.Generator(device=dev).manual_seed(0),
+                     skip=[clap.model, clap.text_projection])
+        vae_ckpt = os.path.join(tmp, "vae.ckpt")
+        with open(SA2_VAE) as f:
+            save_model_state(vae_ckpt, model.pretransform.model, json.load(f))
+        del model, clap
+        torch.cuda.empty_cache()
+        with open(audio_cfg) as f:
+            data = json.load(f)
+        latent_dir = os.path.join(tmp, "latents")
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        enc = pre_encode.main(["--model-config", SA2_VAE, "--ckpt-path", vae_ckpt,
+                               "--dataset-config", audio_cfg, "--output-path", latent_dir,
+                               "--batch-size", "1", "--sample-size", str(SA2_SAMPLE_SIZE),
+                               "--num-workers", "2"])
+        wall = time.perf_counter() - t0
+        rec["pre_encode"] = dict(
+            items=enc["items"], wall_s=wall, encode_ms=enc["encode_ms"],
+            encode_ms_median=statistics.median(enc["encode_ms"]),
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            resident_before_gib=resident / 2 ** 30)
+        torch.cuda.empty_cache()
+        files = sorted(f for f in os.listdir(enc["out_dir"]) if f.endswith(".npy"))
+        if enc["items"] != SA2_WAVS or len(files) != SA2_WAVS:
+            raise AssertionError(f"pre-encode wrote {files}, expected {SA2_WAVS} latents")
+        for name in files:
+            lat = np.load(os.path.join(enc["out_dir"], name))
+            with open(os.path.join(enc["out_dir"], name[:-4] + ".json")) as f:
+                mask = json.load(f)["padding_mask"]
+            if lat.shape != (64, SA2_LATENTS) or not np.isfinite(lat).all() or len(mask) != \
+                    SA2_LATENTS:
+                raise AssertionError(f"pre-encoded {name}: latents {lat.shape} finite="
+                                     f"{bool(np.isfinite(lat).all())}, mask of {len(mask)}")
+
+        # 9b: train from the latents through the train entry's code path
+        model_cfg = os.path.join(tmp, "model.json")
+        with open(model_cfg, "w") as f:
+            json.dump(sa2_train_config(clap_path, True), f)
+        lat_cfg = os.path.join(tmp, "latent_dataset.json")
+        with open(lat_cfg, "w") as f:
+            json.dump({"dataset_type": "pre_encoded", "latent_crop_length": SA2_LATENTS,
+                       "random_crop": True, "datasets": [{"id": "lat", "path": latent_dir}]}, f)
+        args = train.parse_args([
+            "--model-config", model_cfg, "--dataset-config", lat_cfg,
+            "--batch-size", str(SA2_TRAIN_BATCH), "--num-workers", "2", "--seed", "0",
+            "--max-steps", str(WARM_STEPS + TIMED_STEPS), "--checkpoint-every", "0",
+            "--save-dir", os.path.join(tmp, "run")])
+        t0 = time.perf_counter()
+        trainer, loader = train.build(args, device=dev)
+        w = trainer.wrapper
+        # the latents' own encoder, for 9c's in-step encode
+        load_model_state(vae_ckpt, w.model.pretransform.model)
+        torch.cuda.synchronize()
+        rec["build_s"] = time.perf_counter() - t0
+        before = {n: p.detach().clone() for n, p in w.params.items()}
+        trainer.fit(loader, max_steps=1, save_at_end=False)
+        bad = [n for n, p in w.params.items()
+               if p.grad is None or not torch.isfinite(p.grad).all() or not p.grad.abs().max() > 0]
+        if bad:
+            raise AssertionError(f"SA-2.0 training, step 1: {len(bad)} trainable parameters have "
+                                 f"no finite nonzero gradient: {bad[:8]}")
+        trainer.fit(loader, max_steps=WARM_STEPS, save_at_end=False)
+        torch.cuda.synchronize()
+        kernels = counters()
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        trainer.fit(loader, max_steps=WARM_STEPS + TIMED_STEPS, save_at_end=False)
+        torch.cuda.synchronize()
+        rec["launches"] = {n: fn.launches for n, fn in kernels.items()}
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = sa2_training_launches(w.model, TIMED_STEPS)
+        wrong = {n: (rec["launches"][n], c) for n, c in want.items() if rec["launches"][n] != c}
+        if wrong:
+            raise AssertionError(f"SA-2.0 training launches (got, want): {wrong}")
+        losses = [h["train/loss"] for h in trainer.history]
+        if len(losses) != WARM_STEPS + TIMED_STEPS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"SA-2.0 training losses: {losses}")
+        walls = [1e3 / h["train/steps_per_sec"] for h in trainer.history[WARM_STEPS:]]
+        unmoved = [n for n, p in w.params.items() if torch.equal(p.detach(), before[n])]
+        ema_unmoved = [n for n, e in w.ema.items() if torch.equal(e, before[n])]
+        if unmoved or ema_unmoved:
+            raise AssertionError(f"SA-2.0: parameters that did not move: {unmoved[:8]}; "
+                                 f"EMA entries that did not move: {ema_unmoved[:8]}")
+        del before
+        trainable = sum(p.numel() for p in w.params.values())
+        rec.update(
+            losses=losses, step_ms=walls, step_ms_median=statistics.median(walls),
+            audio_s_per_s=SA2_TRAIN_BATCH * SA2_SAMPLE_SIZE / SR / (statistics.median(walls) / 1e3),
+            trainable_params=trainable, params=sum(p.numel() for p in w.model.parameters()))
+        rec["split"] = step_split(trainer, loader)
+        t0 = time.perf_counter()
+        path = trainer.save(w.step)
+        rec["save_s"] = time.perf_counter() - t0
+        rec["ckpt_gib"] = os.path.getsize(path) / 2 ** 30
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        fresh = create_model_from_config(state["model_config"], "meta")
+        fresh.load_state_dict(state["state_dict"], strict=True, assign=True)
+        current = w.model.state_dict()
+        differ = [n for n, v in fresh.state_dict().items() if not torch.equal(v, current[n].cpu())]
+        ema_differ = [n for n, v in state["ema"].items() if not torch.equal(v, w.ema[n].cpu())]
+        if differ or ema_differ or state["step"] != w.step:
+            raise AssertionError(f"SA-2.0 checkpoint reload: {len(differ)} tensors and "
+                                 f"{len(ema_differ)} EMA entries differ ({differ[:5]}), step "
+                                 f"{state['step']} vs {w.step}")
+        del state, fresh, current
+        os.remove(path)
+
+        # 9c: from audio at batch 1 x 12,582,912 samples: the in-step encode
+        # and its padding-mask sampling at the latent rate
+        w.pre_encoded = False
+        audio_loader = create_dataloader_from_config(
+            data, batch_size=1, sample_size=SA2_SAMPLE_SIZE, sample_rate=SR, num_workers=2,
+            seed=1)
+        audio, meta = next(iter(audio_loader))
+        audio = trainer.prepare_batch(audio)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            latents = w.encode(audio, generator=w.generator(0))
+            mask = w.padding_mask(meta, latents.shape[2])
+        torch.cuda.synchronize()
+        encode_ms = (time.perf_counter() - t0) * 1e3
+        if tuple(latents.shape) != (1, 64, SA2_LATENTS) or not torch.isfinite(latents).all() \
+                or tuple(mask.shape) != (1, SA2_LATENTS):
+            raise AssertionError(f"SA-2.0 in-step encode: latents {tuple(latents.shape)}, "
+                                 f"mask {tuple(mask.shape)}")
+        del audio, latents, mask
+        history = len(trainer.history)
+        for fn in kernels.values():
+            fn.launches = 0
+        # one `fit` call: its first (warm-up) step also waits for the new
+        # loader iterator's workers and first batch
+        trainer.fit(audio_loader, max_steps=w.step + SA2_AUDIO_WARM + SA2_AUDIO_TIMED,
+                    save_at_end=False)
+        torch.cuda.synchronize()
+        audio_launches = {n: fn.launches for n, fn in kernels.items() if fn.launches}
+        steps = trainer.history[history:]
+        audio_losses = [h["train/loss"] for h in steps]
+        audio_walls = [1e3 / h["train/steps_per_sec"] for h in steps[SA2_AUDIO_WARM:]]
+        if len(audio_losses) != SA2_AUDIO_WARM + SA2_AUDIO_TIMED or not all(
+                map(math.isfinite, audio_losses)):
+            raise AssertionError(f"SA-2.0 training from audio: losses {audio_losses}")
+        idle = [n for n in ("snake_conv1d", "snake_conv1d_res", "snake_fused",
+                            "flash_attention_fused_qkv", "flash_attention_prefix_bwd")
+                if not audio_launches.get(n)]
+        if idle:
+            raise AssertionError(f"SA-2.0 training from audio did not launch {idle}")
+        rec["from_audio"] = dict(
+            batch=1, samples=SA2_SAMPLE_SIZE, losses=audio_losses, step_ms=audio_walls,
+            encode_ms=encode_ms, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            launches=audio_launches)
+        del trainer, loader, audio_loader, w
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card",
@@ -2165,6 +2668,30 @@ def main() -> int:
           f"identical; small card-vs-CPU step {json.dumps(lmt['small'])} "
           f"(tol {lmt['small_tol']}) on {card}", flush=True)
 
+    torch.cuda.empty_cache()
+
+    sa2t = phase_sa2_training(dev)
+    split, enc, aud = sa2t["split"], sa2t["pre_encode"], sa2t["from_audio"]
+    print(f"phase 9 SA-2.0 training: {sa2t['trainable_params'] / 1e9:.3f}B trainable of "
+          f"{sa2t['params'] / 1e9:.3f}B; 9a pre-encode {enc['items']} clips of "
+          f"{SA2_SAMPLE_SIZE} samples: {enc['encode_ms_median']:.1f} ms/clip median "
+          f"({', '.join(f'{x:.1f}' for x in enc['encode_ms'])}), wall {enc['wall_s']:.1f} s, "
+          f"peak {enc['peak_gib']:.2f} GiB; 9b from latents, batch {SA2_TRAIN_BATCH} x "
+          f"{SA2_LATENTS} latents, mask_padding: step {sa2t['step_ms_median']:.1f} ms median of "
+          f"{TIMED_STEPS} ({', '.join(f'{x:.1f}' for x in sa2t['step_ms'])}), "
+          f"{sa2t['audio_s_per_s']:.2f} audio-s trained/s, peak {sa2t['peak_gib']:.2f} GiB, "
+          f"losses {', '.join(f'{x:.4g}' for x in sa2t['losses'])}; split ms "
+          + ", ".join(f"{k[:-3]} {v:.1f}" for k, v in split.items()
+                      if k.endswith("_ms") and isinstance(v, float))
+          + f"; fwd+bwd device busy {split['fwd_bwd_device_busy']:.1%}; top kernels ms "
+          f"{json.dumps(split['fwd_bwd_top_kernels_ms'])}; launches "
+          f"{json.dumps({k: v for k, v in sa2t['launches'].items() if v})}; checkpoint "
+          f"{sa2t['ckpt_gib']:.2f} GiB saved {sa2t['save_s']:.1f} s, reloaded identical; 9c from "
+          f"audio, batch 1 x {SA2_SAMPLE_SIZE}: encode {aud['encode_ms']:.1f} ms, step "
+          f"{', '.join(f'{x:.1f}' for x in aud['step_ms'])} ms, peak {aud['peak_gib']:.2f} GiB, "
+          f"losses {', '.join(f'{x:.4g}' for x in aud['losses'])}; small card-vs-CPU step "
+          f"{json.dumps(sa2t['small'])} (tol {sa2t['small_tol']}) on {card}", flush=True)
+
     kernels = []
     for n, r in rec.items():
         by_path = {"generation": main_rec["launches"].get(n, 0),
@@ -2173,7 +2700,8 @@ def main() -> int:
                    "ae_training": ae_rec["launches"].get(n, 0),
                    "lm_generation_cached": lmg["cached"]["launches"].get(n, 0),
                    "lm_generation_full": lmg["full"]["launches"].get(n, 0),
-                   "lm_training": lmt["launches"].get(n, 0)}
+                   "lm_training": lmt["launches"].get(n, 0),
+                   "sa2_training": sa2t["launches"].get(n, 0)}
         kernels.append(dict(name=n, route=r["route"], source=r["source"], replaces=r["replaces"],
                             launches=sum(by_path.values()), launches_by_path=by_path,
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
@@ -2181,7 +2709,8 @@ def main() -> int:
                             library_ms=r["library_ms"], library=r["library"],
                             shape=r["shape"], **{k: r[k] for k in (
                                 "also_replaces", "main_route", "routes", "max_rel_err",
-                                "autograd_rel_err", "errs", "ab", "shapes", "banded")
+                                "autograd_rel_err", "errs", "ab", "shapes", "banded",
+                                "autograd_errs", "fwd_bwd_ms", "sa2_training_shape")
                                 if k in r}))
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
     if unlaunched:
@@ -2192,7 +2721,8 @@ def main() -> int:
         "sa2_generation": {k: sa2_rec[k] for k in (
             "wall_s", "steps", "audio_s_per_s", "peak_gib", "breakdown", "small")},
         "ae_training": {k: v for k, v in ae_rec.items() if k != "launches"},
-        "lm_generation": lmg, "lm_training": {k: v for k, v in lmt.items() if k != "launches"}}))
+        "lm_generation": lmg, "lm_training": {k: v for k, v in lmt.items() if k != "launches"},
+        "sa2_training": {k: v for k, v in sa2t.items() if k != "launches"}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -10,7 +10,11 @@
 //   prefix changes how the TPU kernel tiles, not the function);
 // - `_flash_nhd_pair_kernel` (`flash_attention_nhd`): the same attention in
 //   the [B, N, H, 64] activation layout, which this kernel reads as
-//   [B, H, N, 64] views through the operands' strides.
+//   [B, H, N, 64] views through the operands' strides;
+// - `_flash_fused_kernel` (`flash_attention_fused_qkv`): the same attention
+//   read straight off the fused [B, N, 3*H*D] QKV projection, with the
+//   partial rotary embedding applied to q and k inside the kernel (the
+//   `ROPE` template flag, below).
 // Same function: out = softmax(QK^T/sqrt(D) + mask) V per (batch, head), plus
 // the f32 logsumexp, where key j is visible from query i iff
 //   j < N, j >= i - left (left >= 0), j <= i + right (right >= 0);
@@ -48,6 +52,24 @@
 //   never stored on the query side;
 // - blocks take the query tiles from the last to the first, so under a causal
 //   mask the longest rows start first.
+//
+// Rotary (`ROPE`, rot_dim > 0): cp.async lands the raw bf16 Q tile and each
+// raw K tile in shared memory, together with the rows of the f32 cos / sin
+// tables [N, rot_dim] at the tile's positions; after the wait and a barrier
+// the block rotates the first rot_dim columns of the tile's valid rows in
+// place (half-split: y1 = x1 cos - x2 sin, y2 = x2 cos + x1 sin, each
+// product and sum rounded as torch's elementwise ops round them, the result
+// rounded to bf16, as the TPU kernel rounds before its products), then a
+// second barrier, then ldmatrix reads the rotated tile. Rows past N are
+// neither fetched nor rotated, so the tables are never read past row N (the
+// TPU entry pads its tables with zeros instead). The table rows take one
+// shared-memory stage, so with the rotary the next K/V tile is fetched
+// after the current one is rotated (still ahead of its products). A K tile
+// is rotated again by every query tile that visits it (~N / 64 times
+// without a mask): 3 rot_dim f32 operations a row against the 4 x 64 x D of
+// the tile's two tensor-core products, ALU and shared-memory work beside
+// them (chip_smoke.py times the kernel against the rotary pass + the kernel
+// without it).
 //
 // Bound on the H100: the work is 4 D per visible (query, key) pair. At
 // SA-2.0's unmasked shape ([2, 24, 6145, 64]) that is ~464 GFLOP against
@@ -128,20 +150,101 @@ __device__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
   }
 }
 
+// Start the copy of the rows [pos0, pos0 + rows) of the cos and sin tables
+// ([N, rot_dim] f32) into shared memory, `tld` floats a row; no row past
+// `rows` is read. A width that is a multiple of 4 moves in 16-byte cp.async
+// transfers, a warp covering 32 / p rows at once (p: the row's transfers
+// rounded up to a power of two); any other even width in 8-byte transfers,
+// a warp to a row.
+__device__ void load_tables_async(float* tcos, float* tsin, const float* cos_t,
+                                  const float* sin_t, int rot_dim, int tld, int pos0, int rows) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (rot_dim % 4 == 0) {
+    const int cpr = rot_dim / 4, lg = 32 - __clz(cpr - 1);  // p = 1 << lg >= cpr
+    const int rr = lane >> lg, cc = lane & ((1 << lg) - 1), per_warp = 32 >> lg;
+    if (cc >= cpr) return;
+    for (int r = warp * per_warp + rr; r < rows; r += 4 * per_warp) {  // 4 warps
+      const size_t src = (size_t)(pos0 + r) * rot_dim + 4 * cc;
+      __pipeline_memcpy_async(tcos + r * tld + 4 * cc, cos_t + src, 16);
+      __pipeline_memcpy_async(tsin + r * tld + 4 * cc, sin_t + src, 16);
+    }
+    return;
+  }
+  for (int r = warp; r < rows; r += 4)
+    for (int c = lane; c < rot_dim / 2; c += 32) {
+      const size_t src = (size_t)(pos0 + r) * rot_dim + 2 * c;
+      __pipeline_memcpy_async(tcos + r * tld + 2 * c, cos_t + src, 8);
+      __pipeline_memcpy_async(tsin + r * tld + 2 * c, sin_t + src, 8);
+    }
+}
+
+// y1 = x1 cos1 - x2 sin1, y2 = x2 cos2 + x1 sin2 in f32, each product and
+// the sum rounded on its own (no contraction into fma), as torch computes
+// `t * cos + rotate_half(t) * sin`.
+__device__ __forceinline__ float2 rotate_pair(float x1, float x2, float c1, float s1, float c2,
+                                              float s2) {
+  return make_float2(__fadd_rn(__fmul_rn(x1, c1), -__fmul_rn(x2, s1)),
+                     __fadd_rn(__fmul_rn(x2, c2), __fmul_rn(x1, s2)));
+}
+
+// Rotate the first rot_dim columns of a tile's `rows` valid rows in place
+// with the table rows in shared memory, two threads a row: half-split with
+// h = rot_dim / 2, column c < h pairs with c + h, rounded to bf16; the other
+// columns pass through. An even h moves two neighbouring columns at a time
+// (bf16x2 and float2 accesses).
 template <int D>
+__device__ void rope_tile(__nv_bfloat16* tile, const float* tcos, const float* tsin, int tld,
+                          int rot_dim, int rows) {
+  constexpr int LD = Layout<D>::LD;
+  const int half = rot_dim / 2, r = threadIdx.x >> 1;
+  if (r >= rows) return;
+  __nv_bfloat16* row = tile + r * LD;
+  const float* cr = tcos + r * tld;
+  const float* sr = tsin + r * tld;
+  if (half % 2 == 0) {
+    for (int c = 2 * (threadIdx.x & 1); c < half; c += 4) {
+      const float2 x1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + c));
+      const float2 x2 =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + c + half));
+      const float2 c1 = *reinterpret_cast<const float2*>(cr + c);
+      const float2 s1 = *reinterpret_cast<const float2*>(sr + c);
+      const float2 c2 = *reinterpret_cast<const float2*>(cr + c + half);
+      const float2 s2 = *reinterpret_cast<const float2*>(sr + c + half);
+      const float2 a = rotate_pair(x1.x, x2.x, c1.x, s1.x, c2.x, s2.x);
+      const float2 b = rotate_pair(x1.y, x2.y, c1.y, s1.y, c2.y, s2.y);
+      *reinterpret_cast<__nv_bfloat162*>(row + c) = __floats2bfloat162_rn(a.x, b.x);
+      *reinterpret_cast<__nv_bfloat162*>(row + c + half) = __floats2bfloat162_rn(a.y, b.y);
+    }
+    return;
+  }
+  for (int c = threadIdx.x & 1; c < half; c += 2) {
+    const float2 y = rotate_pair(__bfloat162float(row[c]), __bfloat162float(row[c + half]),
+                                 cr[c], sr[c], cr[c + half], sr[c + half]);
+    row[c] = __float2bfloat16(y.x);
+    row[c + half] = __float2bfloat16(y.y);
+  }
+}
+
+template <int D, bool ROPE>
 __global__ void __launch_bounds__(128)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                  Strides sq, Strides sk, Strides sv, Strides so,
-                 int H, int N, int left, int right, float scale) {
+                 int H, int N, int left, int right, float scale,
+                 const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+                 int rot_dim) {
   constexpr int LD = Layout<D>::LD;
   constexpr int TE = Layout<D>::TILE_ELEMS;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* sq_tile = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sk_tile = sq_tile + TE;      // two stages
   __nv_bfloat16* sv_tile = sq_tile + 3 * TE;  // two stages
+  // with the rotary: one stage of cos and sin table rows, padded by 4 floats
+  const int tld = rot_dim + 4;
+  float* tcos = reinterpret_cast<float*>(smem_raw + Layout<D>::SMEM_BYTES);
+  float* tsin = tcos + TILE * tld;
 
   const int n_tiles = (N + TILE - 1) / TILE;
   const int tile = n_tiles - 1 - blockIdx.x;  // longest causal rows first
@@ -166,14 +269,25 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     const int stage = (kt - kt_lo) & 1;
     load_tile_async<D>(sk_tile + stage * TE, kb + key0 * sk.n, sk.n, nkeys);
     load_tile_async<D>(sv_tile + stage * TE, vb + key0 * sv.n, sv.n, nkeys);
+    if (ROPE) load_tables_async(tcos, tsin, cos_t, sin_t, rot_dim, tld, key0, nkeys);
     __pipeline_commit();
   };
 
   load_tile_async<D>(sq_tile, qb + q0 * sq.n, sq.n, nrows);
-  __pipeline_commit();
-  fetch(kt_lo);
-  __pipeline_wait_prior(1);  // the query tile has landed
-  __syncthreads();
+  if constexpr (ROPE) {
+    load_tables_async(tcos, tsin, cos_t, sin_t, rot_dim, tld, q0, nrows);
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    rope_tile<D>(sq_tile, tcos, tsin, tld, rot_dim, nrows);
+    __syncthreads();  // the query tile is rotated; the table stage is free
+    fetch(kt_lo);
+  } else {
+    __pipeline_commit();
+    fetch(kt_lo);
+    __pipeline_wait_prior(1);  // the query tile has landed
+    __syncthreads();
+  }
 
   // Q as A operands, one per 16-wide slice of the head dim
   uint32_t qa[D / 16][4];
@@ -190,21 +304,32 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int key0 = kt * TILE;
     const int stage = (kt - kt_lo) & 1;
-    const __nv_bfloat16* ks = sk_tile + stage * TE;
+    __nv_bfloat16* ks = sk_tile + stage * TE;
     const __nv_bfloat16* vs = sv_tile + stage * TE;
     // a tile wholly inside the band for every row of the query tile, with
     // no ragged keys, needs no per-element mask
     const bool masked = key0 + TILE > N ||
                         (left >= 0 && key0 < q0 + TILE - 1 - left) ||
                         (right >= 0 && key0 + TILE - 1 > q0 + right);
-    __syncthreads();  // every warp is done with tile kt-1: its stage may be overwritten
-    if (kt < kt_hi) {
-      fetch(kt + 1);
-      __pipeline_wait_prior(1);  // tile kt has landed; kt+1 stays in flight
+    if constexpr (ROPE) {
+      __pipeline_wait_prior(0);  // tile kt and its table rows have landed
+      __syncthreads();
+      // this query tile's own rotated copy of the key tile
+      rope_tile<D>(ks, tcos, tsin, tld, rot_dim, min(TILE, N - key0));
+      // every warp is done rotating tile kt (the table stage is free) and
+      // with the products of tile kt-1 (its K/V stage may be overwritten)
+      __syncthreads();
+      if (kt < kt_hi) fetch(kt + 1);
     } else {
-      __pipeline_wait_prior(0);
+      __syncthreads();  // every warp is done with tile kt-1: its stage may be overwritten
+      if (kt < kt_hi) {
+        fetch(kt + 1);
+        __pipeline_wait_prior(1);  // tile kt has landed; kt+1 stays in flight
+      } else {
+        __pipeline_wait_prior(0);
+      }
+      __syncthreads();
     }
-    __syncthreads();
 
     // S = Q K^T: 8 tiles of 8 keys; one ldmatrix gives the B fragments of two
     // 16-wide slices of the head dim
@@ -313,19 +438,31 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
+template <int D, bool ROPE>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
            const Strides* s, int B, int H, int N, int left, int right, float scale,
-           cudaStream_t stream) {
-  const int smem = Layout<D>::SMEM_BYTES;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
+           const float* cos_t, const float* sin_t, int rot_dim, cudaStream_t stream) {
+  const int smem = Layout<D>::SMEM_BYTES + (ROPE ? 2 * TILE * (rot_dim + 4) * 4 : 0);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D, ROPE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + TILE - 1) / TILE, B * H);
-  flash_fwd_kernel<D><<<grid, 128, smem, stream>>>(
+  flash_fwd_kernel<D, ROPE><<<grid, 128, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)out, (float*)lse, s[0], s[1], s[2], s[3], H, N, left, right, scale);
+      (__nv_bfloat16*)out, (float*)lse, s[0], s[1], s[2], s[3], H, N, left, right, scale,
+      cos_t, sin_t, rot_dim);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_d(const void* q, const void* k, const void* v, void* out, void* lse,
+             const Strides* s, int B, int H, int N, int left, int right, float scale,
+             const float* cos_t, const float* sin_t, int rot_dim, cudaStream_t stream) {
+  if (rot_dim > 0)
+    return launch<D, true>(q, k, v, out, lse, s, B, H, N, left, right, scale, cos_t, sin_t,
+                           rot_dim, stream);
+  return launch<D, false>(q, k, v, out, lse, s, B, H, N, left, right, scale, nullptr, nullptr,
+                          0, stream);
 }
 
 }  // namespace
@@ -333,17 +470,26 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
 // q, k, v, out: bf16 [B, H, N, D] with element strides (batch, head, row)
 // given per operand in `strides` (12 values: q, k, v, out; the last axis is
 // contiguous); lse [B, H, N] f32. left / right: the window bounds, -1 for an
-// unbounded side (causal: right = 0). D is 64 or 128; anything else returns
-// cudaErrorInvalidValue.
+// unbounded side (causal: right = 0). cos_t, sin_t: f32 [N, rot_dim]
+// rotary tables, row-major, applied to q and k inside the kernel when
+// rot_dim > 0 (null and 0 for none). D is 64 or 128 and rot_dim an even
+// value in [0, D]; anything else returns cudaErrorInvalidValue.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                          const long long* strides, int B, int H, int N, int D, int left,
-                         int right, float scale, void* stream) {
+                         int right, float scale, const void* cos_t, const void* sin_t,
+                         int rot_dim, void* stream) {
   Strides s[4];
   for (int i = 0; i < 4; ++i)
     s[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  if (rot_dim < 0 || rot_dim > D || rot_dim % 2 || (rot_dim > 0 && (!cos_t || !sin_t)))
+    return (int)cudaErrorInvalidValue;
+  const float* c = (const float*)cos_t;
+  const float* sn = (const float*)sin_t;
   if (D == 64)
-    return launch<64>(q, k, v, out, lse, s, B, H, N, left, right, scale, (cudaStream_t)stream);
+    return launch_d<64>(q, k, v, out, lse, s, B, H, N, left, right, scale, c, sn, rot_dim,
+                        (cudaStream_t)stream);
   if (D == 128)
-    return launch<128>(q, k, v, out, lse, s, B, H, N, left, right, scale, (cudaStream_t)stream);
+    return launch_d<128>(q, k, v, out, lse, s, B, H, N, left, right, scale, c, sn, rot_dim,
+                         (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,14 +5,16 @@ SampleDataset :129, collation_fn :453, create_dataloader_from_config :540).
 Host-side numpy, loaded through `torch.utils.data.DataLoader` (workers
 started with `spawn`). The rank and world size are arguments, where the JAX
 package asks `jax.process_index()`; with more than one process each rank
-reads its own shard (`DistributedSampler`). This slice covers
-`dataset_type: "audio_dir"`; pre-encoded and tar-shard datasets are later
-slices.
+reads its own shard (`DistributedSampler`). Covered: `dataset_type:
+"audio_dir"` and `"pre_encoded"` (PreEncodedDataset :224, the latents that
+`python -m stable_audio_tools_tpu_torch.pre_encode` or the JAX package's
+`pre_encode.py` writes); tar-shard datasets are a later slice.
 """
 
 from __future__ import annotations
 
 import importlib.util
+import json
 import os
 import random
 import typing as tp
@@ -136,6 +138,74 @@ class SampleDataset(torch.utils.data.Dataset):
         return audio, info
 
 
+class PreEncodedDataset(torch.utils.data.Dataset):
+    """Latents [C, T] (`.npy`, f32; [1, C, T] is squeezed) under the configs'
+    `path`s: the files `filelist.txt` there lists, else every `.npy` found,
+    each with its metadata in a `.json` of the same name where there is one.
+    Items are (latents [C, latent_crop_length] f32, info dict), where
+    `latent_crop_length` defaults to `sample_size` (JAX :224-291):
+    - longer latents are cropped: at a random start that keeps the crop
+      inside the valid (padding-mask) region where it can (`random_crop`),
+      else from 0; shorter ones are zero-padded at the end;
+    - `info["padding_mask"]` is the item's mask (all ones without one) cut
+      or padded with the latents, f32;
+    - `seconds_start` and `seconds_total` default to 0, and a `__replace__`
+      dict in the metadata replaces the keys it names.
+    A file that fails to load is replaced by a random other item."""
+
+    def __init__(self, configs: tp.Sequence[dict], sample_size: int = 1024,
+                 random_crop: bool = True, latent_crop_length: tp.Optional[int] = None):
+        self.latent_crop_length = latent_crop_length or sample_size
+        self.random_crop = random_crop
+        self.filenames = []
+        for config in configs:
+            path = config["path"]
+            filelist = os.path.join(path, "filelist.txt")
+            if os.path.exists(filelist):
+                with open(filelist) as f:
+                    self.filenames.extend(os.path.join(path, line.strip())
+                                          for line in f if line.strip())
+            else:
+                self.filenames.extend(fast_scandir(path, [".npy"])[1])
+
+    def __len__(self) -> int:
+        return len(self.filenames)
+
+    def __getitem__(self, idx: int):
+        fn = self.filenames[idx]
+        try:
+            latents = np.load(fn).astype(np.float32)
+            meta_path = os.path.splitext(fn)[0] + ".json"
+            info = {}
+            if os.path.exists(meta_path):
+                with open(meta_path) as f:
+                    info = json.load(f)
+        except (OSError, ValueError) as e:
+            print(f"Couldn't load latents {fn}: {e}")
+            return self[random.randrange(len(self))]
+        if latents.ndim == 3:
+            latents = latents[0]
+        padding_mask = np.asarray(info.get("padding_mask", np.ones(latents.shape[-1])),
+                                  np.float32)
+        L, T = self.latent_crop_length, latents.shape[-1]
+        if T > L:
+            start = 0
+            if self.random_crop:
+                hi = max(min(int(padding_mask.sum()), T) - L, 0)
+                start = random.randint(0, hi) if hi > 0 else 0
+            latents = latents[:, start:start + L]
+            padding_mask = padding_mask[start:start + L]
+        elif T < L:
+            latents = np.pad(latents, ((0, 0), (0, L - T)))
+            padding_mask = np.pad(padding_mask, (0, L - T))
+        info["padding_mask"] = padding_mask.astype(np.float32)
+        info.setdefault("seconds_start", 0)
+        info.setdefault("seconds_total", 0)
+        if "__replace__" in info:
+            info.update(info.pop("__replace__"))
+        return latents, info
+
+
 def collation_fn(samples: tp.Sequence[tp.Tuple[np.ndarray, dict]]):
     """Stack the audio into one tensor [B, C, T]; metadata stays a list."""
     return torch.from_numpy(np.stack([s[0] for s in samples])), [s[1] for s in samples]
@@ -146,22 +216,31 @@ def create_dataloader_from_config(dataset_config: dict, batch_size: int, sample_
                                   num_workers: int = 4, shuffle: bool = True, rank: int = 0,
                                   world_size: int = 1, seed: int = 0
                                   ) -> torch.utils.data.DataLoader:
-    """A DataLoader of (audio [B, C, sample_size], metadata list) batches;
-    incomplete last batches are dropped."""
+    """A DataLoader of (audio [B, C, sample_size], metadata list) batches,
+    or, for `pre_encoded`, (latents [B, C, latent_crop_length], metadata
+    list); incomplete last batches are dropped."""
     dataset_type = dataset_config.get("dataset_type")
     if dataset_type is None:
         raise ValueError("dataset_type must be specified in dataset config")
-    if dataset_type != "audio_dir":
+    random_crop = dataset_config.get("random_crop", True)
+    if dataset_type == "audio_dir":
+        force_channels = ("stereo" if audio_channels == 2 else
+                          "mono" if audio_channels == 1 else "foa")
+        dataset = SampleDataset(
+            dataset_config.get("datasets", []), sample_size=sample_size,
+            sample_rate=sample_rate, force_channels=force_channels, random_crop=random_crop,
+            augment_phase=dataset_config.get("augment_phase", True),
+            volume_norm=dataset_config.get("volume_norm", False),
+            volume_norm_param=tuple(dataset_config.get("volume_norm_param", (-16, 2))))
+    elif dataset_type == "pre_encoded":
+        dataset = PreEncodedDataset(
+            dataset_config.get("datasets", []), sample_size=sample_size, random_crop=random_crop,
+            latent_crop_length=dataset_config.get("latent_crop_length"))
+    else:
         raise NotImplementedError(f"dataset type {dataset_type} is not ported yet")
-    force_channels = "stereo" if audio_channels == 2 else "mono" if audio_channels == 1 else "foa"
-    dataset = SampleDataset(
-        dataset_config.get("datasets", []), sample_size=sample_size, sample_rate=sample_rate,
-        force_channels=force_channels, random_crop=dataset_config.get("random_crop", True),
-        augment_phase=dataset_config.get("augment_phase", True),
-        volume_norm=dataset_config.get("volume_norm", False),
-        volume_norm_param=tuple(dataset_config.get("volume_norm_param", (-16, 2))))
     if len(dataset) == 0:
-        raise ValueError(f"no audio files under {[d['path'] for d in dataset_config['datasets']]}")
+        raise ValueError(f"no {dataset_type} files under "
+                         f"{[d['path'] for d in dataset_config['datasets']]}")
     sampler = None
     if world_size > 1:
         sampler = torch.utils.data.distributed.DistributedSampler(

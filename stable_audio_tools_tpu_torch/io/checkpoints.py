@@ -9,6 +9,10 @@ the model config embedded, as the JAX trainer's checkpoint does
 discriminator's state_dict, optimizer and scheduler (`discriminator`,
 `disc_optimizer`, `disc_scheduler`); a diffusion checkpoint has none of them. Files are written to a temporary name and renamed,
 so a cut run never leaves a truncated checkpoint under the final name.
+
+A model checkpoint (`save_model_state`) holds a model's `state_dict` and its
+config alone, the weights `pre_encode.py` reads: `load_model_state` takes it
+or a training checkpoint.
 """
 
 from __future__ import annotations
@@ -57,3 +61,20 @@ def load_training_state(path: str, wrapper) -> dict:
             wrapper.ema[name].copy_(value)
     wrapper.step = int(state["step"])
     return state
+
+
+def save_model_state(path: str, model: torch.nn.Module,
+                     model_config: tp.Optional[dict] = None) -> None:
+    """`model`'s state_dict (and its config) alone, e.g. a diffusion model's
+    pretransform for `pre_encode.py`."""
+    tmp = f"{path}.tmp"
+    torch.save({"state_dict": model.state_dict(), "model_config": model_config}, tmp)
+    os.replace(tmp, path)
+
+
+def load_model_state(path: str, model: torch.nn.Module) -> None:
+    """Load the `state_dict` of a model or training checkpoint into `model`
+    (strict: every name must match)."""
+    device = next(model.parameters()).device
+    state = torch.load(path, map_location=device, weights_only=True)
+    model.load_state_dict(state["state_dict"], strict=True)

@@ -17,9 +17,12 @@ CFG (the batch doubled with a zeroed condition), temperature, top-k / top-p:
   KV caches, the cross-attention K/V projected once, the K embeddings summed
   and the K heads applied as one product, in the backbone's compute dtype
   (plain attention over the cache, as the JAX package leaves it to XLA). It
-  falls back to `lm_generate` on prepend conditioning, as JAX :346-351. The
-  JAX package also casts the LayerNorm scales to that dtype; the port keeps
-  them f32.
+  falls back to `lm_generate` on prepend conditioning, as JAX :346-351.
+  The backbone's f32 linear weights are cast to the compute dtype once per
+  request, before the step loop (JAX `prepare` :383-400; `decode_weights`),
+  and the model's own f32 parameters are back in place when the request
+  ends. The JAX package also casts the LayerNorm scales to that dtype; the
+  port keeps them f32.
 - `lm_generate_audio` (JAX :599): either, then the codec's decode.
 The two paths compute different functions when the context has more than one
 token: the full forward's cross-attention is causal, the cached one's is not
@@ -35,6 +38,7 @@ projections interleaved and permutes them once per decode call
 
 from __future__ import annotations
 
+import contextlib
 import typing as tp
 
 import torch
@@ -217,6 +221,28 @@ def lm_generate(model: AudioLanguageModelWrapper, conditioning_tensors=None,
     return _finish(model, pattern, seq)
 
 
+@contextlib.contextmanager
+def decode_weights(module: nn.Module, dtype: tp.Optional[torch.dtype]):
+    """For the length of the block, the f32 weights and biases of every
+    `nn.Linear` under `module` hold copies in `dtype` (their `.data` is
+    swapped), so that `Linear.forward` casts nothing per step; the f32
+    tensors are put back on exit. LayerNorm scales and other parameters stay
+    as they are."""
+    swapped = []
+    if dtype is not None and dtype != torch.float32:
+        for m in module.modules():
+            if isinstance(m, nn.Linear):
+                for p in (m.weight, m.bias):
+                    if p is not None and p.dtype == torch.float32:
+                        swapped.append((p, p.data))
+                        p.data = p.data.to(dtype)
+    try:
+        yield
+    finally:
+        for p, data in swapped:
+            p.data = data
+
+
 @torch.no_grad()
 def lm_generate_cached(model: AudioLanguageModelWrapper, conditioning_tensors=None,
                        max_gen_len: int = 256, batch_size: int = 1, temp: float = 1.0,
@@ -247,24 +273,25 @@ def lm_generate_cached(model: AudioLanguageModelWrapper, conditioning_tensors=No
     caches = [init_kv_cache(batch_size * (2 if use_cfg else 1), backbone.num_heads, pattern.S,
                             backbone.embed_dim // backbone.num_heads, dtype, device)
               for _ in range(backbone.depth)]
-    # once per request: the cross-attention K/V of the constant context, the
-    # K embedding tables stacked, the K heads as one product
-    cross_kvs = backbone.compute_cross_kv(cross) if cross is not None else None
-    tables = torch.stack([e.weight for e in lm.embeds]).to(dtype)  # [K, card+1, D]
-    head_w = torch.cat([h.weight for h in lm.quantizer_heads]).to(dtype)  # [K*card, D]
-    head_b = torch.cat([h.bias for h in lm.quantizer_heads]).to(dtype)
-    books = torch.arange(K, device=device)
-    for offset in range(1, pattern.S):
-        prev = offset - 1
-        x = tables[books[None], seq[:, :, prev]].sum(dim=1, keepdim=True)  # [B, 1, D]
-        if use_cfg:
-            x = torch.cat([x, x])
-        h = backbone(x, caches=caches, cache_index=prev, cross_kvs=cross_kvs)[:, 0]
-        logits = F.linear(h, head_w, head_b).view(-1, K, card).float()
-        if use_cfg:
-            cond_l, uncond_l = logits.chunk(2)
-            logits = uncond_l + (cond_l - uncond_l) * cfg_scale
-        _fill(seq, offset, _sample(logits, temp, top_k, top_p, generator), masked)
+    with decode_weights(backbone, dtype):
+        # once per request: the cross-attention K/V of the constant context,
+        # the K embedding tables stacked, the K heads as one product
+        cross_kvs = backbone.compute_cross_kv(cross) if cross is not None else None
+        tables = torch.stack([e.weight for e in lm.embeds]).to(dtype)  # [K, card+1, D]
+        head_w = torch.cat([h.weight for h in lm.quantizer_heads]).to(dtype)  # [K*card, D]
+        head_b = torch.cat([h.bias for h in lm.quantizer_heads]).to(dtype)
+        books = torch.arange(K, device=device)
+        for offset in range(1, pattern.S):
+            prev = offset - 1
+            x = tables[books[None], seq[:, :, prev]].sum(dim=1, keepdim=True)  # [B, 1, D]
+            if use_cfg:
+                x = torch.cat([x, x])
+            h = backbone(x, caches=caches, cache_index=prev, cross_kvs=cross_kvs)[:, 0]
+            logits = F.linear(h, head_w, head_b).view(-1, K, card).float()
+            if use_cfg:
+                cond_l, uncond_l = logits.chunk(2)
+                logits = uncond_l + (cond_l - uncond_l) * cfg_scale
+            _fill(seq, offset, _sample(logits, temp, top_k, top_p, generator), masked)
     return _finish(model, pattern, seq)
 
 

@@ -14,6 +14,14 @@ and `_should_use_nhd` gates are the TPU's and are not carried over):
   reads the kernel's output as it lies. SA-2.0's DiT self-attention is this
   case (N = 1 + 6144). It is the counterpart of the JAX package's NHD branch
   (ops/attention.py:507-570).
+- the same case with a rotary table, in a training forward (the module in
+  training mode with grad enabled, the condition of the block remat in
+  ops/transformer.py, so that both passes of a recomputed block take one
+  route), takes `flash_attention_fused_qkv`: the kernel reads q, k, v off
+  the `to_qkv` output and applies the rotary itself, and its backward
+  recomputes the rotary. SA-2.0's DiT training is this case. Generation
+  keeps the rotary pass + `flash_attention_nhd` (the JAX package dispatches
+  its fused entry nowhere; ROADMAP queues the A/B of moving generation).
 - otherwise `attention_core` ([B, H, N, D] in and out): causal or windowed
   self-attention with head dim 64 or 128 and no key mask goes to
   `flash_attention` at any length (the LM backbone: causal, N = 500 in
@@ -55,10 +63,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .embeddings import apply_rotary_pos_emb, apply_rotary_pos_emb_nhd
+from .embeddings import apply_rotary_pos_emb, rotary_tables, rotate, rotate_nhd
 from .kernels.flash_attention import (HEAD_DIM, HEAD_DIMS, MAX_PREFIX, MAX_PREFIX_NHD,
-                                      flash_attention, flash_attention_nhd,
-                                      flash_attention_prefix)
+                                      flash_attention, flash_attention_fused_qkv,
+                                      flash_attention_nhd, flash_attention_prefix)
 
 # Main-sequence length from which self-attention takes `flash_attention_nhd`:
 # between SA-Open's 1024 and SA-2.0's 6144. Both entries launch the same
@@ -213,16 +221,24 @@ class Attention(nn.Module):
             k, v = k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1)
         return k, v
 
-    def _forward_nhd(self, q, k, v, rotary_pos_emb, prefix_len, causal) -> torch.Tensor:
-        """q, k, v: [B, N, dim] views of the fused projection. Nothing is
-        transposed or made contiguous: the rotary writes new q and k, v stays
-        a view, and the kernel reads each through its own strides."""
+    def _forward_nhd(self, q, k, v, tables, prefix_len, causal) -> torch.Tensor:
+        """q, k, v: [B, N, dim] views of the fused projection; tables: the
+        rotary's (cos, sin) [N, rot_dim] or None. Nothing is transposed or
+        made contiguous: the rotary writes new q and k, v stays a view, and
+        the kernel reads each through its own strides."""
         b, n, _ = q.shape
         q, k, v = (t.view(b, n, -1, self.dim_heads) for t in (q, k, v))
-        if rotary_pos_emb is not None:
-            q = apply_rotary_pos_emb_nhd(q, rotary_pos_emb)
-            k = apply_rotary_pos_emb_nhd(k, rotary_pos_emb)
+        if tables is not None:
+            q, k = rotate_nhd(q, *tables), rotate_nhd(k, *tables)
         out = flash_attention_nhd(q, k, v, causal=causal, prefix_len=prefix_len)
+        return self.to_out(out.view(b, n, self.dim))
+
+    def _forward_fused(self, qkv, tables, causal) -> torch.Tensor:
+        """qkv: the `to_qkv` output [B, N, 3 * dim], read by the kernel as it
+        lies; the rotary tables cover all N rows, as `_forward_nhd`'s."""
+        b, n, _ = qkv.shape
+        out = flash_attention_fused_qkv(qkv, *tables, self.dim // self.dim_heads,
+                                        causal=causal)
         return self.to_out(out.view(b, n, self.dim))
 
     def compute_kv(self, context: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -236,8 +252,12 @@ class Attention(nn.Module):
                 mask: Optional[torch.Tensor] = None,
                 prefix_len: int = 0, cache: Optional[Dict[str, torch.Tensor]] = None,
                 cache_index: Optional[int] = None,
-                precomputed_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                precomputed_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                 ) -> torch.Tensor:
+        """`rope_tables`: `rotary_tables` of `rotary_pos_emb` over this
+        call's N rows, made once per forward by the caller (built here when
+        absent); the cached decode rotates at its position instead."""
         # a single query row is never causal (JAX :645-646)
         causal = self.causal and x.shape[1] != 1
         if self.cross:
@@ -249,22 +269,28 @@ class Attention(nn.Module):
                 k, v = self.compute_kv(context)
             k, v = self._repeat_kv(q, k, v)
             return self._merge_heads(dot_product_attention(q, k, v, causal, None, mask))
-        q, k, v = self.to_qkv(x).chunk(3, dim=-1)
+        qkv = self.to_qkv(x)
+        q, k, v = qkv.chunk(3, dim=-1)
         if cache is not None:
             q, k, v = self._split_heads(q), self._split_heads(k), self._split_heads(v)
             if rotary_pos_emb is not None:  # at the absolute cache position
                 step = rotary_pos_emb[cache_index:cache_index + 1]
                 q, k = apply_rotary_pos_emb(q, step), apply_rotary_pos_emb(k, step)
             return self._merge_heads(cached_decode_attention(q, k, v, cache, cache_index))
+        tables = None
+        if rotary_pos_emb is not None:
+            tables = (rope_tables if rope_tables is not None
+                      else rotary_tables(rotary_pos_emb[-x.shape[1]:]))
         window = self.sliding_window
         if (mask is None and window is None and self.dim_heads == HEAD_DIM
                 and prefix_len <= MAX_PREFIX_NHD and not (causal and prefix_len)
                 and x.shape[1] - prefix_len >= self.nhd_min_seq):
-            return self._forward_nhd(q, k, v, rotary_pos_emb, prefix_len, causal)
+            if tables is not None and self.training and torch.is_grad_enabled():
+                return self._forward_fused(qkv, tables, causal)
+            return self._forward_nhd(q, k, v, tables, prefix_len, causal)
         q, k, v = self._split_heads(q), self._split_heads(k), self._split_heads(v)
-        if rotary_pos_emb is not None:
-            q = apply_rotary_pos_emb(q, rotary_pos_emb)
-            k = apply_rotary_pos_emb(k, rotary_pos_emb)
+        if tables is not None:
+            q, k = rotate(q, *tables), rotate(k, *tables)
         out = attention_core(q, k, v, mask=mask, prefix_len=prefix_len, causal=causal,
                              window=window)
         return self._merge_heads(out)

@@ -1,8 +1,9 @@
 """Flash attention: the Hopper ports of the TPU `flash_attention` (causal /
-sliding window), `flash_attention_prefix`, their backward, and the
-strided-layout entry `flash_attention_nhd`.
+sliding window), `flash_attention_prefix`, their backward, the
+strided-layout entry `flash_attention_nhd` and the fused-QKV entry
+`flash_attention_fused_qkv`.
 
-The three forward entries compute one function and launch one kernel,
+The four forward entries compute one function and launch one kernel,
 `csrc/flash_fwd.cu`, which reads each operand through its own (batch, head,
 row) strides (views of the projections need no copy) and visits only the key
 tiles of each query tile's band. Each entry keeps the TPU kernel it
@@ -54,6 +55,17 @@ not 1, rows off 16 bytes) raises; nothing is copied silently. Its backward
 transposes to [B, H, N, 64] and reuses `flash_attention_prefix_bwd` (causal:
 under the causal band), as the JAX package's `_nhd_bwd` reuses
 `_flash_backward`. CPU tensors take `flash_attention_nhd_plain`.
+
+`flash_attention_fused_qkv(qkv, cos, sin, heads, causal=False, window=None)`
+is the same attention read off the fused projection [B, N, 3*H*D] (the
+concat layout of `to_qkv`) as strided [B, H, N, D] views, with the partial
+half-split rotary of the f32 tables cos, sin [N, rot_dim] applied to q and k
+inside the kernel (the kernel's `ROPE` flag; D 64 or 128, rot_dim 0 or any
+even value up to D), causal, windowed or unmasked, any N; it returns
+[B, N, H, D]. Its backward re-runs the unpack and rotary in plain PyTorch
+and reuses `flash_attention_prefix_bwd`, as the JAX package's `_fused_bwd`
+reuses `_flash_backward`. CPU tensors take
+`flash_attention_fused_qkv_plain`.
 """
 
 from __future__ import annotations
@@ -64,6 +76,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..embeddings import rotate_nhd
 from . import _build
 
 MAX_PREFIX = 64
@@ -286,19 +299,23 @@ def _bhnd_strides(entry: str, name: str, t: torch.Tensor):
     return sb, sh, sn
 
 
-def _run_flash_fwd(entry, q, k, v, out, lse, causal, window) -> None:
+def _run_flash_fwd(entry, q, k, v, out, lse, causal, window, cos=None, sin=None) -> None:
     """Launch `csrc/flash_fwd.cu` on q, k, v, out [B, H, N, D] (views through
-    their own strides) and lse [B, H, N] f32 under the causal / window band."""
+    their own strides) and lse [B, H, N] f32 under the causal / window band;
+    with rotary tables cos, sin [N, rot_dim] f32 the kernel rotates q and k."""
     B, H, N, D = q.shape
     strides = [s for name, t in (("q", q), ("k", k), ("v", v), ("out", out))
                for s in _bhnd_strides(entry, name, t)]
     left, right = band(causal, window)
-    fn = _build.bind("flash_fwd", "flash_fwd", [ctypes.c_void_p] * 5 + [
-        ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 6 + [ctypes.c_float,
-                                                                   ctypes.c_void_p])
+    ptr = ctypes.c_void_p
+    fn = _build.bind("flash_fwd", "flash_fwd", [ptr] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 6 + [ctypes.c_float, ptr, ptr,
+                                                                   ctypes.c_int, ptr])
+    rot_dim = 0 if cos is None else cos.shape[-1]
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
               (ctypes.c_longlong * 12)(*strides), B, H, N, D, left, right,
-              1.0 / math.sqrt(D), _stream(q))
+              1.0 / math.sqrt(D), None if cos is None else cos.data_ptr(),
+              None if sin is None else sin.data_ptr(), rot_dim, _stream(q))
     _build.check(code, f"{entry} (flash_fwd)")
 
 
@@ -428,3 +445,109 @@ def flash_attention_nhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_nhd.launches = 0
+
+
+def fused_unpack_rope_plain(qkv: torch.Tensor, cos: Optional[torch.Tensor],
+                            sin: Optional[torch.Tensor], heads: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused projection [B, N, 3*H*D] ([q | k | v], each [H][D]) ->
+    q, k, v [B, N, H, D], q and k rotated when tables are given (v, and q and
+    k without tables, are views)."""
+    B, N, F = qkv.shape
+    q, k, v = qkv.view(B, N, 3, heads, F // (3 * heads)).unbind(2)
+    if cos is not None:
+        q, k = rotate_nhd(q, cos, sin), rotate_nhd(k, cos, sin)
+    return q, k, v
+
+
+def flash_attention_fused_qkv_plain(qkv: torch.Tensor, cos: Optional[torch.Tensor],
+                                    sin: Optional[torch.Tensor], heads: int,
+                                    causal: bool = False,
+                                    window: Optional[Tuple[int, int]] = None
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reference of `flash_attention_fused_qkv`: unpack, rotary, then
+    `flash_attention_plain`. Returns (out [B, N, H, D] in qkv.dtype, lse f32
+    [B, H, N])."""
+    q, k, v = fused_unpack_rope_plain(qkv, cos, sin, heads)
+    out, lse = flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                     causal, window)
+    return out.transpose(1, 2).contiguous(), lse
+
+
+def _launch_fused(qkv, cos, sin, heads, causal, window):
+    B, N, F = qkv.shape
+    D = F // (3 * heads)
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_fused_qkv: head dim {D}, kernel takes {HEAD_DIMS}")
+    _check_cuda("flash_attention_fused_qkv", (("qkv", qkv),), (B, N, 3 * heads * D),
+                torch.bfloat16)
+    if cos is not None:
+        rot = cos.shape[-1]
+        _check_cuda("flash_attention_fused_qkv", (("cos", cos), ("sin", sin)), (N, rot),
+                    torch.float32)
+        if (rot % 2 or not 0 < rot <= D or not (cos.is_contiguous() and sin.is_contiguous())
+                or cos.data_ptr() % 16 or sin.data_ptr() % 16):
+            raise ValueError(f"flash_attention_fused_qkv: rotary tables [{N}, {rot}] must be "
+                             f"contiguous and 16-byte aligned with an even width of at most {D}")
+    q, k, v = (t.transpose(1, 2) for t in qkv.view(B, N, 3, heads, D).unbind(2))
+    out = torch.empty((B, N, heads, D), device=qkv.device, dtype=qkv.dtype)
+    lse = torch.empty((B, heads, N), device=qkv.device, dtype=torch.float32)
+    _run_flash_fwd("flash_attention_fused_qkv", q, k, v, out.transpose(1, 2), lse, causal,
+                   window, cos, sin)
+    flash_attention_fused_qkv.launches += 1
+    return out, lse
+
+
+class _FlashAttentionFusedQKV(torch.autograd.Function):
+    """Forward: the kernel (or its plain version) off the projection. The
+    backward re-runs the unpack and rotary in plain PyTorch, takes row 6's
+    backward of the rotated q, k and v, and the rotary's VJP back to d(qkv)
+    (JAX `_fused_bwd`). Saved: the projection, the output and the
+    logsumexp; the rotated q and k are not kept."""
+
+    @staticmethod
+    def forward(ctx, qkv, cos, sin, heads, causal, window):
+        if qkv.device.type == "cpu":
+            out, lse = flash_attention_fused_qkv_plain(qkv, cos, sin, heads, causal, window)
+        else:
+            out, lse = _launch_fused(qkv, cos, sin, heads, causal, window)
+        ctx.save_for_backward(qkv, cos, sin, out, lse)
+        ctx.args = (heads, causal, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, cos, sin, out, lse = ctx.saved_tensors
+        heads, causal, window = ctx.args
+        with torch.enable_grad():
+            x = qkv.detach().requires_grad_()
+            qkv_rot = fused_unpack_rope_plain(x, cos, sin, heads)
+        bhnd = [t.detach().transpose(1, 2) for t in (*qkv_rot, out, dout)]
+        grads = flash_attention_prefix_bwd(*bhnd[:4], lse, bhnd[4], causal=causal,
+                                           window=window)
+        (dqkv,) = torch.autograd.grad(qkv_rot, x, [g.transpose(1, 2) for g in grads])
+        return dqkv, None, None, None, None, None
+
+
+def flash_attention_fused_qkv(qkv: torch.Tensor, cos: Optional[torch.Tensor],
+                              sin: Optional[torch.Tensor], heads: int, causal: bool = False,
+                              window: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Attention straight off the fused projection qkv [B, N, 3*H*D] (the
+    concat layout of `to_qkv`: [q | k | v], each [H][D]; D in HEAD_DIMS),
+    with the half-split rotary of the tables cos, sin [N, rot_dim] f32
+    applied to q and k (None: no rotary), causal / windowed or unmasked,
+    any N. Returns out [B, N, H, D] in qkv.dtype, the layout `to_out` reads.
+
+    Differentiable in qkv; the tables are constants and get no gradient (the
+    JAX VJP also returns cos and sin gradients, which nothing reads)."""
+    if qkv.dim() != 3 or qkv.shape[-1] % (3 * heads):
+        raise ValueError(f"qkv must be [B, N, 3 * {heads} * D], got {tuple(qkv.shape)}")
+    if qkv.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention_fused_qkv: unsupported device {qkv.device}")
+    if (cos is None) != (sin is None):
+        raise ValueError("flash_attention_fused_qkv: give both rotary tables or neither")
+    window = None if window is None else (int(window[0]), int(window[1]))
+    return _FlashAttentionFusedQKV.apply(qkv, cos, sin, int(heads), bool(causal), window)
+
+
+flash_attention_fused_qkv.launches = 0

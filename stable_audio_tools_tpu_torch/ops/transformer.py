@@ -35,7 +35,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .attention import Attention, Linear
-from .embeddings import RotaryEmbedding
+from .embeddings import RotaryEmbedding, rotary_tables
 from .norms import LayerNorm
 
 
@@ -82,9 +82,11 @@ class TransformerBlock(nn.Module):
                 rotary_pos_emb: Optional[torch.Tensor] = None,
                 prefix_len: int = 0, cache: Optional[Dict[str, torch.Tensor]] = None,
                 cache_index: Optional[int] = None,
-                cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+                cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
         x = x + self.self_attn(self.pre_norm(x), rotary_pos_emb=rotary_pos_emb,
-                               prefix_len=prefix_len, cache=cache, cache_index=cache_index)
+                               prefix_len=prefix_len, cache=cache, cache_index=cache_index,
+                               rope_tables=rope_tables)
         if (context is not None or cross_kv is not None) and self.cross_attend:
             x = x + self.cross_attn(self.cross_attend_norm(x), context=context,
                                     mask=context_mask, precomputed_kv=cross_kv)
@@ -136,6 +138,8 @@ class ContinuousTransformer(nn.Module):
         rope = self.rotary_pos_emb(rope_len, device=x.device)
         remat = (self.use_checkpointing and self.training and torch.is_grad_enabled()
                  and caches is None)
+        # the rotary's cos / sin tables, once per forward for every block
+        tables = rotary_tables(rope) if caches is None else None
         for i, layer in enumerate(self.layers):
             if caches is not None:
                 x = layer(x, context, context_mask, rope, cache=caches[i],
@@ -143,7 +147,8 @@ class ContinuousTransformer(nn.Module):
                           cross_kv=cross_kvs[i] if cross_kvs is not None else None)
                 continue
             args = (x, context, context_mask, rope, prefix_len)
-            x = checkpoint(layer, *args, use_reentrant=False) if remat else layer(*args)
+            x = (checkpoint(layer, *args, use_reentrant=False, rope_tables=tables) if remat
+                 else layer(*args, rope_tables=tables))
         if self.project_out is not None:
             x = self.project_out(x)
         return x

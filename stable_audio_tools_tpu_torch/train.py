@@ -8,8 +8,10 @@ autoencoder or a token LM; random weights drawn from a `torch.Generator`
 seeded with --seed; the T5 tower is random unless the config's conditioner
 loads weights), the training wrapper from the config's `training` section
 (for an autoencoder, the GAN trainer with its discriminator; for an LM, the
-next-token trainer over the frozen codec's codes) and an `audio_dir`
-dataloader, then trains on the current
+next-token trainer over the frozen codec's codes) and the dataloader (an
+`audio_dir` dataset, or a `pre_encoded` one of latents for a diffusion model
+whose training config sets `pre_encoded`; its `latent_crop_length` defaults,
+as in the JAX entry, to the model's sample_size), then trains on the current
 CUDA card (on the CPU only with `--device cpu`), writing `train_log.jsonl` and
 `step=N.ckpt` files to --save-dir. Defaults come from the repository's
 `defaults.ini`. Flags of the JAX entry point that the port does not implement

@@ -5,10 +5,18 @@ stable_audio_tools_tpu/training/diffusion.py (`_sobol_timesteps` :46,
 One train step: the frozen pretransform encodes the audio (no gradient), a
 timestep t and noise are drawn, the v-objective target is formed, the model
 runs with CFG dropout on the conditioned inputs, the MSE is taken, then the
-backward, the optimizer and scheduler step, and the EMA update. The JAX
-trainer's other options (padding-mask loss, pre-encoded inputs, one-shot t,
-per-sigma loss logging, the timestep shift, non-v objectives) are later
-slices; the training factory refuses configs that set them.
+backward, the optimizer and scheduler step, and the EMA update.
+
+`pre_encoded`: the batch holds the pretransform's latents (a pre-encoded
+dataset, `pre_encode.py`), divided by the pretransform's `scale` instead of
+encoded (JAX :177-180). `mask_padding`: the MSE is averaged over the
+positions of the batch's `padding_mask` (the items' metadata) only; a mask
+at the audio rate is taken to the latent rate by nearest-index sampling when
+the step encodes (JAX :171-176). `mask_padding_dropout` is accepted and
+stored as the JAX trainer stores it; neither reads it. The JAX trainer's
+other options (inpainting, one-shot t, per-sigma loss logging, the timestep
+shift, non-v objectives) are later slices; the training factory refuses
+configs that set them.
 `accum_steps` > 1 splits the batch into microbatches whose gradients are
 averaged (the JAX package's `lax.scan` accumulation).
 
@@ -30,6 +38,7 @@ from __future__ import annotations
 
 import typing as tp
 
+import numpy as np
 import torch
 
 from ..inference.sampling import (
@@ -89,7 +98,8 @@ class DiffusionCondTrainer:
                  timestep_sampler: str = "uniform",
                  timestep_sampler_options: tp.Optional[dict] = None,
                  validation_timesteps: tp.Sequence[float] = (0.1, 0.3, 0.5, 0.7, 0.9),
-                 gradient_clip_val: float = 0.0, seed: int = 42):
+                 gradient_clip_val: float = 0.0, seed: int = 42, pre_encoded: bool = False,
+                 mask_padding: bool = False, mask_padding_dropout: float = 0.0):
         if lr is None and optimizer_configs is None:
             raise ValueError("Must specify either lr or optimizer_configs in training config")
         if model.diffusion_objective != "v":
@@ -101,6 +111,9 @@ class DiffusionCondTrainer:
         self.validation_timesteps = list(validation_timesteps)
         self.gradient_clip_val = gradient_clip_val
         self.seed = seed
+        self.pre_encoded = pre_encoded
+        self.mask_padding = mask_padding
+        self.mask_padding_dropout = mask_padding_dropout
         if optimizer_configs is None:
             optimizer_configs = {"diffusion": {"optimizer": {"type": "Adam",
                                                              "config": {"lr": lr}}}}
@@ -108,7 +121,8 @@ class DiffusionCondTrainer:
         self.optimizer, self.scheduler = build_optimizer(optimizer_configs["diffusion"],
                                                          list(self.params.values()))
         self.ema = ema_init(self.params) if use_ema else None
-        self.losses = MultiLoss([MSELoss("output", "targets", weight=1.0, name="mse_loss")])
+        self.losses = MultiLoss([MSELoss("output", "targets", weight=1.0, name="mse_loss",
+                                         mask_key="padding_mask" if mask_padding else None)])
         self.step = 0
 
     @property
@@ -127,10 +141,31 @@ class DiffusionCondTrainer:
 
     def encode(self, audio: Tensor, generator: tp.Optional[torch.Generator] = None,
                noise: tp.Optional[Tensor] = None) -> Tensor:
-        """Audio [B, C, T] -> diffusion input (the pretransform's latents)."""
-        if self.model.pretransform is None:
+        """The batch [B, C, T] -> diffusion input: the pretransform's latents
+        of the audio, or, `pre_encoded`, the batch's latents over the
+        pretransform's scale."""
+        pretransform = self.model.pretransform
+        if pretransform is None:
             return audio
+        if self.pre_encoded:
+            scale = getattr(pretransform, "scale", 1.0)
+            return audio / scale if scale != 1.0 else audio
         return self.model.pretransform_encode(audio, generator=generator, noise=noise)
+
+    def padding_mask(self, metadata: tp.Sequence[dict], length: int) -> tp.Optional[Tensor]:
+        """The batch's padding masks [B, length] f32 on the card when the
+        loss reads them (`mask_padding` and every item has one), else None.
+        A mask at another rate (the audio's, when the step encodes) is
+        sampled at floor(i * T / length) (JAX :171-176)."""
+        if not self.mask_padding or not metadata or any(
+                "padding_mask" not in md for md in metadata):
+            return None
+        mask = torch.from_numpy(np.stack([np.asarray(md["padding_mask"], np.float32)
+                                          for md in metadata]))
+        if mask.shape[1] != length:  # in f32, as the JAX step computes it
+            ratio = torch.tensor(mask.shape[1] / length, dtype=torch.float32)
+            mask = mask[:, torch.floor(torch.arange(length, dtype=torch.float32) * ratio).long()]
+        return mask.to(self.device, non_blocking=True)
 
     def condition(self, metadata: tp.Sequence[dict]) -> tp.Dict[str, Tensor]:
         """Batch metadata -> the DiT's conditioning inputs (the T5 tower runs
@@ -142,9 +177,11 @@ class DiffusionCondTrainer:
     def loss(self, latents: Tensor, cond: tp.Dict[str, Tensor], t: tp.Optional[Tensor] = None,
              noise: tp.Optional[Tensor] = None, cfg_dropout_mask: tp.Optional[Tensor] = None,
              generator: tp.Optional[torch.Generator] = None, counter: tp.Optional[int] = None,
-             train: bool = True) -> tp.Tuple[Tensor, tp.Dict[str, Tensor]]:
+             train: bool = True, padding_mask: tp.Optional[Tensor] = None
+             ) -> tp.Tuple[Tensor, tp.Dict[str, Tensor]]:
         """The diffusion loss of one batch of latents [B, C, T] (JAX
-        `_loss_and_info`); `counter` indexes the Sobol sequence."""
+        `_loss_and_info`); `counter` indexes the Sobol sequence; the MSE is
+        averaged over `padding_mask` [B, T] where it is given."""
         B, device = latents.shape[0], latents.device
         if t is None:
             t = sample_timesteps(B, self.timestep_sampler, self.timestep_sampler_options,
@@ -157,7 +194,8 @@ class DiffusionCondTrainer:
         output = self.model(latents * alphas + noise * sigmas, t, **cond,
                             cfg_dropout_prob=self.cfg_dropout_prob if train else 0.0,
                             cfg_dropout_mask=cfg_dropout_mask, generator=generator)
-        loss, losses = self.losses({"output": output, "targets": noise * alphas - latents * sigmas})
+        loss, losses = self.losses({"output": output, "targets": noise * alphas - latents * sigmas,
+                                    "padding_mask": padding_mask})
         aux = {"loss": loss.detach(), "std_data": latents.std(correction=0).detach(),
                **{k: v.detach() for k, v in losses.items()}}
         return loss, aux
@@ -198,7 +236,8 @@ class DiffusionCondTrainer:
             loss, aux = self.loss(latents, self.condition(metadata[sl]),
                                   t=part(t), noise=part(noise),
                                   cfg_dropout_mask=part(cfg_dropout_mask), generator=gen,
-                                  counter=counter)
+                                  counter=counter,
+                                  padding_mask=self.padding_mask(metadata[sl], latents.shape[2]))
             (loss / accum_steps).backward()
             auxs.append(aux)
         self.optimizer_step()

@@ -10,8 +10,7 @@ import typing as tp
 # training-config keys of the JAX DiffusionCondTrainer that this port does not
 # implement yet; a config that sets one (to a true value) is refused rather
 # than half-run
-_UNPORTED = ("arc", "inpainting_config", "mask_padding", "pre_encoded", "p_one_shot",
-             "log_loss_info")
+_UNPORTED = ("arc", "inpainting_config", "p_one_shot", "log_loss_info")
 
 
 def create_training_wrapper_from_config(model_config: tp.Dict[str, tp.Any], model,
@@ -68,4 +67,7 @@ def create_training_wrapper_from_config(model_config: tp.Dict[str, tp.Any], mode
         timestep_sampler_options=training_config.get("timestep_sampler_options"),
         gradient_clip_val=gradient_clip_val,
         seed=seed,
+        pre_encoded=training_config.get("pre_encoded", False),
+        mask_padding=training_config.get("mask_padding", False),
+        mask_padding_dropout=training_config.get("mask_padding_dropout", 0.0),
     )

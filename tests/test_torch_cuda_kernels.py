@@ -416,3 +416,80 @@ def test_flash_attention_raises_on_unreadable_input(dev):
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention_prefix_bwd(*(_randn(dev, 1, 2, 70, 96),) * 5,
                                       torch.zeros(1, 2, 70, device=dev))
+
+
+# (B, N, H, D, rot_dim, causal, window): SA-2.0's rotary (32 of 64) unmasked
+# with ragged N, the JAX test's cases (causal with rotary, window (63, 64)
+# without, causal without), D = 128 with rotary 64 and with a full-width one,
+# widths off the kernel's 16-byte table transfers (30) and bf16x2 pairs (36)
+FUSED_CASES = [
+    (2, 131, 3, 64, 32, False, None), (1, 257, 2, 64, 32, True, None),
+    (1, 200, 2, 64, 0, False, (63, 64)), (2, 69, 2, 64, 0, True, None),
+    (1, 130, 2, 128, 64, True, None), (1, 193, 1, 128, 128, False, None),
+    (1, 1025, 4, 64, 32, False, None), (1, 150, 2, 64, 30, False, None),
+    (1, 150, 2, 64, 36, True, (20, 5))]
+
+
+def _fused_inputs(dev, B, N, H, D, rot):
+    from stable_audio_tools_tpu_torch.ops.embeddings import rotary_freqs, rotary_tables
+
+    qkv = _randn(dev, B, N, 3 * H * D, seed=11)
+    cos, sin = rotary_tables(rotary_freqs(N, rot, device=dev)) if rot else (None, None)
+    return qkv, cos, sin
+
+
+@pytest.mark.parametrize("B,N,H,D,rot,causal,window", FUSED_CASES)
+def test_flash_attention_fused_qkv(dev, B, N, H, D, rot, causal, window):
+    # the kernel with the rotary in it against unpack + rotary + the plain
+    # attention: 2 bf16 ulps, the logsumexp within 1e-3; the projection is
+    # read as it lies and left as it was
+    qkv, cos, sin = _fused_inputs(dev, B, N, H, D, rot)
+    before = qkv.clone()
+    out, lse = fa._launch_fused(qkv, cos, sin, H, causal, window)
+    want, want_lse = fa.flash_attention_fused_qkv_plain(qkv, cos, sin, H, causal, window)
+    assert out.shape == (B, N, H, D) and out.dtype == torch.bfloat16
+    _close(out, want)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+    assert torch.equal(qkv, before)
+
+
+def test_flash_attention_fused_qkv_matches_the_nhd_route(dev):
+    # the same function as the rotary pass + `flash_attention_nhd` that
+    # generation runs, at SA-2.0's head layout cut in length
+    from stable_audio_tools_tpu_torch.ops.embeddings import apply_rotary_pos_emb_nhd, rotary_freqs
+
+    qkv, cos, sin = _fused_inputs(dev, 2, 1025, 24, 64, 32)
+    freqs = rotary_freqs(1025, 32, device=dev)
+    q, k, v = (t.view(2, 1025, 24, 64) for t in qkv.chunk(3, dim=-1))
+    want = fa.flash_attention_nhd(apply_rotary_pos_emb_nhd(q, freqs),
+                                  apply_rotary_pos_emb_nhd(k, freqs), v, prefix_len=1)
+    _close(fa.flash_attention_fused_qkv(qkv, cos, sin, 24), want)
+
+
+def test_flash_attention_fused_qkv_gradients(dev):
+    # the autograd Function on the card (the kernel forward; rotary re-run,
+    # row 6's backward kernels and the rotary's VJP) against autograd through
+    # the plain version: 2e-2 of the gradient's peak, as the flash backward
+    for N, H, D, rot, causal, window in ((130, 3, 64, 32, False, None),
+                                         (200, 2, 128, 64, True, None),
+                                         (150, 2, 64, 0, False, (63, 64))):
+        qkv, cos, sin = _fused_inputs(dev, 2, N, H, D, rot)
+        qkv.requires_grad_()
+        w = _randn(dev, 2, N, H, D, seed=9).float()
+        got = torch.autograd.grad((fa.flash_attention_fused_qkv(
+            qkv, cos, sin, H, causal, window).float() * w).sum(), qkv)[0]
+        want = torch.autograd.grad((fa.flash_attention_fused_qkv_plain(
+            qkv, cos, sin, H, causal, window)[0].float() * w).sum(), qkv)[0]
+        assert got.dtype == torch.bfloat16 and _rel_err(got, want) < 2e-2
+
+
+def test_flash_attention_fused_qkv_raises_on_unreadable_input(dev):
+    qkv, cos, sin = _fused_inputs(dev, 1, 70, 2, 64, 32)
+    with pytest.raises(TypeError):  # f32: the kernel takes bf16
+        fa.flash_attention_fused_qkv(qkv.float(), cos, sin, 2)
+    with pytest.raises(TypeError):  # bf16 tables: the kernel reads f32
+        fa.flash_attention_fused_qkv(qkv, cos.bfloat16(), sin.bfloat16(), 2)
+    with pytest.raises(ValueError, match="even width"):
+        fa.flash_attention_fused_qkv(qkv, cos[:, :31].contiguous(), sin[:, :31].contiguous(), 2)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_fused_qkv(_randn(dev, 1, 70, 3 * 4 * 32), None, None, 4)

@@ -136,6 +136,6 @@ def test_dataloader_batches(audio_dir, num_workers):
         assert isinstance(audio, torch.Tensor) and audio.dtype == torch.float32
         assert tuple(audio.shape) == (2, 2, SAMPLE_SIZE) and len(meta) == 2
         assert all(m["prompt"].startswith("clip ") for m in meta)
-    with pytest.raises(NotImplementedError):
-        tds.create_dataloader_from_config(dict(config, dataset_type="pre_encoded"), 2,
+    with pytest.raises(NotImplementedError):  # tar shards: a later slice
+        tds.create_dataloader_from_config(dict(config, dataset_type="wds"), 2,
                                           SAMPLE_SIZE, SR)

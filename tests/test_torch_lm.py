@@ -365,3 +365,41 @@ def test_train_entry_trains_checkpoints_and_resumes(tmp_path):
                                  str(tmp_path / "run" / "step=2.ckpt")])
     assert resumed.wrapper.step == 3
     assert [json.loads(s)["step"] for s in open(tmp_path / "run" / "train_log.jsonl")] == [1, 2, 3]
+
+
+class _WeightCasts(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the f32 -> bf16 copies whose source is one of `params`."""
+
+    def __init__(self, params):
+        super().__init__()
+        self.ptrs = {p.data_ptr() for p in params}
+        self.count = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if (func is torch.ops.aten._to_copy.default and kwargs.get("dtype") == torch.bfloat16
+                and args[0].dtype == torch.float32 and args[0].data_ptr() in self.ptrs):
+            self.count += 1
+        return func(*args, **kwargs)
+
+
+def test_cached_decode_casts_its_weights_once_per_request(pair):
+    # a bf16 decode casts the backbone's f32 linear weights before its step
+    # loop (JAX `prepare`), not at every step: the count of f32 -> bf16
+    # weight copies does not grow with the step count, and the model's f32
+    # parameters are back, unchanged, when the request ends
+    port = copy.deepcopy(pair[2])
+    port.lm.backbone.compute_dtype = torch.bfloat16
+    before = {n: p.detach().clone() for n, p in port.named_parameters()}
+    _, tct = _cond(1, 4, 12)
+    counts = []
+    for steps in (3, 8):
+        with _WeightCasts(port.parameters()) as casts:
+            lm_generate_cached(port, tct, max_gen_len=steps, top_k=1, cfg_scale=3.0,
+                               generator=torch.Generator().manual_seed(0))
+        counts.append(casts.count)
+    n_linear = sum(1 for m in port.lm.backbone.modules() if isinstance(m, torch.nn.Linear)
+                   for p in (m.weight, m.bias) if p is not None)
+    assert counts[0] == counts[1] and n_linear <= counts[0] < 2 * n_linear, (counts, n_linear)
+    for n, p in port.named_parameters():
+        assert p.dtype == torch.float32 and torch.equal(p, before[n]), n

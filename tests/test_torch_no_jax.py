@@ -1,6 +1,7 @@
 """The port imports and runs (generation, a diffusion training step, an
-autoencoder GAN generator and discriminator step, an LM training step and a
-KV-cached LM generation) with JAX,
+autoencoder GAN generator and discriminator step, an LM training step, a
+KV-cached LM generation, and pre-encoding then training from the latents)
+with JAX,
 flax, transformers and the JAX package unimportable (the machine with the
 card has none of them), and without triton: no module imports it at import
 time."""
@@ -274,3 +275,83 @@ def test_lm_path_runs_without_jax_or_triton():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.startswith("ok")
+
+
+SA2_TRAINING_SCRIPT = textwrap.dedent("""
+    import json, os, sys, tempfile
+    for name in ("jax", "jaxlib", "flax", "transformers", "safetensors",
+                 "stable_audio_tools_tpu"):
+        sys.modules[name] = None  # any import of these raises ImportError
+
+    import numpy as np
+    import torch
+    from stable_audio_tools_tpu_torch import pre_encode, train
+    from stable_audio_tools_tpu_torch.data.wav import save_wav
+    from stable_audio_tools_tpu_torch.ops.attention import Attention
+
+    ae = {"encoder": {"type": "oobleck", "config": {
+              "in_channels": 2, "channels": 8, "c_mults": [1, 2], "strides": [2, 4],
+              "latent_dim": 8, "use_snake": True}},
+          "decoder": {"type": "oobleck", "config": {
+              "out_channels": 2, "channels": 8, "c_mults": [1, 2], "strides": [2, 4],
+              "latent_dim": 4, "use_snake": True}},
+          "bottleneck": {"type": "vae"}, "latent_dim": 4, "downsampling_ratio": 8,
+          "io_channels": 2}
+    model = {
+        "model_type": "diffusion_cond", "sample_size": 512, "sample_rate": 16000,
+        "model": {
+            "io_channels": 4,
+            "pretransform": {"type": "autoencoder", "config": ae},
+            "conditioning": {"cond_dim": 64, "configs": [
+                {"id": "seconds_total", "type": "number", "config": {"max_val": 512}}]},
+            "diffusion": {"type": "dit", "cross_attention_cond_ids": ["seconds_total"],
+                          "global_cond_ids": ["seconds_total"],
+                          "config": {"io_channels": 4, "embed_dim": 128, "depth": 1,
+                                     "num_heads": 2, "cond_token_dim": 64,
+                                     "global_cond_dim": 64, "project_cond_tokens": False,
+                                     "use_checkpointing": True}}},
+        "training": {"pre_encoded": True, "mask_padding": True, "optimizer_configs": {
+            "diffusion": {"optimizer": {"type": "AdamW", "config": {"lr": 1e-4}}}}}}
+    calls = []
+    real = Attention._forward_fused
+    Attention._forward_fused = lambda self, *a: calls.append(1) or real(self, *a)
+    import stable_audio_tools_tpu_torch.ops.attention as attn
+    attn.NHD_MIN_SEQ = 32  # the fused route needs the NHD route's length: 1 + 64 tokens
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(f"{tmp}/wavs")
+        rng = np.random.default_rng(0)
+        for i, n in enumerate((400, 512, 700, 900)):
+            save_wav(f"{tmp}/wavs/{i}.wav", 0.3 * rng.standard_normal((2, n)), 16000)
+        files = {"ae.json": {"model_type": "autoencoder", "sample_size": 512,
+                             "sample_rate": 16000, "model": ae},
+                 "wavs.json": {"dataset_type": "audio_dir", "random_crop": False,
+                               "datasets": [{"id": "w", "path": f"{tmp}/wavs"}]},
+                 "lat.json": {"dataset_type": "pre_encoded", "latent_crop_length": 64,
+                              "datasets": [{"id": "l", "path": f"{tmp}/lat"}]},
+                 "model.json": model}
+        for name, content in files.items():
+            with open(f"{tmp}/{name}", "w") as f:
+                json.dump(content, f)
+        got = pre_encode.main(["--model-config", f"{tmp}/ae.json", "--dataset-config",
+                               f"{tmp}/wavs.json", "--output-path", f"{tmp}/lat",
+                               "--batch-size", "2", "--num-workers", "0", "--device", "cpu"])
+        assert got["items"] == 4
+        trainer = train.main(["--model-config", f"{tmp}/model.json", "--dataset-config",
+                              f"{tmp}/lat.json", "--batch-size", "2", "--num-workers", "0",
+                              "--max-steps", "2", "--save-dir", f"{tmp}/run", "--device", "cpu"])
+        assert trainer.wrapper.step == 2 and len(calls) == 2 * 2
+        assert all(p.grad is not None and torch.isfinite(p.grad).all()
+                   for p in trainer.wrapper.params.values())
+    assert "triton" not in sys.modules
+    print("ok")
+""")
+
+
+def test_sa2_training_runs_without_jax_or_triton():
+    # pre-encode WAVs, then train a rotary DiT from the latents with the
+    # padding mask, its self-attention on the fused-QKV entry (bf16 compute)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", SA2_TRAINING_SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.splitlines()[-1] == "ok"  # after pre_encode's own line

@@ -568,8 +568,7 @@ def test_train_entry_runs_resumes_and_refuses_unported_flags(tmp_path):
             train.parse_args(argv + bad)
 
 
-@pytest.mark.parametrize("key", ["mask_padding", "pre_encoded", "p_one_shot", "log_loss_info",
-                                 "inpainting_config"])
+@pytest.mark.parametrize("key", ["arc", "p_one_shot", "log_loss_info", "inpainting_config"])
 def test_factory_refuses_training_options_not_ported(train_pair, key):
     # a config asking for a JAX trainer option the port lacks is refused, not
     # trained without it; SA-Open's explicit "log_loss_info": false is fine
