@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Runs from the repository root on a machine with a CUDA card, `nvcc` and
-`triton`; needs no network and no JAX. Nine phases, each printing one line;
-any failure raises and the exit code is nonzero:
+`triton`; needs no network and no JAX. Nine phases, each printing one line
+(phase 2 two); any failure raises and the exit code is nonzero:
 
 1. Device and build: the card's name and power limit, then every CUDA source
    of the port compiled from the checkout, all at once (seconds printed).
@@ -37,7 +37,14 @@ any failure raises and the exit code is nonzero:
    timed beside SDPA on pre-rotated q, k, v, and against the rotary pass +
    `flash_attention_nhd`: at the training shape forward, forward + backward
    and memory, at the generation shape forward. The backward kernels are
-   also held at that training shape, [4, 24, 6145, 64], on their own.
+   also held at that training shape, [4, 24, 6145, 64], on their own. The
+   snake-conv forward without the residual (`snake_conv1d`, row 12, the
+   carry) is held at every decoder and VAE shape, the pre-encode's k = 3
+   conv_out, a strip of one tile and a ragged length, within 2 bf16 ulps of
+   the plain version and of row 3 (`snake_conv1d_res` with a zero residual:
+   equal bit for bit by design, counted); rows 3 and 12 are timed in turns
+   at [1, 128, 2097152] k=7 d=9 and at SA-2.0's decode levels, beside the
+   bound and `F.conv1d` alone on the pre-snaked input.
 3. Generation: SA-Open (the shipped stable_audio_open_1_0.json, built by the
    port's factory, random weights from a seeded torch.Generator, random T5)
    runs generate_diffusion_cond with cfg 6, dpmpp-3m-sde, sigma in [0.3, 500],
@@ -107,7 +114,8 @@ any failure raises and the exit code is nonzero:
    stable_audio_2_0.json, nothing cut, its CLAP tower from the seeded
    RoBERTa-base file: (a) its pretransform saved as a port checkpoint and
    `python -m stable_audio_tools_tpu_torch.pre_encode` over 8 synthetic
-   stereo WAVs of 290-300 s (latents [64, 6144], finite, masks of 6144);
+   stereo WAVs of 290-300 s (latents [64, 6144], finite, masks of 6144;
+   launches as counted from the encoder);
    (b) training from those latents through the code path of `python -m
    stable_audio_tools_tpu_torch.train` with `pre_encoded` and `mask_padding`,
    batch 4 x 6144 latents: 2 warm-up and 5 timed steps, the pieces of one
@@ -356,7 +364,22 @@ def phase_kernels(dev):
         **bound(6.0 * x.numel(), x, a, b, y))
 
     # 4. decoder residual units: conv1 k=7 d in {1,3,9}; conv2 k=1 + skip;
-    #    conv_out k=7 128 -> 2 without bias
+    #    conv_out k=7 128 -> 2 without bias. snake_conv1d launches row 12
+    #    (the carry), snake_conv1d_res row 3; every case without the residual
+    #    also holds row 12 against row 3 on the same inputs.
+    carry = dict(vs_row3=[], bitwise=0, cases=0)
+
+    def hold_row3(name, x, w, bias_t, a, b, pad, d, got):
+        """Row 12's output `got` against row 3's on the same inputs
+        (`snake_conv1d_res` with a zero residual: + 0 in f32 is exact); the
+        two share the window contents, the tap loop and the epilogue, so
+        they are equal bit for bit (counted), and held to 2 bf16 ulps."""
+        row3 = cs.snake_conv1d_res(x, w, bias_t, a, b, torch.zeros_like(got), pad, pad, d)
+        carry["vs_row3"].append(compare(f"snake_conv1d vs row 3 {name}", got, row3,
+                                        bf16_tol(row3)))
+        carry["bitwise"] += bool(torch.equal(got, row3))
+        carry["cases"] += 1
+
     def conv_case(C, Co, L, kk, d, bias=True, res=False, B=1):
         x = randn(B, C, L)
         w = randn(Co, C, kk, scale=(C * kk) ** -0.5)
@@ -371,8 +394,11 @@ def phase_kernels(dev):
         plain = lambda: cs.snake_conv1d_plain(x, w, bias_t, a, b, pad, pad, d, r)
         ref = plain()
         least = bound(2.0 * Co * C * kk * L, x, w, bias_t, a, b, r, ref)
-        return compare(f"snake_conv1d B={B} C={C} Co={Co} L={L} k={kk} d={d} res={res}",
-                       run(), ref, bf16_tol(ref)), run, plain, least
+        name = f"snake_conv1d B={B} C={C} Co={Co} L={L} k={kk} d={d} res={res}"
+        out = run()
+        if not res:
+            hold_row3(name, x, w, bias_t, a, b, pad, d, out)
+        return compare(name, out, ref, bf16_tol(ref)), run, plain, least
 
     errs = []
     for C, L, d in ((1024, 8192, 1), (512, 65536, 3), (256, 262144, 9), (128, 1048576, 1)):
@@ -382,17 +408,27 @@ def phase_kernels(dev):
     for C, L in SA2_CHUNK_LEVELS:
         errs += [conv_case(C, C, L, 7, d, B=8)[0] for d in (1, 3, 9)]
     errs.append(conv_case(128, 2, 262144, 7, 1, bias=False, B=8)[0])
+    # the pre-encode's k = 3 conv_out, a strip of one tile, a ragged L
+    errs.append(conv_case(2048, 128, SA2_SAMPLE_SIZE // 2048, 3, 1)[0])
+    errs.append(conv_case(1024, 1024, 100, 7, 9)[0])
+    errs.append(conv_case(128, 128, 131071, 7, 3, B=8)[0])
     err, run, plain, least = conv_case(128, 128, SAMPLE_SIZE, 7, 9)
     errs.append(err)
+    timed = carry_ab(cs, F, randn, 1, 128, SAMPLE_SIZE, 9)
+    levels = [carry_ab(cs, F, randn, 8, C, L, d) for C, L in SA2_CHUNK_LEVELS for d in (1, 3, 9)]
     rec["snake_conv1d"] = dict(
         route="cuda", source="stable_audio_tools_tpu_torch/csrc/snake_conv1d.cu",
-        replaces="stable_audio_tools_tpu/ops/kernels/conv1d_snake.py:88",
+        replaces="stable_audio_tools_tpu/ops/kernels/conv1d_snake.py:134",
+        # the JAX package's default route runs `_fwd_kernel` for this function
+        also_replaces=["stable_audio_tools_tpu/ops/kernels/conv1d_snake.py:88"],
         shape="x [1,128,2097152] k=7 d=9 bf16 (timed; 6 SA-Open and 16 SA-2.0 decoder "
-              "cases checked)",
-        max_abs_err=max(errs), tol="2 bf16 ulps at max|ref|",
+              "cases, the pre-encode's [1,2048,6144] k=3 conv_out, a strip of one tile "
+              "[1,1024,100] d=9 and a ragged [8,128,131071] checked)",
+        max_abs_err=max(errs), tol="2 bf16 ulps at max|ref|, against the plain version "
+                                   "and against row 3",
         ms=cuda_ms(run, 3), plain_ms=cuda_ms(plain, 3),
-        # cuDNN's conv alone omits the snake: it is in the plain version
-        library=None, library_ms=None, **least)
+        # cuDNN's conv alone omits the snake: it is in the plain version (ab: conv_only_ms)
+        library=None, library_ms=None, ab=dict(timed=timed, sa2_levels=levels), **least)
     errs = [conv_case(C, C, L, 1, 1, res=True)[0]
             for C, L in ((1024, 8192), (512, 65536), (256, 262144))]
     errs += [conv_case(C, C, L, 1, 1, res=True, B=8)[0] for C, L in SA2_CHUNK_LEVELS]
@@ -405,8 +441,39 @@ def phase_kernels(dev):
               "decoder shapes checked)",
         max_abs_err=max(errs), tol="2 bf16 ulps at max|ref|",
         ms=cuda_ms(run, 3), plain_ms=cuda_ms(plain, 3), library=None, library_ms=None, **least)
-    rec.update(ae_backward_checks(sn, cs, randn, rec))
+    rec.update(ae_backward_checks(sn, cs, randn, rec, hold_row3))
+    rec["snake_conv1d"]["vs_row3"] = dict(max_abs_diff=max(carry["vs_row3"]),
+                                          bitwise_equal_cases=carry["bitwise"],
+                                          cases=carry["cases"])
     return rec
+
+
+def carry_ab(cs, F, randn, B, C, L, d, iters=3) -> dict:
+    """Rows 3 and 12 timed in turns (row 3, row 12, row 12, row 3) on one
+    k = 7 residual-unit conv [B, C, L] at dilation d (row 3 through
+    `snake_conv1d_res` with a zero residual, which adds one read of the
+    output's size; row 12's strip length: 1 where the carry would cost
+    occupancy), and `F.conv1d` alone on the pre-snaked input (the conv
+    without the snake: not the same function, the reference for the kernels'
+    next redesign)."""
+    x = randn(B, C, L)
+    w = randn(C, C, 7, scale=(C * 7) ** -0.5)
+    bias = randn(C, dtype=torch.float32) * 0.1
+    a, b = randn(C, dtype=torch.float32).exp(), randn(C, dtype=torch.float32).exp()
+    pad = 3 * d
+    zero = torch.zeros_like(x)
+    row3 = lambda: cs.snake_conv1d_res(x, w, bias, a, b, zero, pad, pad, d)
+    row12 = lambda: cs.snake_conv1d(x, w, bias, a, b, pad, pad, d)
+    turns = [cuda_ms(fn, iters) for fn in (row3, row12, row12, row3)]
+    out = dict(shape=f"[{B},{C},{L}] k=7 d={d}", row3_ms=[turns[0], turns[3]],
+               carry_ms=[turns[1], turns[2]],
+               strip_tiles=cs.carry_strip_tiles(B, C, C, L, 7, d))
+    sx = cs._snake_f32(x, a, b).to(x.dtype)
+    bias_bf = bias.to(x.dtype)
+    out["conv_only_ms"] = cuda_ms(lambda: F.conv1d(sx, w, bias_bf, padding=pad, dilation=d),
+                                  iters)
+    out.update(bound(2.0 * B * C * C * 7 * L, x, w, bias, a, b, x))
+    return out
 
 
 # (channels, length) of the SA-2.0 VAE's residual-unit levels at batch 4 x
@@ -421,7 +488,7 @@ AE_BATCH = 4
 GRAD_REL_TOL = 1e-2
 
 
-def ae_backward_checks(sn, cs, randn, fwd: dict) -> dict:
+def ae_backward_checks(sn, cs, randn, fwd: dict, hold_row3) -> dict:
     """The four backward kernels of the autoencoder-training path against
     their plain versions at its shapes (batch 4, bf16): dx within 2 bf16 ulps,
     dW, db, dalpha, dbeta within 1% of their peaks; each timed at its largest
@@ -429,7 +496,7 @@ def ae_backward_checks(sn, cs, randn, fwd: dict) -> dict:
     gradient beside `torch.nn.grad.conv1d_weight` (a yardstick only). The
     forward kernels of the path (`snake_fused`, `snake_conv1d`, `_res`) are
     held at the same shapes, 2 bf16 ulps, and their errors join `fwd`'s
-    records."""
+    records; `hold_row3` holds row 12 (`snake_conv1d`) against row 3."""
     rec, B = {}, AE_BATCH
 
     def params(C):
@@ -482,9 +549,11 @@ def ae_backward_checks(sn, cs, randn, fwd: dict) -> dict:
         r = randn(B, Co, L) if kk == 1 else None
         y = cs.snake_conv1d_plain(x, w, bias, a, b, pad, pad, d, r)
         if r is None:
-            err = compare(f"snake_conv1d {name}",
-                          cs.snake_conv1d(x, w, bias, a, b, pad, pad, d), y, bf16_tol(y))
+            out = cs.snake_conv1d(x, w, bias, a, b, pad, pad, d)
+            err = compare(f"snake_conv1d {name}", out, y, bf16_tol(y))
             conv_fwd_errs["snake_conv1d"].append(err)
+            hold_row3(name, x, w, bias, a, b, pad, d, out)
+            del out
         else:
             err = compare(f"snake_conv1d_res {name}",
                           cs.snake_conv1d_res(x, w, bias, a, b, r, pad, pad, d), y, bf16_tol(y))
@@ -2277,6 +2346,10 @@ SA2_LATENTS = SA2_SAMPLE_SIZE // 2048
 # `seconds_start` values
 SA2_WAVS, SA2_WAV_SECONDS, SA2_WAV_STEP = 8, 290, 10 / 7
 SA2_AUDIO_WARM, SA2_AUDIO_TIMED = 1, 2
+# snake-conv launches of one Oobleck encoder pass, counted from the model:
+# 3 residual units a level (5 levels), each with one k = 7 conv without the
+# residual (row 12) and one k = 1 conv with it (row 3), and the conv_out (row 12)
+ENCODE_LAUNCHES = {"snake_conv1d": 16, "snake_conv1d_res": 15}
 
 
 def sa2_train_config(clap_path: str, pre_encoded: bool) -> dict:
@@ -2401,17 +2474,27 @@ def phase_sa2_training(dev) -> dict:
         latent_dir = os.path.join(tmp, "latents")
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated()
+        for fn in counters().values():
+            fn.launches = 0
         t0 = time.perf_counter()
         enc = pre_encode.main(["--model-config", SA2_VAE, "--ckpt-path", vae_ckpt,
                                "--dataset-config", audio_cfg, "--output-path", latent_dir,
                                "--batch-size", "1", "--sample-size", str(SA2_SAMPLE_SIZE),
                                "--num-workers", "2"])
         wall = time.perf_counter() - t0
+        enc_launches = {n: fn.launches for n, fn in counters().items() if fn.launches}
         rec["pre_encode"] = dict(
             items=enc["items"], wall_s=wall, encode_ms=enc["encode_ms"],
             encode_ms_median=statistics.median(enc["encode_ms"]),
             peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-            resident_before_gib=resident / 2 ** 30)
+            resident_before_gib=resident / 2 ** 30, launches=enc_launches)
+        # one encoder pass a clip, with no grad: the snake convs' forward
+        # kernels and the snakes before the strided convs, nothing else
+        want = {n: SA2_WAVS * c for n, c in ENCODE_LAUNCHES.items()}
+        if {n: enc_launches.get(n, 0) for n in want} != want or not enc_launches.get(
+                "snake_fused") or set(enc_launches) - set(want) - {"snake_fused"}:
+            raise AssertionError(f"pre-encode of {SA2_WAVS} clips launched {enc_launches}, "
+                                 f"expected {want} and snake_fused")
         torch.cuda.empty_cache()
         files = sorted(f for f in os.listdir(enc["out_dir"]) if f.endswith(".npy"))
         if enc["items"] != SA2_WAVS or len(files) != SA2_WAVS:
@@ -2571,6 +2654,14 @@ def main() -> int:
         + "".join(f" [route {k}: {v['ms']:.4f} ms, rel err {v['max_rel_err']:.3g}]"
                   for k, v in r.get("routes", {}).items())
         for n, r in rec.items()), flush=True)
+    carry = rec["snake_conv1d"]
+    print("phase 2 snake-conv A/B (k=7, ms; row 3 | row 12 | row 12 | row 3; F.conv1d alone on "
+          "the pre-snaked input; bound): " + "; ".join(
+              f"{r['shape']} {r['row3_ms'][0]:.4f} | {r['carry_ms'][0]:.4f} | "
+              f"{r['carry_ms'][1]:.4f} | {r['row3_ms'][1]:.4f}; {r['conv_only_ms']:.4f}; "
+              f"{r['bound_ms']:.4f} (strips of {r['strip_tiles']} tiles)"
+              for r in [carry["ab"]["timed"], *carry["ab"]["sa2_levels"]])
+          + f"; row 12 vs row 3: {json.dumps(carry['vs_row3'])} on {card}", flush=True)
 
     main_rec = phase_main_path(dev)
     print(f"phase 3 generation: SA-Open {main_rec['params'] / 1e9:.3f}B params, {STEPS} steps "
@@ -2692,6 +2783,8 @@ def main() -> int:
           f"losses {', '.join(f'{x:.4g}' for x in aud['losses'])}; small card-vs-CPU step "
           f"{json.dumps(sa2t['small'])} (tol {sa2t['small_tol']}) on {card}", flush=True)
 
+    torch.cuda.empty_cache()
+
     kernels = []
     for n, r in rec.items():
         by_path = {"generation": main_rec["launches"].get(n, 0),
@@ -2701,7 +2794,8 @@ def main() -> int:
                    "lm_generation_cached": lmg["cached"]["launches"].get(n, 0),
                    "lm_generation_full": lmg["full"]["launches"].get(n, 0),
                    "lm_training": lmt["launches"].get(n, 0),
-                   "sa2_training": sa2t["launches"].get(n, 0)}
+                   "sa2_training": sa2t["launches"].get(n, 0),
+                   "sa2_pre_encode": sa2t["pre_encode"]["launches"].get(n, 0)}
         kernels.append(dict(name=n, route=r["route"], source=r["source"], replaces=r["replaces"],
                             launches=sum(by_path.values()), launches_by_path=by_path,
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
@@ -2709,7 +2803,7 @@ def main() -> int:
                             library_ms=r["library_ms"], library=r["library"],
                             shape=r["shape"], **{k: r[k] for k in (
                                 "also_replaces", "main_route", "routes", "max_rel_err",
-                                "autograd_rel_err", "errs", "ab", "shapes", "banded",
+                                "autograd_rel_err", "errs", "ab", "shapes", "banded", "vs_row3",
                                 "autograd_errs", "fwd_bwd_ms", "sa2_training_shape")
                                 if k in r}))
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]

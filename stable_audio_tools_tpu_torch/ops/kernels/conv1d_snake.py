@@ -20,6 +20,16 @@ The residual's gradient is dy itself. `conv1d_wgrad` (the same source
 without the snake, replaces `_bwd_dw_kernel_plain`) is the weight gradient
 of the plain stride-1 convs (ops/conv.py `Conv1dS1`).
 
+The forward has two kernels in `csrc/snake_conv1d.cu`: `snake_conv1d` launches
+`snake_conv1d_carry_kernel` (replaces `_fwd_kernel_carry`, the JAX package's
+SAT_SNAKE_CARRY route, which keeps the previous x block in a scratch carry;
+here a block walks a strip of output tiles and carries the snake'd halo in
+shared memory), and `snake_conv1d_res` launches `snake_conv1d_kernel`
+(replaces `_fwd_kernel` and `_fwd_kernel_res`). The JAX package's default
+`snake_conv1d` runs `_fwd_kernel`; the port runs the carry for it on the
+card, since the two kernels' outputs are equal bit for bit and the carry is
+faster on every measured shape (PERF.md). The backward is the same.
+
 CUDA bf16 tensors launch the kernels (each source's note says what it
 replaces, what bounds it and how it is tiled); they take every width on the
 Oobleck path (Ci, Co = 2..2048), none of the TPU's 128-lane, VMEM or
@@ -107,6 +117,7 @@ def _require_bf16(name: str, *tensors) -> None:
 
 
 def _launch(x, w, bias, alpha, beta, pad_lo, pad_hi, dilation, residual):
+    """Row 12 without the residual, row 3 with it."""
     if x.device.type != "cuda":
         raise ValueError(f"snake_conv1d: unsupported device {x.device}")
     if x.dim() != 3 or w.dim() != 3:
@@ -137,15 +148,32 @@ def _launch(x, w, bias, alpha, beta, pad_lo, pad_hi, dilation, residual):
     b = beta.detach().contiguous().float()
     bias_f = bias.detach().contiguous().float() if bias is not None else None
     y = torch.empty((B, Co, Lout), device=x.device, dtype=x.dtype)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    bias_ptr = bias_f.data_ptr() if bias_f is not None else None
+    if residual is None:
+        fn = _build.bind("snake_conv1d", "snake_conv1d_carry_fwd",
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        code = fn(x.data_ptr(), w_kio.data_ptr(), a.data_ptr(), b.data_ptr(), bias_ptr,
+                  y.data_ptr(), B, Ci, Co, L, Lout, k, dilation, pad_lo, stream)
+        _build.check(code, "snake_conv1d_carry_fwd")
+        return y
     fn = _build.bind("snake_conv1d", "snake_conv1d_fwd",
                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-    code = fn(x.data_ptr(), w_kio.data_ptr(), a.data_ptr(), b.data_ptr(),
-              bias_f.data_ptr() if bias_f is not None else None,
-              residual.data_ptr() if residual is not None else None,
-              y.data_ptr(), B, Ci, Co, L, Lout, k, dilation, pad_lo,
-              torch.cuda.current_stream(x.device).cuda_stream)
+    code = fn(x.data_ptr(), w_kio.data_ptr(), a.data_ptr(), b.data_ptr(), bias_ptr,
+              residual.data_ptr(), y.data_ptr(), B, Ci, Co, L, Lout, k, dilation, pad_lo,
+              stream)
     _build.check(code, "snake_conv1d_fwd")
     return y
+
+
+def carry_strip_tiles(B: int, Ci: int, Co: int, Lout: int, k: int, d: int) -> int:
+    """The strip of 128-row output tiles one block of row 12 walks for this
+    shape on the current card (1: strips of one tile, no carry)."""
+    strip = ctypes.c_int()
+    fn = _build.bind("snake_conv1d", "snake_conv1d_carry_strip",
+                     [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    _build.check(fn(B, Ci, Co, Lout, k, d, ctypes.byref(strip)), "snake_conv1d_carry_strip")
+    return strip.value
 
 
 def snake_conv1d_dx(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
@@ -275,14 +303,16 @@ class _SnakeConv1d(torch.autograd.Function):
 def snake_conv1d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
                  alpha: torch.Tensor, beta: torch.Tensor, pad_lo: int, pad_hi: int,
                  dilation: int) -> torch.Tensor:
-    """conv1d(snake(x), w) + bias; x [B, Ci, L], w [Co, Ci, k] -> [B, Co, Lout]."""
+    """conv1d(snake(x), w) + bias; x [B, Ci, L], w [Co, Ci, k] -> [B, Co, Lout].
+    CUDA tensors launch row 12 (the carry)."""
     return _SnakeConv1d.apply(x, w, bias, alpha, beta, None, pad_lo, pad_hi, dilation)
 
 
 def snake_conv1d_res(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
                      alpha: torch.Tensor, beta: torch.Tensor, residual: torch.Tensor,
                      pad_lo: int, pad_hi: int, dilation: int) -> torch.Tensor:
-    """snake_conv1d with the residual [B, Co, Lout] added in the epilogue."""
+    """snake_conv1d with the residual [B, Co, Lout] added in the epilogue;
+    CUDA tensors launch row 3."""
     return _SnakeConv1d.apply(x, w, bias, alpha, beta, residual, pad_lo, pad_hi, dilation)
 
 

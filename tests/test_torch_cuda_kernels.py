@@ -99,6 +99,71 @@ def test_snake_conv1d(dev, Ci, Co, L, k, d, res, bias):
     _close(got, cs.snake_conv1d_plain(x, w, bias_t, a, b, pad, pad, d, r))
 
 
+# [B, Ci, Co, L, k, d, pad_lo, pad_hi, bias]: widths off the tiling at a
+# ragged L; the decoder's conv_out (Co = 2, no bias); many tiles per strip
+# at a ragged L; the encoder's conv_out (2048 -> 128, k = 3, one ragged
+# tile: a strip of one tile); Ci = 1024 at d = 9 (the widest carry); padding
+# rows on one side only
+CARRY_CASES = [(2, 40, 70, 129, 7, 5, 15, 15, True), (2, 64, 2, 300, 7, 1, 3, 3, False),
+               (1, 128, 128, 128 * 300 + 17, 7, 3, 9, 9, True),
+               (2, 2048, 128, 32, 3, 1, 1, 1, True), (1, 1024, 1024, 300, 7, 9, 27, 27, True),
+               (2, 96, 64, 500, 7, 2, 12, 0, True), (2, 96, 64, 500, 7, 2, 0, 12, True)]
+
+
+@pytest.mark.parametrize("B,Ci,Co,L,k,d,pad_lo,pad_hi,bias", CARRY_CASES)
+def test_snake_conv1d_carry(dev, B, Ci, Co, L, k, d, pad_lo, pad_hi, bias):
+    # row 12 (snake_conv1d) against the plain version (2 bf16 ulps) and
+    # against row 3 (snake_conv1d_res with a zero residual: the same window
+    # contents, tap loop and epilogue, + 0 in f32: equal bit for bit)
+    x = _randn(dev, B, Ci, L, scale=2.0)
+    w = _randn(dev, Co, Ci, k, scale=(Ci * k) ** -0.5, seed=1)
+    bias_t = _randn(dev, Co, dtype=torch.float32, seed=2) if bias else None
+    a = _randn(dev, Ci, dtype=torch.float32, seed=3).exp()
+    b = _randn(dev, Ci, dtype=torch.float32, seed=4).exp()
+    got = cs.snake_conv1d(x, w, bias_t, a, b, pad_lo, pad_hi, d)
+    torch.cuda.synchronize()
+    _close(got, cs.snake_conv1d_plain(x, w, bias_t, a, b, pad_lo, pad_hi, d))
+    zero = torch.zeros_like(got)
+    assert torch.equal(got, cs.snake_conv1d_res(x, w, bias_t, a, b, zero, pad_lo, pad_hi, d))
+
+
+def test_snake_conv1d_launches_row_12_or_raises(dev):
+    # snake_conv1d launches row 12 and counts it, snake_conv1d_res row 3 with
+    # its own counter; an f32 CUDA input raises rather than falling back to
+    # row 3 or to the plain version
+    x, r = _randn(dev, 1, 64, 700), _randn(dev, 1, 64, 700, seed=5)
+    w, w1 = _randn(dev, 64, 64, 7, scale=0.05, seed=1), _randn(dev, 64, 64, 1, scale=0.1, seed=2)
+    a = b = torch.ones(64, device=dev)
+    before = {f: f.launches for f in (cs.snake_conv1d, cs.snake_conv1d_res)}
+    cs.snake_conv1d(x, w, None, a, b, 9, 9, 3)
+    cs.snake_conv1d_res(x, w1, None, a, b, r, 0, 0, 1)
+    assert cs.snake_conv1d.launches - before[cs.snake_conv1d] == 1
+    assert cs.snake_conv1d_res.launches - before[cs.snake_conv1d_res] == 1
+    with pytest.raises(TypeError):
+        cs.snake_conv1d(x.float(), w.float(), None, a, b, 9, 9, 3)
+    assert cs.snake_conv1d.launches - before[cs.snake_conv1d] == 1
+
+
+def test_snake_conv1d_carry_strips_and_refusals(dev):
+    # a carry too large to leave a second block on an SM (1024 channels x 186
+    # rows) runs in strips of one tile; a narrow one in long strips; span >
+    # MAX_SPAN and f32 inputs are refused
+    x = _randn(dev, 1, 1024, 500, scale=2.0)
+    a = b = torch.ones(1024, device=dev)
+    w = _randn(dev, 8, 1024, 7, scale=0.01, seed=1)
+    assert cs.carry_strip_tiles(1, 1024, 8, 500, 7, 31) == 1
+    _close(cs.snake_conv1d(x, w, None, a, b, 93, 93, 31),
+           cs.snake_conv1d_plain(x, w, None, a, b, 93, 93, 31))
+    x2 = _randn(dev, 1, 128, 128 * 1200, scale=2.0)  # 1200 tiles: more than two waves of blocks
+    assert cs.carry_strip_tiles(1, 128, 8, 128 * 1200, 7, 1) > 1
+    _close(cs.snake_conv1d(x2, w[:, :128], None, a[:128], b[:128], 3, 3, 1),
+           cs.snake_conv1d_plain(x2, w[:, :128], None, a[:128], b[:128], 3, 3, 1))
+    with pytest.raises(ValueError, match="exceeds"):  # span 198 > MAX_SPAN
+        cs.snake_conv1d(x[:, :64], _randn(dev, 64, 64, 7), None, a[:64], b[:64], 99, 99, 33)
+    with pytest.raises(TypeError):
+        cs.snake_conv1d(x.float(), w.float(), None, a, b, 3, 3, 1)
+
+
 def test_wrappers_raise_on_unsupported_cuda_input(dev):
     q = torch.zeros(1, 1, 65, 64, device=dev)  # f32: the kernel takes bf16
     with pytest.raises(TypeError):
