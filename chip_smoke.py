@@ -16,7 +16,10 @@ Runs from the repository root on a machine with a CUDA card, `nvcc` and
    used nowhere in the port) and the least time the card could take (the
    larger of its bytes over 3.35 TB/s and its operations over 989 TFLOP/s).
    The flash-attention backward is checked and timed by both of its routes
-   (single pass with atomic dQ; two passes), and the autograd wrappers'
+   (single pass with atomic dQ; two passes) at SA-Open's and SA-2.0's
+   training shapes, beside SDPA's backward and its bound; the training
+   route must give the same bits on two runs, and ptxas's registers and
+   spills of every instantiation are printed; and the autograd wrappers'
    gradients (flash attention in both layouts, LayerNorm) against autograd
    through the plain versions. The strided-layout flash attention is checked
    on views of a fused projection output and on contiguous tensors, at
@@ -224,7 +227,16 @@ def bf16_tol(want: torch.Tensor, ulps: int = 2) -> float:
     return ulps * 2.0 ** -7 * max(1.0, want.float().abs().max().item())
 
 
+def deterministic(fa, name, q, k, v, out, lse, dout) -> bool:
+    """Whether BWD_ROUTE gives the same bits on two runs; raises if not."""
+    a, b = (fa.flash_attention_prefix_bwd(q, k, v, out, lse, dout) for _ in range(2))
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"flash bwd {name}: route {fa.BWD_ROUTE} differs between two runs")
+    return True
+
+
 def phase_kernels(dev):
+    from stable_audio_tools_tpu_torch.ops.kernels import _build
     from stable_audio_tools_tpu_torch.ops.kernels import conv1d_snake as cs
     from stable_audio_tools_tpu_torch.ops.kernels import flash_attention as fa
     from stable_audio_tools_tpu_torch.ops.kernels import layer_norm as ln
@@ -298,6 +310,12 @@ def phase_kernels(dev):
         library="autograd through F.scaled_dot_product_attention (backward only)",
         library_ms=cuda_ms(lambda: torch.autograd.grad(lib_out, qkv, dout, retain_graph=True), 20))
     del lib_out, o, qkv
+    # 1d. the training route adds no atomics: two runs give the same bits;
+    #     and what ptxas reported for each instantiation of the source
+    rec["flash_attention_prefix_bwd"]["deterministic"] = deterministic(
+        fa, "[4,24,1025,64]", q, k, v, out, lse, dout)
+    rec["flash_attention_prefix_bwd"]["ptxas"] = {
+        n: r for n, r in _build.ptxas_report("flash_bwd").items() if "flash_bwd" in n}
     rec["flash_attention_prefix_bwd"]["sa2_training_shape"] = long_bwd_checks(fa, randn, F)
 
     rec["flash_attention_nhd"] = nhd_checks(fa, randn, F)
@@ -745,9 +763,11 @@ def long_bwd_checks(fa, randn, F) -> dict:
             ms=cuda_ms(run, 5))
         del got
     del want
+    same = deterministic(fa, "[4,24,6145,64]", q, k, v, out, lse, dout)
     qkv = [t.detach().requires_grad_() for t in (q, k, v)]
     lib_out = F.scaled_dot_product_attention(*qkv)
     rec = dict(shape="q,k,v,dO [4,24,6145,64] bf16, lse f32, unmasked", routes=routes,
+               deterministic=same,
                ms=routes[fa.BWD_ROUTE]["ms"], max_rel_err=routes[fa.BWD_ROUTE]["max_rel_err"],
                plain_ms=cuda_ms(plain, 1),
                library="autograd through F.scaled_dot_product_attention (backward only)",
@@ -2654,6 +2674,16 @@ def main() -> int:
         + "".join(f" [route {k}: {v['ms']:.4f} ms, rel err {v['max_rel_err']:.3g}]"
                   for k, v in r.get("routes", {}).items())
         for n, r in rec.items()), flush=True)
+    bwd = rec["flash_attention_prefix_bwd"]
+    print("phase 2 flash backward (ms; bound; SDPA's backward in this call): " + "; ".join(
+        f"{r['shape'].split(' bf16')[0]} " + ", ".join(
+            f"{k} {v['ms']:.4f}" for k, v in r["routes"].items())
+        + f" ({r['bound_ms']:.4f} by {r['bound_by']}; SDPA {r['library_ms']:.4f})"
+        for r in (bwd, bwd["sa2_training_shape"]))
+        + f"; route {bwd['main_route']} bit-identical on two runs: "
+        f"{bwd['deterministic'] and bwd['sa2_training_shape']['deterministic']}; ptxas "
+        + ", ".join(f"{n} {r['registers']} regs {r['spill_stores']} B spilled"
+                    for n, r in bwd["ptxas"].items()) + f" on {card}", flush=True)
     carry = rec["snake_conv1d"]
     print("phase 2 snake-conv A/B (k=7, ms; row 3 | row 12 | row 12 | row 3; F.conv1d alone on "
           "the pre-snaked input; bound): " + "; ".join(
@@ -2804,7 +2834,8 @@ def main() -> int:
                             shape=r["shape"], **{k: r[k] for k in (
                                 "also_replaces", "main_route", "routes", "max_rel_err",
                                 "autograd_rel_err", "errs", "ab", "shapes", "banded", "vs_row3",
-                                "autograd_errs", "fwd_bwd_ms", "sa2_training_shape")
+                                "autograd_errs", "fwd_bwd_ms", "sa2_training_shape",
+                                "deterministic", "ptxas")
                                 if k in r}))
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
     if unlaunched:

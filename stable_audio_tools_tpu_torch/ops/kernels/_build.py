@@ -6,7 +6,8 @@ Each source compiles on first use with
          -Xcompiler -fPIC
 
 into `build/torch_kernels/<name>-<source hash>.so` at the repository root and
-is loaded with `ctypes`. The sources include no PyTorch header and export a
+is loaded with `ctypes`; `-Xptxas -v`'s report (registers, spills, shared
+memory per kernel) is kept beside it and parsed by `ptxas_report`. The sources include no PyTorch header and export a
 plain C interface, so a build takes seconds. A changed source gets a new
 hash and is rebuilt; an unchanged one is loaded from the build directory.
 
@@ -20,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -30,9 +32,10 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LIB_PATHS: Dict[str, Path] = {}
 # seconds spent in nvcc by this process, per source (0.0 when loaded from disk)
 BUILD_SECONDS: Dict[str, float] = {}
 
@@ -72,12 +75,59 @@ def library(name: str) -> ctypes.CDLL:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stderr}")
         os.replace(tmp, out)
+        out.with_suffix(".ptxas.txt").write_text(proc.stderr)
         BUILD_SECONDS[name] = time.perf_counter() - t0
     else:
         BUILD_SECONDS[name] = 0.0
     lib = ctypes.CDLL(str(out))
     _LIBS[name] = lib
+    _LIB_PATHS[name] = out
     return lib
+
+
+def ptxas_report(name: str) -> Dict[str, dict]:
+    """Per kernel of `csrc/<name>.cu` (built or loaded first), what ptxas
+    reported: registers, spill stores / loads (bytes), stack frame and shared
+    memory (static bytes). Kernel templates are named by their arguments,
+    e.g. `flash_bwd_dkv_kernel<64,2,0>`."""
+    library(name)
+    text = _LIB_PATHS[name].with_suffix(".ptxas.txt").read_text()
+    out, kernel = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            kernel = _kernel_name(m.group(1))
+            out.setdefault(kernel, {})
+            continue
+        if kernel is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[kernel].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[kernel]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[kernel]["static_smem"] = int(m.group(1)) if m else 0
+    return out
+
+
+def _kernel_name(mangled: str) -> str:
+    """`flash_bwd_dkv_kernel<64,0>` from an Itanium-mangled kernel name (its
+    last length-prefixed part; int and bool template arguments only); other
+    names unchanged."""
+    pos = 3 if mangled.startswith("_ZN") else 2 if mangled.startswith("_Z") else 0
+    name = None
+    while pos and pos < len(mangled) and mangled[pos].isdigit():
+        digits = re.match(r"\d+", mangled[pos:]).group()
+        pos += len(digits)
+        name, pos = mangled[pos:pos + int(digits)], pos + int(digits)
+    if name is None:
+        return mangled
+    args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[pos:])
+    return f"{name}<{','.join(re.findall(r'L[ib](\d+)E', args.group(1)))}>" if args else name
 
 
 def bind(name: str, fn: str, argtypes: Sequence) -> ctypes._CFuncPtr:

@@ -84,8 +84,9 @@ MAX_PREFIX_NHD = 128
 HEAD_DIM = 64
 HEAD_DIMS = (64, 128)  # head dims of `flash_attention` and the backward
 BWD_ROUTES = ("fused", "two_pass")
-# the two-pass route measured 2.030 ms against the single pass's 2.145 ms at
-# [4,24,1025,64] on an H100 (PERF.md), and needs no atomics: deterministic
+# the two-pass route measured 6.40 ms against the single pass's 9.22 ms at
+# [4,24,6145,64] and 0.293 against 0.367 ms at [4,24,1025,64] on an H100
+# (PERF.md), and needs no atomics: deterministic
 BWD_ROUTE = "two_pass"
 
 
@@ -217,6 +218,9 @@ def flash_attention_prefix_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                 torch.bfloat16)
     _check_cuda("flash_attention_prefix_bwd", (("lse", lse),), (B, H, N), torch.float32)
     q, k, v, out, lse, dout = (t.contiguous() for t in (q, k, v, out, lse, dout))
+    if any(t.data_ptr() % 16 for t in (q, k, v, dout, lse)):
+        raise ValueError("flash_attention_prefix_bwd: q, k, v, dout and lse must start on "
+                         "16-byte boundaries (the kernels read them through TMA tensor maps)")
     stream, scale, BH = _stream(q), 1.0 / math.sqrt(D), B * H
     left, right = band(causal, window)
     ptr, c_int = ctypes.c_void_p, ctypes.c_int

@@ -426,6 +426,20 @@ BAND_CASES = [
     (1, 2, 190, 64, False, None), (1, 1, 100, 128, False, (500, 500))]
 
 
+# the edges of csrc/flash_bwd.cu's tiles (64 rows; TMA boxes over
+# [B*H, N, D]; lse / dsum boxes from 16-byte-aligned starts): lengths on
+# either side of 64 and 128, D 64 and 128, windows whose edges straddle the
+# tile boundaries, B*H > 1 with a ragged N (the cases of
+# tests/test_torch_flash_bwd_tiles.py, which holds the plain version against
+# the JAX kernels on the CPU)
+TILE_CASES = [
+    (1, 1, 63, 64, False, None), (2, 3, 65, 64, False, None), (1, 2, 64, 128, True, None),
+    (2, 2, 127, 64, True, None), (1, 2, 128, 64, False, (63, 64)),
+    (2, 1, 129, 128, False, (63, 64)), (1, 2, 257, 64, False, (127, 128)),
+    (2, 1, 257, 128, True, (64, -1)), (3, 1, 129, 64, False, (16, -1)),
+    (1, 2, 257, 64, False, (-1, 65)), (2, 2, 65, 128, False, (500, 500))]
+
+
 @pytest.mark.parametrize("B,H,N,D,causal,window", BAND_CASES)
 def test_flash_attention(dev, B, H, N, D, causal, window):
     q, k, v = (_randn(dev, B, H, N, D, seed=i) for i in range(3))
@@ -441,7 +455,7 @@ def test_flash_attention(dev, B, H, N, D, causal, window):
 
 
 @pytest.mark.parametrize("route", ["fused", "two_pass"])
-@pytest.mark.parametrize("B,H,N,D,causal,window", BAND_CASES)
+@pytest.mark.parametrize("B,H,N,D,causal,window", BAND_CASES + TILE_CASES)
 def test_flash_attention_bwd_routes(dev, route, B, H, N, D, causal, window):
     # both backward routes under the band against the plain f32 backward:
     # 2e-2 of each gradient's peak, as the unmasked backward
@@ -453,6 +467,30 @@ def test_flash_attention_bwd_routes(dev, route, B, H, N, D, causal, window):
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all(), name
         assert _rel_err(a, b) < 2e-2, (name, _rel_err(a, b))
+
+
+@pytest.mark.parametrize("B,H,N,D,causal,window", [(2, 3, 1025, 64, False, None),
+                                                   (1, 2, 700, 128, False, (31, 32)),
+                                                   (2, 4, 500, 64, True, None)])
+def test_flash_bwd_two_pass_is_deterministic(dev, B, H, N, D, causal, window):
+    # the training route adds no atomics: two runs give the same bits
+    q, k, v, g = (_randn(dev, B, H, N, D, seed=i) for i in range(4))
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=window)
+    runs = [fa.flash_attention_prefix_bwd(q, k, v, out, lse, g, route="two_pass", causal=causal,
+                                          window=window) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_flash_bwd_raises_on_misaligned_input(dev):
+    # the kernels read their operands through TMA tensor maps, whose base
+    # must lie on 16 bytes: a contiguous view 2 bytes in is refused
+    q, k, v, g = (_randn(dev, 1, 2, 64, 64, seed=i) for i in range(4))
+    out, lse = fa.flash_attention(q, k, v)
+    buf = torch.empty(q.numel() + 1, device=dev, dtype=q.dtype)
+    shifted = buf[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_prefix_bwd(shifted, k, v, out, lse, g)
 
 
 def test_flash_attention_gradients_on_card(dev):
