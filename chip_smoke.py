@@ -33,8 +33,8 @@ Runs from the repository root on a machine with a CUDA card, `nvcc` and
    banded backward (both routes) are held at the LM's causal shapes and
    TAAE's windowed ones (FLASH_SHAPES), each timed beside SDPA with the same
    mask, and `flash_attention_nhd`'s causal backward at [1, 4096, 16, 64].
-   The fused-QKV entry `flash_attention_fused_qkv` (the rotary inside the
-   kernel) is held at SA-2.0's training shape [4, 6145, 24, 64] with rotary
+   The fused-QKV entry `flash_attention_fused_qkv` (the rotary pass, then
+   the attention kernel) is held at SA-2.0's training shape [4, 6145, 24, 64] with rotary
    32 and at FUSED_CASES, its Function's gradient against autograd through
    the plain version (at the training shape too, a few heads at a time),
    timed beside SDPA on pre-rotated q, k, v, and against the rotary pass +
@@ -184,6 +184,46 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def profiled_us(fn, iters: int = 50) -> dict:
+    """What the profiler reads of `iters` calls of fn after a warm-up: the
+    device microseconds a call summed over its kernels, the kernels a call
+    launches, and each kernel's microseconds a call (a launch-sized call's
+    own duration, without the host time between launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return dict(device_us=sum(e.self_device_time_total for e in ks) / iters,
+                kernels_per_call=sum(e.count for e in ks) / iters,
+                by_kernel={e.key[:60]: e.self_device_time_total / iters for e in ks})
+
+
+def one_kernel(profiled: dict, kernel: str, what: str) -> None:
+    """Raises unless a call launched `kernel` and nothing else, once (the
+    profiler may miss the first launch of its window)."""
+    per_call = profiled["kernels_per_call"]
+    if not (all(kernel in k for k in profiled["by_kernel"]) and 0.95 <= per_call <= 1.0):
+        raise AssertionError(f"{what}: not one {kernel} a call: {profiled}")
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Host microseconds a call: `iters` calls enqueued without a sync."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
 def compare(name, got, want, tol):
     err = (got.float() - want.float()).abs().max().item()
     if not torch.isfinite(got.float()).all() or err > tol:
@@ -266,6 +306,8 @@ def phase_kernels(dev):
         plain_ms=cuda_ms(lambda: fa.flash_attention_prefix_plain(q, k, v, 1), 20),
         library="F.scaled_dot_product_attention",
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 50),
+        profiled=profiled_us(lambda: fa.flash_attention_prefix(q, k, v, 1)),
+        library_profiled=profiled_us(lambda: F.scaled_dot_product_attention(q, k, v)),
         **bound(attn_flops(2, 24, 1025, 64), q, k, v, out, lse))
 
     # 1b. its backward at the training path's shape (batch 4, no CFG
@@ -322,44 +364,72 @@ def phase_kernels(dev):
     rec["flash_attention_fused_qkv"] = fused_qkv_checks(fa, randn, F)
     rec["flash_attention"], rec["flash_attention_prefix_bwd"]["banded"] = flash_checks(
         fa, randn, F)
+    rec["flash_attention"]["ptxas"] = {
+        n: r for n, r in _build.ptxas_report("flash_fwd").items() if "flash_" in n}
 
     # 2. DiT block norms: [2, 1025, 1536] bf16, gamma f32
     x = randn(2, 1025, 1536, scale=3.0)
     gamma = randn(1536, dtype=torch.float32)
     y, ref = ln.fused_layer_norm(x, gamma), ln.fused_layer_norm_plain(x, gamma)
     err = compare("layer norm", y, ref, bf16_tol(ref))
+    run = lambda: ln.fused_layer_norm(x, gamma)
+    lib = lambda gb=gamma.to(bf): F.layer_norm(x, (1536,), gb)
     rec["fused_layer_norm"] = dict(
-        route="triton", source="stable_audio_tools_tpu_torch/ops/kernels/layer_norm_triton.py",
+        route="cuda", source="stable_audio_tools_tpu_torch/csrc/layer_norm.cu",
         replaces="stable_audio_tools_tpu/ops/kernels/layer_norm.py:32",
+        also_replaces=["stable_audio_tools_tpu/ops/kernels/layer_norm.py:43"],
         shape="x [2,1025,1536] bf16, gamma f32", max_abs_err=err,
         tol="2 bf16 ulps at max|ref|",
-        ms=cuda_ms(lambda: ln.fused_layer_norm(x, gamma), 200),
-        plain_ms=cuda_ms(lambda: ln.fused_layer_norm_plain(x, gamma), 200),
-        library="F.layer_norm (gamma in bf16)",
-        library_ms=cuda_ms(lambda gb=gamma.to(bf): F.layer_norm(x, (1536,), gb), 200),
+        ms=cuda_ms(run, 200), plain_ms=cuda_ms(lambda: ln.fused_layer_norm_plain(x, gamma), 200),
+        library="F.layer_norm (gamma in bf16)", library_ms=cuda_ms(lib, 200),
+        # launch-sized: the kernel's own duration (profiler) and the host's
+        # time a call, beside the library call's
+        profiled=profiled_us(run), library_profiled=profiled_us(lib),
+        host_us=host_us(run), library_host_us=host_us(lib),
         **bound(8.0 * x.numel(), x, gamma, y))
-    # SA-2.0's rows: 2 x (1 + 6144) of them
+    one_kernel(rec["fused_layer_norm"]["profiled"], "ln_warp_kernel", "fused_layer_norm")
+    # SA-2.0's rows, a bf16 gamma (read as it lies: still one kernel), beta,
+    # and the kernel's edges (row lengths off its 16-byte vectors, past its
+    # warp kernel's reach, row counts that do not fill a block)
     x2 = randn(2, 6145, 1536, scale=3.0)
     ref = ln.fused_layer_norm_plain(x2, gamma)
-    rec["fused_layer_norm"]["max_abs_err"] = max(err, compare(
-        "layer norm [2,6145,1536]", ln.fused_layer_norm(x2, gamma), ref, bf16_tol(ref)))
-    rec["fused_layer_norm"]["shape"] += "; [2,6145,1536] checked"
+    errs = [err, compare("layer norm [2,6145,1536]", ln.fused_layer_norm(x2, gamma), ref,
+                         bf16_tol(ref))]
+    gb, bb = gamma.to(bf), randn(1536)
+    one_kernel(profiled_us(lambda: ln.fused_layer_norm(x, gb, bb)), "ln_warp_kernel",
+               "fused_layer_norm, bf16 gamma and beta")
+    for shape, g_dtype, beta in (((2, 1025, 1536), bf, True), ((5, 1000), torch.float32, False),
+                                 ((3, 100), bf, False), ((7, 16384), torch.float32, True)):
+        xe = randn(*shape, scale=3.0)
+        g_ = randn(shape[-1], dtype=g_dtype)
+        b_ = randn(shape[-1], dtype=g_dtype) if beta else None
+        ref = ln.fused_layer_norm_plain(xe, g_, b_)
+        errs.append(compare(f"layer norm {shape}", ln.fused_layer_norm(xe, g_, b_), ref,
+                            bf16_tol(ref)))
+    rec["fused_layer_norm"]["max_abs_err"] = max(errs)
+    rec["fused_layer_norm"]["shape"] += ("; [2,6145,1536], bf16 gamma + beta, [5,1000], [3,100], "
+                                         "[7,16384] checked")
     del x2, ref
-    # 2b. its autograd Function (Triton forward, plain backward as the JAX
+    # 2b. its autograd Function (the kernel forward, plain backward as the JAX
     #     package's) at the training shape against autograd through the plain
-    #     version: bf16 dx, f32 dgamma, 1% of each gradient's peak
+    #     version: bf16 dx, f32 dgamma, 1% of each gradient's peak; and under
+    #     no_grad (no Function) the same bits as through the Function
     x = randn(4, 1025, 1536, scale=3.0).requires_grad_()
     gamma = randn(1536, dtype=torch.float32).requires_grad_()
     dy = randn(4, 1025, 1536)
     y = ln.fused_layer_norm(x, gamma)
     if y.grad_fn is None:
         raise AssertionError("fused_layer_norm: no grad_fn on a CUDA input that requires grad")
+    with torch.no_grad():
+        if not torch.equal(ln.fused_layer_norm(x, gamma), y):
+            raise AssertionError("fused_layer_norm: no_grad and autograd routes differ")
     got = torch.autograd.grad((y.float() * dy.float()).sum(), (x, gamma))
     want = torch.autograd.grad((ln.fused_layer_norm_plain(x, gamma).float()
                                 * dy.float()).sum(), (x, gamma))
     rec["fused_layer_norm"]["autograd_rel_err"] = max(
         rel_err(f"layer norm autograd {n}", a, b, 1e-2)
         for n, a, b in zip(("dx", "dgamma"), got, want))
+    rec["fused_layer_norm"]["no_grad_bit_identical"] = True
 
     # 3. decoder snakes before each transposed upsample: SA-2.0's groups of 8
     #    chunks of 128 latents, then SA-Open's whole clip [1, C, L]
@@ -788,7 +858,7 @@ FUSED_CASES = (
 
 
 def fused_qkv_checks(fa, randn, F) -> dict:
-    """`flash_attention_fused_qkv` (row 8: the rotary inside the kernel)
+    """`flash_attention_fused_qkv` (row 8: the rotary pass, then the attention kernel)
     against its plain version (unpack, rotary, plain attention) at SA-2.0's
     training shape [4, 6145, 24, 64] with rotary 32 and at FUSED_CASES; its
     autograd Function (forward kernel; rotary re-run, row 6's backward and the
@@ -929,7 +999,10 @@ def fused_qkv_checks(fa, randn, F) -> dict:
         rec["ab"]["[2,6145,24,64] rot 32"] = dict(
             fused_qkv_ms=[turns[0], turns[3]], rotary_plus_nhd_ms=[turns[1], turns[2]],
             rotary_pass_ms=cuda_ms(lambda: [rotate_nhd(t.view(B, N, H, D), cos, sin)
-                                            for t in qkv.chunk(3, dim=-1)[:2]], 10))
+                                            for t in qkv.chunk(3, dim=-1)[:2]], 10),
+            kernel_rotary_pass_ms=cuda_ms(lambda: fa._rope_pass(
+                "flash_attention_fused_qkv", *(t.view(B, N, H, D) for t in
+                                               qkv.chunk(3, dim=-1)[:2]), cos, sin), 10))
     del qkv
     return rec
 
@@ -986,6 +1059,8 @@ def flash_checks(fa, randn, F):
         pairs = B * H * band_pairs(fa, N, causal, window)
         iters = 20 if N * H * B < 50000 else 5
         fwd[name] = dict(
+            profiled=profiled_us(lambda: fa.flash_attention(q, k, v, causal, window)),
+            library_profiled=profiled_us(library),
             ms=cuda_ms(lambda: fa.flash_attention(q, k, v, causal, window), iters),
             plain_ms=cuda_ms(lambda: [fa.flash_attention_plain(
                 q[:, h:h + 1], k[:, h:h + 1], v[:, h:h + 1], causal, window) for h in range(H)], 2),
@@ -1057,7 +1132,7 @@ def flash_checks(fa, randn, F):
         ms=main["ms"], plain_ms=main["plain_ms"],
         library="F.scaled_dot_product_attention (is_causal, or the band as a bool mask)",
         library_ms=main["library_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-        shapes=fwd)
+        profiled=main["profiled"], library_profiled=main["library_profiled"], shapes=fwd)
     banded = dict(shapes=bwd, max_rel_err=max(grad_errs.values()), nhd_causal=nhd_causal,
                   tol=f"max|err| <= {BWD_REL_TOL} x max|plain| per gradient, both routes")
     return forward, banded
@@ -2684,6 +2759,13 @@ def main() -> int:
         f"{bwd['deterministic'] and bwd['sa2_training_shape']['deterministic']}; ptxas "
         + ", ".join(f"{n} {r['registers']} regs {r['spill_stores']} B spilled"
                     for n, r in bwd["ptxas"].items()) + f" on {card}", flush=True)
+    print("phase 2 flash forward: ptxas " + ", ".join(f"{n} {r['registers']} regs {r['spill_stores']} B spilled"
+                                 for n, r in rec["flash_attention"]["ptxas"].items())
+        + f"; launch-sized rows, profiler device us a call (library): " + ", ".join(
+            f"{n} {rec[n]['profiled']['device_us']:.2f} ({rec[n]['library_profiled']['device_us']:.2f})"
+            for n in ("flash_attention_prefix", "flash_attention", "fused_layer_norm"))
+        + f"; fused_layer_norm host us a call {rec['fused_layer_norm']['host_us']:.1f} "
+        f"(F.layer_norm {rec['fused_layer_norm']['library_host_us']:.1f}) on {card}", flush=True)
     carry = rec["snake_conv1d"]
     print("phase 2 snake-conv A/B (k=7, ms; row 3 | row 12 | row 12 | row 3; F.conv1d alone on "
           "the pre-snaked input; bound): " + "; ".join(
@@ -2835,7 +2917,8 @@ def main() -> int:
                                 "also_replaces", "main_route", "routes", "max_rel_err",
                                 "autograd_rel_err", "errs", "ab", "shapes", "banded", "vs_row3",
                                 "autograd_errs", "fwd_bwd_ms", "sa2_training_shape",
-                                "deterministic", "ptxas")
+                                "deterministic", "ptxas", "profiled", "library_profiled",
+                                "host_us", "library_host_us", "no_grad_bit_identical")
                                 if k in r}))
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
     if unlaunched:

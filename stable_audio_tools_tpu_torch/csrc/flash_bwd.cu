@@ -84,22 +84,20 @@
 //   6145 rows (PERF.md).
 // The tensor maps are encoded on the host per call (cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint, so no -lcuda) and passed by value
-// as __grid_constant__ kernel parameters, one per operand. Not used yet:
+// as __grid_constant__ kernel parameters, one per operand. The mbarrier, TMA
+// and wgmma helpers are shared with flash_fwd.cu (hopper.cuh). Not used yet:
 // warp specialisation, a deeper ring, persistent blocks, and overlap of one
 // iteration's last product with the next one's first.
 
-#include <cuda.h>  // CUtensorMap and its enums (types only: no driver library linked)
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int TILE = 64;            // rows of a tile and of a warpgroup's slice
 constexpr int WG_THREADS = 128;     // one warpgroup
 constexpr int SUB_BYTES = 64 * 128; // one swizzled [64 rows][64 bf16] sub-tile
-constexpr float LOG2E = 1.4426950408889634f;
 // lse / dsum boxes: a 1-D TMA box must start on 16 bytes, so a tile's 64
 // entries come in a box of 68 from the start rounded down to 4 entries
 constexpr int ROW_BOX = TILE + 4;
@@ -111,126 +109,6 @@ constexpr int ROW_STAGE = 384;      // bytes of one lse or dsum stage (128-align
 template <int D>
 __host__ __device__ constexpr int min_blocks() { return D == 64 ? 3 : 1; }
 
-// ---- shared memory, mbarriers, TMA --------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// one box of a 3-D map (coordinates innermost first: column, row, b*h)
-__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                       int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_1d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                       int c0) {
-  asm volatile(
-      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
-      "l"((uint64_t)map), "r"(bar), "r"(c0)
-      : "memory");
-}
-
-// ---- wgmma -----------------------------------------------------------------
-
-// Shared-memory operand descriptor of a tile in the 128-byte swizzle (the
-// TMA's CU_TENSOR_MAP_SWIZZLE_128B): rows of 128 bytes, 8-row groups 1024
-// bytes apart (stride byte offset 64 x 16 B); the leading byte offset is not
-// read for this swizzle with one 64-element block in the strided dimension.
-// Read K-major (the product's K along the row) the descriptor advances 32
-// bytes per k-step within a row; read MN-major (K down the rows) 2048 bytes.
-__device__ __forceinline__ uint64_t desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)64 << 32) |
-         ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving reads or writes of an accumulator across
-// the wgmma issue and wait statements
-__device__ __forceinline__ void reg_fence(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define ACC32                                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define ACC32_OUT(d)                                                                      \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),     \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),          \
-      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),       \
-      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
-      "+f"(d[31])
-
-// d[64x64] (+)= A[64x16] B[16x64], both from shared memory; TA / TB read the
-// operand MN-major (transposed); `accumulate` 0 overwrites d
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
-                                         int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ACC32
-      ", %32, %33, p, 1, 1, %35, %36;\n"
-      "}\n"
-      : ACC32_OUT(d)
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
-}
-
-// d[64x64] += A[64x16] B[16x64], A from registers (the m16n8k16 A fragment
-// of each warp's 16 rows), B from shared memory, read MN-major
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ACC32
-      ", {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
-      "}\n"
-      : ACC32_OUT(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
-}
-
 // Byte offset of k-step kk (16 columns) of a [64][D] tile read K-major: the
 // tile is D / 64 swizzled sub-tiles of 64 columns, 8 KB apart.
 __device__ __forceinline__ uint32_t kmajor(int kk) {
@@ -240,33 +118,6 @@ __device__ __forceinline__ uint32_t kmajor(int kk) {
 // Byte offset of k-step kk (16 rows) of 64-column sub-tile h read MN-major.
 __device__ __forceinline__ uint32_t mnmajor(int h, int kk) {
   return (uint32_t)(h * SUB_BYTES + kk * 16 * 128);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// The accumulator of an m64n64 product (32 f32 a thread: element
-// (16 warp + lane / 4 + 8 (e >> 1), 8 g + 2 (lane % 4) + (e & 1)) in
-// register 4 g + e) as the bf16 A fragments of the four k-steps of the next
-// product, whose K is this one's N.
-__device__ __forceinline__ void to_a_frags(const float (&x)[32], uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) a[kk][j] = pack_bf16(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1]);
-}
-
-// key j visible from query i under the band (left / right -1: open side)
-__device__ __forceinline__ bool visible(int i, int j, int left, int right) {
-  return (left < 0 || j >= i - left) && (right < 0 || j <= i + right);
 }
 
 // whether the per-element mask is needed for the tile pair
@@ -352,10 +203,6 @@ struct DqSmem {
   static constexpr int BAR = V + 2 * TILE_B;
   static constexpr int BYTES = BAR + 3 * 8 + 1024;
 };
-
-__device__ __forceinline__ uint32_t aligned_base(const unsigned char* raw) {
-  return (smem_u32(raw) + 1023u) & ~1023u;
-}
 
 // Issue the TMA copies of one [64][D] tile (D / 64 boxes) at rows row0 of
 // head bh.
@@ -674,24 +521,6 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
 
 // ---- host ------------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
 // [BH, N, D] bf16 as a 3-D map, box 64 x 64 x 1, 128-byte swizzle; rows past
 // N (and past the last head) read as zeros
 bool map_rows(CUtensorMap* map, const void* ptr, int BH, int N, int D) {
@@ -717,11 +546,6 @@ bool map_flat(CUtensorMap* map, const void* ptr, int count) {
              box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
-}
-
-template <typename K>
-int set_smem(K kernel, int bytes) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 template <int D>

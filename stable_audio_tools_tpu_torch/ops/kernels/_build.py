@@ -36,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LIB_PATHS: Dict[str, Path] = {}
+_FNS: Dict[tuple, ctypes._CFuncPtr] = {}
 # seconds spent in nvcc by this process, per source (0.0 when loaded from disk)
 BUILD_SECONDS: Dict[str, float] = {}
 
@@ -131,11 +132,15 @@ def _kernel_name(mangled: str) -> str:
 
 
 def bind(name: str, fn: str, argtypes: Sequence) -> ctypes._CFuncPtr:
-    """`fn` from `csrc/<name>.cu` with its argument types declared; every
-    entry point returns the launch's cudaError_t as an int."""
-    f = getattr(library(name), fn)
-    f.argtypes = list(argtypes)
-    f.restype = ctypes.c_int
+    """`fn` from `csrc/<name>.cu` with its argument types declared (at the
+    first call; an entry point keeps one signature); every entry point
+    returns the launch's cudaError_t as an int."""
+    f = _FNS.get((name, fn))
+    if f is None:
+        f = getattr(library(name), fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+        _FNS[(name, fn)] = f
     return f
 
 

@@ -4,10 +4,11 @@ strided-layout entry `flash_attention_nhd` and the fused-QKV entry
 `flash_attention_fused_qkv`.
 
 The four forward entries compute one function and launch one kernel,
-`csrc/flash_fwd.cu`, which reads each operand through its own (batch, head,
-row) strides (views of the projections need no copy) and visits only the key
-tiles of each query tile's band. Each entry keeps the TPU kernel it
-replaces, its checks and its launch counter.
+`csrc/flash_fwd.cu` (warp-specialised `wgmma` with a TMA ring), which reads
+each operand through its own (batch, head, row) strides (views of the
+projections need no copy) and visits only the key tiles of each query
+block's band. Each entry keeps the TPU kernel it replaces, its checks and
+its launch counter.
 
 `flash_attention(q, k, v, causal=False, window=None)` computes
 softmax(QK^T / sqrt(d) + mask) V over [B, H, N, D], D in {64, 128}, any N,
@@ -60,7 +61,8 @@ under the causal band), as the JAX package's `_nhd_bwd` reuses
 is the same attention read off the fused projection [B, N, 3*H*D] (the
 concat layout of `to_qkv`) as strided [B, H, N, D] views, with the partial
 half-split rotary of the f32 tables cos, sin [N, rot_dim] applied to q and k
-inside the kernel (the kernel's `ROPE` flag; D 64 or 128, rot_dim 0 or any
+by the source's rotary pass ahead of the attention kernel (into contiguous
+[B, N, H, D] buffers freed after the call; D 64 or 128, rot_dim 0 or any
 even value up to D), causal, windowed or unmasked, any N; it returns
 [B, N, H, D]. Its backward re-runs the unpack and rotary in plain PyTorch
 and reuses `flash_attention_prefix_bwd`, as the JAX package's `_fused_bwd`
@@ -166,8 +168,15 @@ def flash_attention_prefix_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _grad_needed(*tensors) -> bool:
+    """Whether autograd could need a backward through these inputs; when it
+    cannot, the entries launch their kernel without an autograd node (its
+    host cost is the larger part of a launch-sized call)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _check_cuda(name: str, tensors, shape, dtype) -> None:
@@ -283,6 +292,8 @@ def flash_attention_prefix(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
+    if q.is_cuda and not _grad_needed(q, k, v):
+        return _launch_prefix(q, k, v, prefix_len)
     return _FlashAttentionPrefix.apply(q, k, v, prefix_len)
 
 
@@ -303,24 +314,39 @@ def _bhnd_strides(entry: str, name: str, t: torch.Tensor):
     return sb, sh, sn
 
 
-def _run_flash_fwd(entry, q, k, v, out, lse, causal, window, cos=None, sin=None) -> None:
+def _run_flash_fwd(entry, q, k, v, out, lse, causal, window) -> None:
     """Launch `csrc/flash_fwd.cu` on q, k, v, out [B, H, N, D] (views through
-    their own strides) and lse [B, H, N] f32 under the causal / window band;
-    with rotary tables cos, sin [N, rot_dim] f32 the kernel rotates q and k."""
+    their own strides) and lse [B, H, N] f32 under the causal / window band."""
     B, H, N, D = q.shape
     strides = [s for name, t in (("q", q), ("k", k), ("v", v), ("out", out))
                for s in _bhnd_strides(entry, name, t)]
     left, right = band(causal, window)
     ptr = ctypes.c_void_p
     fn = _build.bind("flash_fwd", "flash_fwd", [ptr] * 5 + [
-        ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 6 + [ctypes.c_float, ptr, ptr,
-                                                                   ctypes.c_int, ptr])
-    rot_dim = 0 if cos is None else cos.shape[-1]
+        ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 6 + [ctypes.c_float, ptr])
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
               (ctypes.c_longlong * 12)(*strides), B, H, N, D, left, right,
-              1.0 / math.sqrt(D), None if cos is None else cos.data_ptr(),
-              None if sin is None else sin.data_ptr(), rot_dim, _stream(q))
+              1.0 / math.sqrt(D), _stream(q))
     _build.check(code, f"{entry} (flash_fwd)")
+
+
+def _rope_pass(entry, q, k, cos, sin):
+    """q, k [B, N, H, D] (views through their strides) rotated by the tables
+    cos, sin [N, rot_dim] f32 into new contiguous [B, N, H, D] tensors by
+    `csrc/flash_fwd.cu`'s rotary pass."""
+    B, N, H, D = q.shape
+    strides = [s for name, t in (("q", q), ("k", k))
+               for s in _bhnd_strides(entry, name, t.transpose(1, 2))]
+    qr, kr = torch.empty_like(q, memory_format=torch.contiguous_format), torch.empty_like(
+        k, memory_format=torch.contiguous_format)
+    ptr = ctypes.c_void_p
+    fn = _build.bind("flash_fwd", "flash_fwd_rope", [ptr] * 4 + [
+        ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 4 + [ptr, ptr, ctypes.c_int, ptr])
+    code = fn(q.data_ptr(), k.data_ptr(), qr.data_ptr(), kr.data_ptr(),
+              (ctypes.c_longlong * 6)(*strides), B, H, N, D, cos.data_ptr(), sin.data_ptr(),
+              cos.shape[-1], _stream(q))
+    _build.check(code, f"{entry} (flash_fwd_rope)")
+    return qr, kr
 
 
 def _launch_flash(q, k, v, causal, window):
@@ -371,6 +397,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
     window = None if window is None else (int(window[0]), int(window[1]))
+    if q.is_cuda and not _grad_needed(q, k, v):
+        return _launch_flash(q, k, v, bool(causal), window)
     return _FlashAttention.apply(q, k, v, bool(causal), window)
 
 
@@ -445,6 +473,8 @@ def flash_attention_nhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not 0 <= prefix_len <= MAX_PREFIX_NHD or prefix_len >= q.shape[1]:
         raise ValueError(f"prefix_len {prefix_len} outside [0, {MAX_PREFIX_NHD}] or not "
                          f"below N={q.shape[1]}")
+    if q.is_cuda and not _grad_needed(q, k, v):
+        return _launch_nhd(q, k, v, bool(causal))[0]
     return _FlashAttentionNHD.apply(q, k, v, bool(causal), int(prefix_len))
 
 
@@ -485,6 +515,7 @@ def _launch_fused(qkv, cos, sin, heads, causal, window):
         raise ValueError(f"flash_attention_fused_qkv: head dim {D}, kernel takes {HEAD_DIMS}")
     _check_cuda("flash_attention_fused_qkv", (("qkv", qkv),), (B, N, 3 * heads * D),
                 torch.bfloat16)
+    q, k, v = qkv.view(B, N, 3, heads, D).unbind(2)
     if cos is not None:
         rot = cos.shape[-1]
         _check_cuda("flash_attention_fused_qkv", (("cos", cos), ("sin", sin)), (N, rot),
@@ -493,11 +524,11 @@ def _launch_fused(qkv, cos, sin, heads, causal, window):
                 or cos.data_ptr() % 16 or sin.data_ptr() % 16):
             raise ValueError(f"flash_attention_fused_qkv: rotary tables [{N}, {rot}] must be "
                              f"contiguous and 16-byte aligned with an even width of at most {D}")
-    q, k, v = (t.transpose(1, 2) for t in qkv.view(B, N, 3, heads, D).unbind(2))
+        q, k = _rope_pass("flash_attention_fused_qkv", q, k, cos, sin)
     out = torch.empty((B, N, heads, D), device=qkv.device, dtype=qkv.dtype)
     lse = torch.empty((B, heads, N), device=qkv.device, dtype=torch.float32)
-    _run_flash_fwd("flash_attention_fused_qkv", q, k, v, out.transpose(1, 2), lse, causal,
-                   window, cos, sin)
+    _run_flash_fwd("flash_attention_fused_qkv", *(t.transpose(1, 2) for t in (q, k, v, out)),
+                   lse, causal, window)
     flash_attention_fused_qkv.launches += 1
     return out, lse
 
@@ -551,6 +582,8 @@ def flash_attention_fused_qkv(qkv: torch.Tensor, cos: Optional[torch.Tensor],
     if (cos is None) != (sin is None):
         raise ValueError("flash_attention_fused_qkv: give both rotary tables or neither")
     window = None if window is None else (int(window[0]), int(window[1]))
+    if qkv.is_cuda and not _grad_needed(qkv):
+        return _launch_fused(qkv, cos, sin, int(heads), bool(causal), window)[0]
     return _FlashAttentionFusedQKV.apply(qkv, cos, sin, int(heads), bool(causal), window)
 
 

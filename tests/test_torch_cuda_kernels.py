@@ -67,6 +67,52 @@ def test_fused_layer_norm(dev, C, beta):
     _close(ln.fused_layer_norm(x, g, b), ln.fused_layer_norm_plain(x, g, b))
 
 
+# the edges of csrc/layer_norm.cu: rows of 16-byte vectors over 1 to 16
+# vectors a lane (64 to 4096 bf16), lengths off the vector (100) and past
+# the warp kernel's reach (16384) that take the block kernel, row counts
+# that do not fill a 4-row block, gamma / beta in f32 and bf16
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32, torch.float16])
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [64, 100, 768, 1000, 1024, 1536, 2048, 4096, 16384])
+def test_fused_layer_norm_edges(dev, C, g_dtype, x_dtype):
+    for rows, beta in ((1, False), (5, True), (2050, False)):
+        x = _randn(dev, rows, C, scale=3.0, dtype=x_dtype)
+        g = _randn(dev, C, dtype=g_dtype, seed=1)
+        b = _randn(dev, C, dtype=g_dtype, seed=2) if beta else None
+        _close(ln.fused_layer_norm(x, g, b), ln.fused_layer_norm_plain(x, g, b))
+
+
+def test_fused_layer_norm_is_one_launch(dev):
+    # one kernel a call, with gamma in f32 or bf16 (no cast launch), and under
+    # no_grad the same bits as the autograd route
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = _randn(dev, 2, 1025, 1536, scale=3.0)
+    for g in (_randn(dev, 1536, dtype=torch.float32, seed=1),
+              _randn(dev, 1536, dtype=torch.bfloat16, seed=1)):
+        ln.fused_layer_norm(x, g)
+        torch.cuda.synchronize()
+        before = ln.fused_layer_norm.launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                ln.fused_layer_norm(x, g)
+            torch.cuda.synchronize()
+        # every kernel in the window is the LayerNorm's own (a cast of gamma
+        # would add as many again under another name); the profiler may miss
+        # the first launch of its window
+        kernels = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+        assert all("ln_warp_kernel" in k for k in kernels), kernels
+        assert 19 <= sum(kernels.values()) <= 20, kernels
+        assert ln.fused_layer_norm.launches - before == 20
+    xg = x.detach().clone().requires_grad_()
+    y = ln.fused_layer_norm(xg, g)
+    assert y.grad_fn is not None
+    with torch.no_grad():
+        y0 = ln.fused_layer_norm(x, g)
+    assert y0.grad_fn is None and torch.equal(y0, y.detach())
+
+
 def test_snake_fused(dev):
     x = _randn(dev, 2, 33, 5000, scale=2.0)
     a = _randn(dev, 33, dtype=torch.float32, seed=1).exp()
@@ -519,6 +565,60 @@ def test_flash_attention_raises_on_unreadable_input(dev):
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention_prefix_bwd(*(_randn(dev, 1, 2, 70, 96),) * 5,
                                       torch.zeros(1, 2, 70, device=dev))
+
+
+# the edges of csrc/flash_fwd.cu's forward kernels (128-row blocks of two
+# 64-row warpgroups, 128-key tiles, 4-D TMA maps over the caller's
+# strides): lengths on either side of 64, 128 and
+# 192, D 64 and 128, windows whose edges straddle the block edges, B*H > 1
+# with a ragged N (the cases of tests/test_torch_flash_fwd_tiles.py, which
+# holds the plain version against the JAX kernels on the CPU)
+FWD_TILE_CASES = [
+    (1, 1, 63, 64, False, None), (2, 3, 65, 64, False, None), (1, 2, 127, 128, True, None),
+    (2, 2, 129, 64, True, None), (1, 2, 191, 64, False, (63, 64)),
+    (2, 1, 193, 128, False, (127, 128)), (3, 1, 193, 64, True, (64, -1)),
+    (1, 2, 257, 64, False, (-1, 65)), (2, 1, 255, 128, False, (16, -1)),
+    (1, 1, 300, 64, False, (128, 0))]
+
+
+@pytest.mark.parametrize("B,H,N,D,causal,window", FWD_TILE_CASES)
+def test_flash_forward_tile_edges(dev, B, H, N, D, causal, window):
+    q, k, v = (_randn(dev, B, H, N, D, seed=i) for i in range(3))
+    out, lse = fa._launch_flash(q, k, v, causal, window)
+    want, want_lse = fa.flash_attention_plain(q, k, v, causal, window)
+    _close(out, want)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("B,N,H,P,layout", [(1, 1025, 2, 1, "fused_views"),
+                                            (1, 6145, 2, 1, "fused_views"),
+                                            (2, 193, 3, 0, "contiguous"),
+                                            (2, 129, 2, 3, "fused_views")])
+def test_flash_forward_nhd_tile_edges(dev, B, N, H, P, layout):
+    # SA-Open's and SA-2.0's 1-token prefix at a narrow width, in the NHD
+    # layout: views of one fused projection (three maps over one pointer)
+    # or contiguous tensors
+    fused = _randn(dev, B, N, 3 * H * 64, seed=5)
+    q, k, v = (t.view(B, N, H, 64) for t in fused.chunk(3, dim=-1))
+    if layout == "contiguous":
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out, lse = fa._launch_nhd(q, k, v, False)
+    want, want_lse = fa.flash_attention_nhd_plain(q, k, v, False, P)
+    _close(out, want)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("B,N,H,D,rot,causal,window", [
+    (1, 129, 2, 64, 32, False, None), (2, 65, 2, 64, 64, True, None),
+    (1, 193, 2, 128, 128, False, (63, 64)), (1, 127, 2, 128, 32, True, None),
+    (2, 191, 1, 64, 32, False, (-1, 65))])
+def test_flash_forward_fused_qkv_tile_edges(dev, B, N, H, D, rot, causal, window):
+    # the rotary pass (rot_dim 32 and rot_dim = D) and the attention kernel
+    qkv, cos, sin = _fused_inputs(dev, B, N, H, D, rot)
+    out, lse = fa._launch_fused(qkv, cos, sin, H, causal, window)
+    want, want_lse = fa.flash_attention_fused_qkv_plain(qkv, cos, sin, H, causal, window)
+    _close(out, want)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
 
 
 # (B, N, H, D, rot_dim, causal, window): SA-2.0's rotary (32 of 64) unmasked

@@ -90,6 +90,65 @@ def test_fused_layer_norm_plain_matches_pallas(with_beta):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("gamma_dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("with_beta", [False, True])
+@pytest.mark.parametrize("C", [64, 768, 1000, 1024, 1536, 2048])
+def test_fused_layer_norm_edges_match_pallas(C, with_beta, gamma_dtype):
+    # the CUDA kernel's edges: row lengths that are and are not multiples of
+    # its 16-byte vectors and 256-element warp rows, row counts that do not
+    # fill a 4-row block, gamma / beta in f32 and bf16 (read in their own
+    # dtype). The Pallas kernel (interpret mode) and the port's plain version
+    # take the same f32 x and the same bf16-representable parameters; two-pass
+    # f32 statistics on both sides: agreement to f32 rounding
+    rng = np.random.default_rng(C)
+    for rows in (1, 5, 301):
+        x = (rng.standard_normal((rows, C)) * 3 + 1).astype(np.float32)
+        g = rng.standard_normal(C).astype(np.float32)
+        b = rng.standard_normal(C).astype(np.float32) if with_beta else None
+        jdt = jnp.bfloat16 if gamma_dtype == "bfloat16" else jnp.float32
+        tdt = torch.bfloat16 if gamma_dtype == "bfloat16" else torch.float32
+        jg = jnp.asarray(g).astype(jdt)
+        jb = None if b is None else jnp.asarray(b).astype(jdt)
+        want = jln._ln_forward(jnp.asarray(x), jg, jb, 1e-5)
+        tg = torch.from_numpy(g).to(tdt)
+        tb = None if b is None else torch.from_numpy(b).to(tdt)
+        got = tln.fused_layer_norm(_t(x), tg, tb, 1e-5)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+        # the JAX entry (its plain XLA formula off the TPU) computes the same
+        np.testing.assert_allclose(got.numpy(), np.asarray(jln.fused_layer_norm(
+            jnp.asarray(x), jg, jb, 1e-5)), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("with_beta", [False, True])
+@pytest.mark.parametrize("C", [768, 1000, 1536])
+def test_fused_layer_norm_gradient_matches_custom_vjp(C, with_beta):
+    # the JAX package's custom_vjp (`_fused_ln_nobeta` / `_fused_ln_beta`:
+    # the Pallas forward in interpret mode, `_ln_backward` in XLA) against
+    # the port's plain forward and `fused_layer_norm_bwd_plain`, the backward
+    # of its autograd Function; f32 on both sides, the parameter gradients
+    # sum over rows in another order: 1e-5 of each gradient's peak
+    rng = np.random.default_rng(C + 1)
+    x = (rng.standard_normal((3, 37, C)) * 2 - 0.5).astype(np.float32)
+    g = rng.standard_normal(C).astype(np.float32)
+    b = rng.standard_normal(C).astype(np.float32)
+    w = rng.standard_normal((3, 37, C)).astype(np.float32)
+    if with_beta:
+        loss = lambda x, g, b: jnp.sum(jnp.asarray(w) * jln._fused_ln_beta(x, g, b, 1e-5))
+        want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b))
+    else:
+        loss = lambda x, g: jnp.sum(jnp.asarray(w) * jln._fused_ln_nobeta(x, g, 1e-5))
+        want = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(g))
+    y = tln.fused_layer_norm(_t(x), _t(g), _t(b) if with_beta else None, 1e-5)
+    want_y = jln._ln_forward(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b) if with_beta else None,
+                             1e-5)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), atol=1e-5, rtol=1e-5)
+    got = tln.fused_layer_norm_bwd_plain(_t(x), _t(g), _t(w), 1e-5)
+    for name, a, r in zip(("dx", "dgamma", "dbeta"), got, want):
+        r = np.asarray(r)
+        err = np.abs(a.numpy() - r).max() / np.abs(r).max()
+        assert err <= 1e-5, (name, err)
+
+
 def _snake_inputs(rng, C, L):
     x = (rng.standard_normal((2, L, C)) * 2).astype(np.float32)
     alpha = np.exp(rng.standard_normal(C) * 0.5).astype(np.float32)
