@@ -47,7 +47,10 @@ Runs from the repository root on a machine with a CUDA card, `nvcc` and
    the plain version and of row 3 (`snake_conv1d_res` with a zero residual:
    equal bit for bit by design, counted); rows 3 and 12 are timed in turns
    at [1, 128, 2097152] k=7 d=9 and at SA-2.0's decode levels, beside the
-   bound and `F.conv1d` alone on the pre-snaked input.
+   bound and `F.conv1d` alone on the pre-snaked input; row 3's k = 1 conv +
+   residual at the five decode levels beside its byte bound and `F.conv1d`
+   k = 1 on the pre-snaked input plus the residual; ptxas's registers and
+   spills of every instantiation of the two kernels are printed.
 3. Generation: SA-Open (the shipped stable_audio_open_1_0.json, built by the
    port's factory, random weights from a seeded torch.Generator, random T5)
    runs generate_diffusion_cond with cfg 6, dpmpp-3m-sde, sigma in [0.3, 500],
@@ -118,7 +121,8 @@ Runs from the repository root on a machine with a CUDA card, `nvcc` and
    RoBERTa-base file: (a) its pretransform saved as a port checkpoint and
    `python -m stable_audio_tools_tpu_torch.pre_encode` over 8 synthetic
    stereo WAVs of 290-300 s (latents [64, 6144], finite, masks of 6144;
-   launches as counted from the encoder);
+   launches as counted from the encoder), then one clip's encode under the
+   profiler (busy share, top kernels);
    (b) training from those latents through the code path of `python -m
    stable_audio_tools_tpu_torch.train` with `pre_encoded` and `mask_padding`,
    batch 4 x 6144 latents: 2 warm-up and 5 timed steps, the pieces of one
@@ -528,7 +532,11 @@ def phase_kernels(dev):
         shape="x [1,128,2097152] k=1 + residual bf16 (timed; 4 SA-Open and 5 SA-2.0 "
               "decoder shapes checked)",
         max_abs_err=max(errs), tol="2 bf16 ulps at max|ref|",
-        ms=cuda_ms(run, 3), plain_ms=cuda_ms(plain, 3), library=None, library_ms=None, **least)
+        ms=cuda_ms(run, 3), plain_ms=cuda_ms(plain, 3), library=None, library_ms=None,
+        sa2_levels=[res_level(cs, F, randn, 8, C, L) for C, L in SA2_CHUNK_LEVELS], **least)
+    # what ptxas reported for each instantiation of the forward kernels
+    rec["snake_conv1d"]["ptxas"] = {
+        n: r for n, r in _build.ptxas_report("snake_conv1d").items() if "snake_conv1d" in n}
     rec.update(ae_backward_checks(sn, cs, randn, rec, hold_row3))
     rec["snake_conv1d"]["vs_row3"] = dict(max_abs_diff=max(carry["vs_row3"]),
                                           bitwise_equal_cases=carry["bitwise"],
@@ -540,10 +548,9 @@ def carry_ab(cs, F, randn, B, C, L, d, iters=3) -> dict:
     """Rows 3 and 12 timed in turns (row 3, row 12, row 12, row 3) on one
     k = 7 residual-unit conv [B, C, L] at dilation d (row 3 through
     `snake_conv1d_res` with a zero residual, which adds one read of the
-    output's size; row 12's strip length: 1 where the carry would cost
-    occupancy), and `F.conv1d` alone on the pre-snaked input (the conv
-    without the snake: not the same function, the reference for the kernels'
-    next redesign)."""
+    output's size; row 12's strip length and whether it carries), and
+    `F.conv1d` alone on the pre-snaked input (the conv without the snake: not
+    the same function, the reference for the kernels' data movement)."""
     x = randn(B, C, L)
     w = randn(C, C, 7, scale=(C * 7) ** -0.5)
     bias = randn(C, dtype=torch.float32) * 0.1
@@ -553,14 +560,34 @@ def carry_ab(cs, F, randn, B, C, L, d, iters=3) -> dict:
     row3 = lambda: cs.snake_conv1d_res(x, w, bias, a, b, zero, pad, pad, d)
     row12 = lambda: cs.snake_conv1d(x, w, bias, a, b, pad, pad, d)
     turns = [cuda_ms(fn, iters) for fn in (row3, row12, row12, row3)]
+    strip, carried = cs.carry_strip_tiles(B, C, C, L, 7, d)
     out = dict(shape=f"[{B},{C},{L}] k=7 d={d}", row3_ms=[turns[0], turns[3]],
-               carry_ms=[turns[1], turns[2]],
-               strip_tiles=cs.carry_strip_tiles(B, C, C, L, 7, d))
+               carry_ms=[turns[1], turns[2]], strip_tiles=strip, carried=carried)
     sx = cs._snake_f32(x, a, b).to(x.dtype)
     bias_bf = bias.to(x.dtype)
     out["conv_only_ms"] = cuda_ms(lambda: F.conv1d(sx, w, bias_bf, padding=pad, dilation=d),
                                   iters)
     out.update(bound(2.0 * B * C * C * 7 * L, x, w, bias, a, b, x))
+    out["share_of_bound"] = out["bound_ms"] / min(out["carry_ms"])
+    return out
+
+
+def res_level(cs, F, randn, B, C, L, iters=3) -> dict:
+    """Row 3 (`snake_conv1d_res`) on one residual unit's k = 1 conv + skip
+    [B, C, L], beside its byte bound (x and the residual read once, y written
+    once) and `F.conv1d` k = 1 on the pre-snaked input plus the residual add
+    (without the snake: the reference for the kernel's data movement)."""
+    x, r = randn(B, C, L), randn(B, C, L)
+    w = randn(C, C, 1, scale=C ** -0.5)
+    bias = randn(C, dtype=torch.float32) * 0.1
+    a, b = randn(C, dtype=torch.float32).exp(), randn(C, dtype=torch.float32).exp()
+    run = lambda: cs.snake_conv1d_res(x, w, bias, a, b, r, 0, 0, 1)
+    out = dict(shape=f"[{B},{C},{L}] k=1 + residual", ms=cuda_ms(run, iters))
+    sx = cs._snake_f32(x, a, b).to(x.dtype)
+    bias_bf = bias.to(x.dtype)
+    out["conv_plus_res_ms"] = cuda_ms(lambda: F.conv1d(sx, w, bias_bf) + r, iters)
+    out.update(bound(2.0 * B * C * C * L, x, w, bias, a, b, r, x))
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
     return out
 
 
@@ -2524,6 +2551,36 @@ def sa2_training_launches(model, steps: int) -> dict:
                 fused_layer_norm=(2 * in_blocks + outside) * steps)
 
 
+def encode_profile(dev, vae_ckpt: str) -> dict:
+    """The pre-encode's encoder (the SA-2.0 VAE from `vae_ckpt`, bf16, no
+    grad) on one seeded clip of SA2_SAMPLE_SIZE samples under the profiler
+    after a warm-up: wall, device busy share and the largest kernels, so the
+    share of the snake-conv forwards in an encode is read, not assumed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from stable_audio_tools_tpu_torch.io.checkpoints import load_model_state
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config
+
+    with open(SA2_VAE) as f:
+        model = create_model_from_config(json.load(f), dev)
+    load_model_state(vae_ckpt, model)
+    model.eval().requires_grad_(False)
+    clip = (torch.randn(1, 2, SA2_SAMPLE_SIZE, generator=torch.Generator(device=dev).manual_seed(5),
+                        device=dev) * 0.3).to(torch.bfloat16)
+    encode = lambda: model.encode(clip, generator=torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        encode()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            encode()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    out = profile_reading(prof.key_averages(), wall_us)
+    return {k: out[k] for k in ("wall_ms", "device_ms", "device_busy", "kernel_launches",
+                                "top_kernels_ms")}
+
+
 def phase_sa2_training(dev) -> dict:
     """9a: pre-encode the WAVs with the SA-2.0 model's pretransform; 9b: train
     from the latents at batch 4 x 6144; 9c: train from audio at batch 1 x
@@ -2590,6 +2647,7 @@ def phase_sa2_training(dev) -> dict:
                 "snake_fused") or set(enc_launches) - set(want) - {"snake_fused"}:
             raise AssertionError(f"pre-encode of {SA2_WAVS} clips launched {enc_launches}, "
                                  f"expected {want} and snake_fused")
+        rec["pre_encode"]["clip_profile"] = encode_profile(dev, vae_ckpt)
         torch.cuda.empty_cache()
         files = sorted(f for f in os.listdir(enc["out_dir"]) if f.endswith(".npy"))
         if enc["items"] != SA2_WAVS or len(files) != SA2_WAVS:
@@ -2771,9 +2829,16 @@ def main() -> int:
           "the pre-snaked input; bound): " + "; ".join(
               f"{r['shape']} {r['row3_ms'][0]:.4f} | {r['carry_ms'][0]:.4f} | "
               f"{r['carry_ms'][1]:.4f} | {r['row3_ms'][1]:.4f}; {r['conv_only_ms']:.4f}; "
-              f"{r['bound_ms']:.4f} (strips of {r['strip_tiles']} tiles)"
+              f"{r['bound_ms']:.4f} (strips of {r['strip_tiles']} tiles, carry {r['carried']})"
               for r in [carry["ab"]["timed"], *carry["ab"]["sa2_levels"]])
           + f"; row 12 vs row 3: {json.dumps(carry['vs_row3'])} on {card}", flush=True)
+    print("phase 2 snake-conv row 3, k=1 + residual at SA-2.0's decode levels (ms; F.conv1d "
+          "k=1 on the pre-snaked input + the residual; byte bound): " + "; ".join(
+              f"{r['shape']} {r['ms']:.4f}; {r['conv_plus_res_ms']:.4f}; {r['bound_ms']:.4f}"
+              for r in rec["snake_conv1d_res"]["sa2_levels"])
+          + "; ptxas " + ", ".join(f"{n} {r['registers']} regs {r['spill_stores']} B spilled"
+                                   for n, r in carry["ptxas"].items()) + f" on {card}",
+          flush=True)
 
     main_rec = phase_main_path(dev)
     print(f"phase 3 generation: SA-Open {main_rec['params'] / 1e9:.3f}B params, {STEPS} steps "
@@ -2879,7 +2944,10 @@ def main() -> int:
           f"{sa2t['params'] / 1e9:.3f}B; 9a pre-encode {enc['items']} clips of "
           f"{SA2_SAMPLE_SIZE} samples: {enc['encode_ms_median']:.1f} ms/clip median "
           f"({', '.join(f'{x:.1f}' for x in enc['encode_ms'])}), wall {enc['wall_s']:.1f} s, "
-          f"peak {enc['peak_gib']:.2f} GiB; 9b from latents, batch {SA2_TRAIN_BATCH} x "
+          f"peak {enc['peak_gib']:.2f} GiB, one clip under the profiler "
+          f"{enc['clip_profile']['wall_ms']:.1f} ms, busy {enc['clip_profile']['device_busy']:.3f}, "
+          f"top kernels ms {json.dumps(enc['clip_profile']['top_kernels_ms'])}; "
+          f"9b from latents, batch {SA2_TRAIN_BATCH} x "
           f"{SA2_LATENTS} latents, mask_padding: step {sa2t['step_ms_median']:.1f} ms median of "
           f"{TIMED_STEPS} ({', '.join(f'{x:.1f}' for x in sa2t['step_ms'])}), "
           f"{sa2t['audio_s_per_s']:.2f} audio-s trained/s, peak {sa2t['peak_gib']:.2f} GiB, "

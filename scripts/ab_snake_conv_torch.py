@@ -2,6 +2,7 @@
 encode in one checkout of the repo, to compare two commits on one CUDA card.
 
     python scripts/ab_snake_conv_torch.py --root DIR --label NAME --out OUT
+    python scripts/ab_snake_conv_torch.py --root DIR --label NAME --out OUT --plain
     python scripts/ab_snake_conv_torch.py --compare OUT/A.pt OUT/B.pt
 
 The first form imports `stable_audio_tools_tpu_torch` from DIR (a checkout,
@@ -10,12 +11,16 @@ same inputs go through that checkout's kernels. On seeded bf16 inputs it
 times, with CUDA events after a warm-up:
 - `snake_conv1d` at [1, 128, 2097152] k=7 d=9 and at the five decoder levels
   of one SA-2.0 chunk group (batch 8, d = 1, 3, 9);
-- `snake_conv1d_res` at [1, 128, 2097152] k=7 d=9;
+- `snake_conv1d_res` at [1, 128, 2097152] k=7 d=9, and at k = 1 with the
+  residual (the residual units' second conv) at the five decoder levels;
 and, on the synchronised host clock, the SA-2.0 VAE (`stable_audio_2_0.json`'s
 pretransform, random weights from a seed, chunked) decoding 6144 seeded
 latents and encoding one seeded 12,582,912-sample clip (1 warm-up, 3 timed
 calls each). It prints one JSON line and saves the decoded audio and the
-latents to OUT/NAME.pt. The second form holds two such files against each
+latents to OUT/NAME.pt. With --plain it times no kernel and runs the decode
+and the encode with every snake-conv forward replaced by its plain version
+computed in f32 and rounded to bf16 (a reference for the summation orders
+of two commits' kernels). The last form holds two such files against each
 other and prints whether the outputs are equal, or their largest difference
 over the first file's peak.
 
@@ -69,11 +74,23 @@ def conv_inputs(dev, B, C, L, seed):
     return x, w, bias, a, b
 
 
-def run(root: str, label: str, out_dir: str) -> dict:
+def plain_f32(cs, conv):
+    """Replace the snake-conv forwards that the model's convs call with their
+    plain versions in f32, each output rounded to the input's dtype."""
+    def fwd(x, w, bias, alpha, beta, pad_lo, pad_hi, d, residual=None):
+        res = None if residual is None else residual.float()
+        return cs.snake_conv1d_plain(x.float(), w.float(), bias, alpha, beta, pad_lo, pad_hi, d,
+                                     res).to(x.dtype)
+
+    torch.backends.cudnn.allow_tf32 = False  # a reference in f32, not TF32
+    conv.snake_conv1d = fwd
+    conv.snake_conv1d_res = lambda x, w, bias, alpha, beta, residual, lo, hi, d: fwd(
+        x, w, bias, alpha, beta, lo, hi, d, residual)
+
+
+def run(root: str, label: str, out_dir: str, plain: bool = False) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import stable_audio_tools_tpu_torch as pkg
-    from stable_audio_tools_tpu_torch.models.factory import (create_pretransform_from_config,
-                                                             init_random_)
     from stable_audio_tools_tpu_torch.ops.kernels import conv1d_snake as cs
 
     if not os.path.abspath(pkg.__file__).startswith(os.path.abspath(root) + os.sep):
@@ -83,6 +100,18 @@ def run(root: str, label: str, out_dir: str) -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
 
+    if plain:
+        from stable_audio_tools_tpu_torch.ops import conv
+
+        plain_f32(cs, conv)
+    else:
+        rec.update(kernel_times(cs, dev))
+    decode_encode(root, dev, rec, out_dir, label)
+    return rec
+
+
+def kernel_times(cs, dev) -> dict:
+    rec = {}
     x, w, bias, a, b = conv_inputs(dev, 1, 128, 2097152, 0)
     r = torch.randn(x.shape, generator=torch.Generator(device=dev).manual_seed(1),
                     device=dev).to(torch.bfloat16)
@@ -97,6 +126,21 @@ def run(root: str, label: str, out_dir: str) -> dict:
             rec["levels_ms"][f"[8,{C},{L}] d={d}"] = cuda_ms(
                 lambda: cs.snake_conv1d(x, w, bias, a, b, 3 * d, 3 * d, d), 3)
             del x, w, bias, a, b
+    rec["res_levels_ms"] = {}
+    for i, (C, L) in enumerate(LEVELS):
+        x, w, bias, a, b = conv_inputs(dev, 8, C, L, 20 + i)
+        w1 = w[:, :, :1].contiguous()
+        r = torch.randn(x.shape, generator=torch.Generator(device=dev).manual_seed(30 + i),
+                        device=dev).to(torch.bfloat16)
+        rec["res_levels_ms"][f"[8,{C},{L}] k=1"] = cuda_ms(
+            lambda: cs.snake_conv1d_res(x, w1, bias, a, b, r, 0, 0, 1), 3)
+        del x, w, w1, bias, a, b, r
+    return rec
+
+
+def decode_encode(root, dev, rec, out_dir, label):
+    from stable_audio_tools_tpu_torch.models.factory import (create_pretransform_from_config,
+                                                             init_random_)
 
     with open(os.path.join(root, *SA2_CONFIG)) as f:
         cfg = json.load(f)
@@ -117,7 +161,6 @@ def run(root: str, label: str, out_dir: str) -> dict:
     os.makedirs(out_dir, exist_ok=True)
     torch.save({k: v.cpu() for k, v in outs.items()}, os.path.join(out_dir, f"{label}.pt"))
     rec.update({f"{k}_shape": list(v.shape) for k, v in outs.items()})
-    return rec
 
 
 def compare(path_a: str, path_b: str) -> dict:
@@ -139,6 +182,8 @@ def main() -> int:
     p.add_argument("--label")
     p.add_argument("--out")
     p.add_argument("--compare", nargs=2)
+    p.add_argument("--plain", action="store_true",
+                   help="the snake-conv forwards by their plain versions in f32; no kernel times")
     args = p.parse_args()
     if args.compare:
         print(json.dumps(dict(compare=args.compare, **compare(*args.compare))))
@@ -146,7 +191,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ab_snake_conv_torch: needs a CUDA card", file=sys.stderr)
         return 1
-    print(json.dumps(run(args.root, args.label, args.out)), flush=True)
+    print(json.dumps(run(args.root, args.label, args.out, args.plain)), flush=True)
     return 0
 
 

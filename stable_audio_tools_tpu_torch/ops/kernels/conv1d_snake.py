@@ -27,8 +27,11 @@ here a block walks a strip of output tiles and carries the snake'd halo in
 shared memory), and `snake_conv1d_res` launches `snake_conv1d_kernel`
 (replaces `_fwd_kernel` and `_fwd_kernel_res`). The JAX package's default
 `snake_conv1d` runs `_fwd_kernel`; the port runs the carry for it on the
-card, since the two kernels' outputs are equal bit for bit and the carry is
-faster on every measured shape (PERF.md). The backward is the same.
+card, since the two kernels' outputs are equal bit for bit and the carry
+loads and snakes no halo twice (PERF.md has both kernels' times). Both share
+one body: `wgmma` products over a snake'd window that producer warps build
+from x, the output tile chosen here by `tile_n` / `block_tile`, the input
+channels in chunks of CI_CHUNK. The backward is the same.
 
 CUDA bf16 tensors launch the kernels (each source's note says what it
 replaces, what bounds it and how it is tiled); they take every width on the
@@ -49,6 +52,7 @@ import torch.nn.functional as F
 from . import _build
 
 MAX_SPAN = 192  # (k - 1) * d the kernels' shared-memory window admits
+CI_CHUNK = 64  # input channels the forward kernels load and snake at a time
 # blocks of the weight-gradient kernel to keep in flight: ~4 per SM of an H100
 WGRAD_BLOCKS = 4 * 132
 
@@ -116,6 +120,24 @@ def _require_bf16(name: str, *tensors) -> None:
                             f"{t.dtype} on {t.device}")
 
 
+def tile_n(Co: int) -> Tuple[int, bool]:
+    """(N, split) of the forward kernels' output tile for Co channels: N
+    channels a consumer warpgroup (8, 64 or 128, the least that covers Co
+    up to 128), and whether the block's two warpgroups sit side by side in
+    channels (Co > 128: 128 rows x 256 channels a block) or one above the
+    other in time (256 rows x N channels)."""
+    for n in (8, 64, 128):
+        if Co <= n:
+            return n, False
+    return 128, True
+
+
+def block_tile(Co: int) -> Tuple[int, int]:
+    """(time rows, output channels) of one block's output tile for Co."""
+    n, split = tile_n(Co)
+    return (128, 2 * n) if split else (256, n)
+
+
 def _launch(x, w, bias, alpha, beta, pad_lo, pad_hi, dilation, residual):
     """Row 12 without the residual, row 3 with it."""
     if x.device.type != "cuda":
@@ -142,38 +164,47 @@ def _launch(x, w, bias, alpha, beta, pad_lo, pad_hi, dilation, residual):
             raise ValueError(f"residual must be bf16 [{B}, {Co}, {Lout}], got "
                              f"{residual.dtype} {tuple(residual.shape)}")
         residual = residual.contiguous()
+        if residual.data_ptr() % 16:  # the epilogue reads it 16 bytes at a time
+            residual = residual.clone()
     x = x.contiguous()
-    w_kio = w.permute(2, 1, 0).contiguous()  # [k, Ci, Co]
+    # [k, Co, Ci_pad]: each tap's weights K-major for the products, input
+    # channels zero-padded to whole chunks
+    w_kio = F.pad(w.permute(2, 0, 1), (0, -Ci % CI_CHUNK)).contiguous()
     a = alpha.detach().contiguous().float()
     b = beta.detach().contiguous().float()
     bias_f = bias.detach().contiguous().float() if bias is not None else None
     y = torch.empty((B, Co, Lout), device=x.device, dtype=x.dtype)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     bias_ptr = bias_f.data_ptr() if bias_f is not None else None
+    nt, split = tile_n(Co)
     if residual is None:
         fn = _build.bind("snake_conv1d", "snake_conv1d_carry_fwd",
-                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
         code = fn(x.data_ptr(), w_kio.data_ptr(), a.data_ptr(), b.data_ptr(), bias_ptr,
-                  y.data_ptr(), B, Ci, Co, L, Lout, k, dilation, pad_lo, stream)
+                  y.data_ptr(), B, Ci, Co, L, Lout, k, dilation, pad_lo, nt, int(split),
+                  stream)
         _build.check(code, "snake_conv1d_carry_fwd")
         return y
     fn = _build.bind("snake_conv1d", "snake_conv1d_fwd",
-                     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     code = fn(x.data_ptr(), w_kio.data_ptr(), a.data_ptr(), b.data_ptr(), bias_ptr,
               residual.data_ptr(), y.data_ptr(), B, Ci, Co, L, Lout, k, dilation, pad_lo,
-              stream)
+              nt, int(split), stream)
     _build.check(code, "snake_conv1d_fwd")
     return y
 
 
-def carry_strip_tiles(B: int, Ci: int, Co: int, Lout: int, k: int, d: int) -> int:
-    """The strip of 128-row output tiles one block of row 12 walks for this
-    shape on the current card (1: strips of one tile, no carry)."""
-    strip = ctypes.c_int()
+def carry_strip_tiles(B: int, Ci: int, Co: int, Lout: int, k: int, d: int) -> Tuple[int, bool]:
+    """(S, carry) of row 12 for this shape on the current card: the strip of
+    output tiles one block walks (`block_tile(Co)` rows each), and whether
+    the strip carries the snake'd halo from tile to tile (it does where S > 1
+    and the carry fits in shared memory beside the weight ring)."""
+    out = (ctypes.c_int * 4)()
+    nt, split = tile_n(Co)
     fn = _build.bind("snake_conv1d", "snake_conv1d_carry_strip",
-                     [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    _build.check(fn(B, Ci, Co, Lout, k, d, ctypes.byref(strip)), "snake_conv1d_carry_strip")
-    return strip.value
+                     [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    _build.check(fn(B, Ci, Co, Lout, k, d, nt, int(split), out), "snake_conv1d_carry_strip")
+    return out[0], bool(out[1])
 
 
 def snake_conv1d_dx(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,

@@ -173,6 +173,49 @@ def test_snake_conv1d_carry(dev, B, Ci, Co, L, k, d, pad_lo, pad_hi, bias):
     assert torch.equal(got, cs.snake_conv1d_res(x, w, bias_t, a, b, zero, pad_lo, pad_hi, d))
 
 
+# [B, Ci, Co, L, k, d]: the edges of the forward kernels' tiles (256 output
+# rows x N channels for Co <= 128, N = 8 / 64 / 128; 128 rows x 256
+# channels above): Lout at a tile +-1, Co at the N tile +-1 (7 / 9, 63 / 65,
+# 127 / 129, 255 / 257), Co = 2, Ci = 33 (a partial 64-channel chunk), strips
+# of one tile (a short L) and of many (a long L at batch 1)
+TILE_EDGE_CASES = [(2, 64, 128, 255, 7, 1), (2, 64, 128, 257, 7, 3), (1, 64, 128, 256, 1, 1),
+                   (2, 64, 200, 127, 7, 1), (2, 64, 200, 129, 3, 9),
+                   (1, 40, 7, 300, 7, 2), (1, 40, 9, 300, 7, 2), (1, 96, 63, 513, 3, 1),
+                   (1, 96, 65, 511, 3, 1), (1, 64, 127, 600, 7, 9), (1, 64, 129, 600, 7, 9),
+                   (1, 64, 255, 300, 7, 3), (1, 64, 257, 300, 7, 3), (2, 33, 2, 1000, 7, 1),
+                   (2, 33, 64, 1000, 1, 1), (1, 128, 128, 256 * 400 + 3, 7, 9),
+                   (1, 256, 256, 128 * 300 + 5, 7, 3)]
+
+
+@pytest.mark.parametrize("B,Ci,Co,L,k,d", TILE_EDGE_CASES)
+def test_snake_conv1d_tile_edges(dev, B, Ci, Co, L, k, d):
+    # both rows against the plain version (2 bf16 ulps): row 12 without a
+    # residual, row 3 with one; and row 12 against row 3 with a zero
+    # residual, equal bit for bit
+    x = _randn(dev, B, Ci, L, scale=2.0)
+    w = _randn(dev, Co, Ci, k, scale=(Ci * k) ** -0.5, seed=1)
+    bias_t = _randn(dev, Co, dtype=torch.float32, seed=2)
+    a = _randn(dev, Ci, dtype=torch.float32, seed=3).exp()
+    b = _randn(dev, Ci, dtype=torch.float32, seed=4).exp()
+    pad = d * (k - 1) // 2
+    got = cs.snake_conv1d(x, w, bias_t, a, b, pad, pad, d)
+    torch.cuda.synchronize()
+    _close(got, cs.snake_conv1d_plain(x, w, bias_t, a, b, pad, pad, d))
+    r = _randn(dev, *got.shape, seed=5)
+    _close(cs.snake_conv1d_res(x, w, bias_t, a, b, r, pad, pad, d),
+           cs.snake_conv1d_plain(x, w, bias_t, a, b, pad, pad, d, r))
+    assert torch.equal(got, cs.snake_conv1d_res(x, w, bias_t, a, b, torch.zeros_like(got),
+                                                pad, pad, d))
+
+
+def test_snake_conv1d_strips(dev):
+    # strips of one tile where the grid alone fills the card, of many (with
+    # the carry) at batch 1 over a long L
+    assert cs.carry_strip_tiles(8, 128, 128, 512, 7, 1) == (1, False)
+    strip, carried = cs.carry_strip_tiles(1, 128, 128, 256 * 400, 7, 9)
+    assert strip > 1 and carried
+
+
 def test_snake_conv1d_launches_row_12_or_raises(dev):
     # snake_conv1d launches row 12 and counts it, snake_conv1d_res row 3 with
     # its own counter; an f32 CUDA input raises rather than falling back to
@@ -191,17 +234,18 @@ def test_snake_conv1d_launches_row_12_or_raises(dev):
 
 
 def test_snake_conv1d_carry_strips_and_refusals(dev):
-    # a carry too large to leave a second block on an SM (1024 channels x 186
-    # rows) runs in strips of one tile; a narrow one in long strips; span >
-    # MAX_SPAN and f32 inputs are refused
+    # a carry too large for shared memory beside the rings (1024 channels x
+    # 186 rows) is not kept; a narrow one is, in long strips; span > MAX_SPAN
+    # and f32 inputs are refused
     x = _randn(dev, 1, 1024, 500, scale=2.0)
     a = b = torch.ones(1024, device=dev)
     w = _randn(dev, 8, 1024, 7, scale=0.01, seed=1)
-    assert cs.carry_strip_tiles(1, 1024, 8, 500, 7, 31) == 1
+    assert not cs.carry_strip_tiles(1, 1024, 8, 500, 7, 31)[1]
     _close(cs.snake_conv1d(x, w, None, a, b, 93, 93, 31),
            cs.snake_conv1d_plain(x, w, None, a, b, 93, 93, 31))
-    x2 = _randn(dev, 1, 128, 128 * 1200, scale=2.0)  # 1200 tiles: more than two waves of blocks
-    assert cs.carry_strip_tiles(1, 128, 8, 128 * 1200, 7, 1) > 1
+    x2 = _randn(dev, 1, 128, 128 * 1200, scale=2.0)  # 600 tiles: more than one per SM
+    strip, carried = cs.carry_strip_tiles(1, 128, 8, 128 * 1200, 7, 1)
+    assert strip > 1 and carried
     _close(cs.snake_conv1d(x2, w[:, :128], None, a[:128], b[:128], 3, 3, 1),
            cs.snake_conv1d_plain(x2, w[:, :128], None, a[:128], b[:128], 3, 3, 1))
     with pytest.raises(ValueError, match="exceeds"):  # span 198 > MAX_SPAN
