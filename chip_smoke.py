@@ -188,24 +188,39 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profiled_us(fn, iters: int = 50) -> dict:
-    """What the profiler reads of `iters` calls of fn after a warm-up: the
-    device microseconds a call summed over its kernels, the kernels a call
-    launches, and each kernel's microseconds a call (a launch-sized call's
-    own duration, without the host time between launches)."""
+def profiled_us(fn, iters: int = 50, tries: int = 3) -> dict:
+    """What the profiler reads of `iters` calls of fn: the device microseconds
+    a call summed over its kernels, the kernels a call launches, and each
+    kernel's microseconds a call (a launch-sized call's own duration, without
+    the host time between launches). A warm-up step of `iters` calls runs
+    with the tracer already on and is discarded, because the tracer can miss
+    the start of its window (one launch, or a whole window of short ones);
+    a window in which it recorded no kernel at all is read again, up to
+    `tries` windows (`windows` says how many were read)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    ks = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    for window in range(1, tries + 1):
+        readings = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: readings.append(p.key_averages())) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        # a scheduled profile also puts each step's span on the device timeline
+        ks = [e for e in (readings[0] if readings else [])
+              if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep")]
+        if ks:
+            break
     return dict(device_us=sum(e.self_device_time_total for e in ks) / iters,
                 kernels_per_call=sum(e.count for e in ks) / iters,
-                by_kernel={e.key[:60]: e.self_device_time_total / iters for e in ks})
+                by_kernel={e.key[:60]: e.self_device_time_total / iters for e in ks},
+                windows=window)
 
 
 def one_kernel(profiled: dict, kernel: str, what: str) -> None:
@@ -687,15 +702,39 @@ def ae_backward_checks(sn, cs, randn, fwd: dict, hold_row3) -> dict:
         w_abs = max((p - q).abs().max().item() for p, q in zip(got, want))
         return dx_err, w_err, w_abs, (x, w, a, b, pad, d, dy, got[0])
 
+    # each case timed too, beside each kernel's bound (row 10 reads dy, x, w,
+    # alpha, beta and writes dx; row 11 reads dy, x, alpha, beta and writes
+    # dW) and cuDNN's input and weight gradients of the conv alone on the
+    # pre-snaked input (yardsticks the port never calls), and summed with the
+    # launches of one generator step (each k = 7 case twice: encoder and
+    # decoder; k = 1 six times; the conv_outs once)
     cases = [(C, C, L, kk, d) for C, L in AE_LEVELS for kk, d in ((7, 1), (7, 3), (7, 9), (1, 1))]
     cases += [(2048, 128, 32, 3, 1), (128, 2, 65536, 7, 1)]
-    dx_errs, w_errs, w_abs = [], [], []
+    dx_errs, w_errs, w_abs, levels = [], [], [], []
     conv_fwd_errs = {"snake_conv1d": [], "snake_conv1d_res": []}
-    for case in cases:
-        e_dx, e_w, a_w, _ = snake_conv_case(*case)
+    for C, Co, L, kk, d in cases:
+        e_dx, e_w, a_w, (x, w, a, b, pad, _, dy, dW) = snake_conv_case(C, Co, L, kk, d)
         dx_errs.append(e_dx)
         w_errs.append(e_w)
         w_abs.append(a_w)
+        sx = cs._snake_f32(x, a, b).to(x.dtype)
+        levels.append(dict(
+            shape=f"[{B},{C},{L}] -> {Co} k={kk} d={d}",
+            launches=1 if Co != C else 6 if kk == 1 else 2,
+            dx_ms=cuda_ms(lambda: cs.snake_conv1d_dx(dy, x, w, a, b, pad, pad, d), 3),
+            wgrad_ms=cuda_ms(lambda: cs.snake_conv1d_wgrad(dy, x, kk, a, b, pad, pad, d), 3),
+            conv1d_input_ms=cuda_ms(lambda: torch.nn.grad.conv1d_input(
+                x.shape, w, dy, padding=pad, dilation=d), 3),
+            conv1d_weight_ms=cuda_ms(lambda: torch.nn.grad.conv1d_weight(
+                sx, w.shape, dy, padding=pad, dilation=d), 3),
+            dx_bound_ms=bound(2.0 * B * L * C * Co * kk, dy, x, w, a, b, x)["bound_ms"],
+            wgrad_bound_ms=bound(2.0 * B * L * C * Co * kk, dy, x, a, b, dW)["bound_ms"]))
+        del x, w, dy, dW, sx
+    step = {k: sum(c["launches"] * c[k] for c in levels)
+            for k in ("dx_ms", "wgrad_ms", "conv1d_input_ms", "conv1d_weight_ms", "dx_bound_ms",
+                      "wgrad_bound_ms")}
+    if sum(c["launches"] for c in levels) != AE_GEN_LAUNCHES["snake_conv1d_dx"]:
+        raise AssertionError(f"the {len(levels)} cases weigh {levels} launches, not a step's")
     for n, what in (("snake_conv1d", "k = 7 and k = 3"), ("snake_conv1d_res", "k = 1")):
         join_fwd(n, conv_fwd_errs[n], f"the {len(conv_fwd_errs[n])} {what} cases")
     _, _, _, (x, w, a, b, pad, d, dy, dW) = snake_conv_case(128, 128, 65536, 7, 9)
@@ -711,6 +750,11 @@ def ae_backward_checks(sn, cs, randn, fwd: dict, hold_row3) -> dict:
         ms=cuda_ms(dx_run, 5),
         plain_ms=cuda_ms(lambda: cs.snake_conv1d_dx_plain(dy, x, w, a, b, pad, pad, d), 3),
         library=None, library_ms=None,  # cuDNN's input gradient omits the snake
+        levels=[{k: v for k, v in c.items()
+                 if k not in ("wgrad_ms", "conv1d_weight_ms", "wgrad_bound_ms")} for c in levels],
+        generator_step=dict(ms=step["dx_ms"], bound_ms=step["dx_bound_ms"],
+                            share_of_bound=step["dx_bound_ms"] / step["dx_ms"],
+                            conv1d_input_ms=step["conv1d_input_ms"]),
         **bound(flops, dy, x, w, a, b, x))
     rec["snake_conv1d_wgrad"] = dict(
         route="cuda", source="stable_audio_tools_tpu_torch/csrc/conv1d_wgrad.cu",
@@ -722,6 +766,11 @@ def ae_backward_checks(sn, cs, randn, fwd: dict, hold_row3) -> dict:
         ms=cuda_ms(lambda: cs.snake_conv1d_wgrad(dy, x, 7, a, b, pad, pad, d), 5),
         plain_ms=cuda_ms(lambda: cs.conv1d_wgrad_plain(dy, x, 7, pad, pad, d, (a, b)), 3),
         library=None, library_ms=None,  # conv1d_weight omits the snake
+        levels=[{k: v for k, v in c.items()
+                 if k not in ("dx_ms", "conv1d_input_ms", "dx_bound_ms")} for c in levels],
+        generator_step=dict(ms=step["wgrad_ms"], bound_ms=step["wgrad_bound_ms"],
+                            share_of_bound=step["wgrad_bound_ms"] / step["wgrad_ms"],
+                            conv1d_weight_ms=step["conv1d_weight_ms"]),
         **bound(flops, dy, x, a, b, dW))
     del x, w, dy, dW
 
@@ -1952,6 +2001,10 @@ def gen_step_split(trainer, loader) -> dict:
     out["gen_step_top_kernels_ms"] = {
         e.key[:60]: round(e.self_device_time_total / 1e3, 3)
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]}
+    # rows 10 and 11, each instance by name
+    out["gen_step_snake_conv_bwd_ms"] = {
+        e.key[:70]: round(e.self_device_time_total / 1e3, 3) for e in kernels
+        if "conv1d_wgrad_kernel" in e.key or "snake_conv1d_dx_kernel" in e.key}
     return out
 
 
@@ -2839,6 +2892,19 @@ def main() -> int:
           + "; ptxas " + ", ".join(f"{n} {r['registers']} regs {r['spill_stores']} B spilled"
                                    for n, r in carry["ptxas"].items()) + f" on {card}",
           flush=True)
+    dxr, wr = rec["snake_conv1d_dx"], rec["snake_conv1d_wgrad"]
+    print("phase 2 snake-conv backward at the VAE generator step's shapes (ms; row 10 | row 11; "
+          "cuDNN's conv1d_input | conv1d_weight on the pre-snaked input; bounds; launches a "
+          "step): " + "; ".join(
+              f"{p['shape']} {p['dx_ms']:.4f} | {q['wgrad_ms']:.4f}; {p['conv1d_input_ms']:.4f} | "
+              f"{q['conv1d_weight_ms']:.4f}; {p['dx_bound_ms']:.4f} | {q['wgrad_bound_ms']:.4f}; "
+              f"x{p['launches']}" for p, q in zip(dxr["levels"], wr["levels"]))
+          + "; a generator step: row 10 {ms:.3f} ({conv1d_input_ms:.3f}, bound {bound_ms:.3f}), "
+          .format(**dxr["generator_step"])
+          + "row 11 {ms:.3f} ({conv1d_weight_ms:.3f}, bound {bound_ms:.3f}), shares ".format(
+              **wr["generator_step"])
+          + f"{dxr['generator_step']['share_of_bound']:.3f} | "
+          f"{wr['generator_step']['share_of_bound']:.3f} on {card}", flush=True)
 
     main_rec = phase_main_path(dev)
     print(f"phase 3 generation: SA-Open {main_rec['params'] / 1e9:.3f}B params, {STEPS} steps "
@@ -2986,7 +3052,8 @@ def main() -> int:
                                 "autograd_rel_err", "errs", "ab", "shapes", "banded", "vs_row3",
                                 "autograd_errs", "fwd_bwd_ms", "sa2_training_shape",
                                 "deterministic", "ptxas", "profiled", "library_profiled",
-                                "host_us", "library_host_us", "no_grad_bit_identical")
+                                "host_us", "library_host_us", "no_grad_bit_identical",
+                                "levels", "generator_step")
                                 if k in r}))
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
     if unlaunched:

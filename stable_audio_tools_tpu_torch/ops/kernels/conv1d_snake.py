@@ -13,9 +13,12 @@ Both are `torch.autograd.Function`s (JAX `_snake_conv1d_bwd` :508,
 `_snake_conv1d_res_bwd` :595). They save x, w, alpha and beta and recompute
 the snake in the backward, which launches two kernels:
 - `snake_conv1d_dx` (`csrc/snake_conv1d_dx.cu`, replaces `_bwd_dx_kernel`):
-  dx and the dalpha/dbeta partials;
+  dx and the dalpha/dbeta partials, on the forward's body (dy's window, no
+  snake, the taps read flipped, the snake's derivative in the epilogue);
 - `snake_conv1d_wgrad` (`csrc/conv1d_wgrad.cu` with the snake, replaces
-  `_bwd_dw_kernel_snake`): dW and db in f32.
+  `_bwd_dw_kernel_snake`): dW and db in f32, `wgmma` products whose
+  reduction is time over the forward's snake'd windows, planned by
+  `wgrad_tile` and `wgrad_splits`.
 The residual's gradient is dy itself. `conv1d_wgrad` (the same source
 without the snake, replaces `_bwd_dw_kernel_plain`) is the weight gradient
 of the plain stride-1 convs (ops/conv.py `Conv1dS1`).
@@ -29,9 +32,9 @@ shared memory), and `snake_conv1d_res` launches `snake_conv1d_kernel`
 `snake_conv1d` runs `_fwd_kernel`; the port runs the carry for it on the
 card, since the two kernels' outputs are equal bit for bit and the carry
 loads and snakes no halo twice (PERF.md has both kernels' times). Both share
-one body: `wgmma` products over a snake'd window that producer warps build
-from x, the output tile chosen here by `tile_n` / `block_tile`, the input
-channels in chunks of CI_CHUNK. The backward is the same.
+one body (`csrc/snake_conv.cuh`): `wgmma` products over a snake'd window that
+producer warps build from x, the output tile chosen here by `tile_n` /
+`block_tile`, the input channels in chunks of CI_CHUNK.
 
 CUDA bf16 tensors launch the kernels (each source's note says what it
 replaces, what bounds it and how it is tiled); they take every width on the
@@ -52,9 +55,7 @@ import torch.nn.functional as F
 from . import _build
 
 MAX_SPAN = 192  # (k - 1) * d the kernels' shared-memory window admits
-CI_CHUNK = 64  # input channels the forward kernels load and snake at a time
-# blocks of the weight-gradient kernel to keep in flight: ~4 per SM of an H100
-WGRAD_BLOCKS = 4 * 132
+CI_CHUNK = 64  # channels the kernels' producer warps lay into a window at a time
 
 
 def _snake_f32(x, alpha, beta):
@@ -207,6 +208,22 @@ def carry_strip_tiles(B: int, Ci: int, Co: int, Lout: int, k: int, d: int) -> Tu
     return out[0], bool(out[1])
 
 
+def dx_tile(Ci: int) -> Tuple[int, bool]:
+    """(N, split) of the dx kernel's output tile over Ci input channels:
+    the forward's `tile_n` up to 64 channels, else two 64-channel
+    warpgroups side by side (128 rows x 128 channels a block), so that 64
+    accumulator registers a thread leave the epilogue's snake derivative
+    room."""
+    return tile_n(Ci) if Ci <= 64 else (64, True)
+
+
+def dx_blocks(Ci: int, L: int) -> int:
+    """Rows of `snake_conv1d_dx`'s dalpha/dbeta partials per batch row: one
+    per 128 output rows of the tiles `dx_tile(Ci)` lays over L."""
+    bm = 128 if dx_tile(Ci)[1] else 256
+    return -(-L // bm) * bm // 128
+
+
 def snake_conv1d_dx(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
                     beta: torch.Tensor, pad_lo: int, pad_hi: int, d: int
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -223,21 +240,58 @@ def snake_conv1d_dx(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor, alpha: t
     if (k - 1) * d > MAX_SPAN:
         raise ValueError(f"(k-1)*d = {(k - 1) * d} exceeds {MAX_SPAN}")
     dy, x = dy.contiguous(), x.contiguous()
-    wt = w.detach().flip(-1).permute(2, 0, 1).contiguous()  # [k, Co, Ci]
-    nblk = _build.bind("snake_conv1d_dx", "snake_conv1d_dx_blocks", [ctypes.c_int] * 2)(L, k)
+    # [k, Ci, Co_pad]: each tap's weights K-major over the output channels
+    # (the reduction), zero-padded to whole chunks; the kernel reads the taps
+    # in reverse, so the flip costs no copy
+    wp = F.pad(w.detach().permute(2, 1, 0), (0, -Co % CI_CHUNK)).contiguous()
+    nt, split = dx_tile(Ci)
+    nblk = dx_blocks(Ci, L)
     dx = torch.empty_like(x)
     pa = torch.empty((B, nblk, Ci), device=x.device, dtype=torch.float32)
     pb = torch.empty_like(pa)
+    a, b = (p.detach().contiguous().float() for p in (alpha, beta))
     fn = _build.bind("snake_conv1d_dx", "snake_conv1d_dx",
-                     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-    code = fn(dy.data_ptr(), wt.data_ptr(), x.data_ptr(),
-              alpha.detach().contiguous().float().data_ptr(),
-              beta.detach().contiguous().float().data_ptr(), dx.data_ptr(), pa.data_ptr(),
-              pb.data_ptr(), B, Co, Ci, Lout, L, k, d, pad_lo,
-              torch.cuda.current_stream(x.device).cuda_stream)
+                     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+    code = fn(dy.data_ptr(), wp.data_ptr(), x.data_ptr(), a.data_ptr(), b.data_ptr(),
+              dx.data_ptr(), pa.data_ptr(), pb.data_ptr(), B, Co, Ci, Lout, L, k, d, pad_lo,
+              nt, int(split), nblk, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "snake_conv1d_dx")
     snake_conv1d_dx.launches += 1
     return dx, pa.sum(dim=(0, 1)), pb.sum(dim=(0, 1))
+
+
+def wgrad_tile(Co: int, k: int) -> Tuple[int, bool, int]:
+    """(mt, split_taps, T) of the weight-gradient kernel for Co output
+    channels and k taps: a block's two consumer warpgroups either split the
+    taps of one 64-channel co tile (more than 4 taps in a group of 8, or
+    Co <= 64) or each take all its taps over mt 64-row co tiles of their own
+    (mt = 2 where a group has at most 2 taps and Co > 128, else 1): at most 4
+    (taps x 64-row tiles) of 64 x 64 f32 accumulators a warpgroup. T is the
+    time samples of a chunk of the reduction (one window, one dy stage): 256
+    where two dy stages and the windows fit beside each other at any span
+    (64-channel co tiles, or 128 channels at k = 1), else 128."""
+    kg = min(k, 8)
+    split = kg > 4 or Co <= 64
+    mt = 2 if not split and kg <= 2 and Co > 128 else 1
+    return mt, split, 256 if split or (mt == 1 and k == 1) else 128
+
+
+def wgrad_co_block(Co: int, k: int) -> int:
+    """Output channels a block of the weight-gradient kernel covers."""
+    mt, split, _ = wgrad_tile(Co, k)
+    return 64 if split else 128 * mt
+
+
+def wgrad_splits(B: int, Ci: int, Co: int, Lout: int, k: int, sms: int) -> int:
+    """S, the ways the weight gradient's reduction over the B * ceil(Lout /
+    T) (batch row, chunk) sequence is split: enough blocks (co tiles x
+    tap groups of 8 x chunks of CI_CHUNK input channels, times S) to give
+    each of `sms` SMs one, each split an equal run of the sequence."""
+    blocks = -(-Co // wgrad_co_block(Co, k)) * -(-k // 8) * -(-Ci // CI_CHUNK)
+    total = B * -(-Lout // wgrad_tile(Co, k)[2])
+    S = min(-(-sms // blocks), total)
+    per = -(-total // S)
+    return -(-total // per)
 
 
 def _wgrad(name, dy, x, k, pad_lo, pad_hi, d, pre_snake):
@@ -247,11 +301,18 @@ def _wgrad(name, dy, x, k, pad_lo, pad_hi, d, pre_snake):
     Lout = L + pad_lo + pad_hi - (k - 1) * d
     if dy.dim() != 3 or dy.shape != (B, Co, Lout):
         raise ValueError(f"{name}: dy must be [{B}, Co, {Lout}], got {tuple(dy.shape)}")
+    if (k - 1) * d > MAX_SPAN:
+        raise ValueError(f"(k-1)*d = {(k - 1) * d} exceeds {MAX_SPAN}")
     dy, x = dy.contiguous(), x.contiguous()
-    tiles = _build.bind("conv1d_wgrad", "conv1d_wgrad_tiles", [ctypes.c_int] * 3)(Co, Ci, k)
-    steps = B * -(-Lout // 64)
-    S = max(1, min(steps, -(-WGRAD_BLOCKS // tiles)))
+    # the kernel reads dy by TMA: rows on 16 bytes (zero samples past Lout)
+    ld = -(-Lout // 8) * 8
+    if ld != Lout:
+        dy = F.pad(dy, (0, ld - Lout))
+    elif dy.data_ptr() % 16:
+        dy = dy.clone()
     dev = x.device
+    mt, split, T = wgrad_tile(Co, k)
+    S = wgrad_splits(B, Ci, Co, Lout, k, torch.cuda.get_device_properties(dev).multi_processor_count)
     ws = torch.empty((S, k, Co, Ci), device=dev, dtype=torch.float32)
     dbws = torch.empty((S, Co), device=dev, dtype=torch.float32)
     dW = torch.empty((Co, Ci, k), device=dev, dtype=torch.float32)
@@ -264,10 +325,10 @@ def _wgrad(name, dy, x, k, pad_lo, pad_hi, d, pre_snake):
     else:
         ptrs = (None, None)
     fn = _build.bind("conv1d_wgrad", "conv1d_wgrad",
-                     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+                     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [ctypes.c_void_p])
     code = fn(dy.data_ptr(), x.data_ptr(), *ptrs, ws.data_ptr(), dbws.data_ptr(),
-              dW.data_ptr(), db.data_ptr(), B, Co, Ci, L, Lout, k, d, pad_lo, S,
-              torch.cuda.current_stream(dev).cuda_stream)
+              dW.data_ptr(), db.data_ptr(), B, Co, Ci, L, Lout, ld, k, d, pad_lo, S, mt,
+              int(split), T, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, name)
     return dW, db
 
@@ -319,12 +380,13 @@ class _SnakeConv1d(torch.autograd.Function):
         bias_dtype, res_dtype = ctx.dtypes
         need = ctx.needs_input_grad
         dy = dy.contiguous()
+        a, b = (p.detach().contiguous().float() for p in (alpha, beta))  # once for both
         dx = dalpha = dbeta = dW = db = None
         if need[0] or need[3] or need[4]:
-            dx, dalpha, dbeta = snake_conv1d_dx(dy, x, w, alpha, beta, pad_lo, pad_hi, d)
+            dx, dalpha, dbeta = snake_conv1d_dx(dy, x, w, a, b, pad_lo, pad_hi, d)
             dalpha, dbeta = dalpha.to(alpha.dtype), dbeta.to(beta.dtype)
         if need[1] or need[2]:
-            dW, db = snake_conv1d_wgrad(dy, x, w.shape[-1], alpha, beta, pad_lo, pad_hi, d)
+            dW, db = snake_conv1d_wgrad(dy, x, w.shape[-1], a, b, pad_lo, pad_hi, d)
             dW = dW.to(w.dtype)
             db = None if bias_dtype is None else db.to(bias_dtype)
         dres = None if res_dtype is None else dy.to(res_dtype)

@@ -364,9 +364,19 @@ def test_snake_fused_bwd(dev, B, C, L):
 # tiles (the encoder's conv_out), an asymmetric pad
 DX_CASES = [(36, 70, 129, 7, 5, 15), (128, 2, 300, 7, 1, 3), (96, 96, 65, 1, 1, 0),
             (128, 128, 1000, 7, 9, 27), (200, 64, 32, 3, 1, 1), (64, 48, 77, 4, 2, 2)]
+# the backward kernels' tile edges: Ci or Co 2, 8, 64, 128, 256, 2048 (dx's
+# n8 and 64-channel tiles, row 11's co tiles of 64 / 128 / 256 and chunks of
+# 64 input channels); taps split across the warpgroups (k 5, 7, 9: two tap
+# groups) or all taps over co halves (k 1, 2, 3); one split (S = 1: 2048
+# and 1024 channels at short L) and many (long L, the halo carried); L not
+# a multiple of 8
+BWD_EDGE_CASES = [(2, 64, 1001, 7, 1, 3), (8, 8, 517, 7, 3, 9), (64, 256, 300, 1, 1, 0),
+                  (256, 128, 2051, 3, 3, 3), (2048, 64, 40, 3, 1, 1), (128, 2048, 32, 1, 1, 0),
+                  (128, 128, 20003, 9, 2, 8), (1024, 1024, 64, 1, 1, 0), (8, 200, 999, 5, 3, 6),
+                  (256, 512, 700, 2, 3, 3)]
 
 
-@pytest.mark.parametrize("Ci,Co,L,k,d,pad", DX_CASES)
+@pytest.mark.parametrize("Ci,Co,L,k,d,pad", DX_CASES + BWD_EDGE_CASES)
 def test_snake_conv1d_dx(dev, Ci, Co, L, k, d, pad):
     # kernel B: dx within 2 bf16 ulps of the plain version, dalpha/dbeta
     # within 1e-2 of their peak
@@ -385,7 +395,7 @@ def test_snake_conv1d_dx(dev, Ci, Co, L, k, d, pad):
 
 @pytest.mark.parametrize("snake", [False, True])
 @pytest.mark.parametrize("Ci,Co,L,k,d,pad", DX_CASES + [(2, 128, 3000, 7, 1, 3),
-                                                        (64, 200, 32, 7, 1, 3)])
+                                                        (64, 200, 32, 7, 1, 3)] + BWD_EDGE_CASES)
 def test_conv1d_wgrad(dev, snake, Ci, Co, L, k, d, pad):
     # kernels C (snake) and D (plain), with Ci = 2 (the encoder's conv_in) and
     # Ci = 64 -> 200 at L = 32: dW and db are f32 sums over B*Lout in
