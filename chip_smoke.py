@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Runs from the repository root on a machine with a CUDA card, `nvcc` and
-`triton`; needs no network and no JAX. Nine phases, each printing one line
+Runs from the repository root on a machine with a CUDA card and `nvcc`;
+needs no network, no Triton and no JAX. Nine phases, each printing one line
 (phase 2 two); any failure raises and the exit code is nonzero:
 
 1. Device and build: the card's name and power limit, then every CUDA source
@@ -29,7 +29,11 @@ Runs from the repository root on a machine with a CUDA card, `nvcc` and
    backward kernels of autoencoder training (snake backward, snake-conv dx,
    snake-conv and plain weight gradients) are held at the SA-2.0 VAE's
    shapes at batch 4: dx within 2 bf16 ulps, the f32 gradient sums within 1%
-   of their peaks. The causal / sliding-window `flash_attention` and the
+   of their peaks. The snake (`csrc/snake.cu`: row 4 forward, row 9
+   backward) is timed at each of the VAE's six snake sites both ways and
+   summed with a generator step's launches against the summed byte bounds,
+   the forward also over an SA-2.0 decode group's five sites; two backward
+   calls must give the same bits. The causal / sliding-window `flash_attention` and the
    banded backward (both routes) are held at the LM's causal shapes and
    TAAE's windowed ones (FLASH_SHAPES), each timed beside SDPA with the same
    mask, and `flash_attention_nhd`'s causal backward at [1, 4096, 16, 64].
@@ -451,24 +455,34 @@ def phase_kernels(dev):
     rec["fused_layer_norm"]["no_grad_bit_identical"] = True
 
     # 3. decoder snakes before each transposed upsample: SA-2.0's groups of 8
-    #    chunks of 128 latents, then SA-Open's whole clip [1, C, L]
-    errs = []
-    for B, C, L in ((8, 2048, 128), (8, 1024, 1024), (8, 512, 8192), (8, 256, 32768),
-                    (8, 128, 131072), (1, 2048, 1024), (1, 1024, 8192), (1, 512, 65536),
-                    (1, 256, 262144), (1, 128, 1048576)):
+    #    chunks of 128 latents (each timed, and summed over a group's five
+    #    launches against their summed bound), then SA-Open's whole clip
+    #    [1, C, L]; the autograd route (an input that requires a gradient)
+    #    gives the launch's bits
+    errs, group = [], dict(ms=0.0, bound_ms=0.0)
+    for B, C, L in SA2_DECODE_SNAKES + ((1, 2048, 1024), (1, 1024, 8192), (1, 512, 65536),
+                                        (1, 256, 262144), (1, 128, 1048576)):
         x = randn(B, C, L, scale=2.0)
         a, b = randn(C, dtype=torch.float32).exp(), randn(C, dtype=torch.float32).exp()
         y, ref = sn.snake_fused(x, a, b), sn.snake_fused_plain(x, a, b)
         errs.append(compare(f"snake [{B},{C},{L}]", y, ref, bf16_tol(ref)))
+        if (B, C, L) in SA2_DECODE_SNAKES:
+            group["ms"] += cuda_ms(lambda: sn.snake_fused(x, a, b), 10)
+            group["bound_ms"] += bound(0.0, x, a, b, y)["bound_ms"]
+    group["share_of_bound"] = group["bound_ms"] / group["ms"]
+    y_grad = sn.snake_fused(x.detach().requires_grad_(), a, b)
+    if y_grad.grad_fn is None or not torch.equal(y_grad.detach(), y):
+        raise AssertionError("snake_fused: the autograd route is missing or differs")
     rec["snake_fused"] = dict(
-        route="triton", source="stable_audio_tools_tpu_torch/ops/kernels/snake_triton.py",
+        route="cuda", source="stable_audio_tools_tpu_torch/csrc/snake.cu",
         replaces="stable_audio_tools_tpu/ops/kernels/snake.py:52",
         shape="x [1,128,1048576] bf16 (timed; 5 SA-Open and 5 SA-2.0 decoder shapes checked)",
         max_abs_err=max(errs), tol="2 bf16 ulps at max|ref|",
         ms=cuda_ms(lambda: sn.snake_fused(x, a, b), 20),
         plain_ms=cuda_ms(lambda: sn.snake_fused_plain(x, a, b), 10),
         library=None, library_ms=None,  # no single PyTorch call computes a snake
-        **bound(6.0 * x.numel(), x, a, b, y))
+        decode_group=group, **bound(6.0 * x.numel(), x, a, b, y))
+    del y_grad
 
     # 4. decoder residual units: conv1 k=7 d in {1,3,9}; conv2 k=1 + skip;
     #    conv_out k=7 128 -> 2 without bias. snake_conv1d launches row 12
@@ -612,6 +626,13 @@ AE_LEVELS = ((128, 65536), (128, 32768), (256, 8192), (512, 2048), (1024, 256))
 # inputs of its snake_fused sites: before the encoder's downsampling convs and
 # the decoder's upsampling ones
 AE_SNAKES = AE_LEVELS + ((2048, 32),)
+# their launches in one generator step: each level's snake runs in the
+# encoder and the decoder, the outermost and the innermost once
+AE_SNAKE_LAUNCHES = (1, 2, 2, 2, 2, 1)
+# (B, C, L) of the snake_fused sites of one SA-2.0 decode group (8 chunks of
+# 128 latents): one launch each
+SA2_DECODE_SNAKES = ((8, 2048, 128), (8, 1024, 1024), (8, 512, 8192), (8, 256, 32768),
+                     (8, 128, 131072))
 AE_BATCH = 4
 # the backward kernels' f32 gradient sums (up to 4 x 65,536 terms, in another
 # order than the plain version's): max|err| within 1% of the gradient's peak
@@ -636,24 +657,46 @@ def ae_backward_checks(sn, cs, randn, fwd: dict, hold_row3) -> dict:
         fwd[name]["max_abs_err"] = max(fwd[name]["max_abs_err"], *errs)
         fwd[name]["shape"] += f"; {what} of the SA-2.0 VAE at batch {B} checked"
 
-    # A. snake backward (and forward) at every snake_fused site
-    errs, fwd_errs = [], []
-    for C, L in AE_SNAKES:
+    # A. snake backward (and forward) at every snake_fused site: two backward
+    #    calls give the same bits; each site timed both ways, by CUDA events
+    #    over back-to-back calls (the host paces the small sites) and by the
+    #    profiler's kernel time (`device_ms`), and summed with the launches
+    #    of one generator step against the summed byte bounds
+    errs, fwd_errs, sites = [], [], []
+    for (C, L), n in zip(AE_SNAKES, AE_SNAKE_LAUNCHES):
         x, g = randn(B, C, L, scale=2.0), randn(B, C, L)
         a, b = params(C)
         y = sn.snake_fused_plain(x, a, b)
         fwd_errs.append(compare(f"snake [{B},{C},{L}]", sn.snake_fused(x, a, b), y, bf16_tol(y)))
-        del y
         got, want = sn.snake_fused_bwd(x, a, b, g), sn.snake_fused_bwd_plain(x, a, b, g)
         errs.append(compare(f"snake bwd dx [{B},{C},{L}]", got[0], want[0], bf16_tol(want[0])))
-        for n, p, q in zip(("dalpha", "dbeta"), got[1:], want[1:]):
-            rel_err(f"snake bwd {n} [{B},{C},{L}]", p, q, GRAD_REL_TOL)
+        for name, p, q in zip(("dalpha", "dbeta"), got[1:], want[1:]):
+            rel_err(f"snake bwd {name} [{B},{C},{L}]", p, q, GRAD_REL_TOL)
+        if not all(torch.equal(p, q) for p, q in zip(got, sn.snake_fused_bwd(x, a, b, g))):
+            raise AssertionError(f"snake bwd [{B},{C},{L}]: two calls give other bits")
+        bwd, fwd_ = lambda: sn.snake_fused_bwd(x, a, b, g), lambda: sn.snake_fused(x, a, b)
+        sites.append(dict(shape=f"[{B},{C},{L}]", launches=n, bwd_ms=cuda_ms(bwd, 20),
+                          fwd_ms=cuda_ms(fwd_, 20),
+                          bwd_device_ms=profiled_us(bwd, 20)["device_us"] / 1e3,
+                          fwd_device_ms=profiled_us(fwd_, 20)["device_us"] / 1e3,
+                          bwd_bound_ms=bound(0.0, x, g, a, b, *got)["bound_ms"],
+                          fwd_bound_ms=bound(0.0, x, a, b, y)["bound_ms"]))
+        del x, g, y, got, want
+    step = {k: sum(s["launches"] * s[k] for s in sites)
+            for k in ("bwd_ms", "fwd_ms", "bwd_device_ms", "fwd_device_ms", "bwd_bound_ms",
+                      "fwd_bound_ms")}
+    if sum(AE_SNAKE_LAUNCHES) != AE_GEN_LAUNCHES["snake_fused_bwd"]:
+        raise AssertionError(f"the snake sites weigh {AE_SNAKE_LAUNCHES} launches, not a step's")
     join_fwd("snake_fused", fwd_errs, f"the {len(AE_SNAKES)} snake_fused shapes")
+    fwd["snake_fused"]["generator_step"] = dict(
+        ms=step["fwd_ms"], device_ms=step["fwd_device_ms"], bound_ms=step["fwd_bound_ms"],
+        share_of_bound=step["fwd_bound_ms"] / step["fwd_ms"],
+        device_share_of_bound=step["fwd_bound_ms"] / step["fwd_device_ms"])
     x, g = randn(B, 128, 65536, scale=2.0), randn(B, 128, 65536)
     a, b = params(128)
     dx = sn.snake_fused_bwd(x, a, b, g)[0]
     rec["snake_fused_bwd"] = dict(
-        route="triton", source="stable_audio_tools_tpu_torch/ops/kernels/snake_triton.py",
+        route="cuda", source="stable_audio_tools_tpu_torch/csrc/snake.cu",
         replaces="stable_audio_tools_tpu/ops/kernels/snake.py:64",
         shape=f"x, g [{B},128,65536] bf16 (timed; the 6 snake_fused shapes of the SA-2.0 "
               "VAE checked)",
@@ -662,6 +705,11 @@ def ae_backward_checks(sn, cs, randn, fwd: dict, hold_row3) -> dict:
         ms=cuda_ms(lambda: sn.snake_fused_bwd(x, a, b, g), 20),
         plain_ms=cuda_ms(lambda: sn.snake_fused_bwd_plain(x, a, b, g), 10),
         library=None, library_ms=None,  # no single PyTorch call computes it
+        deterministic=True, levels=sites,
+        generator_step=dict(ms=step["bwd_ms"], device_ms=step["bwd_device_ms"],
+                            bound_ms=step["bwd_bound_ms"],
+                            share_of_bound=step["bwd_bound_ms"] / step["bwd_ms"],
+                            device_share_of_bound=step["bwd_bound_ms"] / step["bwd_device_ms"]),
         **bound(20.0 * x.numel(), x, g, a, b, dx))
     del x, g, dx
 
@@ -1383,7 +1431,7 @@ def phase_main_path(dev):
         model, steps=steps, cfg_scale=6.0, conditioning=PROMPT, batch_size=1,
         sample_size=SAMPLE_SIZE, seed=seed, sampler_type="dpmpp-3m-sde",
         sigma_min=0.3, sigma_max=500.0)
-    run(2, 0)  # warm-up: Triton JIT and cuDNN plans at the full shapes
+    run(2, 0)  # warm-up: cuDNN plans at the full shapes
     torch.cuda.synchronize()
     kernels = {n: fn for n, fn in counters().items() if n in GENERATION_KERNELS}
     for fn in kernels.values():
@@ -1783,7 +1831,7 @@ def phase_sa2(dev) -> dict:
         model, steps=steps, cfg_scale=6.0, conditioning=SA2_PROMPT, batch_size=1,
         sample_size=SA2_SAMPLE_SIZE, seed=seed, sampler_type="dpmpp-3m-sde",
         sigma_min=0.3, sigma_max=500.0)
-    run(2, 0)  # warm-up: Triton JIT and cuDNN plans at the full shapes
+    run(2, 0)  # warm-up: cuDNN plans at the full shapes
     torch.cuda.synchronize()
     kernels = {n: fn for n, fn in counters().items()
                if n in SA2_KERNELS or n in ("flash_attention_prefix", "flash_attention_fused_qkv")}
@@ -2299,7 +2347,7 @@ def phase_lm_generation(dev) -> dict:
     gen = lambda frames, seed, cache=True: lm_generate_audio(
         model, cond, use_cache=cache, max_gen_len=frames, batch_size=1, cfg_scale=LM_CFG,
         top_k=LM_TOP_K, generator=torch.Generator(device=dev).manual_seed(seed))
-    gen(8, 0)  # warm-up: Triton JIT, cuDNN plans
+    gen(8, 0)  # warm-up: cuDNN plans
     gen(8, 0, cache=False)
     S = model.pattern_provider.get_pattern(LM_FRAMES).S
     depth = model.lm.backbone.depth
@@ -2906,6 +2954,21 @@ def main() -> int:
           + f"{dxr['generator_step']['share_of_bound']:.3f} | "
           f"{wr['generator_step']['share_of_bound']:.3f} on {card}", flush=True)
 
+    sf, sb = rec["snake_fused"], rec["snake_fused_bwd"]
+    print("phase 2 snake (rows 9 | 4) at the VAE generator step's sites (ms back to back; "
+          "kernel ms by the profiler; byte bounds; launches a step): " + "; ".join(
+              f"{s['shape']} {s['bwd_ms']:.4f} | {s['fwd_ms']:.4f}; {s['bwd_device_ms']:.4f} | "
+              f"{s['fwd_device_ms']:.4f}; {s['bwd_bound_ms']:.4f} | {s['fwd_bound_ms']:.4f}; "
+              f"x{s['launches']}" for s in sb["levels"])
+          + "; a generator step: row 9 {ms:.4f}, kernels {device_ms:.4f} (bound {bound_ms:.4f}, "
+          "shares {share_of_bound:.3f}, {device_share_of_bound:.3f}), ".format(
+              **sb["generator_step"])
+          + "row 4 {ms:.4f}, kernels {device_ms:.4f} (bound {bound_ms:.4f}, shares "
+          "{share_of_bound:.3f}, {device_share_of_bound:.3f}); ".format(**sf["generator_step"])
+          + "row 4 a decode group {ms:.4f} (bound {bound_ms:.4f}, share "
+          "{share_of_bound:.3f}); two backward calls bit-identical at every site on ".format(
+              **sf["decode_group"]) + card, flush=True)
+
     main_rec = phase_main_path(dev)
     print(f"phase 3 generation: SA-Open {main_rec['params'] / 1e9:.3f}B params, {STEPS} steps "
           f"dpmpp-3m-sde cfg 6, {SAMPLE_SIZE} samples: wall {main_rec['wall_s']:.3f} s, "
@@ -3053,7 +3116,7 @@ def main() -> int:
                                 "autograd_errs", "fwd_bwd_ms", "sa2_training_shape",
                                 "deterministic", "ptxas", "profiled", "library_profiled",
                                 "host_us", "library_host_us", "no_grad_bit_identical",
-                                "levels", "generator_step")
+                                "levels", "generator_step", "decode_group")
                                 if k in r}))
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
     if unlaunched:

@@ -3,41 +3,42 @@ time them at the SA-2.0 VAE's shapes: the quick loop for work on
 `csrc/conv1d_wgrad.cu` (row 11) and `csrc/snake_conv1d_dx.cu` (row 10).
 
     python scripts/snake_conv_bwd_probe.py desc     # the MN-major descriptor
-    python scripts/snake_conv_bwd_probe.py sincos   # sincos_fast vs sincosf
+    python scripts/snake_conv_bwd_probe.py sincos   # the fast sines vs sincosf
     python scripts/snake_conv_bwd_probe.py check    # kernels vs plain versions
     python scripts/snake_conv_bwd_probe.py time     # the 22 VAE cases
     python scripts/snake_conv_bwd_probe.py variants # row 11's chunk T
     python scripts/snake_conv_bwd_probe.py narrow   # where the 2-channel convs' time goes
     python scripts/snake_conv_bwd_probe.py sass DIR # the forward's SASS vs DIR's
 
-`desc` compiles a one-warpgroup kernel that multiplies a 64 x 16 tile by a
-16 x 64 slice of a time-major window without swizzle (8-channel columns of
-16-byte rows, as the producers of `csrc/snake_conv.cuh` lay it) read
-MN-major by `wgmma` from a start at any row, and holds the product against
-numpy for starts 0..57 and both readings of the descriptor's two offsets:
-row 11 reads its windows so. `sincos` holds `sincos_fast` (row 10's
-epilogue) against CUDA's `sincosf` and `sin_fast` (the snake) against
-`sinf`, bit for bit, over every float with |v| < 105615. `check` prints ptxas's registers and spills of
-the three snake-conv sources and holds rows 10, 11 (with and without the
-snake) and the forward rows 12 and 3 against their plain versions at edge
-cases (Ci or Co 2, 8, 64, 128, 256, 2048; k 1 / 3 / 4 / 7 / 9; ragged L;
-one-sided padding; splits of one chunk and many): dx within 2 bf16 ulps of
-the reference's peak, dW, db, dalpha, dbeta within 1e-2 of their peaks;
-row 12 equal to row 3 with a zero residual bit for bit. `time` times rows
-10 and 11 at the 22 snake-conv cases of one VAE generator step and row 11
-plain at its two, beside their bounds and `torch.nn.grad.conv1d_weight` /
-`conv1d_input` on the pre-snaked input. `sass DIR` counts the SASS
+`desc` compiles a one-warpgroup kernel that multiplies a 64 x 16 tile by a 16
+x 64 slice of a time-major window without swizzle (8-channel columns of
+16-byte rows, as the producers of `csrc/snake_conv.cuh` lay it) read MN-major
+by `wgmma` from a start at any row, and holds the product against numpy for
+starts 0..57 and both readings of the descriptor's two offsets: row 11 reads
+its windows so. `sincos` holds `sincos_fast` (row 10's epilogue) and
+`sincos_lean` (row 9) against CUDA's `sincosf` and `sin_fast` (the snake)
+against `sinf`, bit for bit, over every float with |v| < 105615. `check`
+prints ptxas's registers and spills of the three snake-conv sources and holds
+rows 10, 11 (with and without the snake) and the forward rows 12 and 3 against
+their plain versions at edge cases (Ci or Co 2, 8, 64, 128, 256, 2048; k 1 / 3
+/ 4 / 7 / 9; ragged L; one-sided padding; splits of one chunk and many): dx
+within 2 bf16 ulps of the reference's peak, dW, db, dalpha, dbeta within 1e-2
+of their peaks; row 12 equal to row 3 with a zero residual bit for bit. `time`
+times rows 10 and 11 at the 22 snake-conv cases of one VAE generator step and
+row 11 plain at its two, beside their bounds and `torch.nn.grad.conv1d_weight`
+/ `conv1d_input` on the pre-snaked input. `sass DIR` counts the SASS
 instructions by opcode in each warp role of `snake_conv1d_carry_kernel<128,0>`
-(row 12 at 128 channels) built from this checkout and from the checkout at
-DIR (another commit unpacked there), the producers' arithmetic beside their
-bookkeeping. `narrow` times rows 10 and 11 at the VAE's 2-channel convs
-(the encoder's conv_in [4,2,65536] -> 128 k = 7, row 11 without the snake;
-the decoder's conv_out [4,128,65536] -> 2 k = 7, rows 10 and 11), beside the
-k = 1 conv at 128 channels that reads the same x, built as they are and
-from copies of the sources with the products switched off (every `wgmma`
-dropped) and with row 10's epilogue sines switched off: whether the
-products padded to 64 channels, the snake or the epilogue take the time.
-Exit 1 if a check fails.
+(row 12 at 128 channels) built from this checkout and from the checkout at DIR
+(another commit unpacked there), the producers' arithmetic beside their
+bookkeeping, and holds every kernel of the three snake-conv sources (rows 12,
+3, 10, 11) against DIR's instruction for instruction. `narrow` times rows 10
+and 11 at the VAE's 2-channel convs (the encoder's conv_in [4,2,65536] -> 128
+k = 7, row 11 without the snake; the decoder's conv_out [4,128,65536] -> 2 k =
+7, rows 10 and 11), beside the k = 1 conv at 128 channels that reads the same
+x, built as they are and from copies of the sources with the products switched
+off (every `wgmma` dropped) and with row 10's epilogue sines switched off:
+whether the products padded to 64 channels, the snake or the epilogue take the
+time. Exit 1 if a check fails.
 """
 
 import os
@@ -86,19 +87,22 @@ extern "C" __global__ void probe_kernel(const __nv_bfloat16* A, const __nv_bfloa
   }
 }
 
-// mismatches of sincos_fast against sincosf and sin_fast against sinf, bit
-// for bit, over every float v with |v| < 105615 (each bit pattern once)
+// mismatches of sincos_fast and sincos_lean against sincosf and sin_fast
+// against sinf, bit for bit, over every float v with |v| < 105615 (each bit
+// pattern once)
 extern "C" __global__ void sincos_kernel(unsigned long long* bad) {
   unsigned long long n = 0;
   for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x + threadIdx.x;
        i < (1ull << 32); i += (unsigned long long)gridDim.x * blockDim.x) {
     const float v = __uint_as_float((uint32_t)i);
     if (!(fabsf(v) < 105615.f)) continue;
-    float s, c, s2, c2;
+    float s, c, s2, c2, s3, c3;
     sincos_fast(v, &s, &c);
     sincosf(v, &s2, &c2);
+    sincos_lean(v, &s3, &c3);
     n += (__float_as_uint(s) != __float_as_uint(s2)) + (__float_as_uint(c) != __float_as_uint(c2)) +
-         (__float_as_uint(sin_fast(v)) != __float_as_uint(sinf(v)));
+         (__float_as_uint(sin_fast(v)) != __float_as_uint(sinf(v))) +
+         (__float_as_uint(s3) != __float_as_uint(s2)) + (__float_as_uint(c3) != __float_as_uint(c2));
   }
   if (n) atomicAdd(bad, n);
 }
@@ -167,7 +171,8 @@ def sincos() -> bool:
     bad = torch.zeros(1, dtype=torch.int64, device="cuda")
     code = fn(bad.data_ptr())
     n = int(bad.item())
-    print(f"sincos_fast vs sincosf, sin_fast vs sinf over every |v| < 105615: CUDA {code}, "
+    print(f"sincos_fast and sincos_lean vs sincosf, sin_fast vs sinf over every |v| < 105615: "
+          f"CUDA {code}, "
           f"{n} mismatches", flush=True)
     return code == 0 and n == 0
 
@@ -405,45 +410,71 @@ def narrow() -> None:
     use_sources(base)
 
 
-def sass_roles(root: str) -> dict:
-    """Opcode counts by warp role (before `setmaxnreg`, the consumers', the
-    producers') of row 12's 128-channel kernel built from `root`."""
-    import collections
+SNAKE_CONV_SOURCES = ("snake_conv1d", "snake_conv1d_dx", "conv1d_wgrad")
+
+
+def sass_functions(root: str) -> dict:
+    """Each kernel of the snake-conv sources built from `root` (its name as
+    `_build._kernel_name` gives it) -> its SASS listing by `cuobjdump`."""
     import importlib
 
     sys.path.insert(0, os.path.abspath(root))
     for m in [m for m in sys.modules if m.startswith("stable_audio_tools_tpu_torch")]:
         del sys.modules[m]
     build = importlib.import_module("stable_audio_tools_tpu_torch.ops.kernels._build")
-    build.library("snake_conv1d")
-    text = subprocess.run([os.path.join(os.path.dirname(build._nvcc()), "cuobjdump"), "-sass",
-                           str(build._LIB_PATHS["snake_conv1d"])],
-                          capture_output=True, text=True).stdout
+    out = {}
+    for name in SNAKE_CONV_SOURCES:
+        build.library(name)
+        text = subprocess.run([os.path.join(os.path.dirname(build._nvcc()), "cuobjdump"),
+                               "-sass", str(build._LIB_PATHS[name])],
+                              capture_output=True, text=True).stdout
+        for f in re.split(r"\n\s+Function : ", text)[1:]:
+            lines = f.split("\n")
+            out[f"{name}: {build._kernel_name(lines[0].strip())}"] = lines
     sys.path.pop(0)
-    for f in re.split(r"\n\s+Function : ", text)[1:]:
-        if build._kernel_name(f.split("\n")[0].strip()) != "snake_conv1d_carry_kernel<128,0>":
+    return out
+
+
+def sass_roles(functions: dict) -> dict:
+    """Opcode counts by warp role (before `setmaxnreg`, the consumers', the
+    producers') of row 12's 128-channel kernel."""
+    import collections
+
+    role, hist = "pre", collections.defaultdict(collections.Counter)
+    for line in functions["snake_conv1d: snake_conv1d_carry_kernel<128,0>"]:
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", line)
+        if not m:
             continue
-        role, hist = "pre", collections.defaultdict(collections.Counter)
-        for line in f.split("\n"):
-            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", line)
-            if not m:
-                continue
-            if "USETMAXREG.TRY_ALLOC" in line:
-                role = "consumers"
-            elif "USETMAXREG.DEALLOC" in line:
-                role = "producers"
-            hist[role][m.group(2).split(".")[0]] += 1
-        return hist
-    raise RuntimeError(f"no snake_conv1d_carry_kernel<128,0> in the build from {root}")
+        if "USETMAXREG.TRY_ALLOC" in line:
+            role = "consumers"
+        elif "USETMAXREG.DEALLOC" in line:
+            role = "producers"
+        hist[role][m.group(2).split(".")[0]] += 1
+    return hist
+
+
+def sass_instructions(functions: dict) -> dict:
+    """Each kernel's SASS instructions in order, addresses and encodings left
+    out."""
+    return {k: [m.group(1).strip() for m in
+                (re.search(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", line) for line in lines) if m]
+            for k, lines in functions.items()}
 
 
 def sass(other: str) -> None:
-    mine, theirs = sass_roles(ROOT), sass_roles(other)
+    here, there = sass_functions(ROOT), sass_functions(other)
+    mine, theirs = sass_roles(here), sass_roles(there)
     for role in ("pre", "consumers", "producers"):
         a, b = theirs[role], mine[role]
         diff = {op: b[op] - a[op] for op in sorted(set(a) | set(b)) if b[op] != a[op]}
         print(f"{role}: {sum(a.values())} instructions in {other}, {sum(b.values())} here; "
               f"by opcode (here - there) {diff}", flush=True)
+    mine, theirs = sass_instructions(here), sass_instructions(there)
+    differ = sorted(k for k in set(mine) | set(theirs) if mine.get(k) != theirs.get(k))
+    print(f"every kernel of {', '.join(SNAKE_CONV_SOURCES)}: {len(mine)} here, {len(theirs)} in "
+          f"{other}, {sum(map(len, mine.values()))} / {sum(map(len, theirs.values()))} "
+          f"instructions; instruction for instruction the same: {not differ}"
+          + (f"; differ: {differ}" if differ else ""), flush=True)
 
 
 def main() -> int:

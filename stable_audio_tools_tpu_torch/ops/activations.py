@@ -18,7 +18,7 @@ from .kernels.snake import snake_fused
 
 def snake_beta(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     """x [B, C, T]; alpha, beta [C] (post-exp). CUDA inputs run the fused
-    Triton kernel forward and backward (ops/kernels/snake.py)."""
+    CUDA kernels forward and backward (ops/kernels/snake.py, csrc/snake.cu)."""
     return snake_fused(x, alpha, beta)
 
 

@@ -8,35 +8,95 @@ with per-channel alpha, beta (post-exp values); and `_bwd_kernel` (through
 and dalpha = sum g x binv sin(2 alpha x), dbeta = -sum g sin^2(alpha x) binv^2
 over batch and time. The TPU kernels evaluate sin^2 and its derivative with a
 range-reduced polynomial (`_COS_POLY`, `_DCOS_POLY`) because the TPU has no
-transcendental unit; this port uses exact `sin`/`cos` in f32 (Triton's
-`tl.sin`, libdevice), the maths of the JAX package's CPU path
-(ops/activations.py `_snake_fast_bwd` with `jnp.sin`).
+transcendental unit; this port uses exact f32 sines (CUDA's sinf / sincosf),
+the maths of the JAX package's CPU path (ops/activations.py `_snake_fast_bwd`
+with `jnp.sin`).
 
 Layout: x is [B, C, L], channels before time (the port's layout); the TPU
 kernels took [B, L, C].
 
-Route: Triton, both ways (snake_triton.py), imported inside the launching
-functions so this module imports on machines without `triton`.
-- Forward: one program per (row b*C + c, 4096-sample block), alpha and beta
-  loaded once per program. Bound: bytes (~20 FLOP per 4 bytes at the
-  Oobleck widths); it reads x once and writes y once, where the plain
-  version makes several passes with f32 temporaries.
-- Backward: the same grid; each program reads x and g once, writes dx and
-  one f32 partial of dalpha and of dbeta; the wrapper sums the
-  [B, C, n_blocks] partials (a tensor ~1/4096 of x's size), as the JAX
-  package sums its kernel's partials after the call. Bound: bytes, 6 per
-  element (x and g read, dx written, bf16).
+Route: CUDA C++, `csrc/snake.cu` (its note gives the design and the bound:
+bytes), one ctypes call a direction: `snake_fwd` (one launch) and
+`snake_bwd` (a launch that writes dx and each row's partial sums into a
+workspace, and a second that sums each channel's partials in a fixed order:
+deterministic, no float atomics). Both walk the plan `snake_plan` gives:
+tiles of rows by columns sized by the live elements of the call, 16-byte
+vectors where the row length and the pointers allow.
 
-`snake_fused` is a `torch.autograd.Function`: CUDA tensors launch the
-forward kernel and, in the backward, `snake_fused_bwd`; CPU tensors take the
-plain versions through the same Function, so the CPU tests reach its wiring.
+`snake_fused` is a `torch.autograd.Function` where autograd needs one (grad
+mode on and an input that requires a gradient): CUDA tensors launch the
+forward kernel and, in the backward, `snake_fused_bwd`. Elsewhere (a decode,
+a frozen encoder) it is the launch alone, no autograd node, as
+`fused_layer_norm`. CPU tensors take the plain versions on both routes, so
+the CPU tests reach the wiring.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import NamedTuple
+
 import torch
 
-BLOCK = 4096
+from . import _build
+
+THREADS = 256      # a block of either kernel (csrc/snake.cu)
+BLOCK_ELEMS = 16384  # the most elements a block takes
+# blocks a call aims for before a block takes more than one vector a
+# thread: four for each of an H100's 132 SMs, so small sites still spread
+MIN_BLOCKS = 4 * 132
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# csrc/snake.cu `snake_fwd`: x, alpha, beta, y, rows, C, L, dtype, vec, tpr,
+# col_steps, row_passes, ncb, stream
+_FWD_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 9 + (ctypes.c_void_p,)
+# `snake_bwd`: x, g, alpha, beta, dx, ws, out, B, C, L, dtype, vec, tpr,
+# col_steps, row_passes, ncb, stream
+_BWD_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 9 + (ctypes.c_void_p,)
+
+
+class SnakePlan(NamedTuple):
+    """How the kernels of csrc/snake.cu walk x [B, C, L]: a block of THREADS
+    threads puts `tpr` threads along a row, so THREADS // tpr rows a pass;
+    each thread takes `col_steps` vectors of `vec` elements along its row,
+    `tpr * vec` apart, and the block makes `row_passes` passes. A block's
+    tile is `rows` x `cols`; the grid is `ncb` column blocks for each of
+    cdiv(B*C, rows) row blocks."""
+    vec: int
+    tpr: int
+    col_steps: int
+    row_passes: int
+    rows: int
+    cols: int
+    ncb: int
+    blocks: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=1024)
+def snake_plan(B: int, C: int, L: int, itemsize: int, vector: bool = True) -> SnakePlan:
+    """The plan for x [B, C, L] of `itemsize`-byte elements. `vector`: every
+    pointer lies on 16 bytes; then rows whose length is a multiple of the
+    16-byte vector are read by vectors, others one element a thread. A block
+    takes up to BLOCK_ELEMS elements, fewer where the call has fewer than
+    MIN_BLOCKS blocks' worth (never less than one vector a thread); a row
+    of fewer vectors than THREADS takes a power of two of threads that
+    covers it, and the block stacks rows."""
+    vec = 16 // itemsize if vector and L % (16 // itemsize) == 0 else 1
+    tpr = min(THREADS, 1 << (_cdiv(L, vec) - 1).bit_length())
+    rows_pass, step = THREADS // tpr, tpr * vec
+    share = B * C * L // MIN_BLOCKS
+    target = max(THREADS * vec, min(BLOCK_ELEMS, 1 << max(share.bit_length() - 1, 0)))
+    col_steps = max(1, min(_cdiv(L, step), target // step))
+    cols = col_steps * step
+    row_passes = max(1, target // (rows_pass * cols))
+    rows = rows_pass * row_passes
+    ncb = _cdiv(L, cols)
+    return SnakePlan(vec, tpr, col_steps, row_passes, rows, cols, ncb,
+                     _cdiv(B * C, rows) * ncb)
 
 
 def snake_fused_plain(x: torch.Tensor, alpha: torch.Tensor,
@@ -65,31 +125,43 @@ def snake_fused_bwd_plain(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tens
 
 
 def _check(name: str, x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -> None:
-    if x.device.type != "cuda":
+    """Raises unless x [B, C, L] and alpha, beta [C] lie on one CUDA card and
+    x's dtype is one the kernels take (the calls are launch-sized at small
+    sites, so the checks are the cheap ones)."""
+    if not x.is_cuda:
         raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dim() != 3:
         raise ValueError(f"{name}: x must be [B, C, L], got {tuple(x.shape)}")
     C = x.shape[1]
     if alpha.shape != (C,) or beta.shape != (C,):
         raise ValueError(f"{name}: alpha/beta must be [{C}]")
-    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+    card = x.get_device()
+    if alpha.get_device() != card or beta.get_device() != card:
+        raise ValueError(f"{name}: alpha/beta not on {x.device} with x")
+    if x.dtype not in _DTYPES:
         raise TypeError(f"{name}: unsupported dtype {x.dtype}")
 
 
+def _stream(x: torch.Tensor) -> int:
+    return torch._C._cuda_getCurrentRawStream(x.get_device())
+
+
 def _forward(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
-    if x.device.type == "cpu":
+    if not x.is_cuda and x.device.type == "cpu":
         return snake_fused_plain(x, alpha, beta)
     _check("snake_fused", x, alpha, beta)
-    import triton
-
-    from .snake_triton import snake_fwd
-
-    B, C, L = x.shape
     x = x.contiguous()
     y = torch.empty_like(x)
-    a = alpha.detach().contiguous().float()
-    b = beta.detach().contiguous().float()
-    snake_fwd[(B * C, triton.cdiv(L, BLOCK))](x, a, b, y, C, L, BLOCK=BLOCK, num_warps=8)
+    if not y.numel():
+        return y
+    B, C, L = x.shape
+    p = snake_plan(B, C, L, x.element_size(), x.data_ptr() % 16 == 0)
+    a, b = alpha.float().contiguous(), beta.float().contiguous()
+    code = _build.bind("snake", "snake_fwd", _FWD_ARGTYPES)(
+        x.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), B * C, C, L,
+        _DTYPES[x.dtype], p.vec > 1, p.tpr, p.col_steps, p.row_passes, p.ncb, _stream(x))
+    if code:
+        _build.check(code, "snake_fused (snake_fwd)")
     snake_fused.launches += 1
     return y
 
@@ -97,27 +169,32 @@ def _forward(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -> torch.
 def snake_fused_bwd(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
                     g: torch.Tensor):
     """(dx, dalpha f32 [C], dbeta f32 [C]) for the cotangent g of
-    snake_fused(x, alpha, beta); CUDA tensors launch the Triton backward."""
-    if x.device.type == "cpu":
+    snake_fused(x, alpha, beta); CUDA tensors launch csrc/snake.cu's
+    backward (one host call, two launches)."""
+    if not x.is_cuda and x.device.type == "cpu":
         return snake_fused_bwd_plain(x, alpha, beta, g)
     _check("snake_fused_bwd", x, alpha, beta)
-    if g.shape != x.shape:
-        raise ValueError(f"snake_fused_bwd: g {tuple(g.shape)} and x {tuple(x.shape)} differ")
-    import triton
-
-    from .snake_triton import snake_bwd
-
-    B, C, L = x.shape
-    nblk = triton.cdiv(L, BLOCK)
+    if g.shape != x.shape or g.dtype != x.dtype or g.get_device() != x.get_device():
+        raise ValueError(f"snake_fused_bwd: g {tuple(g.shape)} {g.dtype} and x "
+                         f"{tuple(x.shape)} {x.dtype} differ")
     x, g = x.contiguous(), g.contiguous()
+    B, C, L = x.shape
     dx = torch.empty_like(x)
-    pa = torch.empty((B * C, nblk), device=x.device, dtype=torch.float32)
-    pb = torch.empty_like(pa)
-    snake_bwd[(B * C, nblk)](x, g, alpha.detach().contiguous().float(),
-                             beta.detach().contiguous().float(), dx, pa, pb, C, L, nblk,
-                             BLOCK=BLOCK, num_warps=8)
+    out = x.new_empty((2, C), dtype=torch.float32)
+    if not x.numel():
+        return (dx, *out.zero_().unbind(0))
+    p = snake_plan(B, C, L, x.element_size(), (x.data_ptr() | g.data_ptr()) % 16 == 0)
+    ws = x.new_empty(2 * B * C * p.ncb, dtype=torch.float32)
+    a, b = alpha.float().contiguous(), beta.float().contiguous()
+    code = _build.bind("snake", "snake_bwd", _BWD_ARGTYPES)(
+        x.data_ptr(), g.data_ptr(), a.data_ptr(), b.data_ptr(), dx.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), B, C, L, _DTYPES[x.dtype], p.vec > 1, p.tpr, p.col_steps,
+        p.row_passes, p.ncb, _stream(x))
+    if code:
+        _build.check(code, "snake_fused_bwd (snake_bwd)")
     snake_fused_bwd.launches += 1
-    return dx, pa.view(B, C, nblk).sum(dim=(0, 2)), pb.view(B, C, nblk).sum(dim=(0, 2))
+    dalpha, dbeta = out.unbind(0)
+    return dx, dalpha, dbeta
 
 
 class _SnakeFused(torch.autograd.Function):
@@ -135,8 +212,11 @@ class _SnakeFused(torch.autograd.Function):
 
 def snake_fused(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     """snake_beta over x [B, C, L] with per-channel alpha, beta [C],
-    differentiable in all three."""
-    return _SnakeFused.apply(x, alpha, beta)
+    differentiable in all three (an autograd node only where one is needed)."""
+    if torch.is_grad_enabled() and (x.requires_grad or alpha.requires_grad
+                                    or beta.requires_grad):
+        return _SnakeFused.apply(x, alpha, beta)
+    return _forward(x, alpha, beta)
 
 
 snake_fused.launches = 0

@@ -12,7 +12,7 @@ from .kernels.layer_norm import fused_layer_norm
 class LayerNorm(nn.Module):
     """Bias-less LayerNorm with f32 statistics, cast back to the input dtype.
 
-    CUDA inputs run the fused Triton kernel (ops/kernels/layer_norm.py)."""
+    CUDA inputs run the fused CUDA kernel (ops/kernels/layer_norm.py)."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()

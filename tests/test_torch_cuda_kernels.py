@@ -113,11 +113,85 @@ def test_fused_layer_norm_is_one_launch(dev):
     assert y0.grad_fn is None and torch.equal(y0, y.detach())
 
 
-def test_snake_fused(dev):
-    x = _randn(dev, 2, 33, 5000, scale=2.0)
-    a = _randn(dev, 33, dtype=torch.float32, seed=1).exp()
-    b = _randn(dev, 33, dtype=torch.float32, seed=2).exp()
+# the snake's shapes on the card (csrc/snake.cu): the SA-2.0 VAE's six
+# snake_fused sites at batch 1 (rows of 32 to 65,536: many rows a block, one
+# row over several vectors a thread), and ragged ones (L off the 16-byte
+# vector, one element, rows over several column blocks)
+SNAKE_SHAPES = [(1, 128, 65536), (1, 128, 32768), (1, 256, 8192), (1, 512, 2048),
+                (1, 1024, 256), (1, 2048, 32), (2, 33, 5000), (3, 7, 100), (1, 1, 1),
+                (2, 48, 700)]
+
+
+def _snake_inputs(dev, B, C, L, dtype=torch.bfloat16):
+    x, g = _randn(dev, B, C, L, scale=2.0, dtype=dtype), _randn(dev, B, C, L, seed=1, dtype=dtype)
+    a = _randn(dev, C, dtype=torch.float32, seed=2).exp()
+    b = _randn(dev, C, dtype=torch.float32, seed=3).exp()
+    return x, g, a, b
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("B,C,L", SNAKE_SHAPES)
+def test_snake_fused(dev, B, C, L, dtype):
+    x, _, a, b = _snake_inputs(dev, B, C, L, dtype)
     _close(sn.snake_fused(x, a, b), sn.snake_fused_plain(x, a, b))
+
+
+def test_snake_fused_reads_offset_views(dev):
+    # a view off the 16-byte grid takes the one-element path
+    buf = _randn(dev, 2 * 33 * 4096 + 1, scale=2.0)
+    x = buf[1:].view(2, 33, 4096)
+    a = _randn(dev, 33, dtype=torch.float32, seed=2).exp()
+    b = _randn(dev, 33, dtype=torch.float32, seed=3).exp()
+    _close(sn.snake_fused(x, a, b), sn.snake_fused_plain(x, a, b))
+    g = _randn(dev, 2, 33, 4096, seed=1)
+    got, want = sn.snake_fused_bwd(x, a, b, g), sn.snake_fused_bwd_plain(x, a, b, g)
+    _close(got[0], want[0])
+    for p, q in zip(got[1:], want[1:]):
+        assert _rel_err(p, q) < 1e-2
+
+
+def _kernels_of(fn, calls=10):
+    """Kernel name -> launches of `calls` calls of fn, by the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_snake_launches_csrc_snake_or_raises(dev, monkeypatch, direction):
+    # the forward is one launch of snake_fwd_kernel, the backward one of
+    # snake_bwd_kernel and one of its per-channel sums, nothing else (no
+    # torch.sum, no Triton); each counts one host call; a library that does
+    # not load raises, and nothing falls back to the plain version
+    from stable_audio_tools_tpu_torch.ops.kernels import _build
+
+    x, g, a, b = _snake_inputs(dev, 2, 64, 4096)
+    fn, counter, names = ((lambda: sn.snake_fused(x, a, b), sn.snake_fused, ("snake_fwd_kernel",))
+                          if direction == "forward" else
+                          (lambda: sn.snake_fused_bwd(x, a, b, g), sn.snake_fused_bwd,
+                           ("snake_bwd_kernel", "snake_bwd_reduce_kernel")))
+    before = counter.launches
+    kernels = _kernels_of(fn)
+    assert counter.launches - before == 11
+    assert all(any(n in k for n in names) for k in kernels), kernels
+    for n in names:  # the profiler may miss the first launch of its window
+        assert 9 <= sum(c for k, c in kernels.items() if n in k) <= 10, kernels
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("no library")
+
+    monkeypatch.setattr(_build, "bind", refuse)
+    before = counter.launches
+    with pytest.raises(RuntimeError, match="no library"):
+        fn()
+    assert counter.launches == before
 
 
 @pytest.mark.parametrize("Ci,Co,L,k,d,res,bias", [
@@ -345,18 +419,27 @@ def test_snake_wrapper_gradients_on_card(dev):
         assert sn.snake_fused(x, a, b).grad_fn is None
 
 
-@pytest.mark.parametrize("B,C,L", [(2, 33, 5000), (1, 128, 4096), (3, 7, 100)])
-def test_snake_fused_bwd(dev, B, C, L):
-    # kernel A: dx within 2 bf16 ulps; dalpha/dbeta f32 sums in another
-    # order, 1e-2 of their peak
-    x, g = _randn(dev, B, C, L, scale=2.0), _randn(dev, B, C, L, seed=1)
-    a = _randn(dev, C, dtype=torch.float32, seed=2).exp()
-    b = _randn(dev, C, dtype=torch.float32, seed=3).exp()
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("B,C,L", SNAKE_SHAPES + [(1, 128, 4096)])
+def test_snake_fused_bwd(dev, B, C, L, dtype):
+    # row 9 (csrc/snake.cu): dx within 2 bf16 ulps; dalpha/dbeta f32 sums in
+    # another order, 1e-2 of their peak
+    x, g, a, b = _snake_inputs(dev, B, C, L, dtype)
     got = sn.snake_fused_bwd(x, a, b, g)
     want = sn.snake_fused_bwd_plain(x, a, b, g)
+    assert got[0].dtype == x.dtype and got[1].dtype == got[2].dtype == torch.float32
     _close(got[0], want[0])
     for p, q in zip(got[1:], want[1:]):
         assert _rel_err(p, q) < 1e-2
+
+
+@pytest.mark.parametrize("B,C,L", [(4, 128, 65536), (4, 2048, 32), (2, 48, 700)])
+def test_snake_fused_bwd_is_deterministic(dev, B, C, L):
+    # the per-channel sums go through a workspace in a fixed order (no float
+    # atomics): two calls give the same bits
+    x, g, a, b = _snake_inputs(dev, B, C, L)
+    first, second = sn.snake_fused_bwd(x, a, b, g), sn.snake_fused_bwd(x, a, b, g)
+    assert all(torch.equal(p, q) for p, q in zip(first, second))
 
 
 # (Ci, Co, L, k, d, pad): widths off the 32/64 tiling, Co = 2 (the decoder's
