@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Runs from the repository root on a machine with a CUDA card and `nvcc`;
-needs no network, no Triton and no JAX. Nine phases, each printing one line
-(phase 2 two); any failure raises and the exit code is nonzero:
+needs no network, no Triton and no JAX. Ten phases, each printing one line
+(phase 2 several); any failure raises and the exit code is nonzero:
 
 1. Device and build: the card's name and power limit, then every CUDA source
    of the port compiled from the checkout, all at once (seconds printed).
@@ -54,7 +54,12 @@ needs no network, no Triton and no JAX. Nine phases, each printing one line
    bound and `F.conv1d` alone on the pre-snaked input; row 3's k = 1 conv +
    residual at the five decode levels beside its byte bound and `F.conv1d`
    k = 1 on the pre-snaked input plus the residual; ptxas's registers and
-   spills of every instantiation of the two kernels are printed.
+   spills of every instantiation of the two kernels are printed. The plain
+   weight gradient (`conv1d_wgrad`) is also held at each of the 64 distinct
+   shapes of a Dance Diffusion training step (batch 4 x 65,536; k = 5 and 1,
+   Ci / Co from 2 to 1536, L from 65,536 to 8, read from the shipped
+   config's model), each timed beside `torch.nn.grad.conv1d_weight` and its
+   bound and summed with the step's launches.
 3. Generation: SA-Open (the shipped stable_audio_open_1_0.json, built by the
    port's factory, random weights from a seeded torch.Generator, random T5)
    runs generate_diffusion_cond with cfg 6, dpmpp-3m-sde, sigma in [0.3, 500],
@@ -135,6 +140,21 @@ needs no network, no Triton and no JAX. Nine phases, each printing one line
    weights and EMA, a checkpoint that reloads identical; (c) training from
    audio, batch 1 x 12,582,912 samples (the in-step encode): 1 warm-up and 2
    timed steps.
+
+10. Dance Diffusion: a tiny DAU1d (4 levels of 32-64 channels, attention
+   with 2 heads) generates by dpmpp-2m-sde and v-DDIM on replayed noise and
+   takes one training step (the same weights, batch, t and noise) on the
+   card in bf16 and on the CPU in f32 and bf16: the card's distance from the
+   CPU's f32 result may be at most DANCE_SPREAD times the CPU's bf16 one.
+   Then BASELINE (b), the shipped dance_diffusion_base_16k.json with seeded
+   random weights: one request of batch 1, 65,536 samples, 100
+   dpmpp-2m-sde steps (finite [1, 2, 65536] audio, no hand-written kernel
+   launched), a sampler step timed and profiled; and training through the
+   code path of `python -m stable_audio_tools_tpu_torch.train` on seeded
+   synthetic 16 kHz stereo WAVs, batch 4 x 65,536: 2 warm-up and 5 timed
+   steps, one forward+backward profiled, a checkpoint and its reload. Losses
+   and gradients finite, every gradient nonzero, parameters and EMA moved,
+   and `conv1d_wgrad` launched once per stride-1 conv of the model a step.
 
 The last lines are the kernels' JSON record, the card line and the result
 line {"ok": true, "device": {...}}.
@@ -830,14 +850,18 @@ def ae_backward_checks(sn, cs, randn, fwd: dict, hold_row3) -> dict:
         errs.append(max(rel_err(f"conv1d_wgrad {n} [{B},{C},{L}] -> {Co}", p, q, GRAD_REL_TOL)
                         for n, p, q in zip(("dW", "db"), got, want)))
         abs_errs.append(max((p - q).abs().max().item() for p, q in zip(got, want)))
+    # and at every shape of a Dance Diffusion training step
+    dance = dance_wgrad_checks(cs, randn)
     x, dy = randn(B, 2, 65536), randn(B, 128, 65536)
     dW = cs.conv1d_wgrad(dy, x, 7, 3, 3, 1)[0]
     rec["conv1d_wgrad"] = dict(
         route="cuda", source="stable_audio_tools_tpu_torch/csrc/conv1d_wgrad.cu",
         replaces="stable_audio_tools_tpu/ops/kernels/conv1d_snake.py:311",
         shape=f"dy [{B},128,65536], x [{B},2,65536] k=7 bf16 -> dW f32 (timed; the "
-              "encoder's and the decoder's conv_in checked)",
-        max_abs_err=max(abs_errs), max_rel_err=max(errs),
+              f"encoder's and the decoder's conv_in and the {len(dance['levels'])} shapes of "
+              "a Dance training step checked)",
+        max_abs_err=max(*abs_errs, dance["max_abs_err"]),
+        max_rel_err=max(*errs, dance["max_rel_err"]), dance_step=dance,
         tol=f"{GRAD_REL_TOL} x max|plain| (dW, db)",
         ms=cuda_ms(lambda: cs.conv1d_wgrad(dy, x, 7, 3, 3, 1), 10),
         plain_ms=cuda_ms(lambda: cs.conv1d_wgrad_plain(dy, x, 7, 3, 3, 1), 5),
@@ -2886,6 +2910,294 @@ def phase_sa2_training(dev) -> dict:
     return rec
 
 
+DANCE = os.path.join(ROOT, "stable_audio_tools_tpu", "configs", "model_configs",
+                     "dance_diffusion", "dance_diffusion_base_16k.json")
+DANCE_SAMPLE_SIZE, DANCE_SR, DANCE_BATCH = 65536, 16000, 4
+# the card's bf16 outputs and gradients of the tiny Dance checks may lie at
+# most this many times as far from the CPU's f32 ones as the CPU's own bf16
+# ones do (||a - f32|| / ||f32||)
+DANCE_SPREAD = 2.0
+
+
+def dance_config() -> dict:
+    with open(DANCE) as f:
+        return json.load(f)
+
+
+def dance_wgrad_shapes(batch: int = DANCE_BATCH) -> dict:
+    """{(Ci, Co, k, L): launches} of the plain weight gradient in one
+    training step of BASELINE (b), read from a forward of the shipped
+    config's model on the meta device (each stride-1 conv's input length)."""
+    import collections
+
+    from stable_audio_tools_tpu_torch.models.dance_unet import Conv1d
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config
+
+    model = create_model_from_config(dance_config(), "meta")
+    shapes = collections.Counter()
+    for m in model.modules():
+        if isinstance(m, Conv1d):
+            m.register_forward_hook(lambda m, i, o: shapes.update(
+                [(m.in_channels, m.out_channels, m.kernel_size[0], i[0].shape[-1])]))
+    with torch.no_grad():
+        model(torch.empty(batch, 2, DANCE_SAMPLE_SIZE, device="meta"),
+              torch.empty(batch, device="meta"))
+    if sum(shapes.values()) != model.model.conv_sites():
+        raise AssertionError(f"{sum(shapes.values())} conv calls, {model.model.conv_sites()} "
+                             "convs in the model")
+    return dict(shapes)
+
+
+def dance_wgrad_checks(cs, randn) -> dict:
+    """Row 11 plain (`conv1d_wgrad`) at every distinct shape of a Dance
+    training step (batch 4 x 65,536): dW and db within GRAD_REL_TOL of their
+    peaks against the plain version, each timed (CUDA events, back to back)
+    beside `torch.nn.grad.conv1d_weight` (a yardstick only) and its bound,
+    and summed with the step's launches."""
+    B, levels, errs, abs_errs = DANCE_BATCH, [], [], []
+    for (Ci, Co, k, L), n in sorted(dance_wgrad_shapes().items(),
+                                    key=lambda kv: (-kv[0][3], kv[0])):
+        pad = k // 2
+        x, dy = randn(B, Ci, L), randn(B, Co, L)
+        got, want = cs.conv1d_wgrad(dy, x, k, pad, pad, 1), cs.conv1d_wgrad_plain(
+            dy, x, k, pad, pad, 1)
+        name = f"[{B},{Ci},{L}] -> {Co} k={k}"
+        errs.append(max(rel_err(f"conv1d_wgrad {p} {name}", a, b, GRAD_REL_TOL)
+                        for p, a, b in zip(("dW", "db"), got, want)))
+        abs_errs.append(max((a - b).abs().max().item() for a, b in zip(got, want)))
+        levels.append(dict(
+            shape=name, launches=n,
+            ms=cuda_ms(lambda: cs.conv1d_wgrad(dy, x, k, pad, pad, 1), 5),
+            conv1d_weight_ms=cuda_ms(lambda: torch.nn.grad.conv1d_weight(
+                x, (Co, Ci, k), dy, padding=pad), 5),
+            **bound(2.0 * B * L * Ci * Co * k, dy, x, *got)))
+        del x, dy, got, want
+    step = {key: sum(c["launches"] * c[key] for c in levels)
+            for key in ("ms", "conv1d_weight_ms", "bound_ms")}
+    return dict(levels=levels, max_rel_err=max(errs), max_abs_err=max(abs_errs),
+                launches=sum(c["launches"] for c in levels), **step,
+                share_of_bound=step["bound_ms"] / step["ms"])
+
+
+def tiny_dance_config(compute_dtype) -> dict:
+    """A tiny DAU1d with the shipped config's blocks: 4 levels of 32-64
+    channels, attention at levels 2-4 (2 heads at 64), 1024 samples."""
+    cfg = dance_config()
+    cfg["sample_size"] = 1024
+    cfg["model"]["config"].update(depth=4, n_attn_layers=2, channels=[32, 32, 64, 64],
+                                  strides=[2, 2, 2], compute_dtype=compute_dtype)
+    return cfg
+
+
+def tiny_dance(dev, compute_dtype):
+    """The tiny model on `dev`, its weights made on the CPU from seed 1 (the
+    same for every dtype)."""
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+
+    model = create_model_from_config(tiny_dance_config(compute_dtype), "cpu")
+    return init_random_(model, torch.Generator().manual_seed(1)).to(dev)
+
+
+def rel_dist(got, want) -> float:
+    return ((got.float().cpu() - want).norm() / want.norm()).item()
+
+
+def small_dance_check(dev) -> dict:
+    """The tiny model with its weights, noise and batch the same everywhere:
+    generation by dpmpp-2m-sde and v-DDIM (8 steps, the step noise replayed)
+    and one training step (the same t and noise) on the card in bf16 against
+    the CPU in f32, each beside the CPU's own bf16 run; the card's distance
+    from the CPU's f32 result may be at most DANCE_SPREAD times the CPU's
+    bf16 one (relative norms: the audio, the loss, the whole gradient)."""
+    from stable_audio_tools_tpu_torch.inference.generation import generate_diffusion_uncond
+    from stable_audio_tools_tpu_torch.training.factory import create_training_wrapper_from_config
+
+    g = torch.Generator().manual_seed(2)
+    T, steps = 1024, 8
+    noise = torch.randn(1, 2, T, generator=g)
+    step_noises = [torch.randn(1, 2, T, generator=g) for _ in range(steps)]
+    audio = 0.3 * torch.randn(2, 2, T, generator=g)
+    t, train_noise = torch.rand(2, generator=g), torch.randn(2, 2, T, generator=g)
+    runs = {"f32": ("cpu", None), "cpu_bf16": ("cpu", "bfloat16"), "card_bf16": (dev, "bfloat16")}
+    out = {}
+    for name, (d, dtype) in runs.items():
+        model = tiny_dance(d, dtype).eval()
+        res = {}
+        for sampler in ("dpmpp-2m-sde", "v-ddim"):
+            res[sampler] = generate_diffusion_uncond(
+                model, steps=steps, sample_size=T, sampler_type=sampler, noise=noise.to(d),
+                step_noise=lambda i, x: step_noises[i].to(x.device)).float().cpu()
+        w = create_training_wrapper_from_config(tiny_dance_config(dtype), model)
+        res["loss"] = w.train_step(audio.to(d), [{}, {}], t=t.to(d),
+                                   noise=train_noise.to(d))["loss"].float().cpu()
+        res["grad"] = torch.cat([p.grad.float().cpu().flatten() for p in w.params.values()])
+        if not all(torch.isfinite(v).all() for v in res.values()):
+            raise AssertionError(f"small Dance check: non-finite values in the {name} run")
+        out[name] = res
+    rec = {}
+    for key in ("dpmpp-2m-sde", "v-ddim", "loss", "grad"):
+        cpu, card = (rel_dist(out[n][key], out["f32"][key]) for n in ("cpu_bf16", "card_bf16"))
+        rec[key] = dict(cpu_bf16_vs_f32=cpu, card_bf16_vs_cpu_f32=card)
+        if not card <= DANCE_SPREAD * cpu:
+            raise AssertionError(f"small Dance {key}: the card's bf16 lies {card:.3g} from the "
+                                 f"CPU's f32, more than {DANCE_SPREAD} x the CPU's bf16 "
+                                 f"{cpu:.3g}")
+    return rec
+
+
+def profiled_window(fn) -> dict:
+    """torch.profiler over one call of fn (synchronised), read by
+    `profile_reading`, and row 11's kernels' device ms in it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    return dict(profile_reading(events, wall_us), conv1d_wgrad_ms=sum(
+        e.self_device_time_total for e in events
+        if e.device_type == DeviceType.CUDA and "conv1d_wgrad" in e.key) / 1e3)
+
+
+def dance_generation(dev) -> dict:
+    """BASELINE (b): the shipped base_16k config, seeded random weights,
+    batch 1, 65,536 samples, 100 dpmpp-2m-sde steps; then one sampler step
+    (a denoiser call) timed and profiled."""
+    from stable_audio_tools_tpu_torch.inference.generation import generate_diffusion_uncond
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+
+    model = create_model_from_config(dance_config(), dev)
+    init_random_(model, torch.Generator(device=dev).manual_seed(0)).eval()
+    run = lambda steps, seed: generate_diffusion_uncond(
+        model, steps=steps, batch_size=1, sample_size=DANCE_SAMPLE_SIZE, seed=seed,
+        sampler_type="dpmpp-2m-sde", sigma_min=0.3, sigma_max=500.0)
+    run(2, 0)  # warm-up: cuDNN plans at the full shapes
+    torch.cuda.synchronize()
+    kernels = counters()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    audio = run(STEPS, 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    if any(launches.values()):  # cuDNN's convs: no hand-written kernel runs a forward
+        raise AssertionError(f"Dance generation launched {launches}")
+    if tuple(audio.shape) != (1, 2, DANCE_SAMPLE_SIZE) or not torch.isfinite(audio).all():
+        raise AssertionError(f"Dance audio {tuple(audio.shape)} "
+                             f"finite={bool(torch.isfinite(audio).all())}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    x = torch.randn(1, 2, DANCE_SAMPLE_SIZE, device=dev)
+    t = torch.full((1,), 0.5, device=dev)
+    with torch.inference_mode():
+        step = lambda: model(x, t)
+        step_ms = cuda_ms(step, 5)
+        profile = profiled_window(step)
+    return dict(wall_s=wall, steps=STEPS, audio_s_per_s=DANCE_SAMPLE_SIZE / DANCE_SR / wall,
+                peak_gib=peak_gib, launches=launches, step_ms=step_ms, step_profile=profile,
+                params=sum(p.numel() for p in model.parameters()))
+
+
+def dance_training(dev) -> dict:
+    """BASELINE (b)'s config trained through `train.build` and
+    `Trainer.fit` at batch 4 x 65,536 on seeded synthetic 16 kHz stereo
+    WAVs: 2 warm-up and 5 timed steps, one forward+backward profiled, a
+    checkpoint and its reload."""
+    from stable_audio_tools_tpu_torch import train
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config
+
+    rec = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dance_") as tmp:
+        cfg_path = os.path.join(tmp, "model.json")
+        with open(cfg_path, "w") as f:
+            json.dump(dance_config(), f)
+        args = train.parse_args([
+            # 16 clips of 5-12.5 s at 16 kHz: an epoch of 4 batches
+            "--model-config", cfg_path,
+            "--dataset-config", write_dataset(tmp, 16, 5, 0.5, sr=DANCE_SR),
+            "--batch-size", str(DANCE_BATCH), "--num-workers", "4", "--seed", "0",
+            "--max-steps", str(WARM_STEPS + TIMED_STEPS), "--checkpoint-every", "0",
+            "--save-dir", os.path.join(tmp, "run")])
+        trainer, loader = train.build(args, device=dev)
+        w = trainer.wrapper
+        unet = w.model.model
+        if unet.compute_dtype != torch.bfloat16 or next(unet.parameters()).device != dev:
+            raise AssertionError(f"Dance: not built on {dev} with bf16 compute")
+        before = {n: p.detach().clone() for n, p in w.params.items()}
+        trainer.fit(loader, max_steps=1, save_at_end=False)
+        bad = [n for n, p in w.params.items()
+               if p.grad is None or not torch.isfinite(p.grad).all() or not p.grad.abs().max() > 0]
+        if bad:
+            raise AssertionError(f"Dance step 1: {len(bad)} parameters have no finite nonzero "
+                                 f"gradient: {bad[:8]}")
+        trainer.fit(loader, max_steps=WARM_STEPS, save_at_end=False)
+        torch.cuda.synchronize()
+        kernels = counters()
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        trainer.fit(loader, max_steps=WARM_STEPS + TIMED_STEPS, save_at_end=False)
+        torch.cuda.synchronize()
+        rec["launches"] = {n: fn.launches for n, fn in kernels.items()}
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        sites = unet.conv_sites()
+        want = {n: TIMED_STEPS * sites if n == "conv1d_wgrad" else 0 for n in kernels}
+        if rec["launches"] != want:
+            raise AssertionError(f"Dance training launches {rec['launches']}, expected {want} "
+                                 f"({sites} stride-1 convs a forward)")
+        losses = [h["train/loss"] for h in trainer.history]
+        if len(losses) != WARM_STEPS + TIMED_STEPS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"Dance training losses: {losses}")
+        walls = [1e3 / h["train/steps_per_sec"] for h in trainer.history[WARM_STEPS:]]
+        unmoved = [n for n, p in w.params.items() if torch.equal(p.detach(), before[n])]
+        ema_unmoved = [n for n, e in w.ema.items() if torch.equal(e, before[n])]
+        if unmoved or ema_unmoved:
+            raise AssertionError(f"Dance parameters that did not move: {unmoved[:8]}; EMA "
+                                 f"entries that did not move: {ema_unmoved[:8]}")
+        del before
+        median = statistics.median(walls)
+        rec.update(losses=losses, step_ms=walls, step_ms_median=median,
+                   audio_s_per_s=DANCE_BATCH * DANCE_SAMPLE_SIZE / DANCE_SR / (median / 1e3),
+                   params=sum(p.numel() for p in w.params.values()),
+                   wgrad_launches_per_step=rec["launches"]["conv1d_wgrad"] // TIMED_STEPS,
+                   conv_sites=sites)
+        audio = trainer.prepare_batch(next(iter(loader))[0])
+
+        def fwd_bwd():
+            loss, _ = w.loss(audio, {}, counter=w.step)
+            loss.backward()
+
+        fwd_bwd()
+        rec["fwd_bwd_profile"] = profiled_window(fwd_bwd)
+        w.optimizer.zero_grad(set_to_none=True)
+
+        path = trainer.save(w.step)
+        rec["ckpt_gib"] = os.path.getsize(path) / 2 ** 30
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        fresh = create_model_from_config(state["model_config"], "meta")
+        fresh.load_state_dict(state["state_dict"], strict=True, assign=True)
+        current = w.model.state_dict()
+        differ = [n for n, v in fresh.state_dict().items() if not torch.equal(v, current[n].cpu())]
+        if differ or state["step"] != w.step or set(state["ema"]) != set(w.ema):
+            raise AssertionError(f"Dance checkpoint reload: {len(differ)} tensors differ "
+                                 f"({differ[:5]}), step {state['step']} vs {w.step}")
+    return rec
+
+
+def phase_dance(dev) -> dict:
+    """Phase 10: the tiny card-vs-CPU checks, BASELINE (b)'s generation, then
+    its training at full width."""
+    rec = dict(small=small_dance_check(dev), small_spread=DANCE_SPREAD)
+    rec["generation"] = dance_generation(dev)
+    torch.cuda.empty_cache()
+    rec["training"] = dance_training(dev)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card",
@@ -2953,6 +3265,17 @@ def main() -> int:
               **wr["generator_step"])
           + f"{dxr['generator_step']['share_of_bound']:.3f} | "
           f"{wr['generator_step']['share_of_bound']:.3f} on {card}", flush=True)
+
+    dw = rec["conv1d_wgrad"]["dance_step"]
+    print("phase 2 row 11 plain (conv1d_wgrad) at a Dance training step's shapes, batch "
+          f"{DANCE_BATCH} (ms back to back; torch.nn.grad.conv1d_weight; bound; launches a "
+          "step): " + "; ".join(
+              f"{c['shape']} {c['ms']:.4f}; {c['conv1d_weight_ms']:.4f}; {c['bound_ms']:.4f}; "
+              f"x{c['launches']}" for c in dw["levels"])
+          + f"; a step ({dw['launches']} launches): {dw['ms']:.3f} ms (conv1d_weight "
+          f"{dw['conv1d_weight_ms']:.3f}, bound {dw['bound_ms']:.3f}, share "
+          f"{dw['share_of_bound']:.3f}); max rel err {dw['max_rel_err']:.3g} (tol "
+          f"{GRAD_REL_TOL}) on {card}", flush=True)
 
     sf, sb = rec["snake_fused"], rec["snake_fused_bwd"]
     print("phase 2 snake (rows 9 | 4) at the VAE generator step's sites (ms back to back; "
@@ -3094,6 +3417,32 @@ def main() -> int:
 
     torch.cuda.empty_cache()
 
+    dance = phase_dance(dev)
+    dg, dt = dance["generation"], dance["training"]
+    print(f"phase 10 Dance Diffusion: BASELINE (b) dance_diffusion_base_16k "
+          f"{dg['params'] / 1e6:.1f}M params, bf16; generation batch 1, {STEPS} steps "
+          f"dpmpp-2m-sde, {DANCE_SAMPLE_SIZE} samples at {DANCE_SR} Hz: wall "
+          f"{dg['wall_s']:.3f} s, {dg['audio_s_per_s']:.3f} audio-s/s, peak "
+          f"{dg['peak_gib']:.2f} GiB, sampler step {dg['step_ms']:.2f} ms (profiled "
+          f"{dg['step_profile']['wall_ms']:.2f} ms, device busy "
+          f"{dg['step_profile']['device_busy']:.1%}, "
+          f"{dg['step_profile']['kernel_launches']:.0f} kernels; top kernels ms "
+          f"{json.dumps(dg['step_profile']['top_kernels_ms'])}); training batch {DANCE_BATCH} x "
+          f"{DANCE_SAMPLE_SIZE}: step {dt['step_ms_median']:.1f} ms median of {TIMED_STEPS} "
+          f"({', '.join(f'{x:.1f}' for x in dt['step_ms'])}), {dt['audio_s_per_s']:.2f} "
+          f"audio-s trained/s, peak {dt['peak_gib']:.2f} GiB, losses "
+          f"{', '.join(f'{x:.4g}' for x in dt['losses'])}; conv1d_wgrad "
+          f"{dt['wgrad_launches_per_step']} launches a step = {dt['conv_sites']} stride-1 convs "
+          f"of the model; fwd+bwd profiled {dt['fwd_bwd_profile']['wall_ms']:.1f} ms, device "
+          f"busy {dt['fwd_bwd_profile']['device_busy']:.1%}, "
+          f"{dt['fwd_bwd_profile']['kernel_launches']:.0f} kernels, row 11 "
+          f"{dt['fwd_bwd_profile']['conv1d_wgrad_ms']:.2f} ms, top kernels ms "
+          f"{json.dumps(dt['fwd_bwd_profile']['top_kernels_ms'])}; checkpoint "
+          f"{dt['ckpt_gib']:.2f} GiB reloaded identical; small card-vs-CPU "
+          f"{json.dumps(dance['small'])} (spread {DANCE_SPREAD}) on {card}", flush=True)
+
+    torch.cuda.empty_cache()
+
     kernels = []
     for n, r in rec.items():
         by_path = {"generation": main_rec["launches"].get(n, 0),
@@ -3104,7 +3453,9 @@ def main() -> int:
                    "lm_generation_full": lmg["full"]["launches"].get(n, 0),
                    "lm_training": lmt["launches"].get(n, 0),
                    "sa2_training": sa2t["launches"].get(n, 0),
-                   "sa2_pre_encode": sa2t["pre_encode"]["launches"].get(n, 0)}
+                   "sa2_pre_encode": sa2t["pre_encode"]["launches"].get(n, 0),
+                   "dance_generation": dg["launches"].get(n, 0),
+                   "dance_training": dt["launches"].get(n, 0)}
         kernels.append(dict(name=n, route=r["route"], source=r["source"], replaces=r["replaces"],
                             launches=sum(by_path.values()), launches_by_path=by_path,
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
@@ -3116,7 +3467,7 @@ def main() -> int:
                                 "autograd_errs", "fwd_bwd_ms", "sa2_training_shape",
                                 "deterministic", "ptxas", "profiled", "library_profiled",
                                 "host_us", "library_host_us", "no_grad_bit_identical",
-                                "levels", "generator_step", "decode_group")
+                                "levels", "generator_step", "decode_group", "dance_step")
                                 if k in r}))
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
     if unlaunched:
@@ -3128,7 +3479,10 @@ def main() -> int:
             "wall_s", "steps", "audio_s_per_s", "peak_gib", "breakdown", "small")},
         "ae_training": {k: v for k, v in ae_rec.items() if k != "launches"},
         "lm_generation": lmg, "lm_training": {k: v for k, v in lmt.items() if k != "launches"},
-        "sa2_training": {k: v for k, v in sa2t.items() if k != "launches"}}))
+        "sa2_training": {k: v for k, v in sa2t.items() if k != "launches"},
+        "dance": {"small": dance["small"],
+                  "generation": {k: v for k, v in dg.items() if k != "launches"},
+                  "training": {k: v for k, v in dt.items() if k != "launches"}}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

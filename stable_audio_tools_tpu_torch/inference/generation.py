@@ -1,6 +1,6 @@
-"""Text/metadata-conditioned generation; counterpart of
-stable_audio_tools_tpu/inference/generation.py (`generate_diffusion_cond`
-:207, `build_mask` :358, `generate_diffusion_cond_inpaint` :382).
+"""Generation; counterpart of stable_audio_tools_tpu/inference/generation.py
+(`generate_diffusion_uncond` :131, `generate_diffusion_cond` :207,
+`build_mask` :358, `generate_diffusion_cond_inpaint` :382).
 
 An eager Python loop over the sampler steps (the JAX package compiles the
 loop into one program; CUDA graphs are later work). The initial noise and the
@@ -101,6 +101,47 @@ def _sample_and_decode(model, cond: dict, noise: torch.Tensor, return_latents: b
     if return_latents or model.pretransform is None:
         return latents
     return model.pretransform.decode(latents)
+
+
+@torch.inference_mode()
+def generate_diffusion_uncond(
+    model,
+    steps: int = 250,
+    batch_size: int = 1,
+    sample_size: int = 2097152,
+    seed: int = -1,
+    init_audio: tp.Optional[tp.Tuple[int, tp.Any]] = None,
+    init_noise_level: float = 1.0,
+    sampler_type: str = "dpmpp-2m-sde",
+    sigma_min: float = 0.3,
+    sigma_max: float = 500.0,
+    rho: float = 1.0,
+    return_latents: bool = False,
+    mesh=None,
+    tp_rules=None,
+    preview: bool = False,
+    noise: tp.Optional[torch.Tensor] = None,
+    step_noise: tp.Optional[StepNoise] = None,
+    init_noise: tp.Optional[torch.Tensor] = None,
+    **sampler_kwargs,
+) -> torch.Tensor:
+    """model: a DiffusionModelWrapper (an unconditional v-model, e.g. Dance
+    Diffusion) on the device it runs on. `init_audio` = (sample rate, audio)
+    is varied: the sampler starts from it (or its latents) plus noise at
+    sigma `init_noise_level`. Returns audio [B, C, sample_size] (or the
+    latents with return_latents, where there is a pretransform)."""
+    _refuse_unported(mesh, tp_rules, preview)
+    device, generator, noise = _setup(model, seed, batch_size, sample_size, noise)
+    init_data = None
+    if init_audio is not None:
+        init_data = _encode_init_audio(model, init_audio, device, generator, init_noise)
+        sigma_max = init_noise_level
+    out = sample_k(model, noise, init_data=init_data, steps=steps, sampler_type=sampler_type,
+                   sigma_min=sigma_min, sigma_max=sigma_max, rho=rho, generator=generator,
+                   step_noise=step_noise, **sampler_kwargs)
+    if return_latents or model.pretransform is None:
+        return out
+    return model.pretransform_decode(out)
 
 
 @torch.inference_mode()

@@ -1,6 +1,7 @@
-"""k-diffusion samplers as eager loops; counterpart of
-stable_audio_tools_tpu/inference/sampling.py (get_sigmas_polyexponential :46,
-make_v_denoiser :116, the k-diffusion family :300-657, sample_k :678), and the
+"""k-diffusion and v-DDIM samplers as eager loops; counterpart of
+stable_audio_tools_tpu/inference/sampling.py (t_to_alpha_sigma :42,
+get_sigmas_polyexponential :46, make_v_denoiser :116, the v-DDIM `sample`
+:144, the k-diffusion family :300-657, sample_k :678), and the
 training-time schedule and timestep transforms (get_alphas_sigmas :33,
 DistributionShift :63, sample_timesteps_logsnr :91,
 truncated_logistic_normal_rescaled :98).
@@ -10,8 +11,10 @@ matter that is not ported). The per-step noise of the stochastic samplers
 comes from `step_noise(i, x)` when given (tests replay the JAX package's
 noise through it), else from `torch.randn` with the `generator`. Where the JAX
 scan computes both branches of a step and selects one (`jnp.where` on
-sigma_next == 0), the loop here takes the one branch. The v-DDIM samplers and
-the rectified-flow family (`sample_rf`) are later slices.
+sigma_next == 0), the loop here takes the one branch. The rectified-flow
+family (`sample_rf`) is a later slice, and so is `v-ddim-cfgpp`: the JAX
+package's cfg++ calls the model with `return_info=True`, which none of its
+models accepts.
 """
 
 from __future__ import annotations
@@ -29,6 +32,9 @@ StepNoise = Callable[[int, torch.Tensor], torch.Tensor]
 def get_alphas_sigmas(t: torch.Tensor):
     """cos/sin schedule of v-diffusion (JAX sampling.py:33)."""
     return torch.cos(t * math.pi / 2), torch.sin(t * math.pi / 2)
+
+
+t_to_alpha_sigma = get_alphas_sigmas  # JAX sampling.py:42, the same schedule
 
 
 class DistributionShift:
@@ -353,10 +359,39 @@ def sample_dpm_adaptive(denoiser, x: torch.Tensor, sigma_min: float, sigma_max: 
     return denoiser(x, math.exp(-t_end), **extra)
 
 
+def sample(model_fn, x: torch.Tensor, steps: int, eta: float = 0.0, sigma_max: float = 1.0,
+           generator: Optional[torch.Generator] = None, step_noise: Optional[StepNoise] = None,
+           **extra) -> torch.Tensor:
+    """v-diffusion DDIM from x at t = sigma_max down `steps` even steps of t;
+    returns the last step's prediction of the clean signal. With `eta` > 0
+    each step but the last adds noise (`step_noise(i, x)`, else the
+    generator's) of the DDIM sigma."""
+    t = np.linspace(sigma_max, 0, steps + 1)[:-1].astype(np.float32)
+    alphas = np.cos(t * math.pi / 2).astype(np.float32)
+    sigmas = np.sin(t * math.pi / 2).astype(np.float32)
+    draw = step_noise if step_noise is not None else _default_noise(generator)
+    ts = torch.ones((x.shape[0],), dtype=x.dtype, device=x.device)
+    pred = torch.zeros_like(x)
+    for i in range(steps):
+        alpha, sigma = float(alphas[i]), float(sigmas[i])
+        v = model_fn(x, ts * float(t[i]), **extra)
+        pred = x * alpha - v * sigma
+        if i == steps - 1:
+            break
+        eps = x * sigma + v * alpha
+        alpha_n, sigma_n = float(alphas[i + 1]), float(sigmas[i + 1])
+        ddim_sigma = eta * math.sqrt(sigma_n ** 2 / max(sigma ** 2, 1e-20)) * math.sqrt(
+            max(1 - alpha ** 2 / max(alpha_n ** 2, 1e-20), 0.0))
+        x = pred * alpha_n + eps * math.sqrt(max(sigma_n ** 2 - ddim_sigma ** 2, 0.0))
+        if eta:
+            x = x + draw(i, x) * ddim_sigma
+    return pred
+
+
 K_DIFFUSION_SAMPLERS = ("k-heun", "k-lms", "k-dpmpp-2s-ancestral", "k-dpm-2", "k-dpm-fast",
                         "k-dpm-adaptive", "dpmpp-2m-sde", "dpmpp-3m-sde", "dpmpp-2m")
 # samplers of the JAX package's sample_k and sample_rf that are not ported yet
-UNPORTED_SAMPLERS = ("v-ddim", "v-ddim-cfgpp", "euler", "rk4", "dpmpp", "pingpong")
+UNPORTED_SAMPLERS = ("v-ddim-cfgpp", "euler", "rk4", "dpmpp", "pingpong")
 
 
 def sample_k(model_fn, noise: torch.Tensor, init_data: Optional[torch.Tensor] = None,
@@ -365,9 +400,23 @@ def sample_k(model_fn, noise: torch.Tensor, init_data: Optional[torch.Tensor] = 
              generator: Optional[torch.Generator] = None,
              step_noise: Optional[StepNoise] = None, **extra) -> torch.Tensor:
     """Sample from `noise` (standard normal, [B, C, T]) with a v-model;
-    `init_data` (latents to vary) is added to the scaled noise."""
+    `init_data` (latents to vary) is added to the scaled noise. `v-ddim`
+    starts at t = min(sigma_max, 1) and ignores sigma_min and rho, as the
+    JAX package does."""
+    if sampler_type == "v-ddim-cfgpp":
+        raise NotImplementedError("sampler v-ddim-cfgpp is not ported: the JAX package's cfg++ "
+                                  "calls the model with return_info=True, which none of its "
+                                  "models accepts")
     if sampler_type in UNPORTED_SAMPLERS:
         raise NotImplementedError(f"sampler {sampler_type} is not ported yet")
+    if sampler_type == "v-ddim":
+        sigma_max = min(sigma_max, 1.0)
+        x = noise
+        if init_data is not None:
+            alpha, sigma = t_to_alpha_sigma(torch.tensor(sigma_max, dtype=torch.float32))
+            x = init_data * alpha.item() + noise * sigma.item()
+        return sample(model_fn, x, steps, eta=0.0, sigma_max=sigma_max, generator=generator,
+                      step_noise=step_noise, **extra)
     if sampler_type not in K_DIFFUSION_SAMPLERS:
         raise ValueError(f"Unknown sampler type {sampler_type}")
     denoiser = make_v_denoiser(model_fn)

@@ -1,7 +1,9 @@
 """JAX-package parameters -> the port's state_dict (numpy only).
 
 Inputs are the JAX package's flax parameters as nested dicts of numpy arrays:
-the `params` collection of a `ConditionedDiffusionModelWrapper`, of an
+the `params` collection of a `ConditionedDiffusionModelWrapper`, of a
+`DiffusionModelWrapper` (Dance Diffusion's DAU1d, whose port keeps the JAX
+package's flat module names), of an
 `AudioLanguageModelWrapper` (with its codec's `quantizer_state` collection,
 where the RVQ codebooks live), of an `AudioAutoencoder` or of an
 `EncodecDiscriminator`, and the frozen T5 tower's own params
@@ -17,7 +19,8 @@ Transforms:
   [k, in, out] -> [in, out, k]; HWIO 2-D kernels [kh, kw, in, out] ->
   [out, in, kh, kw];
 - weight norm: v as above, g -> [out, 1, 1] (transposed: [in, 1, 1]);
-- log-scale snake alpha / beta as they are;
+- log-scale snake alpha / beta as they are; GroupNorm scale / bias ->
+  weight / bias;
 - fused projections de-interleaved: the JAX package stores to_qkv / to_kv
   head-major ([h][q|k|v][dh]) and the GLU pairwise (x_0, g_0, x_1, ...);
   torch concatenates ([q|k|v], [x|gate]);
@@ -311,6 +314,56 @@ def diffusion_cond_state_dict(params: Mapping, dim_heads: int,
         out.update(t5_state_dict(p, f"conditioner.conditioners.{cid}.model."))
     for cid, p in (roberta_params or {}).items():
         out.update(roberta_state_dict(p, f"conditioner.conditioners.{cid}.model."))
+    return out
+
+
+def _pop_conv(out: StateDict, name: str, p: dict) -> None:
+    out[f"{name}.weight"] = _np(p.pop("kernel")).transpose(2, 1, 0)
+    if "bias" in p:
+        out[f"{name}.bias"] = _np(p.pop("bias"))
+
+
+def _pop_group_norm(out: StateDict, name: str, p: dict) -> None:
+    out[f"{name}.weight"] = _np(p.pop("scale"))
+    out[f"{name}.bias"] = _np(p.pop("bias"))
+
+
+def dance_unet_state_dict(params: Mapping, prefix: str = "") -> StateDict:
+    """`params` of a DiffusionAttnUnet1D -> the port's (the same module
+    names): conv kernels [k, in, out] -> [out, in, k], GroupNorm scale ->
+    weight, the Fourier timestep weight as it is. Every leaf is used once;
+    a leaf the map does not know raises."""
+    p = {name: {sub: dict(leaves) if isinstance(leaves, Mapping) else leaves
+                for sub, leaves in mod.items()} for name, mod in params.items()}
+    out: StateDict = {}
+    for name, mod in p.items():
+        pfx = f"{prefix}{name}"
+        if name == "timestep_embed":  # FourierFeatures
+            out[f"{pfx}.weight"] = _np(mod.pop("weight"))
+        elif "qkv_proj" in mod:  # SelfAttention1d
+            _pop_group_norm(out, f"{pfx}.norm", mod["norm"])
+            _pop_conv(out, f"{pfx}.qkv_proj", mod["qkv_proj"])
+            _pop_conv(out, f"{pfx}.out_proj", mod["out_proj"])
+        elif "conv1" in mod:  # ResConvBlock
+            for conv in ("conv1", "conv2", "skip"):
+                if conv in mod:
+                    _pop_conv(out, f"{pfx}.{conv}", mod[conv])
+            for norm in ("norm1", "norm2"):
+                if norm in mod:
+                    _pop_group_norm(out, f"{pfx}.{norm}", mod[norm])
+    left = [f"{name}/{sub}/{leaf}" for name, mod in p.items() for sub, leaves in mod.items()
+            for leaf in (leaves if isinstance(leaves, Mapping) else [sub])]
+    if left:
+        raise ValueError(f"DAU1d parameters the map does not use: {left}")
+    return out
+
+
+def diffusion_uncond_state_dict(params: Mapping) -> StateDict:
+    """`params` of a DiffusionModelWrapper (DAU1d, and its pretransform where
+    it has one) -> the port's DiffusionModelWrapper state_dict."""
+    out = dance_unet_state_dict(params["model"], prefix="model.")
+    if "pretransform" in params:
+        out.update(autoencoder_state_dict(params["pretransform"]["model"], "pretransform.model."))
     return out
 
 

@@ -1,9 +1,14 @@
-"""Conditioned diffusion wrapper; counterpart of
-stable_audio_tools_tpu/models/diffusion.py (ConditionedDiffusionModelWrapper
-:62, DiTWrapper :175, create_diffusion_cond_from_config :285).
+"""Diffusion wrappers; counterpart of stable_audio_tools_tpu/models/diffusion.py
+(DiffusionModelWrapper :33, ConditionedDiffusionModelWrapper :62, DiTWrapper
+:175, create_diffusion_uncond_from_config :234,
+create_diffusion_cond_from_config :285).
 
 Module names follow the reference checkpoint layout: `model.model.*` (the
 DiT), `conditioner.conditioners.<id>.*`, `pretransform.model.*`.
+
+The unconditional wrapper holds the v-model under `model` (Dance Diffusion's
+`DAU1d`, models/dance_unet.py; the JAX factory's `adp_uncond_1d` and `dit`
+branches are not ported yet) and an optional pretransform.
 
 Trainable: the DiT and the conditioners' own layers (the number embedders, a
 T5 projection), which get gradients in the JAX package and the reference.
@@ -13,14 +18,81 @@ reference.
 
 from __future__ import annotations
 
+import math
 import typing as tp
 
 import torch
 from torch import nn
 
 from .conditioners import MultiConditioner, create_multi_conditioner_from_conditioning_config
+from .dance_unet import DiffusionAttnUnet1D
 from .dit import DiffusionTransformer
 from .pretransforms import AutoencoderPretransform
+
+
+class DiffusionModelWrapper(nn.Module):
+    """An unconditional v-model: forward(x, t) -> v, and the frozen
+    pretransform's encode and decode."""
+
+    def __init__(self, model: nn.Module, io_channels: int, sample_size: int, sample_rate: int,
+                 min_input_length: int, pretransform: tp.Optional[AutoencoderPretransform] = None,
+                 diffusion_objective: str = "v"):
+        super().__init__()
+        self.model = model
+        self.pretransform = pretransform
+        self.io_channels = io_channels
+        self.sample_size = sample_size
+        self.sample_rate = sample_rate
+        self.min_input_length = min_input_length
+        self.diffusion_objective = diffusion_objective
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        return self.model(x, t)
+
+    @torch.no_grad()
+    def pretransform_encode(self, audio: torch.Tensor, generator=None, noise=None) -> torch.Tensor:
+        return self.pretransform.encode(audio, generator=generator, noise=noise)
+
+    def pretransform_decode(self, latents: torch.Tensor) -> torch.Tensor:
+        return self.pretransform.decode(latents)
+
+
+# the keyword arguments of the JAX DiffusionAttnUnet1D (its factory drops others)
+DAU1D_FIELDS = ("io_channels", "depth", "n_attn_layers", "channels", "cond_dim",
+                "cond_noise_aug", "kernel_size", "learned_resample", "strides", "conv_bias",
+                "compute_dtype")
+
+
+def create_diffusion_uncond_from_config(config: tp.Dict[str, tp.Any], device=None
+                                        ) -> DiffusionModelWrapper:
+    """`diffusion_uncond` configs -> the wrapper, its parameters on `device`
+    (default: the current CUDA card)."""
+    from .factory import create_pretransform_from_config, resolve_device
+
+    device = resolve_device(device)
+    model_config = config["model"]
+    model_type = model_config.get("type")
+    for key in ("sample_size", "sample_rate"):
+        if config.get(key) is None:
+            raise ValueError(f"Must specify {key} in config")
+    if model_type in ("adp_uncond_1d", "dit"):
+        raise NotImplementedError(f"unconditional diffusion model type {model_type} is not "
+                                  "ported yet")
+    if model_type != "DAU1d":
+        raise NotImplementedError(f"Unknown model type: {model_type}")
+    pretransform = model_config.get("pretransform")
+    min_input_length = 1
+    if pretransform is not None:
+        pretransform = create_pretransform_from_config(pretransform, config["sample_rate"], device)
+        pretransform.requires_grad_(False)
+        min_input_length = pretransform.downsampling_ratio
+    cfg = model_config.get("config", {})
+    with device:
+        unet = DiffusionAttnUnet1D(**{k: cfg[k] for k in DAU1D_FIELDS if k in cfg})
+    return DiffusionModelWrapper(
+        unet, io_channels=unet.io_channels, sample_size=config["sample_size"],
+        sample_rate=config["sample_rate"],
+        min_input_length=min_input_length * math.prod(unet.strides), pretransform=pretransform)
 
 
 class DiTWrapper(nn.Module):

@@ -3,8 +3,10 @@
 The JSON model config is the public API: the shipped
 `stable_audio_open_1_0.json`, `stable_audio_2_0.json`,
 `autoencoders/stable_audio_2_0_vae.json`, `autoencoders/encodec_musicgen_rvq.json`
-and `lm/musicgen_small_rvq.json` build unchanged.
-Built: `diffusion_cond` and `diffusion_cond_inpaint` (DiT), `lm` (the
+`lm/musicgen_small_rvq.json` and the four `dance_diffusion/*.json` build
+unchanged.
+Built: `diffusion_cond` and `diffusion_cond_inpaint` (DiT), `diffusion_uncond`
+(Dance Diffusion's DAU1d), `lm` (the
 MusicGen-style token LM, models/lm.py), `autoencoder` (Oobleck or SEANet
 encoder and decoder; VAE or RVQ bottleneck) and the `autoencoder`
 pretransform; other types raise NotImplementedError.
@@ -53,6 +55,10 @@ def create_model_from_config(model_config: Dict[str, Any], device: Device = None
         from .diffusion import create_diffusion_cond_from_config
 
         return create_diffusion_cond_from_config(model_config, device)
+    if model_type == "diffusion_uncond":
+        from .diffusion import create_diffusion_uncond_from_config
+
+        return create_diffusion_uncond_from_config(model_config, device)
     if model_type == "lm":
         from .lm import create_audio_lm_from_config
 
@@ -142,9 +148,9 @@ def init_random_(model: nn.Module, generator: torch.Generator,
     (deterministic random init for benchmarks and smoke runs; real weights
     are loaded instead):
     Linear / conv weights ~ N(0, 1/fan_in), biases 0, embeddings ~ N(0, 1),
-    norm scales 1, log-scale snake parameters 0, Fourier weights ~ N(0, 1),
-    weight-norm g = ||v||, LSTM weights ~ N(0, 1/fan_in) with zero biases,
-    RVQ codebooks ~ N(0, 1)."""
+    norm scales 1 (GroupNorm biases 0), log-scale snake parameters 0,
+    Fourier weights ~ N(0, 1), weight-norm g = ||v||, LSTM weights ~
+    N(0, 1/fan_in) with zero biases, RVQ codebooks ~ N(0, 1)."""
     from ..ops.activations import SnakeBeta
     from ..ops.conv import WNConv1d, WNConv2d, WNConvTranspose1d
     from ..ops.embeddings import FourierFeatures
@@ -177,6 +183,9 @@ def init_random_(model: nn.Module, generator: torch.Generator,
             normal_(m.weights, 1.0)
         elif isinstance(m, LayerNorm):
             m.gamma.fill_(1.0)
+        elif isinstance(m, nn.GroupNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
         elif isinstance(m, T5LayerNorm):
             m.weight.fill_(1.0)
         elif isinstance(m, SnakeBeta):

@@ -3,8 +3,8 @@
     python -m stable_audio_tools_tpu_torch.train --model-config MODEL.json \\
         --dataset-config DATASET.json [--batch-size 4] [--max-steps N] ...
 
-Builds the model from its JSON config (a conditioned diffusion model, an
-autoencoder or a token LM; random weights drawn from a `torch.Generator`
+Builds the model from its JSON config (a conditioned or unconditional
+diffusion model, an autoencoder or a token LM; random weights drawn from a `torch.Generator`
 seeded with --seed; the T5 tower is random unless the config's conditioner
 loads weights), the training wrapper from the config's `training` section
 (for an autoencoder, the GAN trainer with its discriminator; for an LM, the
@@ -33,8 +33,9 @@ import torch
 DEFAULTS_INI = Path(__file__).resolve().parents[1] / "defaults.ini"
 
 # --precision values -> the compute dtype when the config sets none: the
-# DiT's, or the autoencoder trainer's `training.compute_dtype` (the JAX
-# entry's mapping; it does not reach an LM, whose backbone config rules)
+# DiT's, the unconditional model's (`model.config`), or the autoencoder
+# trainer's `training.compute_dtype` (the JAX entry's mapping; it does not
+# reach an LM, whose backbone config rules)
 PRECISION_DTYPE = {
     "16-mixed": "bfloat16", "16-true": "bfloat16", "16": "bfloat16",
     "bf16-mixed": "bfloat16", "bf16-true": "bfloat16", "bf16": "bfloat16",
@@ -105,6 +106,8 @@ def build(args: argparse.Namespace, device: tp.Optional[torch.device] = None):
         compute = model_config.setdefault("training", {})
     elif model_type == "lm":
         compute = None  # the backbone config's compute_dtype alone, as the JAX entry
+    elif model_type == "diffusion_uncond":
+        compute = model_config["model"].setdefault("config", {})
     else:
         compute = model_config["model"]["diffusion"]["config"]
     if compute is not None:

@@ -1,6 +1,7 @@
-"""Conditioned diffusion training; counterpart of
+"""Diffusion training; counterpart of
 stable_audio_tools_tpu/training/diffusion.py (`_sobol_timesteps` :46,
-`_sample_timesteps` :62, `DiffusionCondTrainer` :85).
+`_sample_timesteps` :62, `DiffusionCondTrainer` :85,
+`DiffusionUncondTrainer` :418).
 
 One train step: the frozen pretransform encodes the audio (no gradient), a
 timestep t and noise are drawn, the v-objective target is formed, the model
@@ -191,14 +192,20 @@ class DiffusionCondTrainer:
         if noise is None:
             noise = torch.randn(latents.shape, generator=generator, device=device)
         noise = noise.to(device=device, dtype=latents.dtype)
-        output = self.model(latents * alphas + noise * sigmas, t, **cond,
-                            cfg_dropout_prob=self.cfg_dropout_prob if train else 0.0,
-                            cfg_dropout_mask=cfg_dropout_mask, generator=generator)
+        output = self.denoise(latents * alphas + noise * sigmas, t, cond, train,
+                              cfg_dropout_mask, generator)
         loss, losses = self.losses({"output": output, "targets": noise * alphas - latents * sigmas,
                                     "padding_mask": padding_mask})
         aux = {"loss": loss.detach(), "std_data": latents.std(correction=0).detach(),
                **{k: v.detach() for k, v in losses.items()}}
         return loss, aux
+
+    def denoise(self, x: Tensor, t: Tensor, cond: tp.Dict[str, Tensor], train: bool,
+                cfg_dropout_mask: tp.Optional[Tensor], generator: tp.Optional[torch.Generator]
+                ) -> Tensor:
+        """The model's output on the noised input, with CFG dropout in training."""
+        return self.model(x, t, **cond, cfg_dropout_prob=self.cfg_dropout_prob if train else 0.0,
+                          cfg_dropout_mask=cfg_dropout_mask, generator=generator)
 
     def optimizer_step(self) -> None:
         """Clip (when set), step the optimizer and the LR schedule."""
@@ -259,3 +266,34 @@ class DiffusionCondTrainer:
             out[f"val/loss_{vt:.1f}"] = aux["mse_loss"]
         self.model.train()
         return out
+
+
+class DiffusionUncondTrainer(DiffusionCondTrainer):
+    """Trains an unconditional DiffusionModelWrapper (Dance Diffusion): the
+    conditioned step without conditioning or CFG dropout, its timesteps the
+    dimension-1 Sobol sequence continued across steps (JAX :418). The
+    batch's metadata is ignored.
+
+    On the card the model must compute in bfloat16: the weight gradient of
+    its convs is the hand-written kernel (`conv1d_wgrad`), which takes
+    bfloat16 only, so an f32 model is refused here rather than failing in
+    its first backward."""
+
+    def __init__(self, model, lr: float = 1e-4, use_ema: bool = True,
+                 optimizer_configs: tp.Optional[dict] = None, pre_encoded: bool = False,
+                 gradient_clip_val: float = 0.0, seed: int = 42):
+        super().__init__(model, lr=lr, use_ema=use_ema, optimizer_configs=optimizer_configs,
+                         cfg_dropout_prob=0.0, timestep_sampler="sobol",
+                         gradient_clip_val=gradient_clip_val, seed=seed,
+                         pre_encoded=pre_encoded)
+        dtype = getattr(model.model, "compute_dtype", None)
+        if self.device.type == "cuda" and dtype != torch.bfloat16:
+            raise TypeError(f"training this model on the card needs compute_dtype bfloat16, "
+                            f"not {dtype}: its convs' weight gradient (conv1d_wgrad) takes "
+                            "bfloat16 only")
+
+    def condition(self, metadata: tp.Sequence[dict]) -> tp.Dict[str, Tensor]:
+        return {}
+
+    def denoise(self, x, t, cond, train, cfg_dropout_mask, generator) -> Tensor:
+        return self.model(x, t)

@@ -1,7 +1,7 @@
 """Training factory; counterpart of stable_audio_tools_tpu/training/factory.py
 (`create_training_wrapper_from_config` :8). The port trains `autoencoder`
-(:17), `diffusion_cond` and `lm` (:116) models; the other model types raise
-NotImplementedError."""
+(:17), `diffusion_uncond` (:33), `diffusion_cond` and `lm` (:116) models; the
+other model types raise NotImplementedError."""
 
 from __future__ import annotations
 
@@ -47,6 +47,18 @@ def create_training_wrapper_from_config(model_config: tp.Dict[str, tp.Any], mode
             use_ema=training_config.get("use_ema", False),
             optimizer_configs=training_config.get("optimizer_configs"),
             pre_tokenized=training_config.get("pre_tokenized", False),
+        )
+    if model_type == "diffusion_uncond":
+        from .diffusion import DiffusionUncondTrainer
+
+        return DiffusionUncondTrainer(
+            model,
+            lr=training_config.get("learning_rate", 1e-4),
+            pre_encoded=training_config.get("pre_encoded", False),
+            use_ema=training_config.get("use_ema", True),
+            optimizer_configs=training_config.get("optimizer_configs"),
+            gradient_clip_val=gradient_clip_val,
+            seed=seed,
         )
     if model_type != "diffusion_cond":
         raise NotImplementedError(f"training {model_type} models is not ported yet")

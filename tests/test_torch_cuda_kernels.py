@@ -497,6 +497,50 @@ def test_conv1d_wgrad(dev, snake, Ci, Co, L, k, d, pad):
         assert p.dtype == torch.float32 and p.shape == q.shape and _rel_err(p, q) < 1e-2
 
 
+# the plain weight gradient at Dance Diffusion's shapes, batch 4: k = 5 from
+# the input conv (18 -> 128) and the output conv (128 -> 2) at 65,536
+# samples to the concatenated up convs (1024 -> 512) at the innermost 8
+# samples, a ragged 9 and 4096; the k = 1 skip and attention projections
+DANCE_WGRAD_CASES = [(18, 128, 65536, 5), (128, 2, 65536, 5), (1024, 512, 8, 5),
+                     (1024, 512, 9, 5), (1024, 512, 4096, 5), (256, 128, 32768, 1),
+                     (512, 1536, 256, 1), (512, 512, 8, 1)]
+
+
+@pytest.mark.parametrize("Ci,Co,L,k", DANCE_WGRAD_CASES)
+def test_conv1d_wgrad_dance_shapes(dev, Ci, Co, L, k):
+    # kernel D: dW and db within 1e-2 of each one's peak (f32 sums over
+    # 4 x L in another order)
+    pad = k // 2
+    x, dy = _randn(dev, 4, Ci, L), _randn(dev, 4, Co, L, seed=5)
+    got = cs.conv1d_wgrad(dy, x, k, pad, pad, 1)
+    want = cs.conv1d_wgrad_plain(dy, x, k, pad, pad, 1)
+    for p, q in zip(got, want):
+        assert p.dtype == torch.float32 and p.shape == q.shape and _rel_err(p, q) < 1e-2
+
+
+def test_dance_trainer_refuses_f32_on_the_card(dev):
+    # the DAU1d's convs reach conv1d_wgrad, which takes bf16 only: an f32
+    # model is refused when its trainer is built, not in its first backward
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config
+    from stable_audio_tools_tpu_torch.training.factory import create_training_wrapper_from_config
+
+    config = {"model_type": "diffusion_uncond", "sample_size": 64, "sample_rate": 16000,
+              "model": {"type": "DAU1d", "config": {"io_channels": 2, "depth": 3,
+                                                     "n_attn_layers": 1, "channels": [8, 16, 32],
+                                                     "strides": [2, 2]}},
+              "training": {"learning_rate": 1e-4}}
+    for dtype in (None, "float32"):
+        config["model"]["config"]["compute_dtype"] = dtype
+        with pytest.raises(TypeError, match="bfloat16"):
+            create_training_wrapper_from_config(config, create_model_from_config(config, dev))
+    config["model"]["config"]["compute_dtype"] = "bfloat16"
+    w = create_training_wrapper_from_config(config, create_model_from_config(config, dev))
+    launches = cs.conv1d_wgrad.launches
+    aux = w.train_step(_randn(dev, 2, 2, 64, dtype=torch.float32), [{}, {}])
+    assert torch.isfinite(aux["loss"])
+    assert cs.conv1d_wgrad.launches - launches == w.model.model.conv_sites()
+
+
 def test_a_weighting_fir_is_full_f32_on_card(dev):
     # the MRSTFT loss's FIR (cuDNN) in both directions against f64 on the
     # CPU: 1e-5 of the peak, which TF32's 10-bit mantissa would miss by ~100x

@@ -1,6 +1,7 @@
 """The port imports and runs (generation, a diffusion training step, an
 autoencoder GAN generator and discriminator step, an LM training step, a
-KV-cached LM generation, and pre-encoding then training from the latents)
+KV-cached LM generation, pre-encoding then training from the latents, and
+Dance Diffusion's generation and training step)
 with JAX,
 flax, transformers and the JAX package unimportable (the machine with the
 card has none of them), and without triton: no module imports it at import
@@ -355,3 +356,47 @@ def test_sa2_training_runs_without_jax_or_triton():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.splitlines()[-1] == "ok"  # after pre_encode's own line
+
+
+DANCE_SCRIPT = textwrap.dedent("""
+    import sys
+    for name in ("jax", "jaxlib", "flax", "transformers", "safetensors",
+                 "stable_audio_tools_tpu"):
+        sys.modules[name] = None  # any import of these raises ImportError
+
+    import torch
+    from stable_audio_tools_tpu_torch.inference.generation import generate_diffusion_uncond
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+    from stable_audio_tools_tpu_torch.training.factory import create_training_wrapper_from_config
+
+    config = {
+        "model_type": "diffusion_uncond", "sample_size": 256, "sample_rate": 16000,
+        "model": {"type": "DAU1d", "config": {
+            "io_channels": 2, "depth": 4, "n_attn_layers": 2, "channels": [16, 32, 64, 64],
+            "strides": [2, 2, 2], "compute_dtype": "bfloat16"}},
+        "training": {"learning_rate": 1e-4}}
+    model = init_random_(create_model_from_config(config, "cpu"), torch.Generator().manual_seed(0))
+    for sampler in ("dpmpp-2m-sde", "v-ddim"):
+        audio = generate_diffusion_uncond(model.eval(), steps=3, sample_size=256, seed=0,
+                                          sampler_type=sampler)
+        assert audio.shape == (1, 2, 256) and torch.isfinite(audio).all()
+    wrapper = create_training_wrapper_from_config(config, model)
+    audio = torch.randn(2, 2, 256, generator=torch.Generator().manual_seed(1)) * 0.3
+    aux = wrapper.train_step(audio, [{}, {}])
+    assert wrapper.step == 1 and all(torch.isfinite(v) for v in aux.values())
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in wrapper.params.values())
+    assert "triton" not in sys.modules
+    print("ok")
+""")
+
+
+def test_dance_path_runs_without_jax_or_triton():
+    # Dance Diffusion at toy size in bf16 (DAU1d: Conv1dS1 with the plain
+    # weight gradient, GroupNorm, attention, FIR resamplers): generation by
+    # dpmpp-2m-sde and v-DDIM, and one unconditional training step
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", DANCE_SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.startswith("ok")

@@ -407,9 +407,11 @@ def test_stochastic_samplers_draw_from_the_generator_and_unported_ones_are_refus
         run = lambda seed: tsamp.sample_k(v, noise, steps=5, sampler_type=sampler,
                                           generator=torch.Generator().manual_seed(seed))
         assert torch.equal(run(1), run(1)) and not torch.equal(run(1), run(2))
-    for sampler in ("v-ddim", "v-ddim-cfgpp", "euler", "rk4", "dpmpp", "pingpong"):
+    for sampler in ("v-ddim-cfgpp", "euler", "rk4", "dpmpp", "pingpong"):
         with pytest.raises(NotImplementedError, match="not ported"):
             tsamp.sample_k(v, noise, sampler_type=sampler)
+    out = tsamp.sample_k(v, noise, steps=5, sampler_type="v-ddim")
+    assert out.shape == noise.shape and torch.isfinite(out).all()
     with pytest.raises(ValueError, match="Unknown sampler"):
         tsamp.sample_k(v, noise, sampler_type="nope")
 
@@ -721,9 +723,13 @@ def test_generation_refuses_what_is_not_ported(sa2_pair):
             with pytest.raises(NotImplementedError, match="not ported"):
                 fn(port, conditioning=META, sample_size=2048, init_audio=(16000, np.zeros((2, 8))),
                    **kw)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tgen.generate_diffusion_cond(port, conditioning=META, sample_size=2048,
-                                     sampler_type="v-ddim", steps=2)
+    for sampler in ("v-ddim-cfgpp", "euler", "rk4", "dpmpp", "pingpong"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            tgen.generate_diffusion_cond(port, conditioning=META, sample_size=2048,
+                                         sampler_type=sampler, steps=2)
+    audio = tgen.generate_diffusion_cond(port, conditioning=META, sample_size=2048,
+                                         sampler_type="v-ddim", steps=2, seed=0)
+    assert audio.shape == (1, 2, 2048) and torch.isfinite(audio).all()
     with pytest.raises(ValueError, match="conditioning"):
         tgen.generate_diffusion_cond(port, sample_size=2048)
 
