@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Runs from the repository root on a machine with a CUDA card and `nvcc`;
-needs no network, no Triton and no JAX. Ten phases, each printing one line
+needs no network, no Triton and no JAX. Eleven phases, each printing one line
 (phase 2 several); any failure raises and the exit code is nonzero:
 
 1. Device and build: the card's name and power limit, then every CUDA source
@@ -59,7 +59,15 @@ needs no network, no Triton and no JAX. Ten phases, each printing one line
    shapes of a Dance Diffusion training step (batch 4 x 65,536; k = 5 and 1,
    Ci / Co from 2 to 1536, L from 65,536 to 8, read from the shipped
    config's model), each timed beside `torch.nn.grad.conv1d_weight` and its
-   bound and summed with the step's launches.
+   bound and summed with the step's launches. At SA-1.0's shapes (phase 11):
+   rows 12 and 3 at the DAC decoder's and encoder's residual units (96 to
+   1024 channels at 32,768 to 4,194,304 samples; the conv_outs 96 -> 2 and
+   2048 -> 2048 k = 3), row 4 at their snake sites, all with beta = alpha
+   (DAC's snake), each against its plain version, beside its bound and
+   `F.conv1d` on the pre-snaked input, and summed over a decode's and an
+   encode's launches; row 2 in f32 at the UNet's five row shapes (within
+   1e-5 of the peak), beside `F.layer_norm` and summed over a UNet
+   forward's 92 launches.
 3. Generation: SA-Open (the shipped stable_audio_open_1_0.json, built by the
    port's factory, random weights from a seeded torch.Generator, random T5)
    runs generate_diffusion_cond with cfg 6, dpmpp-3m-sde, sigma in [0.3, 500],
@@ -155,6 +163,19 @@ needs no network, no Triton and no JAX. Ten phases, each printing one line
    steps, one forward+backward profiled, a checkpoint and its reload. Losses
    and gradients finite, every gradient nonzero, parameters and EMA moved,
    and `conv1d_wgrad` launched once per stride-1 conv of the model a step.
+
+11. SA-1.0 generation: a tiny SA-1.0-shaped model (CLAP text features, two
+   int conditioners, an ADP UNetCFG1d, a DAC VAE in bf16) agrees between the
+   card and the CPU (the f32 conditioning and CFG denoiser within 5%; the
+   bf16 decode and encode within DANCE_SPREAD times the CPU's own bf16
+   distance from its f32 run) and serves an init-audio request; then the
+   shipped stable_audio_1_0.json, nothing cut, its CLAP tower from the
+   seeded RoBERTa-base file: one request of batch 1, 4,194,304 samples (95.1
+   s), 100 dpmpp-3m-sde steps at cfg 6 (audio finite in [-1, 1], one UNet
+   call a step at batch 1, launches exactly 92 of `fused_layer_norm` a call
+   and 13 / 12 / 4 of rows 12 / 3 / 4 for the decode, counted from the
+   model); the sampler step and the decode back to back and profiled; the
+   DAC encode of one clip (13 / 12 / 4 launches).
 
 The last lines are the kernels' JSON record, the card line and the result
 line {"ok": true, "device": {...}}.
@@ -587,10 +608,135 @@ def phase_kernels(dev):
     rec["snake_conv1d"]["ptxas"] = {
         n: r for n, r in _build.ptxas_report("snake_conv1d").items() if "snake_conv1d" in n}
     rec.update(ae_backward_checks(sn, cs, randn, rec, hold_row3))
+    sa1_kernel_checks(rec, cs, sn, ln, F, randn, hold_row3)
     rec["snake_conv1d"]["vs_row3"] = dict(max_abs_diff=max(carry["vs_row3"]),
                                           bitwise_equal_cases=carry["bitwise"],
                                           cases=carry["cases"])
     return rec
+
+
+# SA-1.0's DAC VAE at batch 1 x 4,194,304 samples (95.1 s): (channels,
+# length) of the residual units of the decoder's four blocks and of the
+# encoder's, and of the snake_fused sites before the decoder's transposed and
+# the encoder's strided convs
+SA1_DECODE_LEVELS = ((768, 32768), (384, 262144), (192, 1048576), (96, 4194304))
+SA1_ENCODE_LEVELS = ((128, 4194304), (256, 1048576), (512, 262144), (1024, 32768))
+SA1_DECODE_SNAKES = ((1536, 4096), (768, 32768), (384, 262144), (192, 1048576))
+SA1_ENCODE_SNAKES = SA1_ENCODE_LEVELS
+# the rows of the UNet's f32 LayerNorms at CFG batch 2 ([2, L, C]) and their
+# launches a UNet forward: each transformer block normalises x three times
+# (self-attention's norm and norm_context, cross-attention's norm) and the
+# 79-token context once; 2 blocks at 4096 latents, 6 at 2048, 6 at 1024, 9
+# at 256, the context in all 23
+SA1_LN_ROWS = (((2, 4096, 1024), 6), ((2, 2048, 1024), 18), ((2, 1024, 1280), 18),
+               ((2, 256, 1280), 27), ((2, 79, 768), 23))
+# f32 LayerNorm against its plain version (other summation orders): 1e-5 of
+# the peak
+LN_F32_REL_TOL = 1e-5
+
+
+def sa1_kernel_checks(rec, cs, sn, ln, F, randn, hold_row3) -> None:
+    """Rows 12, 3 and 4 at the SA-1.0 DAC VAE's shapes (DAC's snake: beta =
+    alpha) and row 2 in f32 at its UNet's, each against its plain version on
+    the card (bf16 within 2 ulps, row 12 also against row 3; the f32
+    LayerNorm within LN_F32_REL_TOL of the peak), timed by CUDA events beside
+    its bound and the library call (`F.conv1d` on the pre-snaked input,
+    `F.layer_norm`), and summed over one decode's / encode's launches and one
+    UNet forward's. Adds an `sa1` entry to each record and folds the errors
+    into its max_abs_err."""
+    def conv(C, Co, L, kk, d, res=False, bias=True, iters=3):
+        x = randn(1, C, L)
+        w = randn(Co, C, kk, scale=(C * kk) ** -0.5)
+        bias_t = randn(Co, dtype=torch.float32) * 0.1 if bias else None
+        a = randn(C, dtype=torch.float32).exp()
+        r = randn(1, Co, L) if res else None
+        pad = d * (kk - 1) // 2
+        if res:
+            run = lambda: cs.snake_conv1d_res(x, w, bias_t, a, a, r, pad, pad, d)
+        else:
+            run = lambda: cs.snake_conv1d(x, w, bias_t, a, a, pad, pad, d)
+        plain = lambda: cs.snake_conv1d_plain(x, w, bias_t, a, a, pad, pad, d, r)
+        ref, out = plain(), run()
+        name = f"SA-1.0 snake_conv1d [1,{C},{L}] -> {Co} k={kk} d={d} res={res}"
+        err = compare(name, out, ref, bf16_tol(ref))
+        if not res:
+            hold_row3(name, x, w, bias_t, a, a, pad, d, out)
+        sx = cs._snake_f32(x, a, a).to(x.dtype)
+        b_bf = None if bias_t is None else bias_t.to(x.dtype)
+        lib = ((lambda: F.conv1d(sx, w, b_bf) + r) if res
+               else (lambda: F.conv1d(sx, w, b_bf, padding=pad, dilation=d)))
+        case = dict(shape=f"[1,{C},{L}] -> {Co} k={kk} d={d}" + (" + residual" if res else ""),
+                    max_abs_err=err, ms=cuda_ms(run, iters), plain_ms=cuda_ms(plain, 1),
+                    library_ms=cuda_ms(lib, iters),
+                    **bound(2.0 * Co * C * kk * L, x, w, bias_t, a, a, r, ref))
+        del x, r, ref, out, sx
+        return case
+
+    def total(cases):
+        out = {k: sum(c[k] for c in cases) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        out.update(launches=len(cases), share_of_bound=out["bound_ms"] / out["ms"])
+        return out
+
+    row12, row3 = {}, {}
+    for path, levels, conv_out in (("decode", SA1_DECODE_LEVELS, (96, 2, 4194304, 7, False)),
+                                   ("encode", SA1_ENCODE_LEVELS, (2048, 2048, 4096, 3, True))):
+        c12 = [conv(C, C, L, 7, d) for C, L in levels for d in (1, 3, 9)]
+        C, Co, L, kk, bias = conv_out
+        c12.append(conv(C, Co, L, kk, 1, bias=bias))
+        c3 = [conv(C, C, L, 1, 1, res=True) for C, L in levels]
+        # three residual units a level: row 3 runs three times at each shape
+        row12[path] = dict(cases=c12, total=total(c12))
+        row3[path] = dict(cases=c3, total=total(c3 * 3))
+    for name, entry in (("snake_conv1d", row12), ("snake_conv1d_res", row3)):
+        rec[name]["sa1"] = entry
+        rec[name]["max_abs_err"] = max([rec[name]["max_abs_err"]] + [
+            c["max_abs_err"] for p in entry.values() for c in p["cases"]])
+
+    snakes = {}
+    for path, sites in (("decode", SA1_DECODE_SNAKES), ("encode", SA1_ENCODE_SNAKES)):
+        cases = []
+        for C, L in sites:
+            x = randn(1, C, L, scale=2.0)
+            a = randn(C, dtype=torch.float32).exp()
+            y, ref = sn.snake_fused(x, a, a), sn.snake_fused_plain(x, a, a)
+            cases.append(dict(shape=f"[1,{C},{L}]",
+                              max_abs_err=compare(f"SA-1.0 snake [1,{C},{L}]", y, ref,
+                                                  bf16_tol(ref)),
+                              ms=cuda_ms(lambda: sn.snake_fused(x, a, a), 10),
+                              plain_ms=cuda_ms(lambda: sn.snake_fused_plain(x, a, a), 2),
+                              library_ms=None, **bound(6.0 * x.numel(), x, a, a, y)))
+        tot = {k: sum(c[k] for c in cases) for k in ("ms", "plain_ms", "bound_ms")}
+        tot.update(launches=len(cases), share_of_bound=tot["bound_ms"] / tot["ms"])
+        snakes[path] = dict(cases=cases, total=tot)
+    rec["snake_fused"]["sa1"] = snakes
+    rec["snake_fused"]["max_abs_err"] = max([rec["snake_fused"]["max_abs_err"]] + [
+        c["max_abs_err"] for p in snakes.values() for c in p["cases"]])
+
+    cases = []
+    for shape, launches in SA1_LN_ROWS:
+        C = shape[-1]
+        x = randn(*shape, scale=3.0, dtype=torch.float32) + 0.5
+        gam, bet = (randn(C, dtype=torch.float32) for _ in range(2))
+        run = lambda: ln.fused_layer_norm(x, gam, bet, 1e-6)
+        y, ref = run(), ln.fused_layer_norm_plain(x, gam, bet, 1e-6)
+        err = (y - ref).abs().max().item()
+        if y.dtype != torch.float32 or not err <= LN_F32_REL_TOL * ref.abs().max().item():
+            raise AssertionError(f"SA-1.0 f32 layer norm {shape}: max|err| {err:.3g} past "
+                                 f"{LN_F32_REL_TOL} of the peak")
+        cases.append(dict(shape=f"x {list(shape)} f32, gamma + beta f32", launches=launches,
+                          max_abs_err=err, ms=cuda_ms(run, 50),
+                          plain_ms=cuda_ms(lambda: ln.fused_layer_norm_plain(x, gam, bet, 1e-6),
+                                           20),
+                          library_ms=cuda_ms(lambda: F.layer_norm(x, (C,), gam, bet, 1e-6), 50),
+                          **bound(8.0 * x.numel(), x, gam, bet, y)))
+    tot = {k: sum(c[k] * c["launches"] for c in cases)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    tot.update(launches=sum(c["launches"] for c in cases),
+               share_of_bound=tot["bound_ms"] / tot["ms"])
+    rec["fused_layer_norm"]["sa1_f32"] = dict(cases=cases, unet_forward=tot,
+                                              tol=f"{LN_F32_REL_TOL} x max|ref| (f32)")
+    rec["fused_layer_norm"]["max_abs_err"] = max(rec["fused_layer_norm"]["max_abs_err"],
+                                                 max(c["max_abs_err"] for c in cases))
 
 
 def carry_ab(cs, F, randn, B, C, L, d, iters=3) -> dict:
@@ -3198,6 +3344,248 @@ def phase_dance(dev) -> dict:
     return rec
 
 
+SA1 = os.path.join(ROOT, "stable_audio_tools_tpu", "configs", "model_configs",
+                   "txt2audio", "stable_audio_1_0.json")
+SA1_SAMPLE_SIZE = 4194304  # the shipped config's: 95.1 s at 44.1 kHz, 4096 latents
+SA1_PROMPT = [{"prompt": "A cinematic orchestral swell with deep brass and timpani",
+               "seconds_start": 0, "seconds_total": 95}]
+SA1_KERNELS = ("fused_layer_norm", "snake_conv1d", "snake_conv1d_res", "snake_fused")
+
+
+def sa1_config(clap_path: str) -> dict:
+    """The shipped SA-1.0 config, nothing cut: its CLAP checkpoint path (a
+    placeholder in the file) pointed at `clap_path`."""
+    with open(SA1) as f:
+        cfg = json.load(f)
+    for c in cfg["model"]["conditioning"]["configs"]:
+        if c["type"] == "clap_text":
+            c["config"]["clap_ckpt_path"] = clap_path
+    return cfg
+
+
+def sa1_launches(model) -> dict:
+    """Kernel launches counted from the model: row 2 a UNet forward (its
+    biased LayerNorms), rows 12 / 3 / 4 a decode and an encode (a residual
+    unit runs row 12 then row 3, the snake + conv_out row 12 once more, each
+    up- or downsampling block row 4 once)."""
+    from stable_audio_tools_tpu_torch.models.dac import (DACDecoderBlock, DACEncoderBlock,
+                                                         DACResidualUnit)
+    from stable_audio_tools_tpu_torch.ops.norms import BiasedLayerNorm
+
+    def count(module, cls):
+        return sum(isinstance(m, cls) for m in module.modules())
+
+    def tower(t, block):
+        units = count(t, DACResidualUnit)
+        return {"snake_conv1d": units + 1, "snake_conv1d_res": units,
+                "snake_fused": count(t, block)}
+
+    ae = model.pretransform.model
+    return dict(unet_forward={"fused_layer_norm": count(model.model.model, BiasedLayerNorm)},
+                decode=tower(ae.decoder, DACDecoderBlock),
+                encode=tower(ae.encoder, DACEncoderBlock))
+
+
+def tiny_sa1_model(clap_path: str):
+    """SA-1.0's shape at toy size on the CPU: the same conditioners (the CLAP
+    tower of `clap_path`, CRC-32 word hashing as `tiny_model()`), a 3-level
+    UNetCFG1d (64 / 64 / 96 channels, factors 1 and 2, 16 groups, attention
+    at every level, 2 heads), a DAC VAE at ratio 8 in bf16 (`model_half`, as
+    shipped): encoder 16 -> 32 -> 64 channels, decoder 96 -> 48 -> 24."""
+    import zlib
+
+    from stable_audio_tools_tpu_torch.models.conditioners import FallbackTokenizer
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+
+    cfg = sa1_config(clap_path)
+    m = cfg["model"]
+    m["conditioning"]["cond_dim"] = 64
+    m["diffusion"]["config"].update(
+        in_channels=4, context_embedding_features=64, channels=32, multipliers=[2, 2, 3],
+        factors=[1, 2], num_blocks=[1, 2], attentions=[1, 1, 1], attention_heads=2)
+    m["io_channels"] = 4
+    ae = m["pretransform"]["config"]
+    ae["encoder"]["config"].update(latent_dim=8, d_model=16, strides=[2, 4])
+    ae["decoder"]["config"].update(latent_dim=4, channels=96, rates=[4, 2])
+    ae.update(latent_dim=4, downsampling_ratio=8)
+    model = create_model_from_config(cfg, "cpu")
+    clap = model.conditioner.conditioners["prompt"]
+    init_random_(model, torch.Generator().manual_seed(1), skip=[clap.model, clap.text_projection])
+    clap.tokenizer = FallbackTokenizer(clap.tokenizer.max_length,
+                                       word_hash=lambda w: zlib.crc32(w.encode("utf-8")))
+    return model
+
+
+@torch.inference_mode()
+def small_sa1_check(dev, clap_path: str) -> dict:
+    """A tiny SA-1.0-shaped model on the card (kernels) against the CPU (plain
+    versions), on the same inputs: the conditioning and a CFG 6 denoiser call
+    with a negative prompt and the rescale (the f32 UNet: the largest
+    max|card - CPU| / max|CPU|, within 5%); the bf16 decode and encode (DAC
+    VAE) against the CPU's f32 run, beside the CPU's own bf16 distance from
+    it (relative norms; the card's may be at most DANCE_SPREAD times the
+    CPU's); then a 4-step request with init audio on the card."""
+    from stable_audio_tools_tpu_torch.inference.generation import generate_diffusion_cond
+
+    cpu = tiny_sa1_model(clap_path).eval()
+    gpu = copy.deepcopy(cpu).to(dev)
+    f32 = copy.deepcopy(cpu)
+    f32.pretransform.model_half = False
+    g = torch.Generator().manual_seed(2)
+    x, z = torch.randn(1, 4, 256, generator=g), torch.randn(1, 4, 256, generator=g)
+    audio, noise = 0.3 * torch.randn(1, 2, 2048, generator=g), torch.randn(1, 4, 256, generator=g)
+    t = torch.tensor([0.5])
+    negative = [dict(SA1_PROMPT[0], prompt="harsh distorted noise")]
+
+    def denoise(m, d):
+        cond = m.get_conditioning_inputs(m.conditioner(SA1_PROMPT, d))
+        cond.update(m.get_conditioning_inputs(m.conditioner(negative, d), negative=True))
+        return m(x.to(d), t.to(d), cfg_scale=6.0, scale_phi=0.4, **cond)
+
+    out = {}
+    for name, run in (("conditioning", lambda m, d: m.conditioner(SA1_PROMPT, d)["prompt"][0]),
+                      ("denoiser", denoise)):
+        want, got = run(cpu, "cpu").float(), run(gpu, dev).float().cpu()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"small SA-1.0 {name}: non-finite output on the card")
+        out[name] = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-6)
+    for name, run in (("decode", lambda m, d: m.pretransform.decode(z.to(d))),
+                      ("encode", lambda m, d: m.pretransform.encode(audio.to(d),
+                                                                    noise=noise.to(d)))):
+        want = run(f32, "cpu").float()
+        card, cpu_bf16 = run(gpu, dev).float(), run(cpu, "cpu").float()
+        if not torch.isfinite(card).all():
+            raise AssertionError(f"small SA-1.0 {name}: non-finite output on the card")
+        out[f"{name}_card_vs_f32"] = rel_dist(card, want)
+        out[f"{name}_cpu_bf16_vs_f32"] = rel_dist(cpu_bf16, want)
+    size = 2048
+    request = generate_diffusion_cond(
+        gpu, steps=4, cfg_scale=6.0, conditioning=SA1_PROMPT, sample_size=size, seed=3,
+        init_audio=(44100, 0.3 * torch.randn(2, size, generator=g)), init_noise_level=5.0)
+    if (tuple(request.shape) != (1, 2, size) or not torch.isfinite(request).all()
+            or request.abs().max() > 1):
+        raise AssertionError(f"small SA-1.0 init-audio request: audio {tuple(request.shape)}")
+    return out
+
+
+def phase_sa1(dev) -> dict:
+    """Phase 11: the tiny card-vs-CPU checks, then the shipped SA-1.0 config:
+    one request (launches pinned from the model), the sampler step and the
+    decode back to back and profiled, and the DAC encode of one clip."""
+    from stable_audio_tools_tpu_torch.inference.generation import generate_diffusion_cond
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+    from stable_audio_tools_tpu_torch.models.roberta import RobertaArch
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sa1_") as tmp:
+        small_clap = os.path.join(tmp, "clap_small.pt")
+        write_clap_checkpoint(small_clap, RobertaArch(vocab_size=32002, hidden_size=64,
+                                                      num_layers=2, num_heads=1,
+                                                      intermediate_size=128, max_positions=80))
+        small = small_sa1_check(dev, small_clap)
+        small_tol = 0.05
+        bad = {k: small[k] for k in ("conditioning", "denoiser") if small[k] > small_tol}
+        bad.update({k: small[f"{k}_card_vs_f32"] for k in ("decode", "encode")
+                    if small[f"{k}_card_vs_f32"] > DANCE_SPREAD * small[f"{k}_cpu_bf16_vs_f32"]})
+        if bad:
+            raise AssertionError(f"small SA-1.0-shaped model: card vs CPU {small} (tol "
+                                 f"{small_tol}; the codec within {DANCE_SPREAD}x the CPU's bf16)")
+
+        # full width: the shipped config, its CLAP tower read from a file
+        clap_path = os.path.join(tmp, "clap.pt")
+        t0 = time.perf_counter()
+        write_clap_checkpoint(clap_path)
+        model = create_model_from_config(sa1_config(clap_path), dev)
+        clap = model.conditioner.conditioners["prompt"]
+        init_random_(model, torch.Generator(device=dev).manual_seed(0),
+                     skip=[clap.model, clap.text_projection]).eval()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    if next(model.parameters()).device.type != "cuda":
+        raise AssertionError("SA-1.0: the factory did not build the model on the card")
+    counts = sa1_launches(model)
+    pinned = dict(unet_forward={"fused_layer_norm": 92},
+                  decode={"snake_conv1d": 13, "snake_conv1d_res": 12, "snake_fused": 4},
+                  encode={"snake_conv1d": 13, "snake_conv1d_res": 12, "snake_fused": 4})
+    if counts != pinned:
+        raise AssertionError(f"SA-1.0 launches counted from the model {counts} != {pinned}")
+    unet = model.model.model
+    params = dict(unet=sum(p.numel() for p in unet.parameters()),
+                  encoder=sum(p.numel() for p in model.pretransform.model.encoder.parameters()),
+                  decoder=sum(p.numel() for p in model.pretransform.model.decoder.parameters()),
+                  total=sum(p.numel() for p in model.parameters()))
+    run = lambda steps, seed: generate_diffusion_cond(
+        model, steps=steps, cfg_scale=6.0, conditioning=SA1_PROMPT, batch_size=1,
+        sample_size=SA1_SAMPLE_SIZE, seed=seed, sampler_type="dpmpp-3m-sde",
+        sigma_min=0.3, sigma_max=500.0)
+    run(2, 0)  # warm-up: cuDNN plans at the full shapes
+    torch.cuda.synchronize()
+    kernels = counters()
+    for fn in kernels.values():
+        fn.launches = 0
+    calls = []
+    hook = unet.register_forward_pre_hook(lambda m, args: calls.append(args[0].shape[0]))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        audio = run(STEPS, 1)
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if (tuple(audio.shape) != (1, 2, SA1_SAMPLE_SIZE) or not torch.isfinite(audio).all()
+            or audio.abs().max().item() > 1.0):
+        raise AssertionError(f"SA-1.0 audio {tuple(audio.shape)} finite="
+                             f"{bool(torch.isfinite(audio).all())} peak {audio.abs().max().item()}")
+    # one UNet call a step at batch 1 (the UNet doubles it for CFG)
+    want = {n: 0 for n in kernels}
+    want.update(counts["decode"], fused_layer_norm=92 * len(calls))
+    if calls != [1] * STEPS or launches != want:
+        raise AssertionError(f"SA-1.0 request: UNet calls {len(calls)} (batches "
+                             f"{sorted(set(calls))}), launches {launches} != {want}")
+    del audio
+
+    # the sampler step (a CFG 6 denoiser call) and the decode: back to back
+    # (CUDA events) and under the profiler
+    g = torch.Generator(device=dev).manual_seed(3)
+    latents = torch.randn(1, 64, SA1_SAMPLE_SIZE // 1024, generator=g, device=dev)
+    t = torch.full((1,), 0.5, device=dev)
+    with torch.inference_mode():
+        cond = model.get_conditioning_inputs(model.conditioner(SA1_PROMPT, dev))
+        step = lambda: model(latents, t, cfg_scale=6.0, **cond)
+        decode = lambda: model.pretransform.decode(latents)
+        step_ms, step_profile = cuda_ms(step, 5), profiled_window(step)
+        decode_ms, decode_profile = cuda_ms(decode, 2), profiled_window(decode)
+
+    # the DAC encode of one clip (init audio, pre-encoding), its launches pinned
+    clip = 0.3 * torch.randn(1, 2, SA1_SAMPLE_SIZE, generator=g, device=dev)
+    encode = lambda: model.pretransform_encode(clip, generator=g)
+    for fn in kernels.values():
+        fn.launches = 0
+    z = encode()
+    torch.cuda.synchronize()
+    enc_launches = {n: fn.launches for n, fn in kernels.items()}
+    want = {n: 0 for n in kernels}
+    want.update(counts["encode"])
+    if tuple(z.shape) != (1, 64, SA1_SAMPLE_SIZE // 1024) or not torch.isfinite(z).all():
+        raise AssertionError(f"SA-1.0 encode: latents {tuple(z.shape)} "
+                             f"finite={bool(torch.isfinite(z).all())}")
+    if enc_launches != want:
+        raise AssertionError(f"SA-1.0 encode launches {enc_launches} != {want}")
+    encode_ms, encode_profile = cuda_ms(encode, 2), profiled_window(encode)
+    for prof in (step_profile, decode_profile, encode_profile):
+        prof.pop("conv1d_wgrad_ms", None)
+    return dict(wall_s=wall, steps=STEPS, audio_s=SA1_SAMPLE_SIZE / 44100.0,
+                audio_s_per_s=SA1_SAMPLE_SIZE / 44100.0 / wall, peak_gib=peak_gib,
+                launches=launches, counts=counts, unet_calls=len(calls), params=params,
+                build_s=build_s, small=small, small_tol=small_tol, step_ms=step_ms,
+                step_profile=step_profile, decode_ms=decode_ms, decode_profile=decode_profile,
+                encode=dict(ms=encode_ms, profile=encode_profile, launches=enc_launches),
+                phase_s=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card",
@@ -3291,6 +3679,21 @@ def main() -> int:
           + "row 4 a decode group {ms:.4f} (bound {bound_ms:.4f}, share "
           "{share_of_bound:.3f}); two backward calls bit-identical at every site on ".format(
               **sf["decode_group"]) + card, flush=True)
+
+    def sa1_cases(entry):
+        return "; ".join(
+            f"{path}: " + ", ".join(f"{c['shape']} {c['ms']:.4f}" for c in p["cases"])
+            + " (sum of {launches} launches {ms:.3f} ms, bound {bound_ms:.3f}, share "
+            "{share_of_bound:.3f})".format(**p["total"]) for path, p in entry.items())
+
+    lnr = rec["fused_layer_norm"]["sa1_f32"]
+    print("phase 2 SA-1.0 shapes (ms back to back): row 12 " + sa1_cases(rec["snake_conv1d"]["sa1"])
+          + "; row 3 " + sa1_cases(rec["snake_conv1d_res"]["sa1"]) + "; row 4 (beta = alpha) "
+          + sa1_cases(rec["snake_fused"]["sa1"]) + "; row 2 f32 " + ", ".join(
+              f"{c['shape'].split(' f32')[0]} {c['ms']:.4f} (F.layer_norm {c['library_ms']:.4f}, "
+              f"bound {c['bound_ms']:.4f}, x{c['launches']})" for c in lnr["cases"])
+          + " (a UNet forward's {launches} launches {ms:.3f} ms, F.layer_norm {library_ms:.3f}, "
+          "bound {bound_ms:.3f})".format(**lnr["unet_forward"]) + f" on {card}", flush=True)
 
     main_rec = phase_main_path(dev)
     print(f"phase 3 generation: SA-Open {main_rec['params'] / 1e9:.3f}B params, {STEPS} steps "
@@ -3443,6 +3846,30 @@ def main() -> int:
 
     torch.cuda.empty_cache()
 
+    sa1 = phase_sa1(dev)
+    prof, dprof, enc = sa1["step_profile"], sa1["decode_profile"], sa1["encode"]
+    print(f"phase 11 SA-1.0 generation: stable_audio_1_0.json, UNet "
+          f"{sa1['params']['unet'] / 1e6:.1f}M params (f32), DAC decoder "
+          f"{sa1['params']['decoder'] / 1e6:.1f}M / encoder {sa1['params']['encoder'] / 1e6:.1f}M "
+          f"(bf16), {STEPS} steps dpmpp-3m-sde cfg 6, {SA1_SAMPLE_SIZE} samples (4096 latents): "
+          f"wall {sa1['wall_s']:.3f} s, {sa1['audio_s_per_s']:.3f} audio-s/s, peak "
+          f"{sa1['peak_gib']:.2f} GiB, {sa1['unet_calls']} UNet calls; sampler step "
+          f"{sa1['step_ms']:.2f} ms back to back (profiled {prof['wall_ms']:.2f} ms, device busy "
+          f"{prof['device_busy']:.1%}, {prof['kernel_launches']:.0f} kernels; top kernels ms "
+          f"{json.dumps(prof['top_kernels_ms'])}); decode {sa1['decode_ms']:.2f} ms (profiled "
+          f"{dprof['wall_ms']:.2f} ms, busy {dprof['device_busy']:.1%}, top kernels ms "
+          f"{json.dumps(dprof['top_kernels_ms'])}); encode of one clip {enc['ms']:.2f} ms "
+          f"(profiled {enc['profile']['wall_ms']:.2f} ms, busy "
+          f"{enc['profile']['device_busy']:.1%}); launches a request "
+          f"{json.dumps({k: v for k, v in sa1['launches'].items() if v})}, an encode "
+          f"{json.dumps({k: v for k, v in enc['launches'].items() if v})} (counted from the "
+          f"model: {json.dumps(sa1['counts'])}); small card-vs-CPU "
+          f"{json.dumps({k: round(v, 4) for k, v in sa1['small'].items()})} (tol "
+          f"{sa1['small_tol']}; the codec within {DANCE_SPREAD}x the CPU's bf16); phase "
+          f"{sa1['phase_s']:.1f} s on {card}", flush=True)
+
+    torch.cuda.empty_cache()
+
     kernels = []
     for n, r in rec.items():
         by_path = {"generation": main_rec["launches"].get(n, 0),
@@ -3455,7 +3882,9 @@ def main() -> int:
                    "sa2_training": sa2t["launches"].get(n, 0),
                    "sa2_pre_encode": sa2t["pre_encode"]["launches"].get(n, 0),
                    "dance_generation": dg["launches"].get(n, 0),
-                   "dance_training": dt["launches"].get(n, 0)}
+                   "dance_training": dt["launches"].get(n, 0),
+                   "sa1_generation": sa1["launches"].get(n, 0),
+                   "sa1_encode": sa1["encode"]["launches"].get(n, 0)}
         kernels.append(dict(name=n, route=r["route"], source=r["source"], replaces=r["replaces"],
                             launches=sum(by_path.values()), launches_by_path=by_path,
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
@@ -3467,7 +3896,8 @@ def main() -> int:
                                 "autograd_errs", "fwd_bwd_ms", "sa2_training_shape",
                                 "deterministic", "ptxas", "profiled", "library_profiled",
                                 "host_us", "library_host_us", "no_grad_bit_identical",
-                                "levels", "generator_step", "decode_group", "dance_step")
+                                "levels", "generator_step", "decode_group", "dance_step",
+                                "sa1", "sa1_f32")
                                 if k in r}))
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
     if unlaunched:
@@ -3482,7 +3912,8 @@ def main() -> int:
         "sa2_training": {k: v for k, v in sa2t.items() if k != "launches"},
         "dance": {"small": dance["small"],
                   "generation": {k: v for k, v in dg.items() if k != "launches"},
-                  "training": {k: v for k, v in dt.items() if k != "launches"}}}))
+                  "training": {k: v for k, v in dt.items() if k != "launches"}},
+        "sa1_generation": {k: v for k, v in sa1.items() if k != "launches"}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,7 +1,7 @@
 """The DAU1d's GroupNorm two ways on one card, in turns (A, B, B, A):
 `F.group_norm` in f32 (one thread block per item and group) and the port's
-`GroupNorm1` (`torch.var_mean` over each item, then one `addcmul`), inside
-BASELINE (b)'s model (dance_diffusion_base_16k.json, seeded random weights):
+ops/norms.py `GroupNorm` (`torch.var_mean` over each item, then one
+`addcmul`), inside BASELINE (b)'s model (dance_diffusion_base_16k.json, seeded random weights):
 a sampler step at batch 1 x 65,536 and a training forward+backward at batch
 4 x 65,536, each by CUDA events and under the profiler (device ms, kernels).
 
@@ -22,9 +22,9 @@ import chip_smoke as cs  # noqa: E402
 
 
 def main():
-    from stable_audio_tools_tpu_torch.models import dance_unet as du
     from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
     from stable_audio_tools_tpu_torch.ops.kernels import _build
+    from stable_audio_tools_tpu_torch.ops.norms import GroupNorm
     from stable_audio_tools_tpu_torch.training.factory import create_training_wrapper_from_config
 
     if not torch.cuda.is_available():
@@ -35,7 +35,7 @@ def main():
     _build.build_all()
     impls = {"group_norm": lambda self, x: F.group_norm(
                  x.float(), 1, self.weight, self.bias, self.eps).to(x.dtype),
-             "var_mean": du.GroupNorm1.forward}
+             "var_mean": GroupNorm.forward}
     cfg = cs.dance_config()
     model = init_random_(create_model_from_config(cfg, dev),
                          torch.Generator(device=dev).manual_seed(0))
@@ -55,7 +55,7 @@ def main():
 
     try:
         for name in ("group_norm", "var_mean", "var_mean", "group_norm"):
-            du.GroupNorm1.forward = impls[name]
+            GroupNorm.forward = impls[name]
             r = dict(impl=name, step_ms=cs.cuda_ms(step, 5), fwd_bwd_ms=cs.cuda_ms(fwd_bwd, 3))
             p, q = cs.profiled_window(step), cs.profiled_window(fwd_bwd)
             w.optimizer.zero_grad(set_to_none=True)
@@ -63,7 +63,7 @@ def main():
                      fwd_bwd_device_ms=q["device_ms"], fwd_bwd_kernels=q["kernel_launches"])
             print(json.dumps(r), flush=True)
     finally:
-        du.GroupNorm1.forward = impls["var_mean"]
+        GroupNorm.forward = impls["var_mean"]
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """JAX-package parameters -> the port's state_dict (numpy only).
 
 Inputs are the JAX package's flax parameters as nested dicts of numpy arrays:
-the `params` collection of a `ConditionedDiffusionModelWrapper`, of a
+the `params` collection of a `ConditionedDiffusionModelWrapper` (a DiT or
+SA-1.0's ADP `UNetCFG1d`), of a
 `DiffusionModelWrapper` (Dance Diffusion's DAU1d, whose port keeps the JAX
 package's flat module names), of an
 `AudioLanguageModelWrapper` (with its codec's `quantizer_state` collection,
@@ -19,8 +20,9 @@ Transforms:
   [k, in, out] -> [in, out, k]; HWIO 2-D kernels [kh, kw, in, out] ->
   [out, in, kh, kw];
 - weight norm: v as above, g -> [out, 1, 1] (transposed: [in, 1, 1]);
-- log-scale snake alpha / beta as they are; GroupNorm scale / bias ->
-  weight / bias;
+- log-scale snake alpha / beta as they are, DAC's snake alpha [C] ->
+  [1, C, 1]; GroupNorm and LayerNorm scale / bias -> weight / bias;
+  embedding tables as they are;
 - fused projections de-interleaved: the JAX package stores to_qkv / to_kv
   head-major ([h][q|k|v][dh]) and the GLU pairwise (x_0, g_0, x_1, ...);
   torch concatenates ([q|k|v], [x|gate]);
@@ -203,22 +205,69 @@ def seanet_state_dict(p: Mapping, prefix: str = "") -> StateDict:
     return out
 
 
-def _tower_state_dict(p: Mapping, prefix: str, oobleck) -> StateDict:
-    return seanet_state_dict(p, prefix) if "res_0_0" in p else oobleck(p, prefix)
+def _dac_unit(out: StateDict, name: str, p: Mapping) -> None:
+    out[f"{name}.block.0.alpha"] = _np(p["Snake1d_0"]["alpha"]).reshape(1, -1, 1)
+    wn_conv(out, f"{name}.block.1", p["conv1"])
+    out[f"{name}.block.2.alpha"] = _np(p["Snake1d_1"]["alpha"]).reshape(1, -1, 1)
+    wn_conv(out, f"{name}.block.3", p["conv2"])
+
+
+def dac_encoder_state_dict(p: Mapping, prefix: str = "") -> StateDict:
+    """JAX DACEncoder params -> the port's DACEncoderWrapper (models/dac.py):
+    the tower under `encoder.block.*`, the Dense `proj_out` as a k = 1 conv."""
+    out: StateDict = {}
+    n = _n_blocks(p)
+    tower = f"{prefix}encoder.block"
+    wn_conv(out, f"{tower}.0", p["conv_in"])
+    for j in range(n):
+        blk, name = p[f"block_{j}"], f"{tower}.{j + 1}.block"
+        for i in range(3):
+            _dac_unit(out, f"{name}.{i}", blk[f"res_{i}"])
+        out[f"{name}.3.alpha"] = _np(blk["Snake1d_0"]["alpha"]).reshape(1, -1, 1)
+        wn_conv(out, f"{name}.4", blk["down"])
+    out[f"{tower}.{n + 1}.alpha"] = _np(p["Snake1d_0"]["alpha"]).reshape(1, -1, 1)
+    wn_conv(out, f"{tower}.{n + 2}", p["conv_out"])
+    if "proj_out" in p:
+        out[f"{prefix}proj_out.weight"] = _np(p["proj_out"]["kernel"]).T[:, :, None]
+        out[f"{prefix}proj_out.bias"] = _np(p["proj_out"]["bias"])
+    return out
+
+
+def dac_decoder_state_dict(p: Mapping, prefix: str = "") -> StateDict:
+    """JAX DACDecoder params -> the port's DACDecoderWrapper (`decoder.model.*`)."""
+    out: StateDict = {}
+    n = _n_blocks(p)
+    tower = f"{prefix}decoder.model"
+    wn_conv(out, f"{tower}.0", p["conv_in"])
+    for j in range(n):
+        blk, name = p[f"block_{j}"], f"{tower}.{j + 1}.block"
+        out[f"{name}.0.alpha"] = _np(blk["Snake1d_0"]["alpha"]).reshape(1, -1, 1)
+        wn_conv(out, f"{name}.1", blk["up"], transposed=True)
+        for i in range(3):
+            _dac_unit(out, f"{name}.{i + 2}", blk[f"res_{i}"])
+    out[f"{tower}.{n + 1}.alpha"] = _np(p["Snake1d_0"]["alpha"]).reshape(1, -1, 1)
+    wn_conv(out, f"{tower}.{n + 2}", p["conv_out"])
+    return out
+
+
+def _tower_state_dict(p: Mapping, prefix: str, oobleck, dac) -> StateDict:
+    if "res_0_0" in p:
+        return seanet_state_dict(p, prefix)
+    return dac(p, prefix) if "Snake1d_0" in p else oobleck(p, prefix)
 
 
 def autoencoder_state_dict(p: Mapping, prefix: str = "",
                            quantizer_state: Optional[Mapping] = None) -> StateDict:
-    """An AudioAutoencoder's params (Oobleck or SEANet towers) -> the port's;
+    """An AudioAutoencoder's params (Oobleck, SEANet or DAC towers) -> the port's;
     `quantizer_state` (the autoencoder's collection of that name) brings the
     RVQ codebooks."""
     out: StateDict = {}
     if "encoder" in p:
         out.update(_tower_state_dict(p["encoder"], f"{prefix}encoder.",
-                                     oobleck_encoder_state_dict))
+                                     oobleck_encoder_state_dict, dac_encoder_state_dict))
     if "decoder" in p:
         out.update(_tower_state_dict(p["decoder"], f"{prefix}decoder.",
-                                     oobleck_decoder_state_dict))
+                                     oobleck_decoder_state_dict, dac_decoder_state_dict))
     if quantizer_state is not None:
         out[f"{prefix}bottleneck.quantizer.codebooks"] = _np(
             quantizer_state["bottleneck"]["quantizer"]["codebooks"])
@@ -289,17 +338,112 @@ def roberta_state_dict(p: Mapping, prefix: str = "") -> StateDict:
     return out
 
 
-def diffusion_cond_state_dict(params: Mapping, dim_heads: int,
+def _adp_conv(out: StateDict, name: str, p: Mapping, transposed: bool = False) -> None:
+    k = _np(p["kernel"])  # [k, in, out]
+    out[f"{name}.weight"] = k.transpose(1, 2, 0) if transposed else k.transpose(2, 1, 0)
+    out[f"{name}.bias"] = _np(p["bias"])
+
+
+def _affine(out: StateDict, name: str, p: Mapping) -> None:
+    out[f"{name}.weight"] = _np(p["scale"])
+    out[f"{name}.bias"] = _np(p["bias"])
+
+
+def _adp_resnet(out: StateDict, name: str, p: Mapping) -> None:
+    for blk in ("block1", "block2"):
+        if "groupnorm" in p[blk]:
+            _affine(out, f"{name}.{blk}.groupnorm", p[blk]["groupnorm"])
+        _adp_conv(out, f"{name}.{blk}.project", p[blk]["project"])
+    if "to_scale_shift" in p:
+        dense(out, f"{name}.to_scale_shift.to_scale_shift.1", p["to_scale_shift"])
+    if "to_out" in p:
+        _adp_conv(out, f"{name}.to_out", p["to_out"])
+
+
+def _adp_attention(out: StateDict, name: str, p: Mapping) -> None:
+    _affine(out, f"{name}.norm", p["norm"])
+    _affine(out, f"{name}.norm_context", p["norm_context"])
+    dense(out, f"{name}.to_q", p["to_q"])
+    dense(out, f"{name}.to_kv", p["to_kv"])
+    dense(out, f"{name}.attention.to_out", p["to_out"])
+
+
+def _adp_transformer(out: StateDict, name: str, p: Mapping) -> None:
+    _affine(out, f"{name}.to_in.0", p["norm_in"])
+    _adp_conv(out, f"{name}.to_in.1", p["conv_in"])
+    _adp_conv(out, f"{name}.to_out.1", p["conv_out"])
+    i = 0
+    while f"block_{i}" in p:
+        blk, bname = p[f"block_{i}"], f"{name}.blocks.{i}"
+        _adp_attention(out, f"{bname}.attention", blk["attention"])
+        if "cross_attention" in blk:
+            _adp_attention(out, f"{bname}.cross_attention", blk["cross_attention"])
+        dense(out, f"{bname}.feed_forward.0", blk["ff1"])
+        dense(out, f"{bname}.feed_forward.2", blk["ff2"])
+        i += 1
+
+
+def _adp_tpe(out: StateDict, name: str, p: Mapping) -> None:
+    out[f"{name}.0.weights"] = _np(p["weights"])
+    dense(out, f"{name}.1", p["to_out"])
+
+
+def adp_unet_cfg_state_dict(p: Mapping, prefix: str = "") -> StateDict:
+    """`params` of the JAX UNetCFG1d ({"unet": UNet1d, "fixed_embedding"})
+    -> the port's UNetCFG1d (models/adp.py), the reference layout: conv
+    kernels [k, in, out] -> [out, in, k] (transposed convs [in, out, k])."""
+    out: StateDict = {f"{prefix}fixed_embedding.embedding.weight": _np(p["fixed_embedding"])}
+    u = p["unet"]
+    if "to_time" in u:
+        _adp_tpe(out, f"{prefix}to_time.0", u["to_time"])
+    if "to_features" in u:
+        dense(out, f"{prefix}to_features.0", u["to_features"])
+    if "to_mapping_0" in u:
+        dense(out, f"{prefix}to_mapping.0", u["to_mapping_0"])
+        dense(out, f"{prefix}to_mapping.2", u["to_mapping_2"])
+    _adp_resnet(out, f"{prefix}to_in.block", u["to_in"]["block"])
+    _adp_resnet(out, f"{prefix}to_out.block", u["to_out"]["block"])
+    for stack in ("downsamples", "upsamples"):
+        i = 0
+        while f"{stack}_{i}" in u:
+            blk, name = u[f"{stack}_{i}"], f"{prefix}{stack}.{i}"
+            j = 0
+            while f"block_{j}" in blk:
+                _adp_resnet(out, f"{name}.blocks.{j}", blk[f"block_{j}"])
+                j += 1
+            if "transformer" in blk:
+                _adp_transformer(out, f"{name}.transformer", blk["transformer"])
+            if "downsample" in blk:
+                _adp_conv(out, f"{name}.downsample", blk["downsample"])
+            if "upsample" in blk:
+                # transposed (k = 2 x factor) but at factor 1, a k = 3 conv
+                # (the port refuses the nearest-neighbour upsampling)
+                up = blk["upsample"]
+                _adp_conv(out, f"{name}.upsample", up,
+                          transposed=_np(up["kernel"]).shape[0] % 2 == 0)
+            i += 1
+    bott = u["bottleneck"]
+    _adp_resnet(out, f"{prefix}bottleneck.pre_block", bott["pre_block"])
+    _adp_resnet(out, f"{prefix}bottleneck.post_block", bott["post_block"])
+    if "transformer" in bott:
+        _adp_transformer(out, f"{prefix}bottleneck.transformer", bott["transformer"])
+    return out
+
+
+def diffusion_cond_state_dict(params: Mapping, dim_heads: int = 64,
                               t5_params: Optional[Mapping[str, Mapping]] = None,
                               roberta_params: Optional[Mapping[str, Mapping]] = None
                               ) -> StateDict:
-    """`params` of a ConditionedDiffusionModelWrapper (DiT) -> the port's
+    """`params` of a ConditionedDiffusionModelWrapper (a DiT with heads of
+    `dim_heads`, or an ADP UNetCFG1d) -> the port's
     ConditionedDiffusionModelWrapper state_dict. `t5_params` maps a T5
     conditioner id to its tower's flax params, `roberta_params` a CLAP text
     conditioner id to its RoBERTa tower's; the CLAP joint-space projection
     (`text_projection`) is not part of either and keeps what the port's
     conditioner loaded from the CLAP checkpoint."""
-    out = dit_state_dict(params["model"]["dit"], dim_heads, prefix="model.model.")
+    inner = params["model"]
+    out = (dit_state_dict(inner["dit"], dim_heads, prefix="model.model.") if "dit" in inner
+           else adp_unet_cfg_state_dict(inner["unet"], prefix="model.model."))
     if "pretransform" in params:
         out.update(autoencoder_state_dict(params["pretransform"]["model"], "pretransform.model."))
     for key, mod in params.get("conditioner", {}).items():
@@ -308,6 +452,8 @@ def diffusion_cond_state_dict(params: Mapping, dim_heads: int,
         if "embedder" in mod:  # NumberConditioner
             out[f"{pfx}embedder.embedding.0.weights"] = _np(mod["embedder"]["weights"])
             dense(out, f"{pfx}embedder.embedding.1", mod["embedder"]["to_out"])
+        if "int_embedder" in mod:  # IntConditioner
+            out[f"{pfx}int_embedder.weight"] = _np(mod["int_embedder"]["embedding"])
         if "proj" in mod:  # T5 / CLAP projection
             dense(out, f"{pfx}proj_out", mod["proj"]["proj_out"])
     for cid, p in (t5_params or {}).items():

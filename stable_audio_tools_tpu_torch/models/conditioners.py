@@ -1,6 +1,6 @@
 """Conditioners: metadata -> conditioning tensors; counterpart of
-stable_audio_tools_tpu/models/conditioners.py (NumberConditioner :214,
-T5Conditioner :323, _FallbackTokenizer :517, CLAPTextConditioner :551 with
+stable_audio_tools_tpu/models/conditioners.py (IntConditioner :202,
+NumberConditioner :214, T5Conditioner :323, _FallbackTokenizer :517, CLAPTextConditioner :551 with
 CLAPProjModule :148, MultiConditioner :874).
 
 Unlike the JAX package, which splits each conditioner into a host half and a
@@ -14,8 +14,9 @@ of `t5_model_name`; its weights are random unless loaded (the card has no
 `transformers` and no network), which is what `allow_random_init` accepts.
 The CLAP text tower is the port's own RoBERTa (models/roberta.py), loaded from
 the `text_branch.*` tensors of a CLAP checkpoint. Covered: the `t5`, `number`
-(SA-Open's) and `clap_text` (SA-2.0's) conditioner types; the CLAP audio
-branch (HTSAT) and the other types are later slices.
+(SA-Open's), `clap_text` (SA-2.0's and SA-1.0's) and `int` (SA-1.0's)
+conditioner types; the CLAP audio branch (HTSAT) and the other types are
+later slices.
 """
 
 from __future__ import annotations
@@ -273,6 +274,22 @@ class NumberConditioner(nn.Module):
         return emb, torch.ones(emb.shape[:2], dtype=torch.bool, device=device)
 
 
+class IntConditioner(nn.Module):
+    """An embedding of ints clipped to [min_val, max_val] (JAX
+    `IntConditionerModule` :46; the reference's `int_embedder`): one
+    [B, 1, output_dim] token a value and an all-true mask."""
+
+    def __init__(self, output_dim: int, min_val: int = 0, max_val: int = 512):
+        super().__init__()
+        self.min_val, self.max_val = min_val, max_val
+        self.int_embedder = nn.Embedding(max_val - min_val + 1, output_dim)
+
+    def forward(self, values: tp.Sequence[int], device) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+        ints = torch.tensor([int(v) for v in values], dtype=torch.long, device=device)
+        emb = self.int_embedder(ints.clamp(self.min_val, self.max_val) - self.min_val)[:, None]
+        return emb, torch.ones(emb.shape[:2], dtype=torch.bool, device=device)
+
+
 class MultiConditioner(nn.Module):
     """batch metadata (a list of dicts) -> {key: (tensor, mask)}."""
 
@@ -308,6 +325,8 @@ def create_multi_conditioner_from_conditioning_config(config: tp.Dict[str, tp.An
             conditioners[info["id"]] = NumberConditioner(**ccfg)
         elif info["type"] == "clap_text":
             conditioners[info["id"]] = CLAPTextConditioner(**ccfg)
+        elif info["type"] == "int":
+            conditioners[info["id"]] = IntConditioner(**ccfg)
         else:
             raise NotImplementedError(f"conditioner type {info['type']} is not ported yet")
     return MultiConditioner(conditioners, config.get("default_keys"))

@@ -1,9 +1,9 @@
 """Dance Diffusion's 1-D UNet (`DiffusionAttnUnet1D`, model type `DAU1d`);
 counterpart of stable_audio_tools_tpu/models/dance_unet.py.
 
-Layout: [B, C, T]. Blocks: `ResConvBlock` (k = 5 convs, GroupNorm(1) with
-epsilon 1e-6 as flax's, tanh-approximated GELU as `jax.nn.gelu`'s default),
-`SelfAttention1d` (max(C // 32, 1) heads, 1 x 1 projections), the cubic FIR
+Layout: [B, C, T]. Blocks: `ResConvBlock` (k = 5 convs, ops/norms.py's
+GroupNorm with one group and epsilon 1e-6 as flax's, tanh-approximated GELU
+as `jax.nn.gelu`'s default), `SelfAttention1d` (max(C // 32, 1) heads, 1 x 1 projections), the cubic FIR
 down- and upsamplers (depthwise, reflect padding), Fourier timestep planes
 joined to the input, and the skip stack of the recursive reference net laid
 out flat. The modules keep the JAX package's flat names (`timestep_embed`,
@@ -38,6 +38,7 @@ from torch import nn
 
 from ..ops.conv import conv1d
 from ..ops.embeddings import FourierFeatures
+from ..ops.norms import GroupNorm
 
 _CUBIC = (-0.01171875, -0.03515625, 0.11328125, 0.43359375,
           0.43359375, 0.11328125, -0.03515625, -0.01171875)
@@ -57,24 +58,6 @@ class Conv1d(nn.Conv1d):
         return conv1d(x, self.weight.to(x.dtype), bias, padding=self.padding[0])
 
 
-class GroupNorm1(nn.GroupNorm):
-    """GroupNorm with one group and epsilon 1e-6 (flax's default), its
-    statistics in f32, its output in the input's dtype.
-
-    The statistics are one `torch.var_mean` over each item's C x T values,
-    a reduction spread over the whole card: `F.group_norm` gives each
-    (item, group) one thread block, so at batch 1 a single block walks the
-    8.4 M values of a [1, 128, 65536] activation (PERF.md)."""
-
-    def __init__(self, channels: int):
-        super().__init__(1, channels, eps=1e-6)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        var, mean = torch.var_mean(x.float(), dim=(1, 2), keepdim=True, correction=0)
-        scale = self.weight[:, None] * torch.rsqrt(var + self.eps)  # [B, C, 1]
-        return torch.addcmul(self.bias[:, None] - mean * scale, x, scale).to(x.dtype)
-
-
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
@@ -89,9 +72,9 @@ class ResConvBlock(nn.Module):
         self.is_last = is_last
         self.skip = Conv1d(c_in, c_out, 1, bias=False) if c_in != c_out else None
         self.conv1 = Conv1d(c_in, c_mid, kernel_size, bias=conv_bias)
-        self.norm1 = GroupNorm1(c_mid)
+        self.norm1 = GroupNorm(1, c_mid)
         self.conv2 = Conv1d(c_mid, c_out, kernel_size, bias=conv_bias)
-        self.norm2 = None if is_last else GroupNorm1(c_out)
+        self.norm2 = None if is_last else GroupNorm(1, c_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         skip = x if self.skip is None else self.skip(x)
@@ -109,7 +92,7 @@ class SelfAttention1d(nn.Module):
     def __init__(self, channels: int, n_head: int = 1):
         super().__init__()
         self.n_head = n_head
-        self.norm = GroupNorm1(channels)
+        self.norm = GroupNorm(1, channels)
         self.qkv_proj = Conv1d(channels, 3 * channels, 1)
         self.out_proj = Conv1d(channels, channels, 1)
 

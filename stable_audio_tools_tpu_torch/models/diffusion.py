@@ -4,7 +4,8 @@
 create_diffusion_cond_from_config :285).
 
 Module names follow the reference checkpoint layout: `model.model.*` (the
-DiT), `conditioner.conditioners.<id>.*`, `pretransform.model.*`.
+DiT, or SA-1.0's ADP `UNetCFG1d`, models/adp.py), `conditioner.conditioners.<id>.*`,
+`pretransform.model.*`.
 
 The unconditional wrapper holds the v-model under `model` (Dance Diffusion's
 `DAU1d`, models/dance_unet.py; the JAX factory's `adp_uncond_1d` and `dit`
@@ -24,6 +25,7 @@ import typing as tp
 import torch
 from torch import nn
 
+from .adp import UNetCFG1DWrapper, create_adp_cond_wrapper
 from .conditioners import MultiConditioner, create_multi_conditioner_from_conditioning_config
 from .dance_unet import DiffusionAttnUnet1D
 from .dit import DiffusionTransformer
@@ -77,7 +79,7 @@ def create_diffusion_uncond_from_config(config: tp.Dict[str, tp.Any], device=Non
             raise ValueError(f"Must specify {key} in config")
     if model_type in ("adp_uncond_1d", "dit"):
         raise NotImplementedError(f"unconditional diffusion model type {model_type} is not "
-                                  "ported yet")
+                                  "ported yet (ROADMAP.md queue 1)")
     if model_type != "DAU1d":
         raise NotImplementedError(f"Unknown model type: {model_type}")
     pretransform = model_config.get("pretransform")
@@ -119,7 +121,7 @@ class DiTWrapper(nn.Module):
 
 
 class ConditionedDiffusionModelWrapper(nn.Module):
-    def __init__(self, model: DiTWrapper, conditioner: tp.Optional[MultiConditioner],
+    def __init__(self, model: tp.Union[DiTWrapper, UNetCFG1DWrapper], conditioner: tp.Optional[MultiConditioner],
                  io_channels: int, sample_rate: int, diffusion_objective: str = "v",
                  pretransform: tp.Optional[AutoencoderPretransform] = None,
                  cross_attn_cond_ids: tp.Sequence[str] = (),
@@ -195,7 +197,7 @@ def create_diffusion_cond_from_config(config: tp.Dict[str, tp.Any], device=None
     device = resolve_device(device)
     model_config = config["model"]
     diffusion = model_config["diffusion"]
-    if diffusion["type"] != "dit":
+    if diffusion["type"] not in ("dit", "adp_cfg_1d", "adp_1d"):
         raise NotImplementedError(f"diffusion model type {diffusion['type']} is not ported yet")
     pretransform = model_config.get("pretransform")
     if pretransform is not None:
@@ -205,9 +207,12 @@ def create_diffusion_cond_from_config(config: tp.Dict[str, tp.Any], device=None
     with device:
         conditioner = (create_multi_conditioner_from_conditioning_config(conditioning)
                        if conditioning is not None else None)
-        dit = DiffusionTransformer(**diffusion["config"])
+        if diffusion["type"] == "dit":
+            model = DiTWrapper(DiffusionTransformer(**diffusion["config"]))
+        else:
+            model = create_adp_cond_wrapper(diffusion["type"], diffusion["config"])
     return ConditionedDiffusionModelWrapper(
-        DiTWrapper(dit), conditioner,
+        model, conditioner,
         io_channels=model_config["io_channels"],
         sample_rate=config["sample_rate"],
         diffusion_objective=diffusion.get("diffusion_objective", "v"),

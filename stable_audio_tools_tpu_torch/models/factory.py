@@ -3,13 +3,15 @@
 The JSON model config is the public API: the shipped
 `stable_audio_open_1_0.json`, `stable_audio_2_0.json`,
 `autoencoders/stable_audio_2_0_vae.json`, `autoencoders/encodec_musicgen_rvq.json`
-`lm/musicgen_small_rvq.json` and the four `dance_diffusion/*.json` build
-unchanged.
-Built: `diffusion_cond` and `diffusion_cond_inpaint` (DiT), `diffusion_uncond`
-(Dance Diffusion's DAU1d), `lm` (the
-MusicGen-style token LM, models/lm.py), `autoencoder` (Oobleck or SEANet
-encoder and decoder; VAE or RVQ bottleneck) and the `autoencoder`
-pretransform; other types raise NotImplementedError.
+`lm/musicgen_small_rvq.json`, the four `dance_diffusion/*.json`,
+`txt2audio/stable_audio_1_0.json`, `autoencoders/stable_audio_1_0_vae.json`
+and `autoencoders/dac_2048_32_vae.json` build unchanged.
+Built: `diffusion_cond` and `diffusion_cond_inpaint` (DiT; `diffusion_cond`
+also on the ADP `UNetCFG1d`, models/adp.py), `diffusion_uncond` (Dance
+Diffusion's DAU1d), `lm` (the MusicGen-style token LM, models/lm.py),
+`autoencoder` (Oobleck, SEANet or DAC encoder and decoder; VAE or RVQ
+bottleneck) and the `autoencoder` pretransform; other types raise
+NotImplementedError.
 
 Every factory takes the `device` the parameters are created on. The default
 is the current CUDA card, and without one the call raises: a model lands on
@@ -27,6 +29,7 @@ from torch import nn
 
 from .autoencoders import AudioAutoencoder, OobleckDecoder, OobleckEncoder
 from .bottleneck import RVQBottleneck, VAEBottleneck
+from .dac import DACDecoderWrapper, DACEncoderWrapper, Snake1d
 from .pretransforms import AutoencoderPretransform
 from .seanet import SEANetDecoder, SEANetEncoder
 
@@ -34,6 +37,11 @@ _OOBLECK_KEYS = ("channels", "latent_dim", "c_mults", "strides", "use_snake")
 _SEANET_KEYS = ("channels", "dimension", "n_filters", "ratios", "n_residual_layers",
                 "dilation_base", "norm", "lstm", "kernel_size", "last_kernel_size",
                 "residual_kernel_size", "causal", "pad_mode", "true_skip", "compress")
+# the JAX factory's DAC keyword arguments (models/factory.py:75, :107), the
+# decoder's under their reference names
+_DAC_ENCODER_KEYS = ("d_model", "strides", "d_latent", "latent_dim", "in_channels")
+_DAC_DECODER_KEYS = {"latent_dim": "input_channel", "channels": "channels", "rates": "rates",
+                     "out_channels": "d_out", "final_tanh": "final_tanh"}
 Device = Optional[Union[str, torch.device]]
 
 
@@ -89,11 +97,23 @@ def _seanet(section: Dict[str, Any], cls):
     return cls(**{k: cfg[k] for k in keys if k in cfg})
 
 
-def _tower(section: Dict[str, Any], io_key: str, oobleck, seanet):
+def _dac(section: Dict[str, Any], cls):
+    """The JAX factory's renames: the decoder's `latent_dim` is its
+    `input_channel` and `out_channels` its `d_out`; the encoder's
+    `latent_dim` sizes `proj_out`."""
+    cfg = section.get("config", {})
+    if cls is DACEncoderWrapper:
+        return cls(**{k: cfg[k] for k in _DAC_ENCODER_KEYS if k in cfg})
+    return cls(**{new: cfg[old] for old, new in _DAC_DECODER_KEYS.items() if old in cfg})
+
+
+def _tower(section: Dict[str, Any], io_key: str, oobleck, seanet, dac):
     if section["type"] == "oobleck":
         return _oobleck(section, io_key, oobleck)
     if section["type"] == "seanet":
         return _seanet(section, seanet)
+    if section["type"] == "dac":
+        return _dac(section, dac)
     raise NotImplementedError(f"{section['type']} encoder/decoder is not ported yet")
 
 
@@ -116,9 +136,10 @@ def create_autoencoder_from_config(config: Dict[str, Any], device: Device = None
 def _autoencoder(config: Dict[str, Any]) -> AudioAutoencoder:
     ae = config["model"]
     return AudioAutoencoder(
-        encoder=(_tower(ae["encoder"], "in_channels", OobleckEncoder, SEANetEncoder)
-                 if "encoder" in ae else None),
-        decoder=_tower(ae["decoder"], "out_channels", OobleckDecoder, SEANetDecoder),
+        encoder=(_tower(ae["encoder"], "in_channels", OobleckEncoder, SEANetEncoder,
+                        DACEncoderWrapper) if "encoder" in ae else None),
+        decoder=_tower(ae["decoder"], "out_channels", OobleckDecoder, SEANetDecoder,
+                       DACDecoderWrapper),
         latent_dim=ae["latent_dim"],
         downsampling_ratio=ae["downsampling_ratio"],
         sample_rate=config["sample_rate"],
@@ -147,14 +168,16 @@ def init_random_(model: nn.Module, generator: torch.Generator,
     `skip` and their children, e.g. a tower loaded from a checkpoint
     (deterministic random init for benchmarks and smoke runs; real weights
     are loaded instead):
-    Linear / conv weights ~ N(0, 1/fan_in), biases 0, embeddings ~ N(0, 1),
-    norm scales 1 (GroupNorm biases 0), log-scale snake parameters 0,
+    Linear / conv weights ~ N(0, 1/fan_in) (a transposed conv's fan-in: its
+    input channels x taps / stride), biases 0, embeddings ~ N(0, 1), norm
+    scales 1 (GroupNorm and the ADP LayerNorm biases 0), log-scale snake
+    parameters 0, DAC's snake alpha 1,
     Fourier weights ~ N(0, 1), weight-norm g = ||v||, LSTM weights ~
     N(0, 1/fan_in) with zero biases, RVQ codebooks ~ N(0, 1)."""
     from ..ops.activations import SnakeBeta
     from ..ops.conv import WNConv1d, WNConv2d, WNConvTranspose1d
     from ..ops.embeddings import FourierFeatures
-    from ..ops.norms import LayerNorm
+    from ..ops.norms import BiasedLayerNorm, LayerNorm
     from .bottleneck import ResidualVQ
     from .conditioners import LearnedPositionalEmbedding
     from .t5 import T5LayerNorm
@@ -171,6 +194,11 @@ def init_random_(model: nn.Module, generator: torch.Generator,
             normal_(m.weight, 1.0 / math.sqrt(m.weight[0].numel()))
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(m, nn.ConvTranspose1d):
+            normal_(m.weight, 1.0 / math.sqrt(m.weight.shape[0] * m.weight.shape[2]
+                                              / m.stride[0]))
+            if m.bias is not None:
+                m.bias.zero_()
         elif isinstance(m, (WNConv1d, WNConvTranspose1d, WNConv2d)):
             normal_(m.weight_v, 1.0 / math.sqrt(m.weight_v[0].numel()))
             m.weight_g.copy_(torch.linalg.vector_norm(
@@ -183,6 +211,11 @@ def init_random_(model: nn.Module, generator: torch.Generator,
             normal_(m.weights, 1.0)
         elif isinstance(m, LayerNorm):
             m.gamma.fill_(1.0)
+        elif isinstance(m, BiasedLayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, Snake1d):
+            m.alpha.fill_(1.0)
         elif isinstance(m, nn.GroupNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()

@@ -22,6 +22,12 @@ def create_training_wrapper_from_config(model_config: tp.Dict[str, tp.Any], mode
     if model_type == "autoencoder":
         from .autoencoders import AutoencoderTrainer
 
+        towers = [model_config["model"][k]["type"] for k in ("encoder", "decoder")
+                  if k in model_config["model"]]
+        if "dac" in towers:
+            raise NotImplementedError("training the dac encoder / decoder is not ported yet "
+                                      "(ROADMAP.md queue 1)")
+
         return AutoencoderTrainer(
             model,
             lr=training_config.get("learning_rate"),
@@ -62,6 +68,10 @@ def create_training_wrapper_from_config(model_config: tp.Dict[str, tp.Any], mode
         )
     if model_type != "diffusion_cond":
         raise NotImplementedError(f"training {model_type} models is not ported yet")
+    diffusion_type = model_config["model"]["diffusion"]["type"]
+    if diffusion_type != "dit":
+        raise NotImplementedError(f"training diffusion model type {diffusion_type} is not "
+                                  "ported yet (ROADMAP.md queue 1)")
     unported = [k for k in _UNPORTED if training_config.get(k)]
     if model_config["model"]["diffusion"].get("distribution_shift_options"):
         unported.append("distribution_shift_options")

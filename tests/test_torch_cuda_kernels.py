@@ -11,6 +11,7 @@ wrappers' gradients against autograd through the plain versions.
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from stable_audio_tools_tpu_torch.ops.kernels import conv1d_snake as cs
 from stable_audio_tools_tpu_torch.ops.kernels import flash_attention as fa
@@ -217,6 +218,77 @@ def test_snake_conv1d(dev, Ci, Co, L, k, d, res, bias):
     else:
         got = cs.snake_conv1d(x, w, bias_t, a, b, pad, pad, d)
     _close(got, cs.snake_conv1d_plain(x, w, bias_t, a, b, pad, pad, d, r))
+
+
+# SA-1.0's DAC widths: 96 and 192 channels (96 is off the 64-channel input
+# chunks and leaves 32 dead columns of a 128-wide output tile), the residual
+# units' k = 7 convs at d = 1, 3, 9 and k = 1 convs with the skip, and the
+# decoder's conv_out 96 -> 2; DAC's snake is snake-beta with beta = alpha
+@pytest.mark.parametrize("Ci,Co,L,k,d,res", [
+    (96, 96, 4099, 7, 1, False), (96, 96, 3000, 7, 9, False), (96, 96, 4099, 1, 1, True),
+    (192, 192, 2050, 7, 3, False), (192, 192, 2050, 1, 1, True), (96, 2, 4099, 7, 1, False),
+    (192, 96, 1000, 7, 1, False)])
+def test_snake_conv1d_dac_widths(dev, Ci, Co, L, k, d, res):
+    x = _randn(dev, 1, Ci, L)
+    w = _randn(dev, Co, Ci, k, scale=(Ci * k) ** -0.5, seed=1)
+    bias_t = _randn(dev, Co, dtype=torch.float32, seed=2)
+    a = _randn(dev, Ci, dtype=torch.float32, seed=3).exp()
+    r = _randn(dev, 1, Co, L, seed=5) if res else None
+    pad = d * (k - 1) // 2
+    if res:
+        got = cs.snake_conv1d_res(x, w, bias_t, a, a, r, pad, pad, d)
+    else:
+        got = cs.snake_conv1d(x, w, bias_t, a, a, pad, pad, d)
+        # row 12 against row 3 on the same inputs: equal bit for bit
+        zero = torch.zeros_like(got)
+        assert torch.equal(got, cs.snake_conv1d_res(x, w, bias_t, a, a, zero, pad, pad, d))
+    _close(got, cs.snake_conv1d_plain(x, w, bias_t, a, a, pad, pad, d, r))
+
+
+@pytest.mark.parametrize("C", [96, 192, 768, 1536])
+def test_snake_fused_dac_widths(dev, C):
+    # the DAC decoder's snake sites (row 4) with beta = alpha
+    x = _randn(dev, 1, C, 4100, scale=2.0)
+    a = _randn(dev, C, dtype=torch.float32, seed=2).exp()
+    _close(sn.snake_fused(x, a, a), sn.snake_fused_plain(x, a, a))
+
+
+@pytest.mark.parametrize("rows,C", [(2 * 4096, 1024), (2 * 1024, 1280), (2 * 79, 768),
+                                    (2 * 256, 1280)])
+def test_fused_layer_norm_f32_sa1_widths(dev, rows, C):
+    # row 2 in f32 at the SA-1.0 UNet's widths (its attention norms and the
+    # 768-wide context), f32 gamma and beta, epsilon 1e-6: within 1e-5 of the
+    # peak of the plain version (f32 both, other summation orders)
+    x = _randn(dev, rows, C, scale=3.0, dtype=torch.float32) + 0.5
+    g = _randn(dev, C, dtype=torch.float32, seed=1)
+    b = _randn(dev, C, dtype=torch.float32, seed=2)
+    got, want = ln.fused_layer_norm(x, g, b, 1e-6), ln.fused_layer_norm_plain(x, g, b, 1e-6)
+    assert got.dtype == torch.float32
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("groups,C,L,dtype", [(1, 1024, 4096, torch.float32),
+                                              (16, 1280, 1024, torch.float32),
+                                              (32, 1024, 2048, torch.float32),
+                                              (1, 128, 65536, torch.bfloat16)])
+def test_group_norm_matches_f_group_norm_on_card(dev, groups, C, L, dtype):
+    # ops/norms.py's GroupNorm (var_mean + addcmul; the ADP and Dance UNets')
+    # against F.group_norm on f32 input: 1e-5 of the peak in f32, 2 bf16
+    # ulps in bf16
+    from stable_audio_tools_tpu_torch.ops.norms import GroupNorm
+
+    norm = GroupNorm(groups, C).to(dev)
+    with torch.no_grad():
+        norm.weight.copy_(_randn(dev, C, dtype=torch.float32, seed=1))
+        norm.bias.copy_(_randn(dev, C, dtype=torch.float32, seed=2))
+        x = _randn(dev, 2, C, L, scale=2.0, dtype=dtype) + 0.25
+        got = norm(x)
+        want = F.group_norm(x.float(), groups, norm.weight, norm.bias, 1e-6)
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    else:
+        _close(got, want)
 
 
 # [B, Ci, Co, L, k, d, pad_lo, pad_hi, bias]: widths off the tiling at a

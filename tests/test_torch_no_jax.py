@@ -1,7 +1,7 @@
 """The port imports and runs (generation, a diffusion training step, an
 autoencoder GAN generator and discriminator step, an LM training step, a
-KV-cached LM generation, pre-encoding then training from the latents, and
-Dance Diffusion's generation and training step)
+KV-cached LM generation, pre-encoding then training from the latents,
+Dance Diffusion's generation and training step, and SA-1.0's generation)
 with JAX,
 flax, transformers and the JAX package unimportable (the machine with the
 card has none of them), and without triton: no module imports it at import
@@ -397,6 +397,68 @@ def test_dance_path_runs_without_jax_or_triton():
     # dpmpp-2m-sde and v-DDIM, and one unconditional training step
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", DANCE_SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.startswith("ok")
+
+
+SA1_SCRIPT = textwrap.dedent("""
+    import sys
+    for name in ("jax", "jaxlib", "flax", "transformers", "safetensors",
+                 "stable_audio_tools_tpu"):
+        sys.modules[name] = None  # any import of these raises ImportError
+
+    import torch
+    from stable_audio_tools_tpu_torch.inference.generation import generate_diffusion_cond
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+
+    config = {
+        "model_type": "diffusion_cond", "sample_size": 512, "sample_rate": 16000,
+        "model": {
+            "io_channels": 4,
+            "pretransform": {"type": "autoencoder", "model_half": True, "iterate_batch": True,
+                             "config": {
+                "encoder": {"type": "dac", "config": {"in_channels": 2, "latent_dim": 8,
+                                                       "d_model": 8, "strides": [2, 4]}},
+                "decoder": {"type": "dac", "config": {"out_channels": 2, "latent_dim": 4,
+                                                       "channels": 32, "rates": [4, 2]}},
+                "bottleneck": {"type": "vae"}, "latent_dim": 4, "downsampling_ratio": 8,
+                "io_channels": 2}},
+            "conditioning": {"cond_dim": 32, "configs": [
+                {"id": "prompt", "type": "clap_text", "config": {
+                    "allow_random_init": True, "use_text_features": True,
+                    "feature_layer_ix": -2}},
+                {"id": "seconds_start", "type": "int", "config": {"max_val": 512}},
+                {"id": "seconds_total", "type": "int", "config": {"max_val": 512}}]},
+            "diffusion": {"type": "adp_cfg_1d",
+                          "cross_attention_cond_ids": ["prompt", "seconds_start",
+                                                       "seconds_total"],
+                          "config": {"in_channels": 4, "channels": 32, "multipliers": [1, 2],
+                                     "factors": [2], "num_blocks": [1], "attentions": [1, 1],
+                                     "resnet_groups": 8, "attention_heads": 2,
+                                     "context_embedding_features": 32,
+                                     "context_embedding_max_length": 79}}}}
+    model = init_random_(create_model_from_config(config, "cpu"), torch.Generator().manual_seed(0))
+    meta = [{"prompt": "rain on a tin roof", "seconds_start": 0, "seconds_total": 10}]
+    negative = [{"prompt": "noise", "seconds_start": 0, "seconds_total": 10}]
+    audio = generate_diffusion_cond(model.eval(), steps=2, conditioning=meta,
+                                    negative_conditioning=negative, sample_size=512, seed=0)
+    assert audio.shape == (1, 2, 512) and torch.isfinite(audio).all() and audio.abs().max() <= 1
+    varied = generate_diffusion_cond(model, steps=2, conditioning=meta, sample_size=512, seed=0,
+                                     init_audio=(16000, 0.3 * torch.randn(2, 512)),
+                                     init_noise_level=5.0, scale_phi=0.4)
+    assert varied.shape == (1, 2, 512) and torch.isfinite(varied).all()
+    assert "triton" not in sys.modules
+    print("ok")
+""")
+
+
+def test_sa1_path_runs_without_jax_or_triton():
+    # SA-1.0's shape at toy size (CLAP text features, int conditioners, the
+    # ADP UNetCFG1d with its own CFG, the DAC VAE in bf16): generation with a
+    # negative prompt, and from init audio with the CFG rescale
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", SA1_SCRIPT], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.startswith("ok")
