@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Runs from the repository root on a machine with a CUDA card and `nvcc`;
-needs no network, no Triton and no JAX. Eleven phases, each printing one line
-(phase 2 several); any failure raises and the exit code is nonzero:
+needs no network, no Triton and no JAX. Fourteen phases, each printing one
+line (phase 2 several); any failure raises and the exit code is nonzero:
 
 1. Device and build: the card's name and power limit, then every CUDA source
    of the port compiled from the checkout, all at once (seconds printed).
@@ -58,8 +58,13 @@ needs no network, no Triton and no JAX. Eleven phases, each printing one line
    weight gradient (`conv1d_wgrad`) is also held at each of the 64 distinct
    shapes of a Dance Diffusion training step (batch 4 x 65,536; k = 5 and 1,
    Ci / Co from 2 to 1536, L from 65,536 to 8, read from the shipped
-   config's model), each timed beside `torch.nn.grad.conv1d_weight` and its
-   bound and summed with the step's launches. At SA-1.0's shapes (phase 11):
+   config's model) and at the 14 of a codec generator step (phase 14; batch
+   4 x 32,000, the bf16 stride-1 convs of encodec_musicgen_rvq.json's
+   SEANet on their self-padded inputs: 1 -> 64 at k = 7, 64 -> 32 at k = 3
+   down to 512 -> 256, the k = 1 convs and shortcuts, the decoder's conv_in
+   128 -> 1024 at 50 frames), each call moving its launch counter, each
+   timed beside `torch.nn.grad.conv1d_weight` and its bound and summed with
+   the step's launches. At SA-1.0's shapes (phase 11):
    rows 12 and 3 at the DAC decoder's and encoder's residual units (96 to
    1024 channels at 32,768 to 4,194,304 samples; the conv_outs 96 -> 2 and
    2048 -> 2048 k = 3), row 4 at their snake sites, all with beta = alpha
@@ -67,7 +72,16 @@ needs no network, no Triton and no JAX. Eleven phases, each printing one line
    `F.conv1d` on the pre-snaked input, and summed over a decode's and an
    encode's launches; row 2 in f32 at the UNet's five row shapes (within
    1e-5 of the peak), beside `F.layer_norm` and summed over a UNet
-   forward's 92 launches.
+   forward's 92 launches. At the shapes of both DAC VAE-GANs' generator
+   steps (phase 13; batch 4 x 65,536, read from the shipped configs by
+   `dac_step_shapes`): rows 10 and 11 at every snake-conv (96 to 1024
+   channels at k = 7, d = 1 / 3 / 9 and k = 1, the conv_outs 96 -> 2 / 96 ->
+   1 and 2048 -> 2048 k = 3 at 64 / 32 samples), row 11 plain at the
+   conv_ins (2 / 1 -> 128, 64 / 32 -> 1536) and row 9 at the snake sites,
+   alpha passed as beta, each against its plain version, each call moving
+   its launch counter, timed beside cuDNN's `conv1d_input` /
+   `conv1d_weight` on the pre-snaked input and its bound, and summed over
+   each config's generator step.
 3. Generation: SA-Open (the shipped stable_audio_open_1_0.json, built by the
    port's factory, random weights from a seeded torch.Generator, random T5)
    runs generate_diffusion_cond with cfg 6, dpmpp-3m-sde, sigma in [0.3, 500],
@@ -97,17 +111,19 @@ needs no network, no Triton and no JAX. Eleven phases, each printing one line
    and must not launch `flash_attention_prefix`.
 
 6. Autoencoder GAN training: one generator and one discriminator step of a
-   tiny SA-2.0-VAE-shaped model agree between the card and the CPU (losses,
-   each generator gradient and the discriminator's whole gradient within
-   5%), and at the init's own gains the card's generator gradient lies
-   within twice the CPU's bf16 spread of the CPU's f32 one; then the shipped
+   tiny SA-2.0-VAE-shaped model (deterministic algorithms on, warn only)
+   agree between the card and the CPU at reduced gains (losses, each
+   generator gradient and the discriminator's whole gradient within 5%),
+   and at the init's own gains each side's gradient on the card lies within
+   GAN_SPREAD times the CPU's bf16 spread of the CPU's f32 one; then the shipped
    stable_audio_2_0_vae.json at full width (156 M parameters, the EnCodec
    discriminator with 64 filters over 5 scales, MRSTFT with A-weighting,
    bf16 compute) trains through the code path of `python -m
    stable_audio_tools_tpu_torch.train` on the synthetic WAVs, batch 4 x
    65,536 samples: 2 warm-up and 5 timed generator + discriminator pairs,
    the pieces of one generator step as the step itself times them, one
-   generator step under the profiler, a checkpoint and its reload. Losses must be finite, every
+   generator step under the profiler, a checkpoint that reloads identical
+   and resumes for a pair. Losses must be finite, every
    parameter of each side must get a finite nonzero gradient in its step,
    the parameters and the EMA must move, and the kernels must launch exactly
    as counted from the model.
@@ -176,6 +192,34 @@ needs no network, no Triton and no JAX. Eleven phases, each printing one line
    and 13 / 12 / 4 of rows 12 / 3 / 4 for the decode, counted from the
    model); the sampler step and the decode back to back and profiled; the
    DAC encode of one clip (13 / 12 / 4 launches).
+
+12. SA-1.0 training: one training step's loss and gradients of the tiny
+   SA-1.0-shaped model (f32 UNet, the same latents, t, noise and CFG-dropout
+   mask) agree between the card and the CPU within 5%; then the shipped
+   stable_audio_1_0.json, its CLAP tower from the seeded RoBERTa-base file,
+   trains through the code path of `python -m
+   stable_audio_tools_tpu_torch.train` on 8 synthetic stereo WAVs of 96-131
+   s, batch 4 x 4,194,304 samples: 2 warm-up and 5 timed steps, finite
+   losses and nonzero gradients, moved weights and EMA, launches exactly as
+   counted from the model (row 2 92 a step, rows 12 / 3 / 4 of each clip's
+   frozen DAC encode), one step's pieces and its forward+backward under the
+   profiler, a checkpoint that reloads identical and resumes.
+
+13. DAC VAE-GAN training: for each of autoencoders/stable_audio_1_0_vae.json
+   and dac_2048_32_vae.json, one generator and one discriminator step of
+   its tiny twin and the shipped config at full width, as phase 6 reads
+   the SA-2.0 VAE (the same code), launches exactly as counted from the
+   model (rows 12 / 3 / 4 / 9 / 10 / 11 / 11 plain).
+
+14. Codec training: two generator steps (the RVQ's k-means init, then its
+   EMA update and dead-code revival) and a discriminator step of a tiny
+   EnCodec-shaped codec on the card against the CPU, f32 with TF32 off
+   (each step from the CPU's state: losses and the encoder's output within
+   1e-3, gradients within 1e-2, every codeword within 1e-3, 99% of
+   an encode's codes equal); then the shipped encodec_musicgen_rvq.json at full width,
+   batch 4 x 32,000: as phase 13, the only hand-written kernel row 11
+   plain on the towers' bf16 stride-1 convs (14 a generator step,
+   asserted).
 
 The last lines are the kernels' JSON record, the card line and the result
 line {"ok": true, "device": {...}}.
@@ -307,6 +351,17 @@ def rel_err(name, got, want, tol):
     if not torch.isfinite(got.float()).all() or not err <= tol:
         raise AssertionError(f"{name}: relative max|err| {err:.4g} > tol {tol:.4g}")
     return err
+
+
+def counted(fn, *args):
+    """fn(*args), which must launch its kernel once (its wrapper's count
+    moves by one): no shape falls back to the plain version."""
+    before = fn.launches
+    out = fn(*args)
+    if fn.launches != before + 1:
+        raise AssertionError(f"{fn.__name__}: no kernel launch at "
+                             f"{[tuple(a.shape) for a in args[:2]]}")
+    return out
 
 
 def bound(flops: float, *tensors) -> dict:
@@ -609,6 +664,7 @@ def phase_kernels(dev):
         n: r for n, r in _build.ptxas_report("snake_conv1d").items() if "snake_conv1d" in n}
     rec.update(ae_backward_checks(sn, cs, randn, rec, hold_row3))
     sa1_kernel_checks(rec, cs, sn, ln, F, randn, hold_row3)
+    dac_backward_checks(rec, cs, sn, randn)
     rec["snake_conv1d"]["vs_row3"] = dict(max_abs_diff=max(carry["vs_row3"]),
                                           bitwise_equal_cases=carry["bitwise"],
                                           cases=carry["cases"])
@@ -737,6 +793,216 @@ def sa1_kernel_checks(rec, cs, sn, ln, F, randn, hold_row3) -> None:
                                               tol=f"{LN_F32_REL_TOL} x max|ref| (f32)")
     rec["fused_layer_norm"]["max_abs_err"] = max(rec["fused_layer_norm"]["max_abs_err"],
                                                  max(c["max_abs_err"] for c in cases))
+
+
+DAC_VAES = {name: os.path.join(ROOT, "stable_audio_tools_tpu", "configs", "model_configs",
+                               "autoencoders", f"{name}.json")
+            for name in ("stable_audio_1_0_vae", "dac_2048_32_vae")}
+DAC_BATCH, DAC_T = 4, 65536
+
+
+def dac_vae_config(name: str) -> dict:
+    with open(DAC_VAES[name]) as f:
+        return json.load(f)
+
+
+def dac_step_shapes(cfg: dict, T: int = DAC_T) -> dict:
+    """The kernel call shapes of one DAC VAE-GAN generator step on [B, C, T]
+    audio, read from the config (models/dac.py's towers), each with its
+    launches in a step:
+    `snake_conv` (C, Co, L, k, d) of rows 12 / 3 forward and rows 10 / 11
+    backward (a residual unit's k = 7 conv at d = 1 / 3 / 9 and its k = 1
+    conv with the skip, three units a level, the encoder's level widths
+    d_model * 2^i, the decoder's channels / 2^(i+1); the snake + conv_out of
+    each tower), `plain` (Ci, Co, L) of the conv_ins (k = 7, row 11 plain),
+    `snake` (C, L) of row 4 / row 9 (before each strided and transposed
+    conv)."""
+    enc, dec = cfg["model"]["encoder"]["config"], cfg["model"]["decoder"]["config"]
+    snake_conv, plain, snake = {}, [], []
+
+    def add(key, n=1):
+        snake_conv[key] = snake_conv.get(key, 0) + n
+
+    d, L = enc["d_model"], T
+    plain.append((enc.get("in_channels", 1), d, L))
+    for stride in enc["strides"]:
+        for dil in (1, 3, 9):
+            add((d, d, L, 7, dil))
+        add((d, d, L, 1, 1), 3)
+        snake.append((d, L))
+        d, L = 2 * d, L // stride
+    add((d, d, L, 3, 1))  # the snake + conv_out (2048 -> 2048 at k = 3)
+    ch, L = dec["channels"], T // math.prod(dec["rates"])
+    plain.append((dec["latent_dim"], ch, L))
+    for rate in dec["rates"]:
+        snake.append((ch, L))
+        ch, L = ch // 2, L * rate
+        for dil in (1, 3, 9):
+            add((ch, ch, L, 7, dil))
+        add((ch, ch, L, 1, 1), 3)
+    add((ch, dec.get("out_channels", 1), L, 7, 1))
+    return dict(snake_conv=snake_conv, plain=plain, snake=snake)
+
+
+def dac_gen_launches(model) -> dict:
+    """Launches of one generator step counted from a DAC autoencoder: each
+    residual unit runs row 12 (k = 7) and row 3 (k = 1 + skip), each tower's
+    snake + conv_out row 12; each snake-conv's backward rows 10 and 11; a
+    snake before each strided / transposed conv rows 4 and 9; each tower's
+    conv_in row 11 plain. The discriminator step runs the forward kernels
+    alone (under no_grad)."""
+    from stable_audio_tools_tpu_torch.models.dac import (DACDecoderBlock, DACEncoderBlock,
+                                                         DACResidualUnit)
+
+    def count(cls):
+        return sum(isinstance(m, cls) for m in model.modules())
+
+    units = count(DACResidualUnit)
+    blocks = count(DACEncoderBlock) + count(DACDecoderBlock)
+    fwd = {"snake_conv1d": units + 2, "snake_conv1d_res": units, "snake_fused": blocks}
+    return dict(gen={**fwd, "snake_conv1d_dx": 2 * units + 2,
+                     "snake_conv1d_wgrad": 2 * units + 2, "snake_fused_bwd": blocks,
+                     "conv1d_wgrad": 2}, disc=fwd)
+
+
+def dac_backward_checks(rec, cs, sn, randn) -> None:
+    """Rows 10, 11, 11 plain and 9 at the shapes of both DAC VAE-GANs'
+    generator steps (`dac_step_shapes`, batch 4 x 65,536; DAC's snake:
+    alpha passed as beta), each against its plain version on the card
+    (outputs within 2 bf16 ulps, gradient sums within GRAD_REL_TOL of their
+    peaks), each call moving its wrapper's launch counter (no shape falls
+    back); timed by CUDA events beside its bound and cuDNN's
+    `conv1d_input` / `conv1d_weight` on the pre-snaked input (rows 10 / 11)
+    or `torch.nn.grad.conv1d_weight` (row 11 plain), and summed over each
+    config's generator step. Adds a `dac` entry to each record and folds
+    the errors into its max_abs_err. A shape both configs share is run once
+    and weighed by each."""
+    B = DAC_BATCH
+    shapes = {name: dac_step_shapes(dac_vae_config(name)) for name in DAC_VAES}
+
+    def step_sum(cases, weights, keys):
+        out = {k: sum(weights[c["key"]] * c[k] for c in cases if c["key"] in weights)
+               for k in keys}
+        out["launches"] = sum(weights.values())
+        return out
+
+    def shares(total, ms, bound_ms):
+        total["share_of_bound"] = total[bound_ms] / total[ms]
+        return total
+
+    # rows 10 and 11 at every snake-conv shape of both configs
+    keys = sorted({k for s in shapes.values() for k in s["snake_conv"]}, key=lambda k: -k[2] * k[0])
+    cases, dx_errs, w_errs, w_abs = [], [], [], []
+    for C, Co, L, kk, dil in keys:
+        x = randn(B, C, L, scale=2.0)
+        w = randn(Co, C, kk, scale=(C * kk) ** -0.5)
+        a = randn(C, dtype=torch.float32).exp()
+        pad = dil * (kk - 1) // 2
+        dy = randn(B, Co, L)
+        name = f"DAC [{B},{C},{L}] -> {Co} k={kk} d={dil}"
+        got = counted(cs.snake_conv1d_dx, dy, x, w, a, a, pad, pad, dil)
+        want = cs.snake_conv1d_dx_plain(dy, x, w, a, a, pad, pad, dil)
+        dx_errs.append(compare(f"snake_conv1d_dx dx {name}", got[0], want[0], bf16_tol(want[0])))
+        for n, p_, q_ in zip(("dalpha", "dbeta"), got[1:], want[1:]):
+            rel_err(f"snake_conv1d_dx {n} {name}", p_, q_, GRAD_REL_TOL)
+        del got, want
+        gw = counted(cs.snake_conv1d_wgrad, dy, x, kk, a, a, pad, pad, dil)
+        ww = cs.conv1d_wgrad_plain(dy, x, kk, pad, pad, dil, (a, a))
+        w_errs.append(max(rel_err(f"snake_conv1d_wgrad {n} {name}", p_, q_, GRAD_REL_TOL)
+                          for n, p_, q_ in zip(("dW", "db"), gw, ww)))
+        w_abs.append(max((p_ - q_).abs().max().item() for p_, q_ in zip(gw, ww)))
+        sx = cs._snake_f32(x, a, a).to(x.dtype)
+        cases.append(dict(
+            key=(C, Co, L, kk, dil), shape=f"[{B},{C},{L}] -> {Co} k={kk} d={dil}",
+            dx_ms=cuda_ms(lambda: cs.snake_conv1d_dx(dy, x, w, a, a, pad, pad, dil), 3),
+            wgrad_ms=cuda_ms(lambda: cs.snake_conv1d_wgrad(dy, x, kk, a, a, pad, pad, dil), 3),
+            conv1d_input_ms=cuda_ms(lambda: torch.nn.grad.conv1d_input(
+                x.shape, w, dy, padding=pad, dilation=dil), 3),
+            conv1d_weight_ms=cuda_ms(lambda: torch.nn.grad.conv1d_weight(
+                sx, w.shape, dy, padding=pad, dilation=dil), 3),
+            dx_bound_ms=bound(2.0 * B * L * C * Co * kk, dy, x, w, a, a, x)["bound_ms"],
+            wgrad_bound_ms=bound(2.0 * B * L * C * Co * kk, dy, x, a, a, gw[0])["bound_ms"]))
+        del x, w, dy, gw, ww, sx
+    dx_entry, w_entry = {}, {}
+    for cfg_name, s in shapes.items():
+        launches = {f"[{B},{C},{L}] -> {Co} k={kk} d={dil}": n
+                    for (C, Co, L, kk, dil), n in s["snake_conv"].items()}
+        dx_entry[cfg_name] = dict(
+            launches=launches, generator_step=shares(step_sum(
+                cases, s["snake_conv"], ("dx_ms", "conv1d_input_ms", "dx_bound_ms")),
+                "dx_ms", "dx_bound_ms"))
+        w_entry[cfg_name] = dict(
+            launches=launches, generator_step=shares(step_sum(
+                cases, s["snake_conv"], ("wgrad_ms", "conv1d_weight_ms", "wgrad_bound_ms")),
+                "wgrad_ms", "wgrad_bound_ms"))
+    strip = lambda c, drop: {k: v for k, v in c.items() if k not in drop and k != "key"}
+    dx_entry["cases"] = [strip(c, ("wgrad_ms", "conv1d_weight_ms", "wgrad_bound_ms"))
+                         for c in cases]
+    w_entry["cases"] = [strip(c, ("dx_ms", "conv1d_input_ms", "dx_bound_ms")) for c in cases]
+    rec["snake_conv1d_dx"]["dac"] = dx_entry
+    rec["snake_conv1d_dx"]["max_abs_err"] = max(rec["snake_conv1d_dx"]["max_abs_err"], *dx_errs)
+    rec["snake_conv1d_wgrad"]["dac"] = w_entry
+    rec["snake_conv1d_wgrad"]["max_abs_err"] = max(rec["snake_conv1d_wgrad"]["max_abs_err"],
+                                                   *w_abs)
+    rec["snake_conv1d_wgrad"]["max_rel_err"] = max(rec["snake_conv1d_wgrad"]["max_rel_err"],
+                                                   *w_errs)
+
+    # row 11 plain at the conv_ins (Ci = 2 / 1 into 128; 64 / 32 into 1536)
+    plain_cases, errs, abs_errs = [], [], []
+    for Ci, Co, L in sorted({k for s in shapes.values() for k in s["plain"]}):
+        x, dy = randn(B, Ci, L), randn(B, Co, L)
+        got = counted(cs.conv1d_wgrad, dy, x, 7, 3, 3, 1)
+        want = cs.conv1d_wgrad_plain(dy, x, 7, 3, 3, 1)
+        name = f"DAC conv_in [{B},{Ci},{L}] -> {Co} k=7"
+        errs.append(max(rel_err(f"conv1d_wgrad {n} {name}", p_, q_, GRAD_REL_TOL)
+                        for n, p_, q_ in zip(("dW", "db"), got, want)))
+        abs_errs.append(max((p_ - q_).abs().max().item() for p_, q_ in zip(got, want)))
+        plain_cases.append(dict(
+            key=(Ci, Co, L), shape=f"[{B},{Ci},{L}] -> {Co} k=7",
+            ms=cuda_ms(lambda: cs.conv1d_wgrad(dy, x, 7, 3, 3, 1), 5),
+            conv1d_weight_ms=cuda_ms(lambda: torch.nn.grad.conv1d_weight(
+                x, (Co, Ci, 7), dy, padding=3), 5),
+            **bound(2.0 * B * L * Ci * Co * 7, dy, x, got[0])))
+        del x, dy, got, want
+    entry = {"cases": [strip(c, ()) for c in plain_cases]}
+    for cfg_name, s in shapes.items():
+        entry[cfg_name] = shares(step_sum(plain_cases, {k: 1 for k in s["plain"]},
+                                          ("ms", "conv1d_weight_ms", "bound_ms")), "ms", "bound_ms")
+    rec["conv1d_wgrad"]["dac"] = entry
+    rec["conv1d_wgrad"]["max_abs_err"] = max(rec["conv1d_wgrad"]["max_abs_err"], *abs_errs)
+    rec["conv1d_wgrad"]["max_rel_err"] = max(rec["conv1d_wgrad"]["max_rel_err"], *errs)
+
+    # row 9 (and row 4) at the snake sites, alpha passed as beta: dalpha and
+    # dbeta come back separately, and autograd sums them into the one alpha
+    snake_cases, errs = [], []
+    for C, L in sorted({k for s in shapes.values() for k in s["snake"]}):
+        x, g = randn(B, C, L, scale=2.0), randn(B, C, L)
+        a = randn(C, dtype=torch.float32).exp()
+        y = sn.snake_fused_plain(x, a, a)
+        errs.append(compare(f"DAC snake [{B},{C},{L}]", counted(sn.snake_fused, x, a, a), y,
+                            bf16_tol(y)))
+        got = counted(sn.snake_fused_bwd, x, a, a, g)
+        want = sn.snake_fused_bwd_plain(x, a, a, g)
+        errs.append(compare(f"DAC snake bwd dx [{B},{C},{L}]", got[0], want[0],
+                            bf16_tol(want[0])))
+        for n, p_, q_ in zip(("dalpha", "dbeta"), got[1:], want[1:]):
+            rel_err(f"DAC snake bwd {n} [{B},{C},{L}]", p_, q_, GRAD_REL_TOL)
+        rel_err(f"DAC snake bwd dalpha + dbeta [{B},{C},{L}]", got[1] + got[2],
+                want[1] + want[2], GRAD_REL_TOL)
+        snake_cases.append(dict(
+            key=(C, L), shape=f"[{B},{C},{L}]",
+            bwd_ms=cuda_ms(lambda: sn.snake_fused_bwd(x, a, a, g), 10),
+            fwd_ms=cuda_ms(lambda: sn.snake_fused(x, a, a), 10),
+            bwd_bound_ms=bound(0.0, x, g, a, a, *got)["bound_ms"],
+            fwd_bound_ms=bound(0.0, x, a, a, y)["bound_ms"]))
+        del x, g, y, got, want
+    entry = {"cases": [strip(c, ()) for c in snake_cases]}
+    for cfg_name, s in shapes.items():
+        entry[cfg_name] = shares(step_sum(snake_cases, {k: 1 for k in s["snake"]},
+                                          ("bwd_ms", "fwd_ms", "bwd_bound_ms", "fwd_bound_ms")),
+                                 "bwd_ms", "bwd_bound_ms")
+    rec["snake_fused_bwd"]["dac"] = entry
+    rec["snake_fused_bwd"]["max_abs_err"] = max(rec["snake_fused_bwd"]["max_abs_err"], *errs)
 
 
 def carry_ab(cs, F, randn, B, C, L, d, iters=3) -> dict:
@@ -996,18 +1262,20 @@ def ae_backward_checks(sn, cs, randn, fwd: dict, hold_row3) -> dict:
         errs.append(max(rel_err(f"conv1d_wgrad {n} [{B},{C},{L}] -> {Co}", p, q, GRAD_REL_TOL)
                         for n, p, q in zip(("dW", "db"), got, want)))
         abs_errs.append(max((p - q).abs().max().item() for p, q in zip(got, want)))
-    # and at every shape of a Dance Diffusion training step
-    dance = dance_wgrad_checks(cs, randn)
+    # and at every shape of a Dance Diffusion and a codec training step
+    dance = plain_wgrad_checks(cs, randn, dance_wgrad_shapes(), DANCE_BATCH)
+    codec = plain_wgrad_checks(cs, randn, codec_wgrad_shapes(), 4)
     x, dy = randn(B, 2, 65536), randn(B, 128, 65536)
     dW = cs.conv1d_wgrad(dy, x, 7, 3, 3, 1)[0]
     rec["conv1d_wgrad"] = dict(
         route="cuda", source="stable_audio_tools_tpu_torch/csrc/conv1d_wgrad.cu",
         replaces="stable_audio_tools_tpu/ops/kernels/conv1d_snake.py:311",
         shape=f"dy [{B},128,65536], x [{B},2,65536] k=7 bf16 -> dW f32 (timed; the "
-              f"encoder's and the decoder's conv_in and the {len(dance['levels'])} shapes of "
-              "a Dance training step checked)",
-        max_abs_err=max(*abs_errs, dance["max_abs_err"]),
-        max_rel_err=max(*errs, dance["max_rel_err"]), dance_step=dance,
+              f"encoder's and the decoder's conv_in, the {len(dance['levels'])} shapes of "
+              f"a Dance and the {len(codec['levels'])} of a codec training step checked)",
+        max_abs_err=max(*abs_errs, dance["max_abs_err"], codec["max_abs_err"]),
+        max_rel_err=max(*errs, dance["max_rel_err"], codec["max_rel_err"]),
+        dance_step=dance, codec_step=codec,
         tol=f"{GRAD_REL_TOL} x max|plain| (dW, db)",
         ms=cuda_ms(lambda: cs.conv1d_wgrad(dy, x, 7, 3, 3, 1), 10),
         plain_ms=cuda_ms(lambda: cs.conv1d_wgrad_plain(dy, x, 7, 3, 3, 1), 5),
@@ -2034,7 +2302,9 @@ def phase_sa2(dev) -> dict:
 
 SA2_VAE = os.path.join(ROOT, "stable_audio_tools_tpu", "configs", "model_configs",
                        "autoencoders", "stable_audio_2_0_vae.json")
-AE_WARM_PAIRS, AE_TIMED_PAIRS = 2, 5
+# generator + discriminator pairs of the GAN phases (6, 13, 14): warm-up
+# and timed
+GAN_WARM_PAIRS, GAN_TIMED_PAIRS = 2, 5
 # kernel launches of one generator and one discriminator step of the SA-2.0
 # VAE, counted from the model: 5 encoder and 5 decoder blocks; 3 residual
 # units each (a k = 7 snake-conv, a k = 1 one with the residual); the
@@ -2053,17 +2323,18 @@ def sa2_vae_config():
         return json.load(f)
 
 
-def tiny_ae_config():
+def tiny_ae_config(compute_dtype: str = "bfloat16") -> dict:
     """The SA-2.0 VAE config at toy size: the same blocks, losses and
     kernels (snake-convs at k 7 / 1 / 3, the plain conv_in), channels 32,
     c_mults [1, 2], strides [2, 4], latent 8, a discriminator of 8 filters
-    over two STFT scales, three MRSTFT resolutions, bf16 compute."""
+    over two STFT scales, three MRSTFT resolutions, `compute_dtype`."""
     cfg = sa2_vae_config()
     cfg["sample_size"] = 4096
     m = cfg["model"]
     m["encoder"]["config"].update(channels=32, c_mults=[1, 2], strides=[2, 4], latent_dim=16)
     m["decoder"]["config"].update(channels=32, c_mults=[1, 2], strides=[2, 4], latent_dim=8)
     m.update(latent_dim=8, downsampling_ratio=8)
+    cfg["training"]["compute_dtype"] = compute_dtype
     losses = cfg["training"]["loss_configs"]
     losses["discriminator"]["config"] = dict(filters=8, n_ffts=[256, 128], hop_lengths=[64, 32],
                                              win_lengths=[256, 128])
@@ -2072,40 +2343,42 @@ def tiny_ae_config():
     return cfg
 
 
-# the weight-norm gains of the tiny card-vs-CPU check are scaled by this
-# after the random init (see `small_ae_check`)
+# the weight-norm gains of the tiny card-vs-CPU GAN checks are scaled by
+# this after the random init (see `small_gan_check`)
 SMALL_AE_GAIN = 0.3
-# at the init's own gains, the card's bf16 generator gradient may lie at most
-# this many times as far from the CPU's f32 one as the CPU's bf16 one does
-INIT_SCALE_SPREAD = 2.0
+# at the init's own gains, the card's bf16 gradient of a tiny GAN step may
+# lie at most this many times as far from the CPU's f32 one as the CPU's
+# bf16 one does
+GAN_SPREAD = 2.0
 
 
-def tiny_ae_trainer(dev, gain: float = SMALL_AE_GAIN, compute_dtype: str = "bfloat16",
-                    disc: dict | None = None):
-    """The tiny config's trainer on `dev`: weights made on the CPU from seed
-    1, weight-norm gains times `gain`; the discriminator's weights from
-    `disc` (a state dict) where given, else its own seeded init."""
+def tiny_gan_trainer(cfg: dict, dev, disc: dict | None = None, gain: float = 1.0):
+    """`cfg`'s trainer on `dev`, its weights made on the CPU from seed 1, the
+    weight-norm gains times `gain` (the discriminator's weights from `disc`
+    where given, else its own seeded init)."""
     from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
     from stable_audio_tools_tpu_torch.training.factory import create_training_wrapper_from_config
 
-    cfg = tiny_ae_config()
-    cfg["training"]["compute_dtype"] = compute_dtype
-    model = init_random_(create_model_from_config(cfg, "cpu"), torch.Generator().manual_seed(1))
+    model = init_random_(create_model_from_config(copy.deepcopy(cfg), "cpu"),
+                         torch.Generator().manual_seed(1))
     with torch.no_grad():
         for n, p in model.named_parameters():
             if n.endswith("weight_g"):
                 p.mul_(gain)
-    w = create_training_wrapper_from_config(cfg, model.to(dev))
+    w = create_training_wrapper_from_config(copy.deepcopy(cfg), model.to(dev))
     if disc is not None:
         w.discriminator.load_state_dict(disc)
     return w
 
 
-def tiny_ae_batch():
-    """The tiny check's audio [2, 2, 4096] and the VAE noise of its two steps."""
+def tiny_gan_batch(cfg: dict):
+    """A tiny GAN check's audio [2, C, sample_size] (std 0.3) and the VAE
+    noise of its two steps [2, latent_dim, sample_size / ratio], seed 2."""
     g = torch.Generator().manual_seed(2)
-    audio = 0.3 * torch.randn(2, 2, 4096, generator=g)
-    return audio, [torch.randn(2, 8, 512, generator=g) for _ in range(2)]
+    m = cfg["model"]
+    audio = 0.3 * torch.randn(2, cfg["audio_channels"], cfg["sample_size"], generator=g)
+    shape = (2, m["latent_dim"], cfg["sample_size"] // m["downsampling_ratio"])
+    return audio, [torch.randn(*shape, generator=g) for _ in range(2)]
 
 
 def grad_rel_errs(got: dict, want: dict) -> tuple:
@@ -2125,56 +2398,67 @@ def grad_rel_errs(got: dict, want: dict) -> tuple:
     return worst, per_tensor[worst], math.sqrt(diff / norm)
 
 
-def small_ae_check(dev) -> dict:
-    """One generator step and one discriminator step of a tiny SA-2.0-VAE-
-    shaped model with the kernels on the card against the plain versions on
-    the CPU: the same weights (both sides), batch and VAE noise, bf16
-    compute. Returns the largest relative error of each step's named losses
-    and of its side's gradient, ||card - CPU|| / ||CPU||: for the generator
-    (whose backward runs the kernels) the worst single parameter tensor, for
-    the discriminator (cuDNN and autograd only) all its parameters together,
-    since its last biases' gradients are sums whose terms cancel (39% apart
-    per tensor between bf16 and f32 on the CPU, 1.3% over the whole side).
+def small_gan_check(dev, make_cfg) -> dict:
+    """One generator and one discriminator step of a tiny VAE-GAN
+    (`make_cfg(compute_dtype)`) with the kernels on the card against the
+    plain versions on the CPU: the same weights, batch and VAE noise on
+    every side, under `torch.use_deterministic_algorithms(True,
+    warn_only=True)`. Returns the largest relative error of each step's
+    named losses and of its side's gradient, ||card - CPU|| / ||CPU||: for
+    the generator (whose backward runs the kernels) the worst single
+    parameter tensor, for the discriminator (cuDNN and autograd only) all
+    its parameters together, since its last biases' gradients are sums
+    whose terms cancel (39% apart per tensor between bf16 and f32 on the
+    CPU, 1.3% over the whole side, at the SA-2.0 VAE's tiny twin).
 
-    The weight-norm gains are scaled by SMALL_AE_GAIN after the random init:
-    at the init's own scale the stack amplifies audio of std 0.3 to a decoded
-    std of 26, where bf16 cannot resolve the snake's period (spacing 0.125 at
-    |x| ~ 26 against sin(alpha x)), and two bf16 runs that round in other
-    places give generator gradients as far apart as their size; at 0.3 bf16
-    stays within 1.2% of f32 per tensor (both readings are
+    For that comparison the weight-norm gains are scaled by SMALL_AE_GAIN
+    after the random init: at the init's own scale the stack amplifies
+    audio of std 0.3 to a decoded std of 26, where bf16 cannot resolve the
+    snake's period (spacing 0.125 at |x| ~ 26 against sin(alpha x)), and two
+    bf16 runs that round in other places give generator gradients as far
+    apart as their size; at 0.3 bf16 stays within 1.2% of f32 per tensor
+    (both readings are
     tests/test_torch_ae_training.py::test_tiny_ae_check_needs_the_reduced_gain).
-    So the init's scale is read as well, against the CPU's f32 step: the
-    card's bf16 generator gradient must lie no farther than INIT_SCALE_SPREAD
-    times the CPU's bf16 one from it, over the whole generator. The
-    kernels' snake terms at full swing are held in phase 2 (x of std 2)."""
-    audio, noises = tiny_ae_batch()
-    wc = tiny_ae_trainer("cpu")
-    wg = tiny_ae_trainer(dev, disc=wc.discriminator.state_dict())
+    So the init's scale is read as well, against the CPU's f32 steps: each
+    side's bf16 gradient on the card must lie no farther than GAN_SPREAD
+    times the CPU's bf16 one from it, over the whole side. The kernels'
+    snake terms at full swing are held in phase 2 (x of std 2)."""
+    cfg = make_cfg("bfloat16")
+    audio, noises = tiny_gan_batch(cfg)
+    pick = {"gen": lambda w: w.params, "disc": lambda w: w.disc_params}
     out = {}
-    for side, noise in zip(("gen", "disc"), noises):
-        ac = wc.train_step(audio, noise=noise)
-        ag = wg.train_step(audio.to(dev), noise=noise.to(dev))
-        if not all(math.isfinite(float(v)) for v in ag.values()):
-            raise AssertionError(f"small AE {side} step: non-finite losses on the card {ag}")
-        out[f"{side}_loss_rel_err"] = max(abs(float(ag[k]) - float(v)) / max(abs(float(v)), 1e-6)
-                                          for k, v in ac.items())
-        pc, pg = (wc.params, wg.params) if side == "gen" else (wc.disc_params, wg.disc_params)
-        worst, worst_err, whole = grad_rel_errs(pg, pc)
-        out[f"{side}_worst_tensor"] = [worst, worst_err]
-        out[f"{side}_grad_rel_err"] = worst_err if side == "gen" else whole
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        cpu = tiny_gan_trainer(cfg, "cpu", gain=SMALL_AE_GAIN)
+        card = tiny_gan_trainer(cfg, dev, cpu.discriminator.state_dict(), gain=SMALL_AE_GAIN)
+        for side, noise in zip(("gen", "disc"), noises):
+            ac, ag = (w.train_step(audio.to(w.device), noise=noise.to(w.device))
+                      for w in (cpu, card))
+            if not all(math.isfinite(float(v)) for v in ag.values()):
+                raise AssertionError(f"small GAN {side} step: losses {ag}")
+            out[f"{side}_loss_rel_err"] = max(
+                abs(float(ag[k]) - float(v)) / max(abs(float(v)), 1e-6) for k, v in ac.items())
+            worst, worst_err, whole = grad_rel_errs(pick[side](card), pick[side](cpu))
+            out[f"{side}_worst_tensor"] = [worst, worst_err]
+            out[f"{side}_grad_rel_err"] = worst_err if side == "gen" else whole
 
-    # the init's own gains: the card's bf16 and the CPU's bf16 against the CPU's f32
-    ref = tiny_ae_trainer("cpu", gain=1.0, compute_dtype="float32")
-    cpu16 = tiny_ae_trainer("cpu", gain=1.0)
-    card = tiny_ae_trainer(dev, gain=1.0, disc=cpu16.discriminator.state_dict())
-    for w in (ref, cpu16, card):
-        w.train_step(audio.to(w.device), noise=noises[0].to(w.device))
-    cpu_spread, card_spread = (grad_rel_errs(w.params, ref.params) for w in (cpu16, card))
-    out["init_scale"] = dict(cpu_bf16_vs_f32=cpu_spread, card_bf16_vs_cpu_f32=card_spread)
-    if not card_spread[2] <= INIT_SCALE_SPREAD * cpu_spread[2]:
-        raise AssertionError(f"small AE at the init's gains: the card's generator gradient is "
-                             f"{card_spread[2]:.3g} from the CPU's f32 one, more than "
-                             f"{INIT_SCALE_SPREAD} x the CPU's bf16 spread {cpu_spread[2]:.3g}")
+        ref = tiny_gan_trainer(make_cfg("float32"), "cpu")
+        disc = ref.discriminator.state_dict()
+        cpu16 = tiny_gan_trainer(cfg, "cpu", disc)
+        card = tiny_gan_trainer(cfg, dev, disc)
+        for side, noise in zip(("gen", "disc"), noises):
+            for w in (ref, cpu16, card):
+                w.train_step(audio.to(w.device), noise=noise.to(w.device))
+            spreads = [grad_rel_errs(pick[side](w), pick[side](ref)) for w in (cpu16, card)]
+            out[f"{side}_init_scale"] = dict(cpu_bf16_vs_f32=spreads[0],
+                                             card_vs_cpu_f32=spreads[1])
+            if not spreads[1][2] <= GAN_SPREAD * spreads[0][2]:
+                raise AssertionError(f"small GAN {side} step at the init's gains: the card's "
+                                     f"gradient is {spreads[1][2]:.3g} from the CPU's f32 one, "
+                                     f"more than {GAN_SPREAD} x the CPU's bf16 "
+                                     f"{spreads[0][2]:.3g}")
+    finally:
+        torch.use_deterministic_algorithms(False)
     return out
 
 
@@ -2226,104 +2510,151 @@ def gen_step_split(trainer, loader) -> dict:
     return out
 
 
-def phase_ae_training(dev) -> dict:
-    """Phase 6: the tiny card-vs-CPU check, then the shipped SA-2.0 VAE
-    config at full width through `train.build` and `Trainer.fit`."""
-    from stable_audio_tools_tpu_torch import train
+def resume_check(trainer, loader, path: str, steps: int) -> dict:
+    """The checkpoint at `path` read back into a model built on `meta`
+    (every tensor identical, the step, the EMA's names), then restored into
+    the trainer, which trains `steps` more steps from it with finite
+    losses."""
     from stable_audio_tools_tpu_torch.models.factory import create_model_from_config
 
-    small = small_ae_check(dev)
+    w = trainer.wrapper
+    t0 = time.perf_counter()
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    fresh = create_model_from_config(state["model_config"], "meta")
+    fresh.load_state_dict(state["state_dict"], strict=True, assign=True)
+    current = w.model.state_dict()
+    differ = [n for n, v in fresh.state_dict().items() if not torch.equal(v, current[n].cpu())]
+    if getattr(w, "discriminator", None) is not None:
+        disc = w.discriminator.state_dict()
+        differ += [n for n, v in state["discriminator"].items()
+                   if not torch.equal(v, disc[n].cpu())]
+    if differ or state["step"] != w.step or set(state["ema"]) != set(w.ema):
+        raise AssertionError(f"checkpoint {path}: {len(differ)} tensors differ ({differ[:5]}), "
+                             f"step {state['step']} vs {w.step}")
+    del state, fresh
+    reload_s = time.perf_counter() - t0
+    step = w.step
+    trainer.restore(path)
+    trainer.fit(loader, max_steps=step + steps, save_at_end=False)
+    resumed = [h for h in trainer.history if h["step"] > step]
+    if w.step != step + steps or len(resumed) != steps or not all(
+            math.isfinite(v) for h in resumed for v in h.values()):
+        raise AssertionError(f"resumed from {path}: step {w.step}, log {resumed}")
+    return dict(reload_s=reload_s, resumed_steps=steps)
+
+
+def gan_training(dev, cfg: dict, tmp: str, dataset: str, gen_launches: dict,
+                 disc_launches: dict) -> dict:
+    """A shipped autoencoder GAN config at full width, batch AE_BATCH,
+    through `train.build` and `Trainer.fit`: GAN_WARM_PAIRS + GAN_TIMED_PAIRS generator +
+    discriminator pairs, finite losses, every parameter of each side with a
+    finite nonzero gradient in its first step, parameters and EMA moved,
+    the kernels launched exactly as given a pair, the pair and step times,
+    one generator step's pieces and its profile (`gen_step_split`), a
+    checkpoint and a resumed pair (`resume_check`)."""
+    from stable_audio_tools_tpu_torch import train
+
+    cfg_path = os.path.join(tmp, "model.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    n_steps = 2 * (GAN_WARM_PAIRS + GAN_TIMED_PAIRS)
+    args = train.parse_args([
+        "--model-config", cfg_path, "--dataset-config", dataset, "--batch-size", str(AE_BATCH),
+        "--num-workers", "4", "--seed", "0", "--max-steps", str(n_steps),
+        "--checkpoint-every", "0", "--save-dir", os.path.join(tmp, "run")])
+    rec = {}
+    t0 = time.perf_counter()
+    trainer, loader = train.build(args, device=dev)
+    torch.cuda.synchronize()
+    rec["build_s"] = time.perf_counter() - t0
+    w = trainer.wrapper
+    if (w.compute_dtype != torch.bfloat16
+            or next(w.model.parameters()).device.type != torch.device(dev).type):
+        raise AssertionError("GAN training: not built on the card with bf16 compute")
+    before = {n: p.detach().clone() for n, p in w.params.items()}
+    disc_before = {n: p.detach().clone() for n, p in w.disc_params.items()}
+    for step, params in ((1, w.params), (2, w.disc_params)):
+        trainer.fit(loader, max_steps=step, save_at_end=False)
+        # a scale's last bias may take an exact 0: the hinge's +-1/N over
+        # reals and fakes cancel where no output passes +-1 (a fresh
+        # discriminator's outputs are small)
+        bad = [n for n, p in params.items()
+               if p.grad is None or not torch.isfinite(p.grad).all()
+               or not (p.grad.abs().max() > 0 or n.endswith("conv_post.bias"))]
+        if bad:
+            raise AssertionError(f"after step {step}, {len(bad)} parameters have no finite "
+                                 f"nonzero gradient: {bad[:8]}")
+    trainer.fit(loader, max_steps=2 * GAN_WARM_PAIRS, save_at_end=False)
+    torch.cuda.synchronize()
+    kernels = {n: fn for n, fn in counters().items() if n in AE_KERNELS}
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    trainer.fit(loader, max_steps=n_steps, save_at_end=False)
+    torch.cuda.synchronize()
+    rec["launches"] = {n: fn.launches for n, fn in kernels.items()}
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {n: GAN_TIMED_PAIRS * (gen_launches.get(n, 0) + disc_launches.get(n, 0))
+            for n in AE_KERNELS}
+    if rec["launches"] != want:
+        raise AssertionError(f"GAN training launches {rec['launches']}, expected {want}")
+    hist = trainer.history
+    if len(hist) != n_steps or not all(math.isfinite(v) for h in hist for v in h.values()):
+        raise AssertionError(f"GAN training log: {hist}")
+    walls = [1e3 / h["train/steps_per_sec"] for h in hist[2 * GAN_WARM_PAIRS:]]
+    pairs = [walls[i] + walls[i + 1] for i in range(0, len(walls), 2)]
+    unmoved = [n for n, p in w.params.items() if torch.equal(p.detach(), before[n])]
+    unmoved += [n for n, p in w.disc_params.items() if torch.equal(p.detach(), disc_before[n])
+                and not n.endswith("conv_post.bias")]  # zero-initialised, maybe no gradient
+    ema_unmoved = [n for n, e in w.ema.items() if torch.equal(e, before[n])]
+    if unmoved or ema_unmoved:
+        raise AssertionError(f"parameters that did not move: {unmoved[:8]}; "
+                             f"EMA entries that did not move: {ema_unmoved[:8]}")
+    del before, disc_before
+    losses = {k: [h[k] for h in hist if k in h]
+              for k in sorted({k for h in hist for k in h if k.startswith("train/")})}
+    pair_ms = statistics.median(pairs)
+    rec.update(
+        pair_ms=pairs, pair_ms_median=pair_ms, gen_ms_median=statistics.median(walls[0::2]),
+        disc_ms_median=statistics.median(walls[1::2]),
+        audio_s_per_s=AE_BATCH * cfg["sample_size"] / cfg["sample_rate"] / (pair_ms / 1e3),
+        gen_losses={k: v for k, v in losses.items() if k in (
+            "train/loss", "train/mrstft_loss", "train/kl_loss", "train/quantizer_loss",
+            "train/loss_adv", "train/feature_matching_loss")},
+        disc_losses=losses.get("train/discriminator_loss"),
+        params=sum(p.numel() for p in w.params.values()),
+        disc_params=sum(p.numel() for p in w.disc_params.values()))
+    rec["split"] = gen_step_split(trainer, loader)
+    t0 = time.perf_counter()
+    path = trainer.save(w.step)
+    rec["save_s"] = time.perf_counter() - t0
+    rec["ckpt_gib"] = os.path.getsize(path) / 2 ** 30
+    rec.update(resume_check(trainer, loader, path, 2))
+    return rec
+
+
+def gan_phase(dev, cfg: dict, make_tiny, counts: dict) -> dict:
+    """A VAE-GAN's phase: `small_gan_check` of its tiny twin
+    (`make_tiny(compute_dtype)`, within 5%), then `gan_training` of the
+    shipped `cfg` on 40 synthetic WAVs of 3-7 s, its launches a pair
+    `counts` ({"gen": ..., "disc": ...})."""
+    small = small_gan_check(dev, make_tiny)
     small_tol = 0.05
     if not max(v for k, v in small.items() if k.endswith("_rel_err")) <= small_tol:
-        raise AssertionError(f"small AE steps card vs CPU: {small} > {small_tol}")
-    rec = dict(small=small, small_tol=small_tol)
-    cfg = sa2_vae_config()
-    T = cfg["sample_size"]
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ae_") as tmp:
-        cfg_path = os.path.join(tmp, "model.json")
-        with open(cfg_path, "w") as f:
-            json.dump(cfg, f)
-        n_steps = 2 * (AE_WARM_PAIRS + AE_TIMED_PAIRS)
-        args = train.parse_args([
-            # 40 clips of 3-7 s: an epoch of 10 batches, 5 pairs
-            "--model-config", cfg_path, "--dataset-config", write_dataset(tmp, 40, 3, 0.1),
-            "--batch-size", str(AE_BATCH), "--num-workers", "4", "--seed", "0",
-            "--max-steps", str(n_steps), "--checkpoint-every", "0",
-            "--save-dir", os.path.join(tmp, "run")])
-        t0 = time.perf_counter()
-        trainer, loader = train.build(args, device=dev)
-        torch.cuda.synchronize()
-        rec["build_s"] = time.perf_counter() - t0
-        w = trainer.wrapper
-        if w.compute_dtype != torch.bfloat16 or next(w.model.parameters()).device.type != "cuda":
-            raise AssertionError("SA-2.0 VAE: not built on the card with bf16 compute")
-        before = {n: p.detach().clone() for n, p in w.params.items()}
-        disc_before = {n: p.detach().clone() for n, p in w.disc_params.items()}
-        for step, params in ((1, w.params), (2, w.disc_params)):
-            trainer.fit(loader, max_steps=step, save_at_end=False)
-            bad = [n for n, p in params.items()
-                   if p.grad is None or not torch.isfinite(p.grad).all()
-                   or not p.grad.abs().max() > 0]
-            if bad:
-                raise AssertionError(f"after step {step}, {len(bad)} parameters have no finite "
-                                     f"nonzero gradient: {bad[:8]}")
-        trainer.fit(loader, max_steps=2 * AE_WARM_PAIRS, save_at_end=False)
-        torch.cuda.synchronize()
-        kernels = {n: fn for n, fn in counters().items() if n in AE_KERNELS}
-        for fn in kernels.values():
-            fn.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        trainer.fit(loader, max_steps=n_steps, save_at_end=False)
-        torch.cuda.synchronize()
-        rec["launches"] = {n: fn.launches for n, fn in kernels.items()}
-        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        want = {n: AE_TIMED_PAIRS * (AE_GEN_LAUNCHES[n] + AE_DISC_LAUNCHES.get(n, 0))
-                for n in AE_KERNELS}
-        if rec["launches"] != want:
-            raise AssertionError(f"AE training launches {rec['launches']}, expected {want}")
-        hist = trainer.history
-        losses = {k: [h[k] for h in hist if k in h]
-                  for k in sorted({k for h in hist for k in h if k.startswith("train/")})}
-        if len(hist) != n_steps or not all(math.isfinite(v) for h in hist for v in h.values()):
-            raise AssertionError(f"AE training log: {hist}")
-        walls = [1e3 / h["train/steps_per_sec"] for h in hist[2 * AE_WARM_PAIRS:]]
-        pairs = [walls[i] + walls[i + 1] for i in range(0, len(walls), 2)]
-        unmoved = [n for n, p in w.params.items() if torch.equal(p.detach(), before[n])]
-        unmoved += [n for n, p in w.disc_params.items() if torch.equal(p.detach(), disc_before[n])]
-        ema_unmoved = [n for n, e in w.ema.items() if torch.equal(e, before[n])]
-        if unmoved or ema_unmoved:
-            raise AssertionError(f"parameters that did not move: {unmoved[:8]}; "
-                                 f"EMA entries that did not move: {ema_unmoved[:8]}")
-        del before, disc_before
-        pair_ms = statistics.median(pairs)
-        rec.update(
-            pair_ms=pairs, pair_ms_median=pair_ms,
-            gen_ms_median=statistics.median(walls[0::2]),
-            disc_ms_median=statistics.median(walls[1::2]),
-            audio_s_per_s=AE_BATCH * T / SR / (pair_ms / 1e3),
-            gen_losses={k: v for k, v in losses.items() if k in (
-                "train/loss", "train/mrstft_loss", "train/kl_loss", "train/loss_adv",
-                "train/feature_matching_loss")},
-            disc_losses=losses.get("train/discriminator_loss"),
-            params=sum(p.numel() for p in w.params.values()),
-            disc_params=sum(p.numel() for p in w.disc_params.values()))
-        rec["split"] = gen_step_split(trainer, loader)
-
-        t0 = time.perf_counter()
-        path = trainer.save(w.step)
-        rec["save_s"] = time.perf_counter() - t0
-        rec["ckpt_gib"] = os.path.getsize(path) / 2 ** 30
-        state = torch.load(path, map_location="cpu", weights_only=True)
-        fresh = create_model_from_config(state["model_config"], "meta")
-        fresh.load_state_dict(state["state_dict"], strict=True, assign=True)
-        differ = [n for n, v in fresh.state_dict().items()
-                  if not torch.equal(v, w.model.state_dict()[n].cpu())]
-        disc = w.discriminator.state_dict()
-        differ += [n for n, v in state["discriminator"].items() if not torch.equal(v, disc[n].cpu())]
-        if differ or state["step"] != w.step or set(state["ema"]) != set(w.ema):
-            raise AssertionError(f"AE checkpoint reload: {len(differ)} tensors differ "
-                                 f"({differ[:5]}), step {state['step']} vs {w.step}")
+        raise AssertionError(f"small GAN steps card vs CPU: {small} > {small_tol}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gan_") as tmp:
+        data = write_dataset(tmp, 40, 3, 0.1, sr=cfg["sample_rate"],
+                             channels=cfg["audio_channels"])
+        rec = gan_training(dev, cfg, tmp, data, counts["gen"], counts["disc"])
+    rec.update(small=small, small_tol=small_tol, counts=counts)
     return rec
+
+
+def phase_ae_training(dev) -> dict:
+    """Phase 6: `gan_phase` of the shipped SA-2.0 VAE, its launches
+    AE_GEN_LAUNCHES / AE_DISC_LAUNCHES."""
+    return gan_phase(dev, sa2_vae_config(), tiny_ae_config,
+                     dict(gen=AE_GEN_LAUNCHES, disc=AE_DISC_LAUNCHES))
 
 
 LM_CONFIG = os.path.join(ROOT, "stable_audio_tools_tpu", "configs", "model_configs", "lm",
@@ -3071,9 +3402,10 @@ def dance_config() -> dict:
 
 
 def dance_wgrad_shapes(batch: int = DANCE_BATCH) -> dict:
-    """{(Ci, Co, k, L): launches} of the plain weight gradient in one
+    """{(Ci, Co, k, L, pad): launches} of the plain weight gradient in one
     training step of BASELINE (b), read from a forward of the shipped
-    config's model on the meta device (each stride-1 conv's input length)."""
+    config's model on the meta device (each stride-1 conv's input length;
+    the conv pads k // 2 on each side)."""
     import collections
 
     from stable_audio_tools_tpu_torch.models.dance_unet import Conv1d
@@ -3084,7 +3416,8 @@ def dance_wgrad_shapes(batch: int = DANCE_BATCH) -> dict:
     for m in model.modules():
         if isinstance(m, Conv1d):
             m.register_forward_hook(lambda m, i, o: shapes.update(
-                [(m.in_channels, m.out_channels, m.kernel_size[0], i[0].shape[-1])]))
+                [(m.in_channels, m.out_channels, m.kernel_size[0], i[0].shape[-1],
+                  m.kernel_size[0] // 2)]))
     with torch.no_grad():
         model(torch.empty(batch, 2, DANCE_SAMPLE_SIZE, device="meta"),
               torch.empty(batch, device="meta"))
@@ -3094,20 +3427,19 @@ def dance_wgrad_shapes(batch: int = DANCE_BATCH) -> dict:
     return dict(shapes)
 
 
-def dance_wgrad_checks(cs, randn) -> dict:
-    """Row 11 plain (`conv1d_wgrad`) at every distinct shape of a Dance
-    training step (batch 4 x 65,536): dW and db within GRAD_REL_TOL of their
-    peaks against the plain version, each timed (CUDA events, back to back)
-    beside `torch.nn.grad.conv1d_weight` (a yardstick only) and its bound,
-    and summed with the step's launches."""
-    B, levels, errs, abs_errs = DANCE_BATCH, [], [], []
-    for (Ci, Co, k, L), n in sorted(dance_wgrad_shapes().items(),
-                                    key=lambda kv: (-kv[0][3], kv[0])):
-        pad = k // 2
-        x, dy = randn(B, Ci, L), randn(B, Co, L)
-        got, want = cs.conv1d_wgrad(dy, x, k, pad, pad, 1), cs.conv1d_wgrad_plain(
-            dy, x, k, pad, pad, 1)
-        name = f"[{B},{Ci},{L}] -> {Co} k={k}"
+def plain_wgrad_checks(cs, randn, shapes: dict, B: int = 4) -> dict:
+    """Row 11 plain (`conv1d_wgrad`) at every distinct shape of a training
+    step, `shapes` {(Ci, Co, k, L, pad): launches} with x [B, Ci, L] padded
+    `pad` on each side: dW and db within GRAD_REL_TOL of their peaks against
+    the plain version, each call moving the launch counter, each timed
+    (CUDA events, back to back) beside `torch.nn.grad.conv1d_weight` (a
+    yardstick only) and its bound, and summed with the step's launches."""
+    levels, errs, abs_errs = [], [], []
+    for (Ci, Co, k, L, pad), n in sorted(shapes.items(), key=lambda kv: (-kv[0][3], kv[0])):
+        x, dy = randn(B, Ci, L), randn(B, Co, L + 2 * pad - k + 1)
+        got = counted(cs.conv1d_wgrad, dy, x, k, pad, pad, 1)
+        want = cs.conv1d_wgrad_plain(dy, x, k, pad, pad, 1)
+        name = f"[{B},{Ci},{L}] -> {Co} k={k} pad={pad}"
         errs.append(max(rel_err(f"conv1d_wgrad {p} {name}", a, b, GRAD_REL_TOL)
                         for p, a, b in zip(("dW", "db"), got, want)))
         abs_errs.append(max((a - b).abs().max().item() for a, b in zip(got, want)))
@@ -3116,7 +3448,7 @@ def dance_wgrad_checks(cs, randn) -> dict:
             ms=cuda_ms(lambda: cs.conv1d_wgrad(dy, x, k, pad, pad, 1), 5),
             conv1d_weight_ms=cuda_ms(lambda: torch.nn.grad.conv1d_weight(
                 x, (Co, Ci, k), dy, padding=pad), 5),
-            **bound(2.0 * B * L * Ci * Co * k, dy, x, *got)))
+            **bound(2.0 * B * dy.shape[-1] * Ci * Co * k, dy, x, *got)))
         del x, dy, got, want
     step = {key: sum(c["launches"] * c[key] for c in levels)
             for key in ("ms", "conv1d_weight_ms", "bound_ms")}
@@ -3586,6 +3918,404 @@ def phase_sa1(dev) -> dict:
                 phase_s=time.perf_counter() - t_phase)
 
 
+# SA-1.0 training (phase 12): batch 4 x 4,194,304 samples (95.1 s) on 8
+# synthetic stereo WAVs of 96-131 s
+SA1_TRAIN_BATCH = 4
+
+
+def small_sa1_train_check(dev, clap_path: str) -> dict:
+    """One SA-1.0 training step's loss and gradients, the tiny model on the
+    card against the CPU: the same weights, latents (encoded once on the
+    CPU: the DAC encode is phase 11's check), conditioning, t, noise and
+    CFG-dropout mask (one of two items dropped), through the trainer's
+    `loss` and backward in f32 (the card's convs in cuDNN's TF32, its
+    default). Returns the loss's relative error and the largest
+    max|card - CPU| / max|CPU| over the trainable gradients (the UNet's,
+    the int tables', CLAP's proj_out)."""
+    from stable_audio_tools_tpu_torch.training.factory import create_training_wrapper_from_config
+
+    cfg = sa1_config(clap_path)
+    cfg["training"]["cfg_dropout_prob"] = 0.5
+    cpu = tiny_sa1_model(clap_path)
+    gpu = copy.deepcopy(cpu).to(dev)
+    g = torch.Generator().manual_seed(4)
+    B = 2
+    audio = 0.3 * torch.randn(B, 2, 2048, generator=g)
+    meta = [SA1_PROMPT[0], dict(SA1_PROMPT[0], seconds_start=7)]
+    with torch.no_grad():
+        latents = cpu.pretransform_encode(audio, noise=torch.randn(B, 4, 256, generator=g))
+    inj = dict(t=torch.rand(B, generator=g), noise=torch.randn(B, 4, 256, generator=g),
+               cfg_dropout_mask=torch.tensor([False, True]))
+    out = {}
+    for name, model, d in (("cpu", cpu, "cpu"), ("card", gpu, dev)):
+        w = create_training_wrapper_from_config(cfg, model)
+        w.model.train()
+        loss, _ = w.loss(latents.to(d), w.condition(meta), **{k: v.to(d) for k, v in inj.items()})
+        loss.backward()
+        out[name] = (float(loss.detach()), w)
+    (lc, wc), (lg, wg) = out["cpu"], out["card"]
+    if not (math.isfinite(lc) and math.isfinite(lg)):
+        raise AssertionError(f"small SA-1.0 training step: loss cpu {lc} card {lg}")
+    errs = {}
+    for n, p in wc.params.items():
+        gg = wg.params[n].grad
+        if p.grad is None:
+            if gg is not None and gg.abs().max() > 0:
+                raise AssertionError(f"small SA-1.0 training step: {n} has a gradient on the "
+                                     "card only")
+            continue
+        if gg is None or not torch.isfinite(gg).all():
+            raise AssertionError(f"small SA-1.0 training step: {n} has no finite gradient on "
+                                 "the card")
+        peak = p.grad.abs().max().item()
+        errs[n] = (gg.float().cpu() - p.grad).abs().max().item() / peak if peak > 0 else 0.0
+    worst = max(errs, key=errs.get)
+    return dict(loss_rel_err=abs(lg - lc) / abs(lc), grad_rel_err=errs[worst], worst_grad=worst,
+                grads=len(errs))
+
+
+def sa1_step_split(trainer, loader) -> dict:
+    """One SA-1.0 training step in its pieces (host clock around synchronised
+    work: data, conditioning, the frozen DAC encode, forward+backward,
+    optimizer, EMA), then its forward+backward under the profiler (busy
+    share, kernels, top kernels) with its launches of row 2 (the UNet's
+    LayerNorms) counted, then three whole steps on the same batch back to
+    back, and the caching allocator's retries so far."""
+    from stable_audio_tools_tpu_torch.ops.kernels import layer_norm as ln
+
+    w = trainer.wrapper
+    out, t = {}, [time.perf_counter()]
+
+    def lap(name):
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        out[f"{name}_ms"] = (t[-1] - t[-2]) * 1e3
+
+    audio, meta = next(iter(loader))
+    audio = trainer.prepare_batch(audio)
+    lap("data")
+    gen = w.generator(w.step)
+    w.model.train()
+    w.optimizer.zero_grad(set_to_none=True)
+    cond = w.condition(meta)
+    lap("conditioning")
+    latents = w.encode(audio, generator=gen)
+    lap("encode")
+    loss, _ = w.loss(latents, cond, generator=gen)
+    loss.backward()
+    lap("forward_backward")
+    w.optimizer_step()
+    lap("optimizer")
+    w.ema_step()
+    lap("ema")
+    w.step += 1
+    out["step_ms"] = (t[-1] - t[0]) * 1e3
+
+    def fwd_bwd():
+        loss, _ = w.loss(latents, w.condition(meta), generator=gen)
+        loss.backward()
+
+    ln.fused_layer_norm.launches = 0
+    out["fwd_bwd_profile"] = profiled_window(fwd_bwd)
+    out["fwd_bwd_profile"].pop("conv1d_wgrad_ms", None)
+    out["fwd_bwd_layer_norm_launches"] = ln.fused_layer_norm.launches
+    w.optimizer.zero_grad(set_to_none=True)
+    # whole steps on the batch held on the card, back to back: the step
+    # without the loader (the CLI loop's walls above include its waits)
+    held = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        w.train_step(audio, meta)
+        torch.cuda.synchronize()
+        held.append((time.perf_counter() - t0) * 1e3)
+    out["held_batch_step_ms"] = held
+    out["alloc_retries"] = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    return out
+
+
+def phase_sa1_training(dev) -> dict:
+    """Phase 12: the tiny card-vs-CPU step, then the shipped SA-1.0 config
+    through `train.build` and `Trainer.fit` (its CLAP tower read from the
+    seeded RoBERTa-base file), batch SA1_TRAIN_BATCH x 4,194,304."""
+    from stable_audio_tools_tpu_torch import train
+    from stable_audio_tools_tpu_torch.models.roberta import RobertaArch
+
+    t_phase = time.perf_counter()
+    kernels = {n: fn for n, fn in counters().items()
+               if n in ("fused_layer_norm", "snake_conv1d", "snake_conv1d_res", "snake_fused")}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sa1t_") as tmp:
+        small_clap = os.path.join(tmp, "clap_small.pt")
+        write_clap_checkpoint(small_clap, RobertaArch(vocab_size=32002, hidden_size=64,
+                                                      num_layers=2, num_heads=1,
+                                                      intermediate_size=128, max_positions=80))
+        small = small_sa1_train_check(dev, small_clap)
+        small_tol = 0.05
+        if not (small["loss_rel_err"] <= small_tol and small["grad_rel_err"] <= small_tol):
+            raise AssertionError(f"small SA-1.0 training step card vs CPU: {small} > {small_tol}")
+        rec = dict(small=small, small_tol=small_tol)
+
+        clap_path = os.path.join(tmp, "clap.pt")
+        write_clap_checkpoint(clap_path)
+        cfg_path = os.path.join(tmp, "model.json")
+        with open(cfg_path, "w") as f:
+            json.dump(sa1_config(clap_path), f)
+        n_steps = WARM_STEPS + TIMED_STEPS
+        args = train.parse_args([
+            "--model-config", cfg_path, "--dataset-config", write_dataset(tmp, 8, 96),
+            "--batch-size", str(SA1_TRAIN_BATCH), "--num-workers", "4", "--seed", "0",
+            "--max-steps", str(n_steps), "--checkpoint-every", "0",
+            "--save-dir", os.path.join(tmp, "run")])
+        t0 = time.perf_counter()
+        trainer, loader = train.build(args, device=dev)
+        torch.cuda.synchronize()
+        rec["build_s"] = time.perf_counter() - t0
+        w = trainer.wrapper
+        unet = w.model.model.model
+        if next(unet.parameters()).dtype != torch.float32 or not w.params:
+            raise AssertionError("SA-1.0 training: the UNet is not f32 or nothing trains")
+        counts = sa1_launches(w.model)
+        before = {n: p.detach().clone() for n, p in w.params.items()}
+        trainer.fit(loader, max_steps=1, save_at_end=False)
+        bad = [n for n, p in w.params.items()
+               if p.grad is None or not torch.isfinite(p.grad).all() or not p.grad.abs().max() > 0]
+        # the null context learns only from dropped items (cfg_dropout_prob
+        # 0.1): its gradient may be zero in a step that dropped none
+        bad = [n for n in bad if "fixed_embedding" not in n]
+        if bad:
+            raise AssertionError(f"SA-1.0 after step 1, {len(bad)} trainable parameters have "
+                                 f"no finite nonzero gradient: {bad[:8]}")
+        trainer.fit(loader, max_steps=WARM_STEPS, save_at_end=False)
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        trainer.fit(loader, max_steps=n_steps, save_at_end=False)
+        torch.cuda.synchronize()
+        rec["launches"] = {n: fn.launches for n, fn in kernels.items()}
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        # a step: the UNet forward's LayerNorms, each clip's DAC encode
+        # (the pretransform iterates over the batch)
+        want = {"fused_layer_norm": TIMED_STEPS * counts["unet_forward"]["fused_layer_norm"]}
+        want.update({n: TIMED_STEPS * SA1_TRAIN_BATCH * c for n, c in counts["encode"].items()})
+        if rec["launches"] != want:
+            raise AssertionError(f"SA-1.0 training launches {rec['launches']} != {want}")
+        losses = [h["train/loss"] for h in trainer.history]
+        if len(losses) != n_steps or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"SA-1.0 training losses: {losses}")
+        walls = [1e3 / h["train/steps_per_sec"] for h in trainer.history[WARM_STEPS:]]
+        unmoved = [n for n, p in w.params.items() if torch.equal(p.detach(), before[n])]
+        ema_unmoved = [n for n, e in w.ema.items() if torch.equal(e, before[n])]
+        if unmoved or ema_unmoved:
+            raise AssertionError(f"SA-1.0: parameters that did not move: {unmoved[:8]}; EMA "
+                                 f"entries that did not move: {ema_unmoved[:8]}")
+        del before
+        median = statistics.median(walls)
+        rec.update(losses=losses, step_ms=walls, step_ms_median=median,
+                   audio_s_per_s=SA1_TRAIN_BATCH * SA1_SAMPLE_SIZE / SR / (median / 1e3),
+                   trainable_params=sum(p.numel() for p in w.params.values()),
+                   params=sum(p.numel() for p in w.model.parameters()), counts=counts)
+        rec["split"] = sa1_step_split(trainer, loader)
+        if rec["split"]["fwd_bwd_layer_norm_launches"] != counts["unet_forward"]["fused_layer_norm"]:
+            raise AssertionError(f"SA-1.0 forward+backward: row 2 launched "
+                                 f"{rec['split']['fwd_bwd_layer_norm_launches']} times")
+        t0 = time.perf_counter()
+        path = trainer.save(w.step)
+        rec["save_s"] = time.perf_counter() - t0
+        rec["ckpt_gib"] = os.path.getsize(path) / 2 ** 30
+        rec.update(resume_check(trainer, loader, path, 1))
+        del trainer, loader, w, unet
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def tiny_dac_vae_config(name: str, compute_dtype: str = "bfloat16") -> dict:
+    """A shipped DAC VAE config at toy size (the same blocks and losses):
+    the encoder's d_model 16, strides [2, 4]; the decoder 96 channels (the
+    96-wide last level), rates [4, 2]; latent 4; the discriminator's 8
+    filters over two STFT scales, three MRSTFT resolutions."""
+    cfg = dac_vae_config(name)
+    cfg["sample_size"] = 4096
+    m = cfg["model"]
+    m["encoder"]["config"].update(d_model=16, strides=[2, 4], latent_dim=8)
+    m["decoder"]["config"].update(channels=96, rates=[4, 2], latent_dim=4)
+    m.update(latent_dim=4, downsampling_ratio=8)
+    tr = cfg["training"]
+    tr["compute_dtype"] = compute_dtype
+    tr["loss_configs"]["discriminator"]["config"] = dict(
+        filters=8, n_ffts=[256, 128], hop_lengths=[64, 32], win_lengths=[256, 128])
+    tr["loss_configs"]["spectral"]["config"].update(
+        fft_sizes=[256, 64, 32], hop_sizes=[64, 16, 8], win_lengths=[256, 64, 32])
+    return cfg
+
+
+def phase_dac_training(dev) -> dict:
+    """Phase 13: for each DAC VAE-GAN, `gan_phase` with its launches
+    counted from the model (`dac_gen_launches`)."""
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config
+
+    t_phase = time.perf_counter()
+    rec = {}
+    for name in DAC_VAES:
+        cfg = dac_vae_config(name)
+        counts = dac_gen_launches(create_model_from_config(cfg, "meta"))
+        rec[name] = gan_phase(dev, cfg, lambda dtype: tiny_dac_vae_config(name, dtype), counts)
+        torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+ENCODEC = os.path.join(ROOT, "stable_audio_tools_tpu", "configs", "model_configs",
+                       "autoencoders", "encodec_musicgen_rvq.json")
+
+
+def codec_config() -> dict:
+    with open(ENCODEC) as f:
+        return json.load(f)
+
+
+def tiny_codec_config() -> dict:
+    """The shipped codec config at toy size, f32: SEANet of 8 filters at
+    ratios [2, 4] into 16 dimensions (its 2-layer LSTM, weight norm), an RVQ
+    of 2 x 32 codes (decay 0.99, dead-code threshold 2, the k-means init),
+    the discriminator's 8 filters over two STFT scales."""
+    cfg = codec_config()
+    cfg["sample_size"] = 4096
+    m = cfg["model"]
+    for side in ("encoder", "decoder"):
+        m[side]["config"].update(n_filters=8, ratios=[2, 4], dimension=16)
+    m["bottleneck"]["config"].update(num_quantizers=2, codebook_size=32, dim=16)
+    m.update(latent_dim=16, downsampling_ratio=8)
+    tr = cfg["training"]
+    tr["compute_dtype"] = "float32"
+    tr["loss_configs"]["discriminator"]["config"] = dict(
+        filters=8, n_ffts=[256, 128], hop_lengths=[64, 32], win_lengths=[256, 128])
+    tr["loss_configs"]["spectral"]["config"].update(
+        fft_sizes=[256, 64, 32], hop_sizes=[64, 16, 8], win_lengths=[256, 64, 32])
+    return cfg
+
+
+def small_codec_check(dev) -> dict:
+    """Two generator steps (the k-means init, then the EMA update and
+    dead-code revival) and a discriminator step of the tiny codec on the
+    card against the CPU, f32 on both with cuDNN's TF32 off: the same
+    batch and revival rows, and before each step the card takes the CPU's
+    weights and quantizer state (so that each step is read alone: Lloyd
+    iterations and nearest-code picks are discontinuous, and a vector about
+    as near two centers as f32 rounding can tell goes either way, which
+    later steps would carry on). Returned: the losses' largest relative
+    error; each side's gradient (||card - CPU|| / ||CPU|| over the side);
+    the share of the quantizer's codewords (with their EMA sums and counts)
+    within 1e-3 of the CPU's, relative to the tensor's peak, at the worst
+    step (a vector that changes its code moves two codewords); then, with
+    the CPU's weights on both sides and each side's codebooks, an encode's
+    latents before the quantizer (max|card - CPU| / max|CPU|) and the share
+    of equal codes."""
+    cfg = tiny_codec_config()
+    g = torch.Generator().manual_seed(5)
+    audio = 0.3 * torch.randn(2, 1, 4096, generator=g)
+    revive = torch.randint(0, 2 * 4096 // 8, (2, 32), generator=g)
+    cpu = tiny_gan_trainer(cfg, "cpu")
+    card = tiny_gan_trainer(cfg, dev, cpu.discriminator.state_dict())
+    out = dict(loss_rel_err=0.0, grad_rel_err=0.0, state_close_share=1.0)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for step in range(3):
+            card.model.load_state_dict(cpu.model.state_dict())
+            card.discriminator.load_state_dict(cpu.discriminator.state_dict())
+            auxs = [w.train_step(audio.to(w.device), revive_indices=revive.to(w.device))
+                    for w in (cpu, card)]
+            if not all(math.isfinite(float(v)) for v in auxs[1].values()):
+                raise AssertionError(f"small codec step {step}: losses {auxs[1]}")
+            out["loss_rel_err"] = max(out["loss_rel_err"], *(
+                abs(float(auxs[1][k]) - float(v)) / max(abs(float(v)), 1e-6)
+                for k, v in auxs[0].items()))
+            pick = (lambda w: w.disc_params) if step == 1 else (lambda w: w.params)
+            out["grad_rel_err"] = max(out["grad_rel_err"], grad_rel_errs(pick(card), pick(cpu))[2])
+            qc, qg = (w.model.bottleneck.quantizer for w in (cpu, card))
+            if not bool(qg.initted):
+                raise AssertionError("small codec: the card's quantizer is not initted")
+            for n in ("codebooks", "ema_sums", "ema_counts"):
+                want, got = getattr(qc, n), getattr(qg, n).cpu()
+                err = (got - want).abs()
+                if err.dim() == 3:
+                    err = err.amax(dim=-1)
+                close = (err <= 1e-3 * want.abs().max()).float().mean().item()
+                out["state_close_share"] = min(out["state_close_share"], close)
+        card.model.load_state_dict({k: v for k, v in cpu.model.state_dict().items()
+                                    if ".quantizer." not in k}, strict=False)
+        with torch.no_grad():
+            ec, eg = (w.model.encoder(audio.to(w.device)).cpu() for w in (cpu, card))
+            ic, ig = (w.model.encode(audio.to(w.device), return_info=True)[1]
+                      ["quantizer_indices"].cpu() for w in (cpu, card))
+        out["encoded_rel_err"] = (eg - ec).abs().max().item() / ec.abs().max().item()
+        out["codes_equal_share"] = (ic == ig).float().mean().item()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return out
+
+
+def codec_wgrad_shapes(batch: int = 4) -> dict:
+    """{(Ci, Co, k, L, 0): launches} of row 11 plain in one codec generator
+    step at batch x the config's sample_size, read from the shipped model
+    on the meta device under the bf16 compute dtype: each tower runs bf16 up
+    to its LSTM, and each stride-1 conv there (the encoder's conv_in and its
+    residual blocks' convs and shortcuts, the decoder's conv_in on the bf16
+    latents) pads x itself and takes `conv1d_wgrad` for its weight gradient;
+    the strided and transposed convs and the f32 layers after the LSTMs are
+    cuDNN's (models/seanet.py). The discriminator step launches no
+    hand-written kernel."""
+    import collections
+
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config
+    from stable_audio_tools_tpu_torch.models.seanet import EncodecConv1d
+
+    cfg = codec_config()
+    model = create_model_from_config(cfg, "meta")
+    shapes = collections.Counter()
+
+    def hook(m, i, o):
+        if m.stride == 1 and i[0].dtype == torch.bfloat16:
+            if m.dilation != 1:
+                raise AssertionError(f"a dilated conv ({m.dilation}) in the codec")
+            k = m.kernel_size
+            shapes.update([(*m.conv.weight_v.shape[1::-1], k, i[0].shape[-1] + k - 1, 0)])
+
+    for m in model.modules():
+        if isinstance(m, EncodecConv1d):
+            m.register_forward_hook(hook)
+    bf16 = dict(device="meta", dtype=torch.bfloat16)
+    with torch.no_grad():
+        latents = model.encoder(torch.empty(batch, 1, cfg["sample_size"], **bf16))
+        model.decoder(latents.to(torch.bfloat16))
+    return dict(shapes)
+
+
+def phase_codec_training(dev) -> dict:
+    """Phase 14: the tiny codec card vs CPU (the codebook update included),
+    then the shipped EnCodec config at full width, batch 4 x 32,000."""
+    t_phase = time.perf_counter()
+    small = small_codec_check(dev)
+    # f32 on both sides, other summation orders: the losses and the
+    # encoder's output within 1e-3, the gradients (through the A-weighted
+    # STFT losses, which amplify f32 differences) within 1e-2; every
+    # codeword within 1e-3 at every step (each step starts from the CPU's
+    # state), and 99% of the codes equal
+    small_tol = dict(loss_rel_err=1e-3, encoded_rel_err=1e-3, grad_rel_err=1e-2)
+    if not (all(small[k] <= t for k, t in small_tol.items())
+            and small["state_close_share"] == 1.0 and small["codes_equal_share"] >= 0.99):
+        raise AssertionError(f"small codec card vs CPU (f32, TF32 off): {small} > {small_tol}, "
+                             "or a codeword not close or fewer than 99% of the codes equal")
+    cfg = codec_config()
+    counts = dict(gen={"conv1d_wgrad": sum(codec_wgrad_shapes().values())}, disc={})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_codec_") as tmp:
+        data = write_dataset(tmp, 40, 2, 0.1, sr=cfg["sample_rate"], channels=1)
+        rec = gan_training(dev, cfg, tmp, data, counts["gen"], counts["disc"])
+    rec.update(small=small, small_tol=small_tol, counts=counts,
+               phase_s=time.perf_counter() - t_phase)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card",
@@ -3654,16 +4384,16 @@ def main() -> int:
           + f"{dxr['generator_step']['share_of_bound']:.3f} | "
           f"{wr['generator_step']['share_of_bound']:.3f} on {card}", flush=True)
 
-    dw = rec["conv1d_wgrad"]["dance_step"]
-    print("phase 2 row 11 plain (conv1d_wgrad) at a Dance training step's shapes, batch "
-          f"{DANCE_BATCH} (ms back to back; torch.nn.grad.conv1d_weight; bound; launches a "
-          "step): " + "; ".join(
-              f"{c['shape']} {c['ms']:.4f}; {c['conv1d_weight_ms']:.4f}; {c['bound_ms']:.4f}; "
-              f"x{c['launches']}" for c in dw["levels"])
-          + f"; a step ({dw['launches']} launches): {dw['ms']:.3f} ms (conv1d_weight "
-          f"{dw['conv1d_weight_ms']:.3f}, bound {dw['bound_ms']:.3f}, share "
-          f"{dw['share_of_bound']:.3f}); max rel err {dw['max_rel_err']:.3g} (tol "
-          f"{GRAD_REL_TOL}) on {card}", flush=True)
+    for step, what in (("dance_step", "a Dance"), ("codec_step", "a codec generator")):
+        dw = rec["conv1d_wgrad"][step]
+        print(f"phase 2 row 11 plain (conv1d_wgrad) at {what} training step's shapes, batch 4 "
+              "(ms back to back; torch.nn.grad.conv1d_weight; bound; launches a step): "
+              + "; ".join(f"{c['shape']} {c['ms']:.4f}; {c['conv1d_weight_ms']:.4f}; "
+                          f"{c['bound_ms']:.4f}; x{c['launches']}" for c in dw["levels"])
+              + f"; a step ({dw['launches']} launches): {dw['ms']:.3f} ms (conv1d_weight "
+              f"{dw['conv1d_weight_ms']:.3f}, bound {dw['bound_ms']:.3f}, share "
+              f"{dw['share_of_bound']:.3f}); max rel err {dw['max_rel_err']:.3g} (tol "
+              f"{GRAD_REL_TOL}); every call launched its kernel; on {card}", flush=True)
 
     sf, sb = rec["snake_fused"], rec["snake_fused_bwd"]
     print("phase 2 snake (rows 9 | 4) at the VAE generator step's sites (ms back to back; "
@@ -3694,6 +4424,27 @@ def main() -> int:
               f"bound {c['bound_ms']:.4f}, x{c['launches']})" for c in lnr["cases"])
           + " (a UNet forward's {launches} launches {ms:.3f} ms, F.layer_norm {library_ms:.3f}, "
           "bound {bound_ms:.3f})".format(**lnr["unet_forward"]) + f" on {card}", flush=True)
+
+    def dac_sums(name):
+        dx, wg = (rec[k]["dac"][name]["generator_step"]
+                  for k in ("snake_conv1d_dx", "snake_conv1d_wgrad"))
+        pl, s9 = rec["conv1d_wgrad"]["dac"][name], rec["snake_fused_bwd"]["dac"][name]
+        return (f"{name}: row 10 x{dx['launches']} {dx['dx_ms']:.3f} ms (conv1d_input "
+                f"{dx['conv1d_input_ms']:.3f}, bound {dx['dx_bound_ms']:.3f}, share "
+                f"{dx['share_of_bound']:.3f}), row 11 x{wg['launches']} {wg['wgrad_ms']:.3f} "
+                f"(conv1d_weight {wg['conv1d_weight_ms']:.3f}, bound {wg['wgrad_bound_ms']:.3f}, "
+                f"share {wg['share_of_bound']:.3f}), row 11 plain x{pl['launches']} "
+                f"{pl['ms']:.4f} (conv1d_weight {pl['conv1d_weight_ms']:.4f}, bound "
+                f"{pl['bound_ms']:.4f}), row 9 x{s9['launches']} {s9['bwd_ms']:.4f} (bound "
+                f"{s9['bwd_bound_ms']:.4f}, share {s9['share_of_bound']:.3f})")
+
+    print("phase 2 DAC VAE-GAN generator-step shapes, batch 4 x 65536, alpha as beta (summed "
+          "over a step's launches, ms back to back): " + "; ".join(dac_sums(n) for n in DAC_VAES)
+          + "; cases (row 10 | row 11; conv1d_input | conv1d_weight) " + ", ".join(
+              f"{c['shape']} {c['dx_ms']:.4f} | {q['wgrad_ms']:.4f}; {c['conv1d_input_ms']:.4f}"
+              f" | {q['conv1d_weight_ms']:.4f}" for c, q in zip(
+                  rec["snake_conv1d_dx"]["dac"]["cases"], rec["snake_conv1d_wgrad"]["dac"]["cases"]))
+          + f"; every call launched its kernel; on {card}", flush=True)
 
     main_rec = phase_main_path(dev)
     print(f"phase 3 generation: SA-Open {main_rec['params'] / 1e9:.3f}B params, {STEPS} steps "
@@ -3737,21 +4488,26 @@ def main() -> int:
 
     torch.cuda.empty_cache()
 
+    def gan_line(r):
+        sp = r["split"]
+        return (f"{r['params'] / 1e6:.1f}M params + discriminator {r['disc_params'] / 1e6:.2f}M: "
+                f"pair {r['pair_ms_median']:.1f} ms median of {GAN_TIMED_PAIRS} "
+                f"({', '.join(f'{x:.1f}' for x in r['pair_ms'])}), gen step "
+                f"{r['gen_ms_median']:.1f} ms, disc step {r['disc_ms_median']:.1f} ms, "
+                f"{r['audio_s_per_s']:.2f} audio-s trained/s, peak {r['peak_gib']:.2f} GiB; "
+                "gen step split ms " + ", ".join(
+                    f"{k[:-3]} {v:.1f}" for k, v in sp.items()
+                    if k.endswith("_ms") and isinstance(v, float))
+                + f"; gen step device busy {sp['gen_step_device_busy']:.1%}, top kernels ms "
+                f"{json.dumps(sp['gen_step_top_kernels_ms'])}; launches "
+                f"{json.dumps({k: v for k, v in r['launches'].items() if v})}; checkpoint "
+                f"{r['ckpt_gib']:.2f} GiB reloaded identical, resumed {r['resumed_steps']} steps")
+
     ae_rec = phase_ae_training(dev)
-    split = ae_rec["split"]
-    print(f"phase 6 AE training: SA-2.0 VAE {ae_rec['params'] / 1e6:.1f}M params + EnCodec "
-          f"discriminator {ae_rec['disc_params'] / 1e6:.2f}M, batch {AE_BATCH} x 65536 samples, "
-          f"bf16: gen+disc pair {ae_rec['pair_ms_median']:.1f} ms median of {AE_TIMED_PAIRS} "
-          f"({', '.join(f'{x:.1f}' for x in ae_rec['pair_ms'])}); gen step "
-          f"{ae_rec['gen_ms_median']:.1f} ms, disc step {ae_rec['disc_ms_median']:.1f} ms; "
-          f"{ae_rec['audio_s_per_s']:.2f} audio-s trained/s, peak {ae_rec['peak_gib']:.2f} GiB; "
-          "gen step split ms " + ", ".join(f"{k[:-3]} {v:.1f}" for k, v in split.items()
-                                           if k.endswith("_ms") and isinstance(v, float))
-          + f"; gen step device busy {split['gen_step_device_busy']:.1%}; top kernels ms "
-          f"{json.dumps(split['gen_step_top_kernels_ms'])}; launches "
-          f"{json.dumps(ae_rec['launches'])}; checkpoint {ae_rec['ckpt_gib']:.2f} GiB reloaded "
-          f"identical; small card-vs-CPU {json.dumps(ae_rec['small'])} (tol "
-          f"{ae_rec['small_tol']}) on {card}", flush=True)
+    print(f"phase 6 AE training: stable_audio_2_0_vae.json, batch {AE_BATCH} x 65536, bf16: "
+          f"{gan_line(ae_rec)}; small card-vs-CPU {json.dumps(ae_rec['small'])} (tol "
+          f"{ae_rec['small_tol']} at gains x {SMALL_AE_GAIN}; at the init's, the card within "
+          f"{GAN_SPREAD}x the CPU's bf16 distance from f32) on {card}", flush=True)
 
     torch.cuda.empty_cache()
 
@@ -3870,6 +4626,48 @@ def main() -> int:
 
     torch.cuda.empty_cache()
 
+    sa1t = phase_sa1_training(dev)
+    split, prof = sa1t["split"], sa1t["split"]["fwd_bwd_profile"]
+    print(f"phase 12 SA-1.0 training: stable_audio_1_0.json, "
+          f"{sa1t['trainable_params'] / 1e6:.1f}M trainable of {sa1t['params'] / 1e6:.1f}M "
+          f"(the UNet f32), batch {SA1_TRAIN_BATCH} x {SA1_SAMPLE_SIZE} samples: step "
+          f"{sa1t['step_ms_median']:.1f} ms median of {TIMED_STEPS} "
+          f"({', '.join(f'{x:.1f}' for x in sa1t['step_ms'])}), "
+          f"{sa1t['audio_s_per_s']:.2f} audio-s trained/s, peak {sa1t['peak_gib']:.2f} GiB, "
+          f"losses {', '.join(f'{x:.4g}' for x in sa1t['losses'])}; split ms "
+          + ", ".join(f"{k[:-3]} {v:.1f}" for k, v in split.items()
+                      if k.endswith("_ms") and isinstance(v, float))
+          + f"; the step on a held batch {', '.join(f'{x:.1f}' for x in split['held_batch_step_ms'])}"
+          f" ms (allocator retries {split['alloc_retries']})"
+          + f"; fwd+bwd profiled {prof['wall_ms']:.1f} ms, device busy "
+          f"{prof['device_busy']:.1%}, {prof['kernel_launches']:.0f} kernels, top kernels ms "
+          f"{json.dumps(prof['top_kernels_ms'])}; launches {json.dumps(sa1t['launches'])} "
+          f"(a step: row 2 {sa1t['counts']['unet_forward']['fused_layer_norm']}, rows 12 / 3 / "
+          f"4 x {SA1_TRAIN_BATCH} clips); checkpoint {sa1t['ckpt_gib']:.2f} GiB saved "
+          f"{sa1t['save_s']:.1f} s, reloaded identical {sa1t['reload_s']:.1f} s, resumed "
+          f"{sa1t['resumed_steps']} step; small card-vs-CPU step {json.dumps(sa1t['small'])} "
+          f"(tol {sa1t['small_tol']}); phase {sa1t['phase_s']:.1f} s on {card}", flush=True)
+
+    torch.cuda.empty_cache()
+
+    dac = phase_dac_training(dev)
+    print("phase 13 DAC VAE-GAN training, batch 4 x 65536, bf16: " + "; ".join(
+        f"{n}: {gan_line(dac[n])}; small card-vs-CPU {json.dumps(dac[n]['small'])} (tol "
+        f"{dac[n]['small_tol']} at gains x {SMALL_AE_GAIN}; at the init's, the card within "
+        f"{GAN_SPREAD}x the CPU's bf16 distance from f32)" for n in DAC_VAES)
+        + f"; phase {dac['phase_s']:.1f} s on {card}", flush=True)
+
+    torch.cuda.empty_cache()
+
+    codec = phase_codec_training(dev)
+    print(f"phase 14 codec training: encodec_musicgen_rvq.json, batch 4 x 32000, bf16 to the "
+          f"LSTM: {gan_line(codec)}; hand-written kernels a generator step "
+          f"{json.dumps(codec['counts']['gen'])}, none in the discriminator step; small "
+          f"card-vs-CPU (f32, TF32 off) {json.dumps(codec['small'])} (tol "
+          f"{codec['small_tol']}); phase {codec['phase_s']:.1f} s on {card}", flush=True)
+
+    torch.cuda.empty_cache()
+
     kernels = []
     for n, r in rec.items():
         by_path = {"generation": main_rec["launches"].get(n, 0),
@@ -3884,7 +4682,10 @@ def main() -> int:
                    "dance_generation": dg["launches"].get(n, 0),
                    "dance_training": dt["launches"].get(n, 0),
                    "sa1_generation": sa1["launches"].get(n, 0),
-                   "sa1_encode": sa1["encode"]["launches"].get(n, 0)}
+                   "sa1_encode": sa1["encode"]["launches"].get(n, 0),
+                   "sa1_training": sa1t["launches"].get(n, 0),
+                   **{f"{name}_training": dac[name]["launches"].get(n, 0) for name in DAC_VAES},
+                   "codec_training": codec["launches"].get(n, 0)}
         kernels.append(dict(name=n, route=r["route"], source=r["source"], replaces=r["replaces"],
                             launches=sum(by_path.values()), launches_by_path=by_path,
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
@@ -3897,7 +4698,7 @@ def main() -> int:
                                 "deterministic", "ptxas", "profiled", "library_profiled",
                                 "host_us", "library_host_us", "no_grad_bit_identical",
                                 "levels", "generator_step", "decode_group", "dance_step",
-                                "sa1", "sa1_f32")
+                                "sa1", "sa1_f32", "dac")
                                 if k in r}))
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
     if unlaunched:
@@ -3913,7 +4714,11 @@ def main() -> int:
         "dance": {"small": dance["small"],
                   "generation": {k: v for k, v in dg.items() if k != "launches"},
                   "training": {k: v for k, v in dt.items() if k != "launches"}},
-        "sa1_generation": {k: v for k, v in sa1.items() if k != "launches"}}))
+        "sa1_generation": {k: v for k, v in sa1.items() if k != "launches"},
+        "sa1_training": {k: v for k, v in sa1t.items() if k != "launches"},
+        "dac_training": {n: {k: v for k, v in dac[n].items() if k != "launches"}
+                         for n in DAC_VAES},
+        "codec_training": {k: v for k, v in codec.items() if k != "launches"}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

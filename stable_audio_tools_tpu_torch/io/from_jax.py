@@ -260,7 +260,7 @@ def autoencoder_state_dict(p: Mapping, prefix: str = "",
                            quantizer_state: Optional[Mapping] = None) -> StateDict:
     """An AudioAutoencoder's params (Oobleck, SEANet or DAC towers) -> the port's;
     `quantizer_state` (the autoencoder's collection of that name) brings the
-    RVQ codebooks."""
+    RVQ's state: `codebooks`, `ema_counts`, `ema_sums`, `initted`."""
     out: StateDict = {}
     if "encoder" in p:
         out.update(_tower_state_dict(p["encoder"], f"{prefix}encoder.",
@@ -269,8 +269,8 @@ def autoencoder_state_dict(p: Mapping, prefix: str = "",
         out.update(_tower_state_dict(p["decoder"], f"{prefix}decoder.",
                                      oobleck_decoder_state_dict, dac_decoder_state_dict))
     if quantizer_state is not None:
-        out[f"{prefix}bottleneck.quantizer.codebooks"] = _np(
-            quantizer_state["bottleneck"]["quantizer"]["codebooks"])
+        for name, value in quantizer_state["bottleneck"]["quantizer"].items():
+            out[f"{prefix}bottleneck.quantizer.{name}"] = _np(value)
     return out
 
 

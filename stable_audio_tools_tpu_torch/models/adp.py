@@ -521,10 +521,13 @@ class UNetCFG1d(UNet1d):
                 features: tp.Optional[torch.Tensor] = None,
                 channels_list: tp.Optional[tp.Sequence[torch.Tensor]] = None,
                 train: bool = False,
-                generator: tp.Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: tp.Optional[torch.Generator] = None,
+                embedding_drop_mask: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
         """`batch_cfg` is accepted and ignored (the batch is always
-        doubled), as in the JAX module; `generator` draws the training-time
-        context dropout (`embedding_mask_proba` with `train`)."""
+        doubled), as in the JAX module. With `train` and
+        `embedding_mask_proba` > 0 each item's context is swapped for the
+        null context with that probability: a [B, 1, 1] Bernoulli draw from
+        `generator`, or `embedding_drop_mask` [B] (True = drop) where given."""
         del batch_cfg
         B, L = embedding.shape[:2]
         table = self.fixed_embedding.embedding.weight
@@ -533,8 +536,12 @@ class UNetCFG1d(UNet1d):
                              f"{table.shape[0]}")
         fixed = table[:L].to(embedding.dtype).expand(B, L, table.shape[1])
         if embedding_mask_proba > 0.0 and train:
-            drop = torch.rand((B, 1, 1), generator=generator,
-                              device=embedding.device) < embedding_mask_proba
+            if embedding_drop_mask is None:
+                drop = torch.rand((B, 1, 1), generator=generator,
+                                  device=embedding.device) < embedding_mask_proba
+            else:
+                drop = embedding_drop_mask.to(device=embedding.device, dtype=torch.bool)
+                drop = drop.reshape(B, 1, 1)
             embedding = torch.where(drop, fixed, embedding)
         if embedding_scale == 1.0:
             return self.unet_forward(x, time, features=features, channels_list=channels_list,
@@ -569,7 +576,10 @@ class UNetCFG1DWrapper(nn.Module):
     """The conditioned wrapper's model for `adp_cfg_1d`: the routed
     conditioning to the UNet's arguments. `prepend_cond`, `cfg_interval` and
     any other keyword are accepted and not used, as in the JAX wrapper;
-    `scale_phi` != 0 turns the CFG rescale on."""
+    `scale_phi` != 0 turns the CFG rescale on. In `train()` mode
+    `cfg_dropout_prob` is the UNet's context dropout, drawn from `generator`
+    or given as `cfg_dropout_mask` [B] (True = drop), the diffusion
+    trainer's arguments."""
 
     def __init__(self, model: UNetCFG1d):
         super().__init__()
@@ -580,7 +590,7 @@ class UNetCFG1DWrapper(nn.Module):
                 input_concat_cond=None, global_cond=None, prepend_cond=None,
                 prepend_cond_mask=None, cfg_scale: float = 1.0, cfg_dropout_prob: float = 0.0,
                 batch_cfg: bool = True, rescale_cfg: bool = False, scale_phi: float = 0.0,
-                train: bool = False, generator=None, **kwargs):
+                generator=None, cfg_dropout_mask=None, **kwargs):
         del prepend_cond, prepend_cond_mask, rescale_cfg, kwargs
         return self.model(
             x, t, embedding=cross_attn_cond, embedding_mask=cross_attn_mask,
@@ -589,7 +599,7 @@ class UNetCFG1DWrapper(nn.Module):
             negative_embedding=negative_cross_attn_cond,
             negative_embedding_mask=negative_cross_attn_mask, features=global_cond,
             channels_list=[input_concat_cond] if input_concat_cond is not None else None,
-            train=train, generator=generator)
+            train=self.training, generator=generator, embedding_drop_mask=cfg_dropout_mask)
 
 
 # the keyword arguments of UNetCFG1d: the JAX factory's filter of the config

@@ -165,14 +165,19 @@ class AudioAutoencoder(nn.Module):
         self.soft_clip = soft_clip
 
     def encode(self, audio: torch.Tensor, generator: Optional[torch.Generator] = None,
-               noise: Optional[torch.Tensor] = None, return_info: bool = False):
+               noise: Optional[torch.Tensor] = None, return_info: bool = False,
+               train: bool = False, **bottleneck_kwargs):
         """audio [B, C, T] -> latents; with `return_info`, (latents, info) with
-        the bottleneck's losses (the VAE's "kl")."""
+        the bottleneck's losses (the VAE's "kl", the RVQ's "quantizer_loss").
+        `train` lets a bottleneck with training state (the RVQ) update it;
+        `bottleneck_kwargs` (the RVQ's `revive_indices`) go to the
+        bottleneck."""
         latents = self.encoder(audio)
         info = {}
         if self.bottleneck is not None:
             out = self.bottleneck.encode(latents, generator=generator, noise=noise,
-                                         return_info=return_info)
+                                         return_info=return_info, train=train,
+                                         **bottleneck_kwargs)
             latents, info = out if return_info else (out, info)
         return (latents, info) if return_info else latents
 

@@ -173,7 +173,7 @@ def init_random_(model: nn.Module, generator: torch.Generator,
     scales 1 (GroupNorm and the ADP LayerNorm biases 0), log-scale snake
     parameters 0, DAC's snake alpha 1,
     Fourier weights ~ N(0, 1), weight-norm g = ||v||, LSTM weights ~
-    N(0, 1/fan_in) with zero biases, RVQ codebooks ~ N(0, 1)."""
+    N(0, 1/fan_in) with zero biases, RVQ codebooks ~ N(0, 1) (and their EMA sums)."""
     from ..ops.activations import SnakeBeta
     from ..ops.conv import WNConv1d, WNConv2d, WNConvTranspose1d
     from ..ops.embeddings import FourierFeatures
@@ -232,4 +232,5 @@ def init_random_(model: nn.Module, generator: torch.Generator,
                     p.zero_()
         elif isinstance(m, ResidualVQ):
             normal_(m.codebooks, 1.0)
+            m.ema_sums.copy_(m.codebooks)  # the trackers start from the codebook, as JAX's
     return model

@@ -14,12 +14,22 @@ semantics:
 - `SEANetLSTM`: a stacked `nn.LSTM` with an input skip. The JAX package runs
   one flax `OptimizedLSTMCell` per layer under `nn.RNN`; io/from_jax.py
   stacks its i / f / g / o kernels into torch's `weight_ih` / `weight_hh` in
-  torch's gate order, the bias on the hidden side.
+  torch's gate order, the bias on the hidden side. The cells compute in
+  their f32 parameters' dtype whatever the input's, and the skip promotes
+  to it, as the flax cells promote a bf16 input: under a bf16
+  `compute_dtype` each tower computes in bf16 up to its LSTM and in f32
+  after it (the autoencoder trainer hands the decoder its latents in the
+  compute dtype).
 
 Layout: [B, C, T] (the JAX modules run NLC inside an autoencoder that takes
-[B, C, T]). The codec is frozen on the LM path: its convs are
-`torch.nn.functional` (cuDNN on the card), as XLA runs them for the JAX
-package.
+[B, C, T]). Each conv computes in its input's dtype. The strided and
+transposed convs are `torch.nn.functional` (cuDNN on the card), as XLA runs
+them for the JAX package; a stride-1 conv in bf16 is ops/conv.py's
+`conv1d` (cuDNN's forward and input gradient, the hand-written weight
+gradient `conv1d_wgrad`), as the JAX `_conv1d_s1` sends its weight gradient
+to the Pallas kernel; in f32 (the frozen codec of the LM path, the layers
+after an LSTM) it stays `torch.nn.functional`: `conv1d_wgrad` takes
+bf16 only.
 """
 
 from __future__ import annotations
@@ -31,7 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.conv import WNConv1d, WNConvTranspose1d
+from ..ops.conv import WNConv1d, WNConvTranspose1d, conv1d
 
 
 def pad1d(x: torch.Tensor, pl: int, pr: int, mode: str) -> torch.Tensor:
@@ -68,6 +78,8 @@ class EncodecConv1d(nn.Module):
         else:
             x = pad1d(x, pt - pt // 2, pt // 2 + extra, self.pad_mode)
         bias = self.conv.bias.to(x.dtype) if self.conv.bias is not None else None
+        if self.stride == 1 and x.dtype == torch.bfloat16:
+            return conv1d(x, self.conv.weight(x.dtype), bias, dilation=self.dilation)
         return F.conv1d(x, self.conv.weight(x.dtype), bias, stride=self.stride,
                         dilation=self.dilation)
 
@@ -110,7 +122,7 @@ class SEANetLSTM(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [B, C, T]; the LSTM runs over T from a zero state."""
-        seq = x.permute(2, 0, 1)  # [T, B, C]
+        seq = x.permute(2, 0, 1).to(self.lstm.weight_ih_l0.dtype)  # [T, B, C]
         y, _ = self.lstm(seq)
         return (seq + y).permute(1, 2, 0)  # encodec skips around the LSTM
 

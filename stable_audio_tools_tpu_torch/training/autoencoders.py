@@ -7,10 +7,21 @@ steps train the discriminator (from step 0 with `warmup_mode` "adv", from
 `warmup_steps` with "full"), even steps the generator (the autoencoder),
 whose adversarial and feature-matching losses join from `warmup_steps`.
 
-- `ae_forward` (JAX `_ae_forward` :337): encode with the VAE's KL, decode,
-  in `compute_dtype` (bf16 on the card); decoded audio, latents and the loss
-  info come back in f32 (:403-412), trimmed to the shorter length, with the
-  left/right channels split out for stereo.
+- `ae_forward` (JAX `_ae_forward` :337): encode with the bottleneck's loss
+  (the VAE's KL, the RVQ's commitment loss), decode, in `compute_dtype`
+  (bf16 on the card); decoded audio, latents and the loss info come back in
+  f32 (:403-412), trimmed to the shorter length, with the left/right
+  channels split out for stereo. The decoder takes the latents in
+  `compute_dtype`: the JAX step hands it the latents as they come, f32
+  behind a DAC encoder's f32 `proj_out` or an RVQ, so its DAC and SEANet
+  decoders compute in f32 under a bf16 compute dtype.
+- An RVQ's state (codebooks, EMA trackers, the k-means flag; buffers that
+  no optimizer, weight decay or parameter EMA touches) moves in the
+  generator step only, as the JAX step keeps `quantizer_state` from its
+  generator step and drops the discriminator step's. The discriminator step
+  quantizes with the state as it stands: the JAX step's train-mode pass
+  quantizes with the same codebooks once the first (generator) step has
+  run its k-means init, and its update is discarded.
 - The generator step: the MRSTFT losses (sum/difference and L/R, with
   A-weighting), the KL and, warmed up, the discriminator's adversarial and
   feature-matching terms; the discriminator takes no gradient and does not
@@ -23,8 +34,9 @@ The losses, STFTs and FIR run in f32; weights, gradients, Adam state and the
 EMA stay f32. Random numbers: the VAE noise is drawn from a `torch.Generator`
 seeded from (seed, step), or injected (`noise=`, as the tests replay the JAX
 package's). Teacher distillation, latent masking, `encoder_freeze_on_warmup`,
-the mrmel and hubert losses, the other discriminators and the other
-bottlenecks' losses are later slices and are refused by name.
+the mrmel and hubert losses, the other discriminators and the losses of the
+bottlenecks other than the VAE and the RVQ are later slices and are refused
+by name.
 """
 
 from __future__ import annotations
@@ -34,7 +46,7 @@ import typing as tp
 
 import torch
 
-from ..models.bottleneck import VAEBottleneck
+from ..models.bottleneck import RVQBottleneck, VAEBottleneck
 from ..models.discriminators import EncodecDiscriminator
 from .ema import ema_init, ema_update
 from .losses.auraloss import MultiResolutionSTFTLoss, SumAndDifferenceSTFTLoss
@@ -45,10 +57,13 @@ Tensor = torch.Tensor
 
 
 def create_loss_modules_from_bottleneck(bottleneck, loss_config: dict) -> tp.List[LossModule]:
-    """The bottleneck's losses (the VAE's KL)."""
+    """The bottleneck's losses (JAX :54): the VAE's KL, the RVQ's commitment
+    loss (`quantizer_loss`, weight 1)."""
     weights = loss_config.get("bottleneck", {}).get("weights", {})
     if isinstance(bottleneck, VAEBottleneck):
         return [ValueLoss(key="kl", weight=weights.get("kl", 1e-6), name="kl_loss")]
+    if isinstance(bottleneck, RVQBottleneck):
+        return [ValueLoss(key="quantizer_loss", weight=1.0, name="quantizer_loss")]
     raise NotImplementedError(f"losses of the {type(bottleneck).__name__} bottleneck "
                               "are not ported yet")
 
@@ -193,18 +208,25 @@ class AutoencoderTrainer:
     # -- pieces of a step ---------------------------------------------------
 
     def ae_forward(self, reals: Tensor, noise: tp.Optional[Tensor] = None,
-                   generator: tp.Optional[torch.Generator] = None
+                   generator: tp.Optional[torch.Generator] = None, train: bool = False,
+                   revive_indices: tp.Optional[Tensor] = None
                    ) -> tp.Tuple[Tensor, tp.Dict[str, Tensor]]:
-        """(decoded f32, loss info) of reals [B, C, T]."""
+        """(decoded f32, loss info) of reals [B, C, T]; `train` moves an RVQ's
+        state (`revive_indices` replaces its dead-code draws)."""
         info: tp.Dict[str, Tensor] = {"encoder_input": reals}
         encoder_input = reals
         if self.compute_dtype is not None:
             encoder_input = encoder_input.to(self.compute_dtype)
+        extra = {} if revive_indices is None else {"revive_indices": revive_indices}
         latents, enc_info = self.model.encode(encoder_input, generator=generator, noise=noise,
-                                              return_info=True)
+                                              return_info=True, train=train, **extra)
         info["latents"] = latents
         info.update(enc_info)
-        decoded = self.model.decode(latents)
+        # the decoder computes in the compute dtype: a DAC encoder's f32
+        # proj_out and an RVQ give f32 latents, which would carry the JAX
+        # decoder into f32 (and the card's bf16 snake kernels refuse them)
+        decoded = self.model.decode(latents if self.compute_dtype is None
+                                    else latents.to(self.compute_dtype))
         if self.compute_dtype is not None:
             # the losses and the discriminator's STFT run in f32
             decoded = decoded.float()
@@ -233,13 +255,15 @@ class AutoencoderTrainer:
         if self.clip_grad_norm > 0:
             torch.nn.utils.clip_grad_norm_(params, self.clip_grad_norm)
 
-    def gen_step(self, reals: Tensor, noise: tp.Optional[Tensor] = None) -> tp.Dict[str, Tensor]:
+    def gen_step(self, reals: Tensor, noise: tp.Optional[Tensor] = None,
+                 revive_indices: tp.Optional[Tensor] = None) -> tp.Dict[str, Tensor]:
         """One generator update (JAX :441); returns its losses (device scalars)."""
         warmed_up = self.step >= self.warmup_steps
         self._lap()
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        decoded, info = self.ae_forward(reals, noise, self.generator(self.step))
+        decoded, info = self.ae_forward(reals, noise, self.generator(self.step), train=True,
+                                        revive_indices=revive_indices)
         self._lap("ae_forward")
         if self.use_disc:
             if warmed_up:
@@ -264,9 +288,11 @@ class AutoencoderTrainer:
                "data_std": reals.std(correction=0), **losses}
         return {k: v.detach() for k, v in aux.items()}
 
-    def disc_step(self, reals: Tensor, noise: tp.Optional[Tensor] = None) -> tp.Dict[str, Tensor]:
+    def disc_step(self, reals: Tensor, noise: tp.Optional[Tensor] = None,
+                  revive_indices: tp.Optional[Tensor] = None) -> tp.Dict[str, Tensor]:
         """One discriminator update (JAX :483) against the autoencoder's output
-        under no_grad; returns its losses."""
+        under no_grad (an RVQ's state stays); returns its losses."""
+        del revive_indices
         with torch.no_grad():
             decoded, info = self.ae_forward(reals, noise, self.generator(self.step))
         self.disc_optimizer.zero_grad(set_to_none=True)
@@ -286,12 +312,14 @@ class AutoencoderTrainer:
                 and (self.warmup_mode == "adv" or warmed_up))
 
     def train_step(self, audio: Tensor, metadata=None, accum_steps: int = 1,
-                   noise: tp.Optional[Tensor] = None) -> tp.Dict[str, Tensor]:
-        """The step's update, by parity; `noise` replaces the VAE's draw."""
+                   noise: tp.Optional[Tensor] = None,
+                   revive_indices: tp.Optional[Tensor] = None) -> tp.Dict[str, Tensor]:
+        """The step's update, by parity; `noise` replaces the VAE's draw,
+        `revive_indices` [Q, K] the RVQ's dead-code draws."""
         if accum_steps != 1:
             raise NotImplementedError("gradient accumulation is not ported for autoencoders")
         step_fn = self.disc_step if self.uses_disc(self.step) else self.gen_step
-        aux = step_fn(audio, noise)
+        aux = step_fn(audio, noise, revive_indices)
         self.step += 1
         return aux
 

@@ -1,7 +1,9 @@
 """Training factory; counterpart of stable_audio_tools_tpu/training/factory.py
 (`create_training_wrapper_from_config` :8). The port trains `autoencoder`
-(:17), `diffusion_uncond` (:33), `diffusion_cond` and `lm` (:116) models; the
-other model types raise NotImplementedError."""
+(:17; Oobleck, DAC and SEANet towers, VAE and RVQ bottlenecks),
+`diffusion_uncond` (:33), `diffusion_cond` (the DiT and the ADP
+`adp_cfg_1d` UNet) and `lm` (:116) models; the other model and diffusion
+types raise NotImplementedError."""
 
 from __future__ import annotations
 
@@ -21,12 +23,6 @@ def create_training_wrapper_from_config(model_config: tp.Dict[str, tp.Any], mode
         raise ValueError("training config must be specified in model config")
     if model_type == "autoencoder":
         from .autoencoders import AutoencoderTrainer
-
-        towers = [model_config["model"][k]["type"] for k in ("encoder", "decoder")
-                  if k in model_config["model"]]
-        if "dac" in towers:
-            raise NotImplementedError("training the dac encoder / decoder is not ported yet "
-                                      "(ROADMAP.md queue 1)")
 
         return AutoencoderTrainer(
             model,
@@ -69,7 +65,7 @@ def create_training_wrapper_from_config(model_config: tp.Dict[str, tp.Any], mode
     if model_type != "diffusion_cond":
         raise NotImplementedError(f"training {model_type} models is not ported yet")
     diffusion_type = model_config["model"]["diffusion"]["type"]
-    if diffusion_type != "dit":
+    if diffusion_type not in ("dit", "adp_cfg_1d"):
         raise NotImplementedError(f"training diffusion model type {diffusion_type} is not "
                                   "ported yet (ROADMAP.md queue 1)")
     unported = [k for k in _UNPORTED if training_config.get(k)]

@@ -67,6 +67,17 @@ def tiny_config() -> dict:
     return cfg
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The tiny steps here are many small ops: one intra-op thread keeps
+    them from spinning against other test processes' threads (the codec and
+    SA-1.0 training files import this fixture too)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tree_np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
@@ -295,11 +306,11 @@ def test_tiny_ae_check_needs_the_reduced_gain():
     # when written)
     import chip_smoke
 
-    audio, noises = chip_smoke.tiny_ae_batch()
+    audio, noises = chip_smoke.tiny_gan_batch(chip_smoke.tiny_ae_config())
     spread = {}
     for gain in (1.0, chip_smoke.SMALL_AE_GAIN):
-        ref = chip_smoke.tiny_ae_trainer("cpu", gain=gain, compute_dtype="float32")
-        bf16 = chip_smoke.tiny_ae_trainer("cpu", gain=gain)
+        ref = chip_smoke.tiny_gan_trainer(chip_smoke.tiny_ae_config("float32"), "cpu", gain=gain)
+        bf16 = chip_smoke.tiny_gan_trainer(chip_smoke.tiny_ae_config(), "cpu", gain=gain)
         for w in (ref, bf16):
             w.train_step(audio, noise=noises[0])
         spread[gain] = chip_smoke.grad_rel_errs(bf16.params, ref.params)

@@ -590,6 +590,165 @@ def test_conv1d_wgrad_dance_shapes(dev, Ci, Co, L, k):
         assert p.dtype == torch.float32 and p.shape == q.shape and _rel_err(p, q) < 1e-2
 
 
+# DAC VAE-GAN generator steps at batch 4 (L cut where a case alone would be
+# long): the 96-channel decoder level at k = 7, d = 1 / 3 / 9 and k = 1, the
+# conv_outs 96 -> 2 / 96 -> 1, the 768 level, the encoder's 2048 -> 2048
+# k = 3 at 64 and 32 samples; DAC's snake, beta passed as alpha
+DAC_BWD_CASES = [(96, 96, 65536, 7, 1, 3), (96, 96, 16384, 7, 3, 9), (96, 96, 16384, 7, 9, 27),
+                 (96, 96, 65536, 1, 1, 0), (96, 2, 65536, 7, 1, 3), (96, 1, 65536, 7, 1, 3),
+                 (768, 768, 512, 7, 9, 27), (2048, 2048, 64, 3, 1, 1), (2048, 2048, 32, 3, 1, 1)]
+
+
+def _launched(fn, *args):
+    before = fn.launches
+    out = fn(*args)
+    assert fn.launches == before + 1, "no kernel launch: the shape fell back"
+    return out
+
+
+@pytest.mark.parametrize("Ci,Co,L,k,d,pad", DAC_BWD_CASES)
+def test_snake_conv_bwd_dac_shapes(dev, Ci, Co, L, k, d, pad):
+    # rows 10 and 11 with alpha tied to beta, each call launching its
+    # kernel: dx within 2 bf16 ulps, dalpha + dbeta (the tied parameter's
+    # gradient), dW and db within 1e-2 of their peaks
+    x = _randn(dev, 4, Ci, L, scale=2.0)
+    w = _randn(dev, Co, Ci, k, scale=(Ci * k) ** -0.5, seed=1)
+    a = _randn(dev, Ci, dtype=torch.float32, seed=3).exp()
+    dy = _randn(dev, 4, Co, L, seed=5)
+    got = _launched(cs.snake_conv1d_dx, dy, x, w, a, a, pad, pad, d)
+    want = cs.snake_conv1d_dx_plain(dy, x, w, a, a, pad, pad, d)
+    _close(got[0], want[0])
+    assert _rel_err(got[1] + got[2], want[1] + want[2]) < 1e-2
+    got = _launched(cs.snake_conv1d_wgrad, dy, x, k, a, a, pad, pad, d)
+    want = cs.conv1d_wgrad_plain(dy, x, k, pad, pad, d, (a, a))
+    for p, q in zip(got, want):
+        assert _rel_err(p, q) < 1e-2
+
+
+@pytest.mark.parametrize("Ci,Co,L", [(1, 128, 65536), (2, 128, 65536), (64, 1536, 64),
+                                     (32, 1536, 32)])
+def test_conv1d_wgrad_dac_conv_ins(dev, Ci, Co, L):
+    # row 11 plain at the DAC towers' conv_ins (k = 7), batch 4: one live
+    # input channel of a 64-channel chunk, and 1536 outputs at 32 / 64
+    # samples; dW and db within 1e-2 of their peaks
+    x, dy = _randn(dev, 4, Ci, L), _randn(dev, 4, Co, L, seed=5)
+    got = _launched(cs.conv1d_wgrad, dy, x, 7, 3, 3, 1)
+    want = cs.conv1d_wgrad_plain(dy, x, 7, 3, 3, 1)
+    for p, q in zip(got, want):
+        assert p.shape == q.shape and _rel_err(p, q) < 1e-2
+
+
+@pytest.mark.parametrize("C,L", [(128, 65536), (1536, 32), (192, 16384), (1024, 256)])
+def test_snake_fused_bwd_tied_alpha_dac_sites(dev, C, L):
+    # row 9 at DAC snake sites, batch 4, alpha passed as beta: dx within 2
+    # bf16 ulps, dalpha + dbeta within 1e-2 of the peak
+    x, g, a, _ = _snake_inputs(dev, 4, C, L)
+    got = _launched(sn.snake_fused_bwd, x, a, a, g)
+    want = sn.snake_fused_bwd_plain(x, a, a, g)
+    _close(got[0], want[0])
+    assert _rel_err(got[1] + got[2], want[1] + want[2]) < 1e-2
+
+
+def test_dac_vae_generator_step_launches_the_kernels(dev):
+    # a tiny DAC VAE's generator step on the card in bf16: every snake-conv,
+    # snake and plain conv of the towers launches its kernel (the counts of
+    # models/dac.py's layers), and every gradient is finite
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+    from stable_audio_tools_tpu_torch.training.factory import create_training_wrapper_from_config
+
+    enc = {"in_channels": 1, "latent_dim": 8, "d_model": 16, "strides": [2, 4]}
+    dec = {"latent_dim": 4, "channels": 96, "rates": [4, 2]}
+    scales = {"n_ffts": [64, 32], "hop_lengths": [16, 8], "win_lengths": [64, 32]}
+    config = {"model_type": "autoencoder", "sample_size": 4096, "sample_rate": 44100,
+              "audio_channels": 1,
+              "model": {"encoder": {"type": "dac", "config": enc},
+                        "decoder": {"type": "dac", "config": dec}, "bottleneck": {"type": "vae"},
+                        "latent_dim": 4, "downsampling_ratio": 8, "io_channels": 1},
+              "training": {"learning_rate": 1e-4, "compute_dtype": "bfloat16", "loss_configs": {
+                  "discriminator": {"type": "encodec", "config": dict(scales, filters=4),
+                                    "weights": {"adversarial": 0.1, "feature_matching": 5.0}},
+                  "spectral": {"type": "mrstft", "config": {
+                      "fft_sizes": [64, 32], "hop_sizes": [16, 8], "win_lengths": [64, 32],
+                      "perceptual_weighting": True}, "weights": {"mrstft": 1.0}}}}}
+    model = init_random_(create_model_from_config(config, dev), torch.Generator(dev).manual_seed(0))
+    w = create_training_wrapper_from_config(config, model)
+    fns = {"snake_conv1d": cs.snake_conv1d, "snake_conv1d_res": cs.snake_conv1d_res,
+           "snake_conv1d_dx": cs.snake_conv1d_dx, "snake_conv1d_wgrad": cs.snake_conv1d_wgrad,
+           "conv1d_wgrad": cs.conv1d_wgrad, "snake_fused": sn.snake_fused,
+           "snake_fused_bwd": sn.snake_fused_bwd}
+    before = {n: f.launches for n, f in fns.items()}
+    w.train_step(_randn(dev, 2, 1, 4096, dtype=torch.float32, scale=0.3))
+    got = {n: f.launches - before[n] for n, f in fns.items()}
+    # 2 levels a tower, 3 residual units a level, a snake-conv conv_out each
+    assert got == {"snake_conv1d": 14, "snake_conv1d_res": 12, "snake_conv1d_dx": 26,
+                   "snake_conv1d_wgrad": 26, "conv1d_wgrad": 2, "snake_fused": 4,
+                   "snake_fused_bwd": 4}, got
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in w.params.values())
+
+
+# a codec generator step at batch 4 x 32,000 (encodec_musicgen_rvq.json's
+# SEANet in bf16 up to its LSTMs): each stride-1 conv pads x itself
+# (reflect), so row 11 plain takes pad 0 on the padded length; (Ci, Co, k,
+# padded L): the conv_in 1 -> 64 at k = 7, the residual blocks' k = 3 and
+# k = 1 convs and shortcuts of each level (Co 32 fills half a 64-row
+# block), the decoder's conv_in 128 -> 1024 at 50 frames
+CODEC_WGRAD_CASES = [(1, 64, 7, 32006), (64, 32, 3, 32002), (32, 64, 1, 32000),
+                     (64, 64, 1, 32000), (128, 64, 3, 8002), (64, 128, 1, 8000),
+                     (128, 128, 1, 8000), (256, 128, 3, 2002), (128, 256, 1, 2000),
+                     (256, 256, 1, 2000), (512, 256, 3, 402), (256, 512, 1, 400),
+                     (512, 512, 1, 400), (128, 1024, 7, 56)]
+
+
+@pytest.mark.parametrize("Ci,Co,k,L", CODEC_WGRAD_CASES)
+def test_conv1d_wgrad_codec_shapes(dev, Ci, Co, k, L):
+    # each call launching the kernel; dW and db within 1e-2 of their peaks
+    x, dy = _randn(dev, 4, Ci, L), _randn(dev, 4, Co, L - k + 1, seed=5)
+    got = _launched(cs.conv1d_wgrad, dy, x, k, 0, 0, 1)
+    want = cs.conv1d_wgrad_plain(dy, x, k, 0, 0, 1)
+    for p, q in zip(got, want):
+        assert p.shape == q.shape and _rel_err(p, q) < 1e-2
+
+
+def test_codec_generator_step_launches_row11_plain(dev):
+    # a tiny EnCodec-shaped codec's generator step on the card in bf16:
+    # each stride-1 conv before an LSTM (the encoder's conv_in, a residual
+    # block's two convs and shortcut a level; the decoder's conv_in)
+    # launches `conv1d_wgrad`, no other hand-written kernel launches, and
+    # every gradient is finite
+    import json
+    import os
+
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+    from stable_audio_tools_tpu_torch.training.factory import create_training_wrapper_from_config
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "stable_audio_tools_tpu", "configs", "model_configs",
+                           "autoencoders", "encodec_musicgen_rvq.json")) as f:
+        config = json.load(f)
+    config["sample_size"] = 4096
+    m = config["model"]
+    for side in ("encoder", "decoder"):
+        m[side]["config"].update(n_filters=8, ratios=[2, 4], dimension=16)
+    m["bottleneck"]["config"].update(num_quantizers=2, codebook_size=32, dim=16)
+    m.update(latent_dim=16, downsampling_ratio=8)
+    config["training"]["loss_configs"]["discriminator"]["config"] = dict(
+        filters=4, n_ffts=[64, 32], hop_lengths=[16, 8], win_lengths=[64, 32])
+    config["training"]["loss_configs"]["spectral"]["config"].update(
+        fft_sizes=[64, 32], hop_sizes=[16, 8], win_lengths=[64, 32])
+    model = init_random_(create_model_from_config(config, dev), torch.Generator(dev).manual_seed(0))
+    w = create_training_wrapper_from_config(config, model)
+    assert w.compute_dtype == torch.bfloat16
+    fns = {"snake_conv1d": cs.snake_conv1d, "snake_conv1d_res": cs.snake_conv1d_res,
+           "snake_conv1d_dx": cs.snake_conv1d_dx, "snake_conv1d_wgrad": cs.snake_conv1d_wgrad,
+           "conv1d_wgrad": cs.conv1d_wgrad, "snake_fused": sn.snake_fused,
+           "snake_fused_bwd": sn.snake_fused_bwd}
+    before = {n: f.launches for n, f in fns.items()}
+    w.train_step(_randn(dev, 2, 1, 4096, dtype=torch.float32, scale=0.3))
+    got = {n: f.launches - before[n] for n, f in fns.items() if f.launches != before[n]}
+    assert got == {"conv1d_wgrad": 2 + 3 * len(model.encoder.blocks)}, got
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in w.params.values())
+
+
 def test_dance_trainer_refuses_f32_on_the_card(dev):
     # the DAU1d's convs reach conv1d_wgrad, which takes bf16 only: an f32
     # model is refused when its trainer is built, not in its first backward

@@ -247,7 +247,8 @@ def test_rvq_codes_and_decode_match_jax():
     variables = jb.init(jax.random.PRNGKey(0), jnp.asarray(x), method=jb.encode)
     z, info = jb.apply(variables, jnp.asarray(x), return_info=True, method=jb.encode)
     tb = tbn.RVQBottleneck(dim=16, codebook_size=32, num_quantizers=3)
-    tb.quantizer.codebooks.copy_(_t(variables["quantizer_state"]["quantizer"]["codebooks"]))
+    for name, value in variables["quantizer_state"]["quantizer"].items():
+        getattr(tb.quantizer, name).copy_(torch.from_numpy(np.array(value)))
     got_z, got_info = tb.encode(_t(x).transpose(1, 2), return_info=True)
     np.testing.assert_array_equal(got_info["quantizer_indices"].numpy(),
                                   np.asarray(info["quantizer_indices"]))
@@ -258,8 +259,15 @@ def test_rvq_codes_and_decode_match_jax():
     want = np.asarray(jb.apply(variables, jnp.asarray(codes.numpy()), method=jb.decode_tokens))
     np.testing.assert_allclose(tb.decode_tokens(codes).numpy().transpose(0, 2, 1), want,
                                atol=1e-6)
-    with pytest.raises(NotImplementedError, match="codec training"):
-        tb.encode(_t(x).transpose(1, 2), train=True)
+    # a training pass (the k-means init, the EMA update) moves the state as
+    # the JAX module's mutable pass does (tests/test_torch_codec_training.py
+    # holds each piece)
+    _, updates = jb.apply(variables, jnp.asarray(x), train=True, mutable=["quantizer_state"],
+                          method=jb.encode)
+    tb.encode(_t(x).transpose(1, 2), train=True)
+    for name, want in updates["quantizer_state"]["quantizer"].items():
+        np.testing.assert_allclose(getattr(tb.quantizer, name).float().numpy(),
+                                   np.asarray(want, np.float32), atol=1e-5, err_msg=name)
 
 
 # -- the shipped configs ------------------------------------------------------

@@ -1,7 +1,8 @@
 """The port imports and runs (generation, a diffusion training step, an
 autoencoder GAN generator and discriminator step, an LM training step, a
 KV-cached LM generation, pre-encoding then training from the latents,
-Dance Diffusion's generation and training step, and SA-1.0's generation)
+Dance Diffusion's generation and training step, SA-1.0's generation, and the
+training steps of SA-1.0, a DAC VAE-GAN and an EnCodec-style codec)
 with JAX,
 flax, transformers and the JAX package unimportable (the machine with the
 card has none of them), and without triton: no module imports it at import
@@ -459,6 +460,97 @@ def test_sa1_path_runs_without_jax_or_triton():
     # negative prompt, and from init audio with the CFG rescale
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", SA1_SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.startswith("ok")
+
+
+TRAINING_SCRIPT = textwrap.dedent("""
+    import copy, sys
+    for name in ("jax", "jaxlib", "flax", "transformers", "safetensors",
+                 "stable_audio_tools_tpu"):
+        sys.modules[name] = None  # any import of these raises ImportError
+
+    import torch
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+    from stable_audio_tools_tpu_torch.training.factory import create_training_wrapper_from_config
+
+    def finite(wrapper, *auxs):
+        assert all(torch.isfinite(v) for aux in auxs for v in aux.values())
+        assert all(p.grad is not None and torch.isfinite(p.grad).all()
+                   for p in wrapper.params.values())
+
+    dac = {"type": "autoencoder", "model_half": True, "iterate_batch": True, "config": {
+        "encoder": {"type": "dac", "config": {"in_channels": 2, "latent_dim": 8, "d_model": 8,
+                                              "strides": [2, 4]}},
+        "decoder": {"type": "dac", "config": {"out_channels": 2, "latent_dim": 4,
+                                              "channels": 32, "rates": [4, 2]}},
+        "bottleneck": {"type": "vae"}, "latent_dim": 4, "downsampling_ratio": 8,
+        "io_channels": 2}}
+    sa1 = {
+        "model_type": "diffusion_cond", "sample_size": 512, "sample_rate": 16000,
+        "model": {
+            "io_channels": 4, "pretransform": dac,
+            "conditioning": {"cond_dim": 32, "configs": [
+                {"id": "prompt", "type": "clap_text", "config": {
+                    "allow_random_init": True, "use_text_features": True,
+                    "feature_layer_ix": -2}},
+                {"id": "seconds_start", "type": "int", "config": {"max_val": 512}},
+                {"id": "seconds_total", "type": "int", "config": {"max_val": 512}}]},
+            "diffusion": {"type": "adp_cfg_1d",
+                          "cross_attention_cond_ids": ["prompt", "seconds_start",
+                                                       "seconds_total"],
+                          "config": {"in_channels": 4, "channels": 32, "multipliers": [1, 2],
+                                     "factors": [2], "num_blocks": [1], "attentions": [1, 1],
+                                     "resnet_groups": 8, "attention_heads": 2,
+                                     "context_embedding_features": 32,
+                                     "context_embedding_max_length": 79}}},
+        "training": {"cfg_dropout_prob": 0.5, "optimizer_configs": {"diffusion": {
+            "optimizer": {"type": "AdamW", "config": {"lr": 5e-5, "weight_decay": 1e-3}}}}}}
+    model = init_random_(create_model_from_config(sa1, "cpu"), torch.Generator().manual_seed(0))
+    w = create_training_wrapper_from_config(sa1, model)
+    meta = [{"prompt": "rain", "seconds_start": 0, "seconds_total": 10},
+            {"prompt": "a drum", "seconds_start": 2, "seconds_total": 3}]
+    finite(w, w.train_step(torch.randn(2, 2, 512) * 0.3, meta))
+
+    scales = {"n_ffts": [64, 32], "hop_lengths": [16, 8], "win_lengths": [64, 32]}
+    losses = {
+        "discriminator": {"type": "encodec", "config": dict(scales, filters=4),
+                          "weights": {"adversarial": 0.1, "feature_matching": 5.0}},
+        "spectral": {"type": "mrstft", "config": {
+            "fft_sizes": [64, 32], "hop_sizes": [16, 8], "win_lengths": [64, 32],
+            "perceptual_weighting": True}, "weights": {"mrstft": 1.0}}}
+    seanet = {"channels": 1, "dimension": 8, "n_filters": 4, "ratios": [2, 2], "lstm": 2}
+    codec = {"encoder": {"type": "seanet", "config": seanet},
+             "decoder": {"type": "seanet", "config": seanet},
+             "bottleneck": {"type": "rvq", "config": {
+                 "num_quantizers": 2, "codebook_size": 16, "dim": 8,
+                 "threshold_ema_dead_code": 2}},
+             "latent_dim": 8, "downsampling_ratio": 4, "io_channels": 1}
+    for channels, model_cfg in ((2, dac["config"]), (1, codec)):
+        cfg = {"model_type": "autoencoder", "sample_size": 512, "sample_rate": 32000,
+               "audio_channels": channels, "model": copy.deepcopy(model_cfg),
+               "training": {"learning_rate": 1e-4, "compute_dtype": "bfloat16",
+                            "loss_configs": losses}}
+        model = init_random_(create_model_from_config(cfg, "cpu"),
+                             torch.Generator().manual_seed(0))
+        w = create_training_wrapper_from_config(cfg, model)
+        audio = torch.randn(2, channels, 512) * 0.3
+        gen, disc = w.train_step(audio), w.train_step(audio)
+        finite(w, gen, disc)
+    assert "quantizer_loss" in gen and bool(model.bottleneck.quantizer.initted)
+    assert "triton" not in sys.modules
+    print("ok")
+""")
+
+
+def test_sa1_dac_and_codec_training_run_without_jax_or_triton():
+    # the training paths of SA-1.0 (the ADP UNetCFG1d with CFG dropout, the
+    # frozen DAC encode), of a DAC VAE-GAN and of an EnCodec-style codec (the
+    # RVQ's k-means init, EMA update and dead-code revival, the SEANet in
+    # bf16 up to its LSTM), at toy size: one step each, two for the GANs
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", TRAINING_SCRIPT], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.startswith("ok")

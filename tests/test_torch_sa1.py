@@ -350,10 +350,19 @@ def test_unported_adp_model_types_are_refused_by_name(clap_path, kind):
 
 
 def test_training_adp_and_dac_is_refused_by_name(clap_path):
+    # training `adp_cfg_1d` and DAC towers is ported
+    # (tests/test_torch_sa1_training.py, test_torch_dac_training.py): their
+    # trainers build; the plain conditional ADP UNet (`adp_1d`) is still
+    # refused by name
     config = _sa1_config(clap_path)
     config["training"] = {"learning_rate": 1e-4}
-    with pytest.raises(NotImplementedError, match="adp_cfg_1d"):
+    w = create_training_wrapper_from_config(config, create_model_from_config(config, "cpu"))
+    assert any(n.startswith("model.model.") for n in w.params)
+    config["model"]["diffusion"]["type"] = "adp_1d"
+    with pytest.raises(NotImplementedError, match="adp_1d"):
         create_training_wrapper_from_config(config, None)
-    vae = _shipped("autoencoders/stable_audio_1_0_vae.json")
-    with pytest.raises(NotImplementedError, match="dac"):
-        create_training_wrapper_from_config(vae, None)
+    vae = _sa1_config(clap_path)["model"]["pretransform"]["config"]
+    vae = {"model_type": "autoencoder", "sample_size": 2048, "sample_rate": 16000,
+           "audio_channels": 2, "model": vae, "training": {"learning_rate": 1e-4}}
+    w = create_training_wrapper_from_config(vae, create_model_from_config(vae, "cpu"))
+    assert any(n.endswith(".alpha") for n in w.params)

@@ -281,7 +281,10 @@ def _check_dx(x, w, alpha, beta, dy, pad_lo, pad_hi, d, strip, carry):
 # (B, Ci, Co, L, k, d, pad_lo, pad_hi): every VAE level's width with L cut to
 # a few tiles, k 1 / 3 / 7 at d 1 / 3 / 9; Ci = 2 (the encoder's conv_in),
 # Co = 2 (the decoder's conv_out); the encoder's 2048 -> 128 k = 3 at L 32;
-# k = 9 (two tap groups); an asymmetric pad
+# k = 9 (two tap groups); an asymmetric pad; the DAC decoders' last level (96
+# channels: a 128-wide tile a third dead, half of the second input chunk
+# zeros) at k = 7, d = 1 / 3 / 9, the mono DAC decoder's conv_out 96 -> 1 and
+# its encoder's conv_in 1 -> 128 (one live channel of a 64-channel chunk)
 CASES = [
     (2, 128, 128, 300, 7, 1, 3, 3), (1, 128, 128, 300, 7, 3, 9, 9),
     (1, 128, 128, 420, 7, 9, 27, 27), (2, 128, 128, 300, 1, 1, 0, 0),
@@ -291,6 +294,8 @@ CASES = [
     (2, 128, 2, 500, 7, 1, 3, 3), (2, 2048, 128, 32, 3, 1, 1, 1),
     (1, 64, 2048, 32, 7, 1, 3, 3), (1, 72, 40, 333, 3, 9, 18, 0),
     (1, 40, 96, 290, 9, 2, 8, 8),
+    (1, 96, 96, 300, 7, 1, 3, 3), (1, 96, 96, 300, 7, 3, 9, 9), (1, 96, 96, 420, 7, 9, 27, 27),
+    (2, 96, 1, 500, 7, 1, 3, 3), (2, 1, 128, 500, 7, 1, 3, 3),
 ]
 
 

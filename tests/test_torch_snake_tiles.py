@@ -256,6 +256,37 @@ def test_emulated_fwd_matches_plain_and_jax(B, C, L):
     _close(y, np.asarray(want).transpose(0, 2, 1), PALLAS_TOL)
 
 
+# (B, C, L): the snake sites of both DAC VAE-GANs' generator steps at batch 4
+# x 65,536 (the encoders' before each strided conv, the decoders' before
+# each transposed one), DAC's snake: beta is alpha
+DAC_SITES = [(4, 128, 65536), (4, 256, 16384), (4, 512, 4096), (4, 1024, 512), (4, 1536, 64),
+             (4, 768, 512), (4, 384, 4096), (4, 192, 16384), (4, 512, 2048), (4, 1024, 256),
+             (4, 1536, 32), (4, 768, 256), (4, 384, 2048)]
+
+
+@pytest.mark.parametrize("B,C,L", DAC_SITES)
+def test_emulated_bwd_with_beta_tied_to_alpha(B, C, L):
+    # models/dac.py passes one alpha as both parameters; the kernel's dalpha
+    # and dbeta, summed as autograd sums them into the one parameter, are the
+    # JAX gradient of x + sin^2(alpha x) / (alpha + 1e-9) with respect to
+    # alpha, and dx its gradient with respect to x
+    plan = tsn.snake_plan(B, C, L, 2)
+    Bs, Cs = _small(B, C, plan)
+    x, g, alpha, _ = _inputs(Bs, Cs, L, seed=B * C + L + 2)
+    dx, da, db = emulate_bwd(x, g, alpha, alpha, plan)
+    want = tsn.snake_fused_bwd_plain(*(torch.from_numpy(v) for v in (x, alpha, alpha, g)))
+    for got, ref in zip((dx, da, db), want):
+        _close(got, ref.numpy(), TOL)
+
+    def dac_snake(x, a):
+        return x + jnp.sin(a * x) ** 2 / (a + 1e-9)
+
+    _, pull = jax.vjp(dac_snake, _blc(x), jnp.asarray(alpha))
+    jdx, jda = pull(_blc(g))
+    _close(dx, np.asarray(jdx).transpose(0, 2, 1), TOL)
+    _close(da + db, jda, TOL)
+
+
 @pytest.mark.parametrize("B,C,L,itemsize,vector", [(2, 33, 5000, 4, True), (2, 48, 700, 2, False),
                                                   (2, 5, 4096, 2, False), (3, 7, 100, 4, True)])
 def test_emulated_bwd_other_plans(B, C, L, itemsize, vector):
