@@ -1,10 +1,14 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 2,4,6]
 
 Runs from the repository root on a machine with a CUDA card and `nvcc`;
 needs no network, no Triton and no JAX. Fourteen phases, each printing one
-line (phase 2 several); any failure raises and the exit code is nonzero:
+line (phase 2 several); any failure raises and the exit code is nonzero.
+`--phases` (for development runs) runs phase 1 and the phases named, with
+all their checks, and ends on `{"ok": true, "partial": [...]}`, the phases
+run; without it every phase runs, and the kernels' record, the check that
+every kernel launched on some path and the device line close the run:
 
 1. Device and build: the card's name and power limit, then every CUDA source
    of the port compiled from the checkout, all at once (seconds printed).
@@ -97,7 +101,19 @@ line (phase 2 several); any failure raises and the exit code is nonzero:
    fresh model. Every loss must be finite, every trainable parameter's
    gradient finite and not all zero, the parameters and the EMA must move,
    every kernel of the path must launch (the flash backward among them), and
-   the reloaded weights must be identical.
+   the reloaded weights must be identical. Then the training entry as users
+   run it, on the same trainer through `train.parse_args` / `configure`: a
+   further `fit` with validation on the WAVs every 2 steps, a checkpoint
+   every 2 steps with `--save-top-k 1` (exactly one file left) and the
+   config's own demo (its prompt, cfg 3 / 6 / 9, 2,097,152 samples;
+   DEMO_STEPS sampler steps) every 2 steps: the demo's launches pinned
+   (rows 1 / 2 24 / 72 a sampler step, rows 12 / 3 / 4 16 / 15 / 5 a
+   decode, a cfg scale each), its wavs finite and not silent, `val/` in the
+   log and no `demo/error`; `--recover` after one more step restores the
+   newest checkpoint bit for bit and trains on; `unwrap_model` writes the
+   EMA model and a fresh full-width build loads it through
+   `--pretrained-ckpt-path` (0 skipped, every tensor equal) and its VAE
+   through `--pretransform-ckpt-path`.
 
 5. SA-2.0 generation: a tiny SA-2.0-shaped model (CLAP text tower read from
    a checkpoint, strided-layout attention, chunked decode over three chunks)
@@ -126,7 +142,10 @@ line (phase 2 several); any failure raises and the exit code is nonzero:
    and resumes for a pair. Losses must be finite, every
    parameter of each side must get a finite nonzero gradient in its step,
    the parameters and the EMA must move, and the kernels must launch exactly
-   as counted from the model.
+   as counted from the model. Then the VAE's demo (a batch of reals
+   through the EMA autoencoder, the discriminator's sensitivity) and one
+   validation pass over the 40 clips (STFT, SI-SDR, mel), each forward
+   moving rows 12 / 3 / 4 by 32 / 30 / 10.
 
 7. LM generation: a tiny MusicGen-shaped LM's teacher-forced logits (the
    KV-cached decode and the full forward) agree between the card and the
@@ -146,6 +165,7 @@ line (phase 2 several); any failure raises and the exit code is nonzero:
    pieces of one step, its forward+backward under the profiler, a checkpoint
    and its reload. Every LM parameter must get a finite nonzero gradient and
    move, and the kernels must launch exactly as counted from the model.
+   Then the config's demo, LM_DEMO_FRAMES frames: finite, not silent.
 
 9. SA-2.0 training: one step of a tiny SA-2.0-shaped model (rotary
    self-attention on the fused-QKV entry, pre-encoded latents with a padding
@@ -179,6 +199,8 @@ line (phase 2 several); any failure raises and the exit code is nonzero:
    steps, one forward+backward profiled, a checkpoint and its reload. Losses
    and gradients finite, every gradient nonzero, parameters and EMA moved,
    and `conv1d_wgrad` launched once per stride-1 conv of the model a step.
+   Then the config's demo (4 clips, DEMO_STEPS steps): finite, not silent,
+   no hand-written kernel launched.
 
 11. SA-1.0 generation: a tiny SA-1.0-shaped model (CLAP text features, two
    int conditioners, an ADP UNetCFG1d, a DAC VAE in bf16) agrees between the
@@ -284,8 +306,10 @@ def profiled_us(fn, iters: int = 50, tries: int = 3) -> dict:
     the host time between launches). A warm-up step of `iters` calls runs
     with the tracer already on and is discarded, because the tracer can miss
     the start of its window (one launch, or a whole window of short ones);
-    a window in which it recorded no kernel at all is read again, up to
-    `tries` windows (`windows` says how many were read)."""
+    a window in which it recorded no kernel at all, or a number of launches
+    that is not a whole multiple of `iters` (it dropped some: 41 of 50 once,
+    PR 16 call 4), is read again, up to `tries` windows (`windows` says how
+    many were read)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -304,7 +328,7 @@ def profiled_us(fn, iters: int = 50, tries: int = 3) -> dict:
         # a scheduled profile also puts each step's span on the device timeline
         ks = [e for e in (readings[0] if readings else [])
               if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep")]
-        if ks:
+        if ks and sum(e.count for e in ks) % iters == 0:
             break
     return dict(device_us=sum(e.self_device_time_total for e in ks) / iters,
                 kernels_per_call=sum(e.count for e in ks) / iters,
@@ -1728,6 +1752,91 @@ SA2_KERNELS = ("flash_attention_nhd", "fused_layer_norm", "snake_conv1d", "snake
                "snake_fused")
 
 
+# demo lengths cut for the chip's time limit (step and frame counts only: each
+# config's prompts, cfg scales and sample sizes stay as shipped)
+DEMO_STEPS = 10  # SA-Open's and Dance's demo_steps (shipped: 100 and 250)
+LM_DEMO_FRAMES = 50  # MusicGen-small's demo_max_gen_len (shipped: the 500 of its sample size)
+# launches of one SA-Open demo request a cfg scale, counted from the model:
+# a sampler step is one DiT call at CFG batch 2 (24 blocks: row 1 once, row 2
+# three times each), the decode 16 / 15 / 5 of rows 12 / 3 / 4 (PERF.md)
+SA_OPEN_STEP_LAUNCHES = {"flash_attention_prefix": 24, "fused_layer_norm": 72}
+DECODE_LAUNCHES = {"snake_conv1d": 16, "snake_conv1d_res": 15, "snake_fused": 5}
+
+
+def log_records(trainer) -> list:
+    with open(trainer.logger.path) as f:
+        return [json.loads(line) for line in f]
+
+
+def demo_audio_checks(callback, what: str) -> dict:
+    """The last demo's outputs and wavs: finite and not silent (peak over
+    1e-4) each; returns {name: [peak of the output, wav files]}."""
+    import numpy as np
+
+    from stable_audio_tools_tpu_torch.data.wav import load_wav
+
+    out = {}
+    for name, audio in callback.outputs.items():
+        if name == "disc_sensitivity":
+            continue
+        peak = float(abs(audio).max()) if audio.size else 0.0
+        if not (math.isfinite(peak) and peak > 1e-4):
+            raise AssertionError(f"{what} demo {name}: peak {peak}")
+        wavs = [f for f in os.listdir(callback.demo_dir) if f.startswith(f"{name}_step")
+                and f.endswith(".wav")]
+        for f in wavs:
+            wav, _ = load_wav(os.path.join(callback.demo_dir, f))
+            if not (np.isfinite(wav).all() and abs(wav).max() > 1e-4):
+                raise AssertionError(f"{what} demo wav {f} is not finite or is silent")
+        if len(wavs) < audio.shape[0]:
+            raise AssertionError(f"{what} demo {name}: {len(wavs)} wavs for {audio.shape[0]}")
+        out[name] = [peak, len(wavs)]
+    return out
+
+
+def one_demo(trainer, argv: list, dataset_config: dict, what: str) -> dict:
+    """One demo of the trainer's config through `train.parse_args` and
+    `train.configure` (the entry's own wiring) and `Trainer.demo`, its
+    launches counted and its seconds timed; no `demo/error` may be logged.
+    Returns the record and the validation loader the flags give."""
+    from stable_audio_tools_tpu_torch import train
+
+    args = train.parse_args(argv)
+    val_loader = train.configure(trainer, args, dataset_config)
+    kernels = counters()
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer.demo(trainer.wrapper.step)
+    torch.cuda.synchronize()
+    rec = dict(demo_s=time.perf_counter() - t0,
+               launches={n: fn.launches for n, fn in kernels.items() if fn.launches})
+    errors = [r for r in log_records(trainer) if "demo/error" in r]
+    if errors:
+        raise AssertionError(f"{what} demo failed: {errors}")
+    rec["outputs"] = demo_audio_checks(trainer.demo_callback, what)
+    return rec, val_loader
+
+
+def one_validation(trainer, val_loader, what: str) -> dict:
+    """One validation pass (`Trainer.validate`), its launches counted and
+    seconds timed; every `val/` mean finite and logged."""
+    kernels = counters()
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    means = trainer.validate(val_loader, trainer.wrapper.step)
+    torch.cuda.synchronize()
+    rec = dict(val_s=time.perf_counter() - t0, means=means,
+               launches={n: fn.launches for n, fn in kernels.items() if fn.launches})
+    logged = [r for r in log_records(trainer) if any(k.startswith("val/") for k in r)]
+    if not means or not all(map(math.isfinite, means.values())) or not logged:
+        raise AssertionError(f"{what} validation: {means}, logged {logged}")
+    return rec
+
+
 def sa_open_config():
     with open(SA_OPEN) as f:
         cfg = json.load(f)
@@ -2041,15 +2150,18 @@ def phase_training(dev) -> dict:
     rec = dict(small=small, small_tol=small_tol)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         cfg_path = os.path.join(tmp, "model.json")
+        cfg = sa_open_config()
+        cfg["training"]["demo"]["demo_steps"] = DEMO_STEPS
         with open(cfg_path, "w") as f:
-            json.dump(sa_open_config(), f)
+            json.dump(cfg, f)
+        data = write_dataset(tmp)
         args = train.parse_args([
-            "--model-config", cfg_path, "--dataset-config", write_dataset(tmp),
+            "--model-config", cfg_path, "--dataset-config", data,
             "--batch-size", str(TRAIN_BATCH), "--num-workers", "4", "--seed", "0",
             "--max-steps", str(WARM_STEPS + TIMED_STEPS), "--checkpoint-every", "0",
             "--save-dir", os.path.join(tmp, "run")])
         t0 = time.perf_counter()
-        trainer, loader = train.build(args, device=dev)
+        trainer, loader, _ = train.build(args, device=dev)
         torch.cuda.synchronize()
         rec["build_s"] = time.perf_counter() - t0
         w = trainer.wrapper
@@ -2109,6 +2221,149 @@ def phase_training(dev) -> dict:
             raise AssertionError(f"checkpoint reload: {len(differ)} tensors differ "
                                  f"({differ[:5]}), step {state['step']} vs {w.step}")
         rec["reload_s"] = time.perf_counter() - t0
+        del state, fresh, current
+        rec["entry"] = sa_open_entry_check(dev, trainer, loader, tmp, cfg_path, data)
+    return rec
+
+
+def sa_open_entry_check(dev, trainer, loader, tmp: str, cfg_path: str, data: str) -> dict:
+    """Phase 4's training entry as users run it, on the phase's trainer at
+    full width: a further `fit` configured through `train.parse_args` and
+    `train.configure` with validation on the phase's WAVs every 2 steps, a
+    checkpoint every 2 steps keeping the newest (`--save-top-k 1`) and the
+    config's own demo (its prompt, cfg scales 3 / 6 / 9 and sample size;
+    DEMO_STEPS sampler steps) every 2 steps. Then `--recover` resolves the
+    newest checkpoint after one more step and restores it (the weights and
+    the EMA equal the saved ones bit for bit) and trains a step; then
+    `unwrap_model` writes the EMA model and a fresh full-width build loads
+    that file through `--pretrained-ckpt-path` (0 skipped, every tensor
+    equal) and its VAE through `--pretransform-ckpt-path`."""
+    from stable_audio_tools_tpu_torch import train, unwrap_model
+    from stable_audio_tools_tpu_torch.io.checkpoints import load_ckpt_state_dict
+    from stable_audio_tools_tpu_torch.training.trainer import step_checkpoints
+
+    w = trainer.wrapper
+    run = trainer.save_dir
+    end = (w.step // 2 + 1) * 2  # the next step that checkpoints, validates and demos
+    # the validation loader reads in this process: 4 spawn workers took ~14 s
+    # to start (PR 16 call 1), two batches take well under one
+    argv = ["--model-config", cfg_path, "--dataset-config", data, "--batch-size",
+            str(TRAIN_BATCH), "--num-workers", "0", "--seed", "0", "--save-dir", run,
+            "--checkpoint-every", "2", "--save-top-k", "1", "--val-dataset-config", data,
+            "--val-every", "2", "--demo-every", "2"]
+    with open(data) as f:
+        dataset_config = json.load(f)
+    val_loader = train.configure(trainer, train.parse_args(argv), dataset_config)
+    kernels = counters()
+    rec = dict(demo_launches=[], demo_scale_s=[], val_s=[], save_s=[])
+    demo, validate, save = trainer.demo_callback, trainer.validate, trainer.save
+    marks = []
+    real_save = demo._save
+
+    def timed_save(audio, name, step, **kw):  # a cfg scale's request ends in its _save
+        marks.append(time.perf_counter())
+        return real_save(audio, name, step, **kw)
+
+    def counted_demo(wrapper, step):
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        marks[:] = [time.perf_counter()]
+        demo(wrapper, step)
+        torch.cuda.synchronize()
+        rec["demo_launches"].append({n: fn.launches for n, fn in kernels.items() if fn.launches})
+        rec["demo_scale_s"].append([b - a for a, b in zip(marks, marks[1:])])
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            rec[key].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    demo._save = timed_save
+    trainer.demo_callback = counted_demo
+    trainer.validate, trainer.save = timed(validate, "val_s"), timed(save, "save_s")
+    trainer.fit(loader, max_steps=end, save_at_end=False, val_dataloader=val_loader)
+    trainer.validate, trainer.save = validate, save
+    trainer.demo_callback = demo
+    demo._save = real_save
+
+    log = log_records(trainer)
+    if any("demo/error" in r for r in log):
+        raise AssertionError(f"SA-Open demo failed: {[r for r in log if 'demo/error' in r]}")
+    if not any(k.startswith("val/") for r in log for k in r):
+        raise AssertionError("SA-Open: no val/ record in train_log.jsonl")
+    if not all(math.isfinite(v) for h in trainer.val_history for v in h.values()):
+        raise AssertionError(f"SA-Open validation: {trainer.val_history}")
+    ckpts = step_checkpoints(run)
+    if [s for s, _ in ckpts] != [end]:
+        raise AssertionError(f"--save-top-k 1 left {ckpts}")
+    cfg_scales = trainer.model_config["training"]["demo"]["demo_cfg_scales"]
+    per_scale = {n: DEMO_STEPS * c for n, c in SA_OPEN_STEP_LAUNCHES.items()}
+    per_scale.update(DECODE_LAUNCHES)
+    want = {n: len(cfg_scales) * c for n, c in per_scale.items()}
+    if rec["demo_launches"] != [want]:
+        raise AssertionError(f"SA-Open demo launches {rec['demo_launches']}, expected [{want}] "
+                             f"(per cfg scale {per_scale})")
+    rec.update(demo_outputs=demo_audio_checks(demo, "SA-Open"), cfg_scales=cfg_scales,
+               demo_per_scale_launches=per_scale, val=trainer.val_history[-1],
+               ckpt_gib=os.path.getsize(ckpts[-1][1]) / 2 ** 30)
+
+    # --recover after one more step (not saved): the newest checkpoint back
+    saved = {k: v.detach().to("cpu", copy=True) for k, v in w.model.state_dict().items()}
+    saved_ema = {k: v.to("cpu", copy=True) for k, v in w.ema.items()}
+    trainer.fit(loader, max_steps=end + 1, save_at_end=False)
+    t0 = time.perf_counter()
+    path = train.recover_path(train.parse_args(argv + ["--recover"]))
+    if path != ckpts[-1][1]:
+        raise AssertionError(f"--recover resolved {path!r}, not {ckpts[-1][1]!r}")
+    trainer.restore(path)
+    torch.cuda.synchronize()
+    rec["load_s"] = time.perf_counter() - t0
+    differ = [k for k, v in w.model.state_dict().items() if not torch.equal(v.cpu(), saved[k])]
+    differ += [k for k, v in w.ema.items() if not torch.equal(v.cpu(), saved_ema[k])]
+    if differ or w.step != end:
+        raise AssertionError(f"--recover: {len(differ)} tensors differ ({differ[:5]}), step "
+                             f"{w.step}")
+    del saved, saved_ema
+    trainer.fit(loader, max_steps=end + 1, save_at_end=False)
+    torch.cuda.synchronize()
+    rec["recover_to_first_step_s"] = time.perf_counter() - t0
+
+    # unwrap the EMA model, then a fresh full-width build loads it
+    t0 = time.perf_counter()
+    exported = unwrap_model.main(["--ckpt-path", path, "--name", os.path.join(tmp, "sa_open")])
+    rec["unwrap_s"] = time.perf_counter() - t0
+    rec["unwrapped_gib"] = os.path.getsize(exported) / 2 ** 30
+    for old in step_checkpoints(run):
+        os.remove(old[1])  # the card's machine's disk: one 18 GB file at a time
+    t0 = time.perf_counter()
+    fresh, report = train.build_model(train.parse_args(argv + [
+        "--pretrained-ckpt-path", exported, "--pretransform-ckpt-path", exported]),
+        sa_open_config(), dev)
+    torch.cuda.synchronize()
+    rec["pretrained_build_s"] = time.perf_counter() - t0
+    sd = load_ckpt_state_dict(exported)
+    differ = [k for k, v in fresh.state_dict().items() if not torch.equal(v.cpu(), sd[k])]
+    pretransform = {k for k in sd if k.startswith("pretransform.model.")}
+    if (report["pretrained_skipped"] or report["pretrained_loaded"] != len(sd) or differ
+            or report["pretransform_loaded"] != len(pretransform)):
+        raise AssertionError(f"--pretrained-ckpt-path: {report['pretrained_loaded']} loaded of "
+                             f"{len(sd)}, skipped {report['pretrained_skipped'][:5]}, "
+                             f"{len(differ)} differ ({differ[:5]}); pretransform "
+                             f"{report['pretransform_loaded']} of {len(pretransform)}")
+    ema_differ = [k for k, v in w.ema.items() if not torch.equal(sd[k], v.cpu())]
+    if w.step != end + 1 or not ema_differ:
+        # the file holds step end's EMA; the trainer has moved on a step
+        raise AssertionError("unwrap: the exported EMA matches the live one after a step")
+    rec.update(pretrained_loaded=report["pretrained_loaded"],
+               pretransform_loaded=report["pretransform_loaded"])
+    del fresh, sd
+    os.remove(exported)
     return rec
 
 
@@ -2544,7 +2799,7 @@ def resume_check(trainer, loader, path: str, steps: int) -> dict:
 
 
 def gan_training(dev, cfg: dict, tmp: str, dataset: str, gen_launches: dict,
-                 disc_launches: dict) -> dict:
+                 disc_launches: dict, entry: bool = False) -> dict:
     """A shipped autoencoder GAN config at full width, batch AE_BATCH,
     through `train.build` and `Trainer.fit`: GAN_WARM_PAIRS + GAN_TIMED_PAIRS generator +
     discriminator pairs, finite losses, every parameter of each side with a
@@ -2564,7 +2819,7 @@ def gan_training(dev, cfg: dict, tmp: str, dataset: str, gen_launches: dict,
         "--checkpoint-every", "0", "--save-dir", os.path.join(tmp, "run")])
     rec = {}
     t0 = time.perf_counter()
-    trainer, loader = train.build(args, device=dev)
+    trainer, loader, _ = train.build(args, device=dev)
     torch.cuda.synchronize()
     rec["build_s"] = time.perf_counter() - t0
     w = trainer.wrapper
@@ -2630,10 +2885,42 @@ def gan_training(dev, cfg: dict, tmp: str, dataset: str, gen_launches: dict,
     rec["save_s"] = time.perf_counter() - t0
     rec["ckpt_gib"] = os.path.getsize(path) / 2 ** 30
     rec.update(resume_check(trainer, loader, path, 2))
+    if entry:
+        rec["entry"] = ae_entry_check(trainer, cfg_path, dataset, disc_launches)
     return rec
 
 
-def gan_phase(dev, cfg: dict, make_tiny, counts: dict) -> dict:
+def ae_entry_check(trainer, cfg_path: str, dataset: str, forward_launches: dict) -> dict:
+    """An autoencoder's demo (`AutoencoderDemoCallback`: a batch of the
+    dataset's reals encoded and decoded with the EMA weights, the
+    discriminator's sensitivity through autograd) and one validation pass
+    over the dataset (the STFT, SI-SDR and mel distances of the eval-mode
+    forward), both through the entry's flags, at full width: each forward
+    moves rows 12 / 3 / 4 by `forward_launches` (an encode and a decode)."""
+    argv = ["--model-config", cfg_path, "--dataset-config", dataset, "--batch-size",
+            str(AE_BATCH), "--num-workers", "0", "--seed", "0", "--save-dir",
+            trainer.save_dir, "--val-dataset-config", dataset, "--val-every", "1",
+            "--demo-every", "1"]
+    with open(dataset) as f:
+        dataset_config = json.load(f)
+    rec, val_loader = one_demo(trainer, argv, dataset_config, "VAE")
+    if rec["launches"] != forward_launches:
+        raise AssertionError(f"VAE demo launches {rec['launches']}, expected {forward_launches}")
+    g = trainer.demo_callback.outputs["disc_sensitivity"]
+    if not (g.shape == trainer.demo_callback.outputs["recon"].shape
+            and math.isfinite(float(g.max())) and float(g.max()) > 0):
+        raise AssertionError(f"VAE demo: discriminator sensitivity {g.shape} max {g.max()}")
+    val = one_validation(trainer, val_loader, "VAE")
+    n_batches = len(val_loader.dataset) // AE_BATCH
+    want = {n: n_batches * c for n, c in forward_launches.items()}
+    if val["launches"] != want:
+        raise AssertionError(f"VAE validation launches {val['launches']}, expected {want} "
+                             f"({n_batches} batches)")
+    rec.update(val=val, val_batches=n_batches)
+    return rec
+
+
+def gan_phase(dev, cfg: dict, make_tiny, counts: dict, entry: bool = False) -> dict:
     """A VAE-GAN's phase: `small_gan_check` of its tiny twin
     (`make_tiny(compute_dtype)`, within 5%), then `gan_training` of the
     shipped `cfg` on 40 synthetic WAVs of 3-7 s, its launches a pair
@@ -2645,16 +2932,17 @@ def gan_phase(dev, cfg: dict, make_tiny, counts: dict) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_gan_") as tmp:
         data = write_dataset(tmp, 40, 3, 0.1, sr=cfg["sample_rate"],
                              channels=cfg["audio_channels"])
-        rec = gan_training(dev, cfg, tmp, data, counts["gen"], counts["disc"])
+        rec = gan_training(dev, cfg, tmp, data, counts["gen"], counts["disc"], entry)
     rec.update(small=small, small_tol=small_tol, counts=counts)
     return rec
 
 
 def phase_ae_training(dev) -> dict:
     """Phase 6: `gan_phase` of the shipped SA-2.0 VAE, its launches
-    AE_GEN_LAUNCHES / AE_DISC_LAUNCHES."""
+    AE_GEN_LAUNCHES / AE_DISC_LAUNCHES, then its demo and a validation pass
+    (`ae_entry_check`)."""
     return gan_phase(dev, sa2_vae_config(), tiny_ae_config,
-                     dict(gen=AE_GEN_LAUNCHES, disc=AE_DISC_LAUNCHES))
+                     dict(gen=AE_GEN_LAUNCHES, disc=AE_DISC_LAUNCHES), entry=True)
 
 
 LM_CONFIG = os.path.join(ROOT, "stable_audio_tools_tpu", "configs", "model_configs", "lm",
@@ -2994,7 +3282,7 @@ def phase_lm_training(dev) -> dict:
             "--max-steps", str(n_steps), "--checkpoint-every", "0",
             "--save-dir", os.path.join(tmp, "run")])
         t0 = time.perf_counter()
-        trainer, loader = train.build(args, device=dev)
+        trainer, loader, _ = train.build(args, device=dev)
         torch.cuda.synchronize()
         rec["build_s"] = time.perf_counter() - t0
         w = trainer.wrapper
@@ -3060,6 +3348,14 @@ def phase_lm_training(dev) -> dict:
         if differ or state["step"] != w.step:
             raise AssertionError(f"LM checkpoint reload: {len(differ)} tensors differ "
                                  f"({differ[:5]}), step {state['step']} vs {w.step}")
+        # the config's demo (its default prompt, no CFG), LM_DEMO_FRAMES frames
+        # KV-cached, then the codec's decode
+        trainer.model_config["training"]["demo"]["demo_max_gen_len"] = LM_DEMO_FRAMES
+        with open(args.dataset_config) as f:
+            dataset_config = json.load(f)
+        rec["demo"], _ = one_demo(trainer, [
+            "--model-config", cfg_path, "--dataset-config", args.dataset_config,
+            "--save-dir", trainer.save_dir, "--demo-every", "1"], dataset_config, "LM")
     return rec
 
 
@@ -3277,7 +3573,7 @@ def phase_sa2_training(dev) -> dict:
             "--max-steps", str(WARM_STEPS + TIMED_STEPS), "--checkpoint-every", "0",
             "--save-dir", os.path.join(tmp, "run")])
         t0 = time.perf_counter()
-        trainer, loader = train.build(args, device=dev)
+        trainer, loader, _ = train.build(args, device=dev)
         w = trainer.wrapper
         # the latents' own encoder, for 9c's in-step encode
         load_model_state(vae_ckpt, w.model.pretransform.model)
@@ -3600,7 +3896,7 @@ def dance_training(dev) -> dict:
             "--batch-size", str(DANCE_BATCH), "--num-workers", "4", "--seed", "0",
             "--max-steps", str(WARM_STEPS + TIMED_STEPS), "--checkpoint-every", "0",
             "--save-dir", os.path.join(tmp, "run")])
-        trainer, loader = train.build(args, device=dev)
+        trainer, loader, _ = train.build(args, device=dev)
         w = trainer.wrapper
         unet = w.model.model
         if unet.compute_dtype != torch.bfloat16 or next(unet.parameters()).device != dev:
@@ -3663,6 +3959,16 @@ def dance_training(dev) -> dict:
         if differ or state["step"] != w.step or set(state["ema"]) != set(w.ema):
             raise AssertionError(f"Dance checkpoint reload: {len(differ)} tensors differ "
                                  f"({differ[:5]}), step {state['step']} vs {w.step}")
+        # the config's demo (num_demos 4 at the sample size), DEMO_STEPS steps:
+        # the DAU1d launches no hand-written kernel
+        trainer.model_config["training"]["demo"]["demo_steps"] = DEMO_STEPS
+        with open(args.dataset_config) as f:
+            dataset_config = json.load(f)
+        rec["demo"], _ = one_demo(trainer, [
+            "--model-config", cfg_path, "--dataset-config", args.dataset_config,
+            "--save-dir", trainer.save_dir, "--demo-every", "1"], dataset_config, "Dance")
+        if rec["demo"]["launches"]:
+            raise AssertionError(f"Dance demo launched {rec['demo']['launches']}")
     return rec
 
 
@@ -4066,7 +4372,7 @@ def phase_sa1_training(dev) -> dict:
             "--max-steps", str(n_steps), "--checkpoint-every", "0",
             "--save-dir", os.path.join(tmp, "run")])
         t0 = time.perf_counter()
-        trainer, loader = train.build(args, device=dev)
+        trainer, loader, _ = train.build(args, device=dev)
         torch.cuda.synchronize()
         rec["build_s"] = time.perf_counter() - t0
         w = trainer.wrapper
@@ -4316,7 +4622,29 @@ def phase_codec_training(dev) -> dict:
     return rec
 
 
-def main() -> int:
+PHASES = tuple(range(1, 15))
+
+
+def parse_phases(argv) -> set:
+    """`--phases 2,4,6` runs phase 1 (the card and the build) and those; no
+    argument runs every phase, as the plain `python3 chip_smoke.py` does."""
+    import argparse
+
+    p = argparse.ArgumentParser(description="chip smoke test of the PyTorch/CUDA port")
+    p.add_argument("--phases", default=None,
+                   help="comma-separated phase numbers for a development run (default: all)")
+    args = p.parse_args(argv)
+    if args.phases is None:
+        return set(PHASES)
+    phases = {int(x) for x in args.phases.split(",") if x.strip()} | {1}
+    if not phases <= set(PHASES):
+        p.error(f"phases are {PHASES[0]}-{PHASES[-1]}, got {sorted(phases)}")
+    return phases
+
+
+def main(argv=None) -> int:
+    phases = parse_phases(sys.argv[1:] if argv is None else argv)
+    want = phases.__contains__
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card",
               file=sys.stderr)
@@ -4332,161 +4660,182 @@ def main() -> int:
           f"| nvcc seconds {json.dumps({k: round(v, 2) for k, v in _build.build_all().items()})}",
           flush=True)
 
-    rec = phase_kernels(dev)
-    print("phase 2 kernels: " + "; ".join(
-        f"{n} err {r['max_abs_err']:.3g} ({r['tol']}) {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms"
-        + "".join(f" [route {k}: {v['ms']:.4f} ms, rel err {v['max_rel_err']:.3g}]"
-                  for k, v in r.get("routes", {}).items())
-        for n, r in rec.items()), flush=True)
-    bwd = rec["flash_attention_prefix_bwd"]
-    print("phase 2 flash backward (ms; bound; SDPA's backward in this call): " + "; ".join(
-        f"{r['shape'].split(' bf16')[0]} " + ", ".join(
-            f"{k} {v['ms']:.4f}" for k, v in r["routes"].items())
-        + f" ({r['bound_ms']:.4f} by {r['bound_by']}; SDPA {r['library_ms']:.4f})"
-        for r in (bwd, bwd["sa2_training_shape"]))
-        + f"; route {bwd['main_route']} bit-identical on two runs: "
-        f"{bwd['deterministic'] and bwd['sa2_training_shape']['deterministic']}; ptxas "
-        + ", ".join(f"{n} {r['registers']} regs {r['spill_stores']} B spilled"
-                    for n, r in bwd["ptxas"].items()) + f" on {card}", flush=True)
-    print("phase 2 flash forward: ptxas " + ", ".join(f"{n} {r['registers']} regs {r['spill_stores']} B spilled"
-                                 for n, r in rec["flash_attention"]["ptxas"].items())
-        + f"; launch-sized rows, profiler device us a call (library): " + ", ".join(
-            f"{n} {rec[n]['profiled']['device_us']:.2f} ({rec[n]['library_profiled']['device_us']:.2f})"
-            for n in ("flash_attention_prefix", "flash_attention", "fused_layer_norm"))
-        + f"; fused_layer_norm host us a call {rec['fused_layer_norm']['host_us']:.1f} "
-        f"(F.layer_norm {rec['fused_layer_norm']['library_host_us']:.1f}) on {card}", flush=True)
-    carry = rec["snake_conv1d"]
-    print("phase 2 snake-conv A/B (k=7, ms; row 3 | row 12 | row 12 | row 3; F.conv1d alone on "
-          "the pre-snaked input; bound): " + "; ".join(
-              f"{r['shape']} {r['row3_ms'][0]:.4f} | {r['carry_ms'][0]:.4f} | "
-              f"{r['carry_ms'][1]:.4f} | {r['row3_ms'][1]:.4f}; {r['conv_only_ms']:.4f}; "
-              f"{r['bound_ms']:.4f} (strips of {r['strip_tiles']} tiles, carry {r['carried']})"
-              for r in [carry["ab"]["timed"], *carry["ab"]["sa2_levels"]])
-          + f"; row 12 vs row 3: {json.dumps(carry['vs_row3'])} on {card}", flush=True)
-    print("phase 2 snake-conv row 3, k=1 + residual at SA-2.0's decode levels (ms; F.conv1d "
-          "k=1 on the pre-snaked input + the residual; byte bound): " + "; ".join(
-              f"{r['shape']} {r['ms']:.4f}; {r['conv_plus_res_ms']:.4f}; {r['bound_ms']:.4f}"
-              for r in rec["snake_conv1d_res"]["sa2_levels"])
-          + "; ptxas " + ", ".join(f"{n} {r['registers']} regs {r['spill_stores']} B spilled"
-                                   for n, r in carry["ptxas"].items()) + f" on {card}",
-          flush=True)
-    dxr, wr = rec["snake_conv1d_dx"], rec["snake_conv1d_wgrad"]
-    print("phase 2 snake-conv backward at the VAE generator step's shapes (ms; row 10 | row 11; "
-          "cuDNN's conv1d_input | conv1d_weight on the pre-snaked input; bounds; launches a "
-          "step): " + "; ".join(
-              f"{p['shape']} {p['dx_ms']:.4f} | {q['wgrad_ms']:.4f}; {p['conv1d_input_ms']:.4f} | "
-              f"{q['conv1d_weight_ms']:.4f}; {p['dx_bound_ms']:.4f} | {q['wgrad_bound_ms']:.4f}; "
-              f"x{p['launches']}" for p, q in zip(dxr["levels"], wr["levels"]))
-          + "; a generator step: row 10 {ms:.3f} ({conv1d_input_ms:.3f}, bound {bound_ms:.3f}), "
-          .format(**dxr["generator_step"])
-          + "row 11 {ms:.3f} ({conv1d_weight_ms:.3f}, bound {bound_ms:.3f}), shares ".format(
-              **wr["generator_step"])
-          + f"{dxr['generator_step']['share_of_bound']:.3f} | "
-          f"{wr['generator_step']['share_of_bound']:.3f} on {card}", flush=True)
+    if want(2):
+        rec = phase_kernels(dev)
+        print("phase 2 kernels: " + "; ".join(
+            f"{n} err {r['max_abs_err']:.3g} ({r['tol']}) {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms"
+            + "".join(f" [route {k}: {v['ms']:.4f} ms, rel err {v['max_rel_err']:.3g}]"
+                      for k, v in r.get("routes", {}).items())
+            for n, r in rec.items()), flush=True)
+        bwd = rec["flash_attention_prefix_bwd"]
+        print("phase 2 flash backward (ms; bound; SDPA's backward in this call): " + "; ".join(
+            f"{r['shape'].split(' bf16')[0]} " + ", ".join(
+                f"{k} {v['ms']:.4f}" for k, v in r["routes"].items())
+            + f" ({r['bound_ms']:.4f} by {r['bound_by']}; SDPA {r['library_ms']:.4f})"
+            for r in (bwd, bwd["sa2_training_shape"]))
+            + f"; route {bwd['main_route']} bit-identical on two runs: "
+            f"{bwd['deterministic'] and bwd['sa2_training_shape']['deterministic']}; ptxas "
+            + ", ".join(f"{n} {r['registers']} regs {r['spill_stores']} B spilled"
+                        for n, r in bwd["ptxas"].items()) + f" on {card}", flush=True)
+        print("phase 2 flash forward: ptxas " + ", ".join(f"{n} {r['registers']} regs {r['spill_stores']} B spilled"
+                                     for n, r in rec["flash_attention"]["ptxas"].items())
+            + f"; launch-sized rows, profiler device us a call (library): " + ", ".join(
+                f"{n} {rec[n]['profiled']['device_us']:.2f} ({rec[n]['library_profiled']['device_us']:.2f})"
+                for n in ("flash_attention_prefix", "flash_attention", "fused_layer_norm"))
+            + f"; fused_layer_norm host us a call {rec['fused_layer_norm']['host_us']:.1f} "
+            f"(F.layer_norm {rec['fused_layer_norm']['library_host_us']:.1f}) on {card}", flush=True)
+        carry = rec["snake_conv1d"]
+        print("phase 2 snake-conv A/B (k=7, ms; row 3 | row 12 | row 12 | row 3; F.conv1d alone on "
+              "the pre-snaked input; bound): " + "; ".join(
+                  f"{r['shape']} {r['row3_ms'][0]:.4f} | {r['carry_ms'][0]:.4f} | "
+                  f"{r['carry_ms'][1]:.4f} | {r['row3_ms'][1]:.4f}; {r['conv_only_ms']:.4f}; "
+                  f"{r['bound_ms']:.4f} (strips of {r['strip_tiles']} tiles, carry {r['carried']})"
+                  for r in [carry["ab"]["timed"], *carry["ab"]["sa2_levels"]])
+              + f"; row 12 vs row 3: {json.dumps(carry['vs_row3'])} on {card}", flush=True)
+        print("phase 2 snake-conv row 3, k=1 + residual at SA-2.0's decode levels (ms; F.conv1d "
+              "k=1 on the pre-snaked input + the residual; byte bound): " + "; ".join(
+                  f"{r['shape']} {r['ms']:.4f}; {r['conv_plus_res_ms']:.4f}; {r['bound_ms']:.4f}"
+                  for r in rec["snake_conv1d_res"]["sa2_levels"])
+              + "; ptxas " + ", ".join(f"{n} {r['registers']} regs {r['spill_stores']} B spilled"
+                                       for n, r in carry["ptxas"].items()) + f" on {card}",
+              flush=True)
+        dxr, wr = rec["snake_conv1d_dx"], rec["snake_conv1d_wgrad"]
+        print("phase 2 snake-conv backward at the VAE generator step's shapes (ms; row 10 | row 11; "
+              "cuDNN's conv1d_input | conv1d_weight on the pre-snaked input; bounds; launches a "
+              "step): " + "; ".join(
+                  f"{p['shape']} {p['dx_ms']:.4f} | {q['wgrad_ms']:.4f}; {p['conv1d_input_ms']:.4f} | "
+                  f"{q['conv1d_weight_ms']:.4f}; {p['dx_bound_ms']:.4f} | {q['wgrad_bound_ms']:.4f}; "
+                  f"x{p['launches']}" for p, q in zip(dxr["levels"], wr["levels"]))
+              + "; a generator step: row 10 {ms:.3f} ({conv1d_input_ms:.3f}, bound {bound_ms:.3f}), "
+              .format(**dxr["generator_step"])
+              + "row 11 {ms:.3f} ({conv1d_weight_ms:.3f}, bound {bound_ms:.3f}), shares ".format(
+                  **wr["generator_step"])
+              + f"{dxr['generator_step']['share_of_bound']:.3f} | "
+              f"{wr['generator_step']['share_of_bound']:.3f} on {card}", flush=True)
 
-    for step, what in (("dance_step", "a Dance"), ("codec_step", "a codec generator")):
-        dw = rec["conv1d_wgrad"][step]
-        print(f"phase 2 row 11 plain (conv1d_wgrad) at {what} training step's shapes, batch 4 "
-              "(ms back to back; torch.nn.grad.conv1d_weight; bound; launches a step): "
-              + "; ".join(f"{c['shape']} {c['ms']:.4f}; {c['conv1d_weight_ms']:.4f}; "
-                          f"{c['bound_ms']:.4f}; x{c['launches']}" for c in dw["levels"])
-              + f"; a step ({dw['launches']} launches): {dw['ms']:.3f} ms (conv1d_weight "
-              f"{dw['conv1d_weight_ms']:.3f}, bound {dw['bound_ms']:.3f}, share "
-              f"{dw['share_of_bound']:.3f}); max rel err {dw['max_rel_err']:.3g} (tol "
-              f"{GRAD_REL_TOL}); every call launched its kernel; on {card}", flush=True)
+        for step, what in (("dance_step", "a Dance"), ("codec_step", "a codec generator")):
+            dw = rec["conv1d_wgrad"][step]
+            print(f"phase 2 row 11 plain (conv1d_wgrad) at {what} training step's shapes, batch 4 "
+                  "(ms back to back; torch.nn.grad.conv1d_weight; bound; launches a step): "
+                  + "; ".join(f"{c['shape']} {c['ms']:.4f}; {c['conv1d_weight_ms']:.4f}; "
+                              f"{c['bound_ms']:.4f}; x{c['launches']}" for c in dw["levels"])
+                  + f"; a step ({dw['launches']} launches): {dw['ms']:.3f} ms (conv1d_weight "
+                  f"{dw['conv1d_weight_ms']:.3f}, bound {dw['bound_ms']:.3f}, share "
+                  f"{dw['share_of_bound']:.3f}); max rel err {dw['max_rel_err']:.3g} (tol "
+                  f"{GRAD_REL_TOL}); every call launched its kernel; on {card}", flush=True)
 
-    sf, sb = rec["snake_fused"], rec["snake_fused_bwd"]
-    print("phase 2 snake (rows 9 | 4) at the VAE generator step's sites (ms back to back; "
-          "kernel ms by the profiler; byte bounds; launches a step): " + "; ".join(
-              f"{s['shape']} {s['bwd_ms']:.4f} | {s['fwd_ms']:.4f}; {s['bwd_device_ms']:.4f} | "
-              f"{s['fwd_device_ms']:.4f}; {s['bwd_bound_ms']:.4f} | {s['fwd_bound_ms']:.4f}; "
-              f"x{s['launches']}" for s in sb["levels"])
-          + "; a generator step: row 9 {ms:.4f}, kernels {device_ms:.4f} (bound {bound_ms:.4f}, "
-          "shares {share_of_bound:.3f}, {device_share_of_bound:.3f}), ".format(
-              **sb["generator_step"])
-          + "row 4 {ms:.4f}, kernels {device_ms:.4f} (bound {bound_ms:.4f}, shares "
-          "{share_of_bound:.3f}, {device_share_of_bound:.3f}); ".format(**sf["generator_step"])
-          + "row 4 a decode group {ms:.4f} (bound {bound_ms:.4f}, share "
-          "{share_of_bound:.3f}); two backward calls bit-identical at every site on ".format(
-              **sf["decode_group"]) + card, flush=True)
+        sf, sb = rec["snake_fused"], rec["snake_fused_bwd"]
+        print("phase 2 snake (rows 9 | 4) at the VAE generator step's sites (ms back to back; "
+              "kernel ms by the profiler; byte bounds; launches a step): " + "; ".join(
+                  f"{s['shape']} {s['bwd_ms']:.4f} | {s['fwd_ms']:.4f}; {s['bwd_device_ms']:.4f} | "
+                  f"{s['fwd_device_ms']:.4f}; {s['bwd_bound_ms']:.4f} | {s['fwd_bound_ms']:.4f}; "
+                  f"x{s['launches']}" for s in sb["levels"])
+              + "; a generator step: row 9 {ms:.4f}, kernels {device_ms:.4f} (bound {bound_ms:.4f}, "
+              "shares {share_of_bound:.3f}, {device_share_of_bound:.3f}), ".format(
+                  **sb["generator_step"])
+              + "row 4 {ms:.4f}, kernels {device_ms:.4f} (bound {bound_ms:.4f}, shares "
+              "{share_of_bound:.3f}, {device_share_of_bound:.3f}); ".format(**sf["generator_step"])
+              + "row 4 a decode group {ms:.4f} (bound {bound_ms:.4f}, share "
+              "{share_of_bound:.3f}); two backward calls bit-identical at every site on ".format(
+                  **sf["decode_group"]) + card, flush=True)
 
-    def sa1_cases(entry):
-        return "; ".join(
-            f"{path}: " + ", ".join(f"{c['shape']} {c['ms']:.4f}" for c in p["cases"])
-            + " (sum of {launches} launches {ms:.3f} ms, bound {bound_ms:.3f}, share "
-            "{share_of_bound:.3f})".format(**p["total"]) for path, p in entry.items())
+        def sa1_cases(entry):
+            return "; ".join(
+                f"{path}: " + ", ".join(f"{c['shape']} {c['ms']:.4f}" for c in p["cases"])
+                + " (sum of {launches} launches {ms:.3f} ms, bound {bound_ms:.3f}, share "
+                "{share_of_bound:.3f})".format(**p["total"]) for path, p in entry.items())
 
-    lnr = rec["fused_layer_norm"]["sa1_f32"]
-    print("phase 2 SA-1.0 shapes (ms back to back): row 12 " + sa1_cases(rec["snake_conv1d"]["sa1"])
-          + "; row 3 " + sa1_cases(rec["snake_conv1d_res"]["sa1"]) + "; row 4 (beta = alpha) "
-          + sa1_cases(rec["snake_fused"]["sa1"]) + "; row 2 f32 " + ", ".join(
-              f"{c['shape'].split(' f32')[0]} {c['ms']:.4f} (F.layer_norm {c['library_ms']:.4f}, "
-              f"bound {c['bound_ms']:.4f}, x{c['launches']})" for c in lnr["cases"])
-          + " (a UNet forward's {launches} launches {ms:.3f} ms, F.layer_norm {library_ms:.3f}, "
-          "bound {bound_ms:.3f})".format(**lnr["unet_forward"]) + f" on {card}", flush=True)
+        lnr = rec["fused_layer_norm"]["sa1_f32"]
+        print("phase 2 SA-1.0 shapes (ms back to back): row 12 " + sa1_cases(rec["snake_conv1d"]["sa1"])
+              + "; row 3 " + sa1_cases(rec["snake_conv1d_res"]["sa1"]) + "; row 4 (beta = alpha) "
+              + sa1_cases(rec["snake_fused"]["sa1"]) + "; row 2 f32 " + ", ".join(
+                  f"{c['shape'].split(' f32')[0]} {c['ms']:.4f} (F.layer_norm {c['library_ms']:.4f}, "
+                  f"bound {c['bound_ms']:.4f}, x{c['launches']})" for c in lnr["cases"])
+              + " (a UNet forward's {launches} launches {ms:.3f} ms, F.layer_norm {library_ms:.3f}, "
+              "bound {bound_ms:.3f})".format(**lnr["unet_forward"]) + f" on {card}", flush=True)
 
-    def dac_sums(name):
-        dx, wg = (rec[k]["dac"][name]["generator_step"]
-                  for k in ("snake_conv1d_dx", "snake_conv1d_wgrad"))
-        pl, s9 = rec["conv1d_wgrad"]["dac"][name], rec["snake_fused_bwd"]["dac"][name]
-        return (f"{name}: row 10 x{dx['launches']} {dx['dx_ms']:.3f} ms (conv1d_input "
-                f"{dx['conv1d_input_ms']:.3f}, bound {dx['dx_bound_ms']:.3f}, share "
-                f"{dx['share_of_bound']:.3f}), row 11 x{wg['launches']} {wg['wgrad_ms']:.3f} "
-                f"(conv1d_weight {wg['conv1d_weight_ms']:.3f}, bound {wg['wgrad_bound_ms']:.3f}, "
-                f"share {wg['share_of_bound']:.3f}), row 11 plain x{pl['launches']} "
-                f"{pl['ms']:.4f} (conv1d_weight {pl['conv1d_weight_ms']:.4f}, bound "
-                f"{pl['bound_ms']:.4f}), row 9 x{s9['launches']} {s9['bwd_ms']:.4f} (bound "
-                f"{s9['bwd_bound_ms']:.4f}, share {s9['share_of_bound']:.3f})")
+        def dac_sums(name):
+            dx, wg = (rec[k]["dac"][name]["generator_step"]
+                      for k in ("snake_conv1d_dx", "snake_conv1d_wgrad"))
+            pl, s9 = rec["conv1d_wgrad"]["dac"][name], rec["snake_fused_bwd"]["dac"][name]
+            return (f"{name}: row 10 x{dx['launches']} {dx['dx_ms']:.3f} ms (conv1d_input "
+                    f"{dx['conv1d_input_ms']:.3f}, bound {dx['dx_bound_ms']:.3f}, share "
+                    f"{dx['share_of_bound']:.3f}), row 11 x{wg['launches']} {wg['wgrad_ms']:.3f} "
+                    f"(conv1d_weight {wg['conv1d_weight_ms']:.3f}, bound {wg['wgrad_bound_ms']:.3f}, "
+                    f"share {wg['share_of_bound']:.3f}), row 11 plain x{pl['launches']} "
+                    f"{pl['ms']:.4f} (conv1d_weight {pl['conv1d_weight_ms']:.4f}, bound "
+                    f"{pl['bound_ms']:.4f}), row 9 x{s9['launches']} {s9['bwd_ms']:.4f} (bound "
+                    f"{s9['bwd_bound_ms']:.4f}, share {s9['share_of_bound']:.3f})")
 
-    print("phase 2 DAC VAE-GAN generator-step shapes, batch 4 x 65536, alpha as beta (summed "
-          "over a step's launches, ms back to back): " + "; ".join(dac_sums(n) for n in DAC_VAES)
-          + "; cases (row 10 | row 11; conv1d_input | conv1d_weight) " + ", ".join(
-              f"{c['shape']} {c['dx_ms']:.4f} | {q['wgrad_ms']:.4f}; {c['conv1d_input_ms']:.4f}"
-              f" | {q['conv1d_weight_ms']:.4f}" for c, q in zip(
-                  rec["snake_conv1d_dx"]["dac"]["cases"], rec["snake_conv1d_wgrad"]["dac"]["cases"]))
-          + f"; every call launched its kernel; on {card}", flush=True)
+        print("phase 2 DAC VAE-GAN generator-step shapes, batch 4 x 65536, alpha as beta (summed "
+              "over a step's launches, ms back to back): " + "; ".join(dac_sums(n) for n in DAC_VAES)
+              + "; cases (row 10 | row 11; conv1d_input | conv1d_weight) " + ", ".join(
+                  f"{c['shape']} {c['dx_ms']:.4f} | {q['wgrad_ms']:.4f}; {c['conv1d_input_ms']:.4f}"
+                  f" | {q['conv1d_weight_ms']:.4f}" for c, q in zip(
+                      rec["snake_conv1d_dx"]["dac"]["cases"], rec["snake_conv1d_wgrad"]["dac"]["cases"]))
+              + f"; every call launched its kernel; on {card}", flush=True)
 
-    main_rec = phase_main_path(dev)
-    print(f"phase 3 generation: SA-Open {main_rec['params'] / 1e9:.3f}B params, {STEPS} steps "
-          f"dpmpp-3m-sde cfg 6, {SAMPLE_SIZE} samples: wall {main_rec['wall_s']:.3f} s, "
-          f"{main_rec['audio_s_per_s']:.3f} audio-s/s, peak {main_rec['peak_gib']:.2f} GiB, "
-          f"launches {json.dumps(main_rec['launches'])}, small card-vs-CPU rel err "
-          f"{main_rec['small_err']:.3g} (tol {main_rec['small_tol']:.3g}) on {card}", flush=True)
-    torch.cuda.empty_cache()
+    if want(3):
+        main_rec = phase_main_path(dev)
+        print(f"phase 3 generation: SA-Open {main_rec['params'] / 1e9:.3f}B params, {STEPS} steps "
+              f"dpmpp-3m-sde cfg 6, {SAMPLE_SIZE} samples: wall {main_rec['wall_s']:.3f} s, "
+              f"{main_rec['audio_s_per_s']:.3f} audio-s/s, peak {main_rec['peak_gib']:.2f} GiB, "
+              f"launches {json.dumps(main_rec['launches'])}, small card-vs-CPU rel err "
+              f"{main_rec['small_err']:.3g} (tol {main_rec['small_tol']:.3g}) on {card}", flush=True)
+        torch.cuda.empty_cache()
 
-    train_rec = phase_training(dev)
-    split = train_rec["split"]
-    print(f"phase 4 training: SA-Open {train_rec['trainable_params'] / 1e9:.3f}B trainable of "
-          f"{train_rec['params'] / 1e9:.3f}B, batch {TRAIN_BATCH} x {SAMPLE_SIZE} samples: step "
-          f"{train_rec['step_ms_median']:.1f} ms median of {TIMED_STEPS} "
-          f"({', '.join(f'{x:.1f}' for x in train_rec['step_ms'])}), "
-          f"{train_rec['audio_s_per_s']:.2f} audio-s trained/s, peak {train_rec['peak_gib']:.2f} GiB, "
-          f"losses {', '.join(f'{x:.4g}' for x in train_rec['losses'])}; split ms "
-          + ", ".join(f"{k[:-3]} {v:.1f}" for k, v in split.items()
-                      if k.endswith("_ms") and isinstance(v, float))
-          + f"; fwd+bwd device busy {split['fwd_bwd_device_busy']:.1%}; launches "
-          f"{json.dumps(train_rec['launches'])}; checkpoint {train_rec['ckpt_gib']:.2f} GiB saved "
-          f"{train_rec['save_s']:.1f} s, reloaded identical {train_rec['reload_s']:.1f} s; small "
-          f"card-vs-CPU step: loss rel err {train_rec['small']['loss_rel_err']:.3g}, grad rel err "
-          f"{train_rec['small']['grad_rel_err']:.3g} (tol {train_rec['small_tol']}) on {card}",
-          flush=True)
+    if want(4):
+        train_rec = phase_training(dev)
+        split = train_rec["split"]
+        print(f"phase 4 training: SA-Open {train_rec['trainable_params'] / 1e9:.3f}B trainable of "
+              f"{train_rec['params'] / 1e9:.3f}B, batch {TRAIN_BATCH} x {SAMPLE_SIZE} samples: step "
+              f"{train_rec['step_ms_median']:.1f} ms median of {TIMED_STEPS} "
+              f"({', '.join(f'{x:.1f}' for x in train_rec['step_ms'])}), "
+              f"{train_rec['audio_s_per_s']:.2f} audio-s trained/s, peak {train_rec['peak_gib']:.2f} GiB, "
+              f"losses {', '.join(f'{x:.4g}' for x in train_rec['losses'])}; split ms "
+              + ", ".join(f"{k[:-3]} {v:.1f}" for k, v in split.items()
+                          if k.endswith("_ms") and isinstance(v, float))
+              + f"; fwd+bwd device busy {split['fwd_bwd_device_busy']:.1%}; launches "
+              f"{json.dumps(train_rec['launches'])}; checkpoint {train_rec['ckpt_gib']:.2f} GiB saved "
+              f"{train_rec['save_s']:.1f} s, reloaded identical {train_rec['reload_s']:.1f} s; small "
+              f"card-vs-CPU step: loss rel err {train_rec['small']['loss_rel_err']:.3g}, grad rel err "
+              f"{train_rec['small']['grad_rel_err']:.3g} (tol {train_rec['small_tol']}) on {card}",
+              flush=True)
+        en = train_rec["entry"]
+        print(f"phase 4 training entry: fit with --val-every 2 --checkpoint-every 2 --save-top-k 1 "
+              f"--demo-every 2: demo (the config's prompt, cfg {en['cfg_scales']}, {SAMPLE_SIZE} "
+              f"samples, {DEMO_STEPS} steps) s per cfg scale "
+              + ", ".join(f"{x:.3f}" for x in en["demo_scale_s"][0])
+              + f", launches {json.dumps(en['demo_launches'][0])} (a scale "
+              f"{json.dumps(en['demo_per_scale_launches'])}), peaks "
+              f"{json.dumps({k: round(v[0], 4) for k, v in en['demo_outputs'].items()})}; "
+              f"validation pass {', '.join(f'{x:.2f}' for x in en['val_s'])} s, "
+              f"{json.dumps({k: round(v, 4) for k, v in en['val'].items()})}; checkpoint "
+              f"{en['ckpt_gib']:.2f} GiB saved {', '.join(f'{x:.1f}' for x in en['save_s'])} s, one "
+              f"left; --recover load {en['load_s']:.1f} s, to the first step "
+              f"{en['recover_to_first_step_s']:.1f} s, restored bit for bit; unwrap_model "
+              f"{en['unwrap_s']:.1f} s ({en['unwrapped_gib']:.2f} GiB), fresh build through "
+              f"--pretrained-ckpt-path ({en['pretrained_loaded']} tensors, 0 skipped, equal) and "
+              f"--pretransform-ckpt-path ({en['pretransform_loaded']}) "
+              f"{en['pretrained_build_s']:.1f} s on {card}", flush=True)
 
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
 
-    sa2_rec = phase_sa2(dev)
-    bd = sa2_rec["breakdown"]
-    print(f"phase 5 SA-2.0 generation: {sa2_rec['params'] / 1e9:.3f}B params, {STEPS} steps "
-          f"dpmpp-3m-sde cfg 6, {SA2_SAMPLE_SIZE} samples (6144 latents, chunked decode): wall "
-          f"{sa2_rec['wall_s']:.3f} s, {sa2_rec['audio_s_per_s']:.3f} audio-s/s, peak "
-          f"{sa2_rec['peak_gib']:.2f} GiB; conditioning {bd['cond_ms']:.1f} ms, sampler step "
-          f"{bd['step_ms']:.1f} ms (device busy {bd['step_device_busy']:.1%}), decode "
-          f"{bd['decode_ms']:.1f} ms (device busy {bd['decode_device_busy']:.1%}); step's top "
-          f"kernels ms {json.dumps(bd['step_top_kernels_ms'])}; launches "
-          f"{json.dumps(sa2_rec['launches'])}; small card-vs-CPU rel errs "
-          f"{json.dumps({k: round(v, 4) for k, v in sa2_rec['small'].items()})} "
-          f"(tol {sa2_rec['small_tol']}) on {card}", flush=True)
+    if want(5):
+        sa2_rec = phase_sa2(dev)
+        bd = sa2_rec["breakdown"]
+        print(f"phase 5 SA-2.0 generation: {sa2_rec['params'] / 1e9:.3f}B params, {STEPS} steps "
+              f"dpmpp-3m-sde cfg 6, {SA2_SAMPLE_SIZE} samples (6144 latents, chunked decode): wall "
+              f"{sa2_rec['wall_s']:.3f} s, {sa2_rec['audio_s_per_s']:.3f} audio-s/s, peak "
+              f"{sa2_rec['peak_gib']:.2f} GiB; conditioning {bd['cond_ms']:.1f} ms, sampler step "
+              f"{bd['step_ms']:.1f} ms (device busy {bd['step_device_busy']:.1%}), decode "
+              f"{bd['decode_ms']:.1f} ms (device busy {bd['decode_device_busy']:.1%}); step's top "
+              f"kernels ms {json.dumps(bd['step_top_kernels_ms'])}; launches "
+              f"{json.dumps(sa2_rec['launches'])}; small card-vs-CPU rel errs "
+              f"{json.dumps({k: round(v, 4) for k, v in sa2_rec['small'].items()})} "
+              f"(tol {sa2_rec['small_tol']}) on {card}", flush=True)
 
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
 
     def gan_line(r):
         sp = r["split"]
@@ -4503,225 +4852,263 @@ def main() -> int:
                 f"{json.dumps({k: v for k, v in r['launches'].items() if v})}; checkpoint "
                 f"{r['ckpt_gib']:.2f} GiB reloaded identical, resumed {r['resumed_steps']} steps")
 
-    ae_rec = phase_ae_training(dev)
-    print(f"phase 6 AE training: stable_audio_2_0_vae.json, batch {AE_BATCH} x 65536, bf16: "
-          f"{gan_line(ae_rec)}; small card-vs-CPU {json.dumps(ae_rec['small'])} (tol "
-          f"{ae_rec['small_tol']} at gains x {SMALL_AE_GAIN}; at the init's, the card within "
-          f"{GAN_SPREAD}x the CPU's bf16 distance from f32) on {card}", flush=True)
+    if want(6):
+        ae_rec = phase_ae_training(dev)
+        print(f"phase 6 AE training: stable_audio_2_0_vae.json, batch {AE_BATCH} x 65536, bf16: "
+              f"{gan_line(ae_rec)}; small card-vs-CPU {json.dumps(ae_rec['small'])} (tol "
+              f"{ae_rec['small_tol']} at gains x {SMALL_AE_GAIN}; at the init's, the card within "
+              f"{GAN_SPREAD}x the CPU's bf16 distance from f32) on {card}", flush=True)
+        en = ae_rec["entry"]
+        print(f"phase 6 VAE demo and validation: demo {en['demo_s']:.2f} s, launches "
+              f"{json.dumps(en['launches'])}, peaks "
+              f"{json.dumps({k: round(v[0], 4) for k, v in en['outputs'].items()})}; validation "
+              f"{en['val_batches']} batches of {AE_BATCH} x 65536 {en['val']['val_s']:.2f} s, "
+              f"launches {json.dumps(en['val']['launches'])}, "
+              f"{json.dumps({k: round(v, 4) for k, v in en['val']['means'].items()})} on {card}",
+              flush=True)
 
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
 
-    lmg = phase_lm_generation(dev)
-    print(f"phase 7 LM generation: MusicGen-small {lmg['params'] / 1e9:.3f}B params, batch 1, "
-          f"cfg {LM_CFG}, top_k {LM_TOP_K}, {LM_FRAMES} frames = {LM_SAMPLES} samples at "
-          f"{LM_SR} Hz: " + "; ".join(
-              f"{k} {r['wall_s']:.3f} s wall, {r['ms_per_step']:.2f} ms/step over {r['steps']} "
-              f"steps, {r['audio_s_per_s']:.3f} audio-s/s, peak {r['peak_gib']:.2f} GiB, "
-              f"launches {json.dumps(r['launches'])}; under the profiler "
-              f"{r['profile']['wall_ms']:.2f} ms/step, device {r['profile']['device_ms']:.2f} "
-              f"ms/step (busy {r['profile']['device_busy']:.1%}), "
-              f"{r['profile']['kernel_launches']:.0f} kernels/step, runtime calls/step "
-              f"{json.dumps({n: round(c['count'], 1) for n, c in r['profile']['runtime_calls'].items()})}"
-              for k, r in ((k, lmg[k]) for k in ("cached", "full")))
-          + f"; the codec's decode of {LM_FRAMES} frames {lmg['decode_ms']:.1f} ms; small "
-          f"card-vs-CPU "
-          f"{json.dumps({k: round(v, 4) for k, v in lmg['small'].items()})} "
-          f"(tol {lmg['small_tol']}) on {card}", flush=True)
+    if want(7):
+        lmg = phase_lm_generation(dev)
+        print(f"phase 7 LM generation: MusicGen-small {lmg['params'] / 1e9:.3f}B params, batch 1, "
+              f"cfg {LM_CFG}, top_k {LM_TOP_K}, {LM_FRAMES} frames = {LM_SAMPLES} samples at "
+              f"{LM_SR} Hz: " + "; ".join(
+                  f"{k} {r['wall_s']:.3f} s wall, {r['ms_per_step']:.2f} ms/step over {r['steps']} "
+                  f"steps, {r['audio_s_per_s']:.3f} audio-s/s, peak {r['peak_gib']:.2f} GiB, "
+                  f"launches {json.dumps(r['launches'])}; under the profiler "
+                  f"{r['profile']['wall_ms']:.2f} ms/step, device {r['profile']['device_ms']:.2f} "
+                  f"ms/step (busy {r['profile']['device_busy']:.1%}), "
+                  f"{r['profile']['kernel_launches']:.0f} kernels/step, runtime calls/step "
+                  f"{json.dumps({n: round(c['count'], 1) for n, c in r['profile']['runtime_calls'].items()})}"
+                  for k, r in ((k, lmg[k]) for k in ("cached", "full")))
+              + f"; the codec's decode of {LM_FRAMES} frames {lmg['decode_ms']:.1f} ms; small "
+              f"card-vs-CPU "
+              f"{json.dumps({k: round(v, 4) for k, v in lmg['small'].items()})} "
+              f"(tol {lmg['small_tol']}) on {card}", flush=True)
 
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
 
-    lmt = phase_lm_training(dev)
-    split = lmt["split"]
-    print(f"phase 8 LM training: MusicGen-small {lmt['trainable_params'] / 1e9:.3f}B trainable "
-          f"of {lmt['params'] / 1e9:.3f}B, batch {LM_BATCH} x {LM_SAMPLES} samples, bf16: step "
-          f"{lmt['step_ms_median']:.1f} ms median of {LM_TIMED_STEPS} "
-          f"({', '.join(f'{x:.1f}' for x in lmt['step_ms'])}), "
-          f"{lmt['audio_s_per_s']:.2f} audio-s trained/s, peak {lmt['peak_gib']:.2f} GiB, "
-          f"losses {', '.join(f'{x:.4g}' for x in lmt['losses'])}; split ms "
-          + ", ".join(f"{k[:-3]} {v:.1f}" for k, v in split.items()
-                      if k.endswith("_ms") and isinstance(v, float))
-          + f"; fwd+bwd device busy {split['fwd_bwd_profile']['device_busy']:.1%}, "
-          f"{split['fwd_bwd_profile']['kernel_launches']:.0f} kernels; top kernels ms "
-          f"{json.dumps(split['fwd_bwd_profile']['top_kernels_ms'])}; launches "
-          f"{json.dumps(lmt['launches'])}; checkpoint {lmt['ckpt_gib']:.2f} GiB reloaded "
-          f"identical; small card-vs-CPU step {json.dumps(lmt['small'])} "
-          f"(tol {lmt['small_tol']}) on {card}", flush=True)
+    if want(8):
+        lmt = phase_lm_training(dev)
+        split = lmt["split"]
+        print(f"phase 8 LM training: MusicGen-small {lmt['trainable_params'] / 1e9:.3f}B trainable "
+              f"of {lmt['params'] / 1e9:.3f}B, batch {LM_BATCH} x {LM_SAMPLES} samples, bf16: step "
+              f"{lmt['step_ms_median']:.1f} ms median of {LM_TIMED_STEPS} "
+              f"({', '.join(f'{x:.1f}' for x in lmt['step_ms'])}), "
+              f"{lmt['audio_s_per_s']:.2f} audio-s trained/s, peak {lmt['peak_gib']:.2f} GiB, "
+              f"losses {', '.join(f'{x:.4g}' for x in lmt['losses'])}; split ms "
+              + ", ".join(f"{k[:-3]} {v:.1f}" for k, v in split.items()
+                          if k.endswith("_ms") and isinstance(v, float))
+              + f"; fwd+bwd device busy {split['fwd_bwd_profile']['device_busy']:.1%}, "
+              f"{split['fwd_bwd_profile']['kernel_launches']:.0f} kernels; top kernels ms "
+              f"{json.dumps(split['fwd_bwd_profile']['top_kernels_ms'])}; launches "
+              f"{json.dumps(lmt['launches'])}; checkpoint {lmt['ckpt_gib']:.2f} GiB reloaded "
+              f"identical; small card-vs-CPU step {json.dumps(lmt['small'])} "
+              f"(tol {lmt['small_tol']}) on {card}", flush=True)
+        print(f"phase 8 LM demo: {LM_DEMO_FRAMES} frames KV-cached + the codec's decode "
+              f"{lmt['demo']['demo_s']:.2f} s, launches {json.dumps(lmt['demo']['launches'])}, "
+              f"peak {json.dumps({k: round(v[0], 4) for k, v in lmt['demo']['outputs'].items()})} "
+              f"on {card}", flush=True)
 
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
 
-    sa2t = phase_sa2_training(dev)
-    split, enc, aud = sa2t["split"], sa2t["pre_encode"], sa2t["from_audio"]
-    print(f"phase 9 SA-2.0 training: {sa2t['trainable_params'] / 1e9:.3f}B trainable of "
-          f"{sa2t['params'] / 1e9:.3f}B; 9a pre-encode {enc['items']} clips of "
-          f"{SA2_SAMPLE_SIZE} samples: {enc['encode_ms_median']:.1f} ms/clip median "
-          f"({', '.join(f'{x:.1f}' for x in enc['encode_ms'])}), wall {enc['wall_s']:.1f} s, "
-          f"peak {enc['peak_gib']:.2f} GiB, one clip under the profiler "
-          f"{enc['clip_profile']['wall_ms']:.1f} ms, busy {enc['clip_profile']['device_busy']:.3f}, "
-          f"top kernels ms {json.dumps(enc['clip_profile']['top_kernels_ms'])}; "
-          f"9b from latents, batch {SA2_TRAIN_BATCH} x "
-          f"{SA2_LATENTS} latents, mask_padding: step {sa2t['step_ms_median']:.1f} ms median of "
-          f"{TIMED_STEPS} ({', '.join(f'{x:.1f}' for x in sa2t['step_ms'])}), "
-          f"{sa2t['audio_s_per_s']:.2f} audio-s trained/s, peak {sa2t['peak_gib']:.2f} GiB, "
-          f"losses {', '.join(f'{x:.4g}' for x in sa2t['losses'])}; split ms "
-          + ", ".join(f"{k[:-3]} {v:.1f}" for k, v in split.items()
-                      if k.endswith("_ms") and isinstance(v, float))
-          + f"; fwd+bwd device busy {split['fwd_bwd_device_busy']:.1%}; top kernels ms "
-          f"{json.dumps(split['fwd_bwd_top_kernels_ms'])}; launches "
-          f"{json.dumps({k: v for k, v in sa2t['launches'].items() if v})}; checkpoint "
-          f"{sa2t['ckpt_gib']:.2f} GiB saved {sa2t['save_s']:.1f} s, reloaded identical; 9c from "
-          f"audio, batch 1 x {SA2_SAMPLE_SIZE}: encode {aud['encode_ms']:.1f} ms, step "
-          f"{', '.join(f'{x:.1f}' for x in aud['step_ms'])} ms, peak {aud['peak_gib']:.2f} GiB, "
-          f"losses {', '.join(f'{x:.4g}' for x in aud['losses'])}; small card-vs-CPU step "
-          f"{json.dumps(sa2t['small'])} (tol {sa2t['small_tol']}) on {card}", flush=True)
+    if want(9):
+        sa2t = phase_sa2_training(dev)
+        split, enc, aud = sa2t["split"], sa2t["pre_encode"], sa2t["from_audio"]
+        print(f"phase 9 SA-2.0 training: {sa2t['trainable_params'] / 1e9:.3f}B trainable of "
+              f"{sa2t['params'] / 1e9:.3f}B; 9a pre-encode {enc['items']} clips of "
+              f"{SA2_SAMPLE_SIZE} samples: {enc['encode_ms_median']:.1f} ms/clip median "
+              f"({', '.join(f'{x:.1f}' for x in enc['encode_ms'])}), wall {enc['wall_s']:.1f} s, "
+              f"peak {enc['peak_gib']:.2f} GiB, one clip under the profiler "
+              f"{enc['clip_profile']['wall_ms']:.1f} ms, busy {enc['clip_profile']['device_busy']:.3f}, "
+              f"top kernels ms {json.dumps(enc['clip_profile']['top_kernels_ms'])}; "
+              f"9b from latents, batch {SA2_TRAIN_BATCH} x "
+              f"{SA2_LATENTS} latents, mask_padding: step {sa2t['step_ms_median']:.1f} ms median of "
+              f"{TIMED_STEPS} ({', '.join(f'{x:.1f}' for x in sa2t['step_ms'])}), "
+              f"{sa2t['audio_s_per_s']:.2f} audio-s trained/s, peak {sa2t['peak_gib']:.2f} GiB, "
+              f"losses {', '.join(f'{x:.4g}' for x in sa2t['losses'])}; split ms "
+              + ", ".join(f"{k[:-3]} {v:.1f}" for k, v in split.items()
+                          if k.endswith("_ms") and isinstance(v, float))
+              + f"; fwd+bwd device busy {split['fwd_bwd_device_busy']:.1%}; top kernels ms "
+              f"{json.dumps(split['fwd_bwd_top_kernels_ms'])}; launches "
+              f"{json.dumps({k: v for k, v in sa2t['launches'].items() if v})}; checkpoint "
+              f"{sa2t['ckpt_gib']:.2f} GiB saved {sa2t['save_s']:.1f} s, reloaded identical; 9c from "
+              f"audio, batch 1 x {SA2_SAMPLE_SIZE}: encode {aud['encode_ms']:.1f} ms, step "
+              f"{', '.join(f'{x:.1f}' for x in aud['step_ms'])} ms, peak {aud['peak_gib']:.2f} GiB, "
+              f"losses {', '.join(f'{x:.4g}' for x in aud['losses'])}; small card-vs-CPU step "
+              f"{json.dumps(sa2t['small'])} (tol {sa2t['small_tol']}) on {card}", flush=True)
 
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
 
-    dance = phase_dance(dev)
-    dg, dt = dance["generation"], dance["training"]
-    print(f"phase 10 Dance Diffusion: BASELINE (b) dance_diffusion_base_16k "
-          f"{dg['params'] / 1e6:.1f}M params, bf16; generation batch 1, {STEPS} steps "
-          f"dpmpp-2m-sde, {DANCE_SAMPLE_SIZE} samples at {DANCE_SR} Hz: wall "
-          f"{dg['wall_s']:.3f} s, {dg['audio_s_per_s']:.3f} audio-s/s, peak "
-          f"{dg['peak_gib']:.2f} GiB, sampler step {dg['step_ms']:.2f} ms (profiled "
-          f"{dg['step_profile']['wall_ms']:.2f} ms, device busy "
-          f"{dg['step_profile']['device_busy']:.1%}, "
-          f"{dg['step_profile']['kernel_launches']:.0f} kernels; top kernels ms "
-          f"{json.dumps(dg['step_profile']['top_kernels_ms'])}); training batch {DANCE_BATCH} x "
-          f"{DANCE_SAMPLE_SIZE}: step {dt['step_ms_median']:.1f} ms median of {TIMED_STEPS} "
-          f"({', '.join(f'{x:.1f}' for x in dt['step_ms'])}), {dt['audio_s_per_s']:.2f} "
-          f"audio-s trained/s, peak {dt['peak_gib']:.2f} GiB, losses "
-          f"{', '.join(f'{x:.4g}' for x in dt['losses'])}; conv1d_wgrad "
-          f"{dt['wgrad_launches_per_step']} launches a step = {dt['conv_sites']} stride-1 convs "
-          f"of the model; fwd+bwd profiled {dt['fwd_bwd_profile']['wall_ms']:.1f} ms, device "
-          f"busy {dt['fwd_bwd_profile']['device_busy']:.1%}, "
-          f"{dt['fwd_bwd_profile']['kernel_launches']:.0f} kernels, row 11 "
-          f"{dt['fwd_bwd_profile']['conv1d_wgrad_ms']:.2f} ms, top kernels ms "
-          f"{json.dumps(dt['fwd_bwd_profile']['top_kernels_ms'])}; checkpoint "
-          f"{dt['ckpt_gib']:.2f} GiB reloaded identical; small card-vs-CPU "
-          f"{json.dumps(dance['small'])} (spread {DANCE_SPREAD}) on {card}", flush=True)
+    if want(10):
+        dance = phase_dance(dev)
+        dg, dt = dance["generation"], dance["training"]
+        print(f"phase 10 Dance Diffusion: BASELINE (b) dance_diffusion_base_16k "
+              f"{dg['params'] / 1e6:.1f}M params, bf16; generation batch 1, {STEPS} steps "
+              f"dpmpp-2m-sde, {DANCE_SAMPLE_SIZE} samples at {DANCE_SR} Hz: wall "
+              f"{dg['wall_s']:.3f} s, {dg['audio_s_per_s']:.3f} audio-s/s, peak "
+              f"{dg['peak_gib']:.2f} GiB, sampler step {dg['step_ms']:.2f} ms (profiled "
+              f"{dg['step_profile']['wall_ms']:.2f} ms, device busy "
+              f"{dg['step_profile']['device_busy']:.1%}, "
+              f"{dg['step_profile']['kernel_launches']:.0f} kernels; top kernels ms "
+              f"{json.dumps(dg['step_profile']['top_kernels_ms'])}); training batch {DANCE_BATCH} x "
+              f"{DANCE_SAMPLE_SIZE}: step {dt['step_ms_median']:.1f} ms median of {TIMED_STEPS} "
+              f"({', '.join(f'{x:.1f}' for x in dt['step_ms'])}), {dt['audio_s_per_s']:.2f} "
+              f"audio-s trained/s, peak {dt['peak_gib']:.2f} GiB, losses "
+              f"{', '.join(f'{x:.4g}' for x in dt['losses'])}; conv1d_wgrad "
+              f"{dt['wgrad_launches_per_step']} launches a step = {dt['conv_sites']} stride-1 convs "
+              f"of the model; fwd+bwd profiled {dt['fwd_bwd_profile']['wall_ms']:.1f} ms, device "
+              f"busy {dt['fwd_bwd_profile']['device_busy']:.1%}, "
+              f"{dt['fwd_bwd_profile']['kernel_launches']:.0f} kernels, row 11 "
+              f"{dt['fwd_bwd_profile']['conv1d_wgrad_ms']:.2f} ms, top kernels ms "
+              f"{json.dumps(dt['fwd_bwd_profile']['top_kernels_ms'])}; checkpoint "
+              f"{dt['ckpt_gib']:.2f} GiB reloaded identical; small card-vs-CPU "
+              f"{json.dumps(dance['small'])} (spread {DANCE_SPREAD}) on {card}", flush=True)
+        dd = dt["demo"]
+        print(f"phase 10 Dance demo: 4 clips of {DANCE_SAMPLE_SIZE} samples, {DEMO_STEPS} steps "
+              f"{dd['demo_s']:.2f} s, launches {json.dumps(dd['launches'])}, peak "
+              f"{json.dumps({k: round(v[0], 4) for k, v in dd['outputs'].items()})} on {card}",
+              flush=True)
 
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
 
-    sa1 = phase_sa1(dev)
-    prof, dprof, enc = sa1["step_profile"], sa1["decode_profile"], sa1["encode"]
-    print(f"phase 11 SA-1.0 generation: stable_audio_1_0.json, UNet "
-          f"{sa1['params']['unet'] / 1e6:.1f}M params (f32), DAC decoder "
-          f"{sa1['params']['decoder'] / 1e6:.1f}M / encoder {sa1['params']['encoder'] / 1e6:.1f}M "
-          f"(bf16), {STEPS} steps dpmpp-3m-sde cfg 6, {SA1_SAMPLE_SIZE} samples (4096 latents): "
-          f"wall {sa1['wall_s']:.3f} s, {sa1['audio_s_per_s']:.3f} audio-s/s, peak "
-          f"{sa1['peak_gib']:.2f} GiB, {sa1['unet_calls']} UNet calls; sampler step "
-          f"{sa1['step_ms']:.2f} ms back to back (profiled {prof['wall_ms']:.2f} ms, device busy "
-          f"{prof['device_busy']:.1%}, {prof['kernel_launches']:.0f} kernels; top kernels ms "
-          f"{json.dumps(prof['top_kernels_ms'])}); decode {sa1['decode_ms']:.2f} ms (profiled "
-          f"{dprof['wall_ms']:.2f} ms, busy {dprof['device_busy']:.1%}, top kernels ms "
-          f"{json.dumps(dprof['top_kernels_ms'])}); encode of one clip {enc['ms']:.2f} ms "
-          f"(profiled {enc['profile']['wall_ms']:.2f} ms, busy "
-          f"{enc['profile']['device_busy']:.1%}); launches a request "
-          f"{json.dumps({k: v for k, v in sa1['launches'].items() if v})}, an encode "
-          f"{json.dumps({k: v for k, v in enc['launches'].items() if v})} (counted from the "
-          f"model: {json.dumps(sa1['counts'])}); small card-vs-CPU "
-          f"{json.dumps({k: round(v, 4) for k, v in sa1['small'].items()})} (tol "
-          f"{sa1['small_tol']}; the codec within {DANCE_SPREAD}x the CPU's bf16); phase "
-          f"{sa1['phase_s']:.1f} s on {card}", flush=True)
+    if want(11):
+        sa1 = phase_sa1(dev)
+        prof, dprof, enc = sa1["step_profile"], sa1["decode_profile"], sa1["encode"]
+        print(f"phase 11 SA-1.0 generation: stable_audio_1_0.json, UNet "
+              f"{sa1['params']['unet'] / 1e6:.1f}M params (f32), DAC decoder "
+              f"{sa1['params']['decoder'] / 1e6:.1f}M / encoder {sa1['params']['encoder'] / 1e6:.1f}M "
+              f"(bf16), {STEPS} steps dpmpp-3m-sde cfg 6, {SA1_SAMPLE_SIZE} samples (4096 latents): "
+              f"wall {sa1['wall_s']:.3f} s, {sa1['audio_s_per_s']:.3f} audio-s/s, peak "
+              f"{sa1['peak_gib']:.2f} GiB, {sa1['unet_calls']} UNet calls; sampler step "
+              f"{sa1['step_ms']:.2f} ms back to back (profiled {prof['wall_ms']:.2f} ms, device busy "
+              f"{prof['device_busy']:.1%}, {prof['kernel_launches']:.0f} kernels; top kernels ms "
+              f"{json.dumps(prof['top_kernels_ms'])}); decode {sa1['decode_ms']:.2f} ms (profiled "
+              f"{dprof['wall_ms']:.2f} ms, busy {dprof['device_busy']:.1%}, top kernels ms "
+              f"{json.dumps(dprof['top_kernels_ms'])}); encode of one clip {enc['ms']:.2f} ms "
+              f"(profiled {enc['profile']['wall_ms']:.2f} ms, busy "
+              f"{enc['profile']['device_busy']:.1%}); launches a request "
+              f"{json.dumps({k: v for k, v in sa1['launches'].items() if v})}, an encode "
+              f"{json.dumps({k: v for k, v in enc['launches'].items() if v})} (counted from the "
+              f"model: {json.dumps(sa1['counts'])}); small card-vs-CPU "
+              f"{json.dumps({k: round(v, 4) for k, v in sa1['small'].items()})} (tol "
+              f"{sa1['small_tol']}; the codec within {DANCE_SPREAD}x the CPU's bf16); phase "
+              f"{sa1['phase_s']:.1f} s on {card}", flush=True)
 
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
 
-    sa1t = phase_sa1_training(dev)
-    split, prof = sa1t["split"], sa1t["split"]["fwd_bwd_profile"]
-    print(f"phase 12 SA-1.0 training: stable_audio_1_0.json, "
-          f"{sa1t['trainable_params'] / 1e6:.1f}M trainable of {sa1t['params'] / 1e6:.1f}M "
-          f"(the UNet f32), batch {SA1_TRAIN_BATCH} x {SA1_SAMPLE_SIZE} samples: step "
-          f"{sa1t['step_ms_median']:.1f} ms median of {TIMED_STEPS} "
-          f"({', '.join(f'{x:.1f}' for x in sa1t['step_ms'])}), "
-          f"{sa1t['audio_s_per_s']:.2f} audio-s trained/s, peak {sa1t['peak_gib']:.2f} GiB, "
-          f"losses {', '.join(f'{x:.4g}' for x in sa1t['losses'])}; split ms "
-          + ", ".join(f"{k[:-3]} {v:.1f}" for k, v in split.items()
-                      if k.endswith("_ms") and isinstance(v, float))
-          + f"; the step on a held batch {', '.join(f'{x:.1f}' for x in split['held_batch_step_ms'])}"
-          f" ms (allocator retries {split['alloc_retries']})"
-          + f"; fwd+bwd profiled {prof['wall_ms']:.1f} ms, device busy "
-          f"{prof['device_busy']:.1%}, {prof['kernel_launches']:.0f} kernels, top kernels ms "
-          f"{json.dumps(prof['top_kernels_ms'])}; launches {json.dumps(sa1t['launches'])} "
-          f"(a step: row 2 {sa1t['counts']['unet_forward']['fused_layer_norm']}, rows 12 / 3 / "
-          f"4 x {SA1_TRAIN_BATCH} clips); checkpoint {sa1t['ckpt_gib']:.2f} GiB saved "
-          f"{sa1t['save_s']:.1f} s, reloaded identical {sa1t['reload_s']:.1f} s, resumed "
-          f"{sa1t['resumed_steps']} step; small card-vs-CPU step {json.dumps(sa1t['small'])} "
-          f"(tol {sa1t['small_tol']}); phase {sa1t['phase_s']:.1f} s on {card}", flush=True)
+    if want(12):
+        sa1t = phase_sa1_training(dev)
+        split, prof = sa1t["split"], sa1t["split"]["fwd_bwd_profile"]
+        print(f"phase 12 SA-1.0 training: stable_audio_1_0.json, "
+              f"{sa1t['trainable_params'] / 1e6:.1f}M trainable of {sa1t['params'] / 1e6:.1f}M "
+              f"(the UNet f32), batch {SA1_TRAIN_BATCH} x {SA1_SAMPLE_SIZE} samples: step "
+              f"{sa1t['step_ms_median']:.1f} ms median of {TIMED_STEPS} "
+              f"({', '.join(f'{x:.1f}' for x in sa1t['step_ms'])}), "
+              f"{sa1t['audio_s_per_s']:.2f} audio-s trained/s, peak {sa1t['peak_gib']:.2f} GiB, "
+              f"losses {', '.join(f'{x:.4g}' for x in sa1t['losses'])}; split ms "
+              + ", ".join(f"{k[:-3]} {v:.1f}" for k, v in split.items()
+                          if k.endswith("_ms") and isinstance(v, float))
+              + f"; the step on a held batch {', '.join(f'{x:.1f}' for x in split['held_batch_step_ms'])}"
+              f" ms (allocator retries {split['alloc_retries']})"
+              + f"; fwd+bwd profiled {prof['wall_ms']:.1f} ms, device busy "
+              f"{prof['device_busy']:.1%}, {prof['kernel_launches']:.0f} kernels, top kernels ms "
+              f"{json.dumps(prof['top_kernels_ms'])}; launches {json.dumps(sa1t['launches'])} "
+              f"(a step: row 2 {sa1t['counts']['unet_forward']['fused_layer_norm']}, rows 12 / 3 / "
+              f"4 x {SA1_TRAIN_BATCH} clips); checkpoint {sa1t['ckpt_gib']:.2f} GiB saved "
+              f"{sa1t['save_s']:.1f} s, reloaded identical {sa1t['reload_s']:.1f} s, resumed "
+              f"{sa1t['resumed_steps']} step; small card-vs-CPU step {json.dumps(sa1t['small'])} "
+              f"(tol {sa1t['small_tol']}); phase {sa1t['phase_s']:.1f} s on {card}", flush=True)
 
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
 
-    dac = phase_dac_training(dev)
-    print("phase 13 DAC VAE-GAN training, batch 4 x 65536, bf16: " + "; ".join(
-        f"{n}: {gan_line(dac[n])}; small card-vs-CPU {json.dumps(dac[n]['small'])} (tol "
-        f"{dac[n]['small_tol']} at gains x {SMALL_AE_GAIN}; at the init's, the card within "
-        f"{GAN_SPREAD}x the CPU's bf16 distance from f32)" for n in DAC_VAES)
-        + f"; phase {dac['phase_s']:.1f} s on {card}", flush=True)
+    if want(13):
+        dac = phase_dac_training(dev)
+        print("phase 13 DAC VAE-GAN training, batch 4 x 65536, bf16: " + "; ".join(
+            f"{n}: {gan_line(dac[n])}; small card-vs-CPU {json.dumps(dac[n]['small'])} (tol "
+            f"{dac[n]['small_tol']} at gains x {SMALL_AE_GAIN}; at the init's, the card within "
+            f"{GAN_SPREAD}x the CPU's bf16 distance from f32)" for n in DAC_VAES)
+            + f"; phase {dac['phase_s']:.1f} s on {card}", flush=True)
 
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
 
-    codec = phase_codec_training(dev)
-    print(f"phase 14 codec training: encodec_musicgen_rvq.json, batch 4 x 32000, bf16 to the "
-          f"LSTM: {gan_line(codec)}; hand-written kernels a generator step "
-          f"{json.dumps(codec['counts']['gen'])}, none in the discriminator step; small "
-          f"card-vs-CPU (f32, TF32 off) {json.dumps(codec['small'])} (tol "
-          f"{codec['small_tol']}); phase {codec['phase_s']:.1f} s on {card}", flush=True)
+    if want(14):
+        codec = phase_codec_training(dev)
+        print(f"phase 14 codec training: encodec_musicgen_rvq.json, batch 4 x 32000, bf16 to the "
+              f"LSTM: {gan_line(codec)}; hand-written kernels a generator step "
+              f"{json.dumps(codec['counts']['gen'])}, none in the discriminator step; small "
+              f"card-vs-CPU (f32, TF32 off) {json.dumps(codec['small'])} (tol "
+              f"{codec['small_tol']}); phase {codec['phase_s']:.1f} s on {card}", flush=True)
 
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
 
-    kernels = []
-    for n, r in rec.items():
-        by_path = {"generation": main_rec["launches"].get(n, 0),
-                   "training": train_rec["launches"].get(n, 0),
-                   "sa2_generation": sa2_rec["launches"].get(n, 0),
-                   "ae_training": ae_rec["launches"].get(n, 0),
-                   "lm_generation_cached": lmg["cached"]["launches"].get(n, 0),
-                   "lm_generation_full": lmg["full"]["launches"].get(n, 0),
-                   "lm_training": lmt["launches"].get(n, 0),
-                   "sa2_training": sa2t["launches"].get(n, 0),
-                   "sa2_pre_encode": sa2t["pre_encode"]["launches"].get(n, 0),
-                   "dance_generation": dg["launches"].get(n, 0),
-                   "dance_training": dt["launches"].get(n, 0),
-                   "sa1_generation": sa1["launches"].get(n, 0),
-                   "sa1_encode": sa1["encode"]["launches"].get(n, 0),
-                   "sa1_training": sa1t["launches"].get(n, 0),
-                   **{f"{name}_training": dac[name]["launches"].get(n, 0) for name in DAC_VAES},
-                   "codec_training": codec["launches"].get(n, 0)}
-        kernels.append(dict(name=n, route=r["route"], source=r["source"], replaces=r["replaces"],
-                            launches=sum(by_path.values()), launches_by_path=by_path,
-                            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-                            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                            library_ms=r["library_ms"], library=r["library"],
-                            shape=r["shape"], **{k: r[k] for k in (
-                                "also_replaces", "main_route", "routes", "max_rel_err",
-                                "autograd_rel_err", "errs", "ab", "shapes", "banded", "vs_row3",
-                                "autograd_errs", "fwd_bwd_ms", "sa2_training_shape",
-                                "deterministic", "ptxas", "profiled", "library_profiled",
-                                "host_us", "library_host_us", "no_grad_bit_identical",
-                                "levels", "generator_step", "decode_group", "dance_step",
-                                "sa1", "sa1_f32", "dac")
-                                if k in r}))
-    unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
-    if unlaunched:
-        raise AssertionError(f"kernels that no main path launched: {unlaunched}")
-    print(json.dumps({"kernels": kernels, "card": card, "generation": {
-        k: main_rec[k] for k in ("wall_s", "steps", "audio_s_per_s", "peak_gib", "breakdown")},
-        "training": {k: v for k, v in train_rec.items() if k != "launches"},
-        "sa2_generation": {k: sa2_rec[k] for k in (
-            "wall_s", "steps", "audio_s_per_s", "peak_gib", "breakdown", "small")},
-        "ae_training": {k: v for k, v in ae_rec.items() if k != "launches"},
-        "lm_generation": lmg, "lm_training": {k: v for k, v in lmt.items() if k != "launches"},
-        "sa2_training": {k: v for k, v in sa2t.items() if k != "launches"},
-        "dance": {"small": dance["small"],
-                  "generation": {k: v for k, v in dg.items() if k != "launches"},
-                  "training": {k: v for k, v in dt.items() if k != "launches"}},
-        "sa1_generation": {k: v for k, v in sa1.items() if k != "launches"},
-        "sa1_training": {k: v for k, v in sa1t.items() if k != "launches"},
-        "dac_training": {n: {k: v for k, v in dac[n].items() if k != "launches"}
-                         for n in DAC_VAES},
-        "codec_training": {k: v for k, v in codec.items() if k != "launches"}}))
+    if len(phases) < len(PHASES):
+        print(f"phases run: {sorted(phases)} of 1-{len(PHASES)}; the kernels' record and the "
+              "check that every kernel launched on some path need every phase", flush=True)
+    else:
+        kernels = []
+        for n, r in rec.items():
+            by_path = {"generation": main_rec["launches"].get(n, 0),
+                       "training": train_rec["launches"].get(n, 0),
+                       "sa2_generation": sa2_rec["launches"].get(n, 0),
+                       "ae_training": ae_rec["launches"].get(n, 0),
+                       "lm_generation_cached": lmg["cached"]["launches"].get(n, 0),
+                       "lm_generation_full": lmg["full"]["launches"].get(n, 0),
+                       "lm_training": lmt["launches"].get(n, 0),
+                       "sa2_training": sa2t["launches"].get(n, 0),
+                       "sa2_pre_encode": sa2t["pre_encode"]["launches"].get(n, 0),
+                       "dance_generation": dg["launches"].get(n, 0),
+                       "dance_training": dt["launches"].get(n, 0),
+                       "sa1_generation": sa1["launches"].get(n, 0),
+                       "sa1_encode": sa1["encode"]["launches"].get(n, 0),
+                       "sa1_training": sa1t["launches"].get(n, 0),
+                       **{f"{name}_training": dac[name]["launches"].get(n, 0) for name in DAC_VAES},
+                       "codec_training": codec["launches"].get(n, 0),
+                       "sa_open_demo": train_rec["entry"]["demo_launches"][0].get(n, 0),
+                       "vae_demo": ae_rec["entry"]["launches"].get(n, 0),
+                       "vae_validation": ae_rec["entry"]["val"]["launches"].get(n, 0),
+                       "dance_demo": dance["training"]["demo"]["launches"].get(n, 0),
+                       "lm_demo": lmt["demo"]["launches"].get(n, 0)}
+            kernels.append(dict(name=n, route=r["route"], source=r["source"], replaces=r["replaces"],
+                                launches=sum(by_path.values()), launches_by_path=by_path,
+                                max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                                bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                                library_ms=r["library_ms"], library=r["library"],
+                                shape=r["shape"], **{k: r[k] for k in (
+                                    "also_replaces", "main_route", "routes", "max_rel_err",
+                                    "autograd_rel_err", "errs", "ab", "shapes", "banded", "vs_row3",
+                                    "autograd_errs", "fwd_bwd_ms", "sa2_training_shape",
+                                    "deterministic", "ptxas", "profiled", "library_profiled",
+                                    "host_us", "library_host_us", "no_grad_bit_identical",
+                                    "levels", "generator_step", "decode_group", "dance_step",
+                                    "sa1", "sa1_f32", "dac")
+                                    if k in r}))
+        unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
+        if unlaunched:
+            raise AssertionError(f"kernels that no main path launched: {unlaunched}")
+        print(json.dumps({"kernels": kernels, "card": card, "generation": {
+            k: main_rec[k] for k in ("wall_s", "steps", "audio_s_per_s", "peak_gib", "breakdown")},
+            "training": {k: v for k, v in train_rec.items() if k != "launches"},
+            "sa2_generation": {k: sa2_rec[k] for k in (
+                "wall_s", "steps", "audio_s_per_s", "peak_gib", "breakdown", "small")},
+            "ae_training": {k: v for k, v in ae_rec.items() if k != "launches"},
+            "lm_generation": lmg, "lm_training": {k: v for k, v in lmt.items() if k != "launches"},
+            "sa2_training": {k: v for k, v in sa2t.items() if k != "launches"},
+            "dance": {"small": dance["small"],
+                      "generation": {k: v for k, v in dg.items() if k != "launches"},
+                      "training": {k: v for k, v in dt.items() if k != "launches"}},
+            "sa1_generation": {k: v for k, v in sa1.items() if k != "launches"},
+            "sa1_training": {k: v for k, v in sa1t.items() if k != "launches"},
+            "dac_training": {n: {k: v for k, v in dac[n].items() if k != "launches"}
+                             for n in DAC_VAES},
+            "codec_training": {k: v for k, v in codec.items() if k != "launches"}}))
     print(card)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                             "count": torch.cuda.device_count()}}))
+    if len(phases) < len(PHASES):  # a development run ends on what it ran, not on a pass
+        print(json.dumps({"ok": True, "partial": sorted(phases)}))
+    else:
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -6,6 +6,7 @@ samples]; writes 16-bit PCM or 32-bit float. Other formats need `soundfile`.
 
 from __future__ import annotations
 
+import contextlib
 import struct
 from typing import Tuple
 
@@ -14,10 +15,11 @@ import numpy as np
 AUDIO_EXTENSIONS = (".wav", ".flac", ".ogg", ".aif", ".aiff", ".mp3", ".opus")
 
 
-def _chunks(path: str):
-    """(fmt, data) chunk payloads of a RIFF/WAVE file."""
+def _chunks(path):
+    """(fmt, data) chunk payloads of a RIFF/WAVE file (a path or a binary
+    file object)."""
     fmt = data = None
-    with open(path, "rb") as f:
+    with (open(path, "rb") if isinstance(path, str) else contextlib.nullcontext(path)) as f:
         header = f.read(12)
         if header[:4] != b"RIFF" or header[8:12] != b"WAVE":
             raise ValueError(f"{path} is not a RIFF/WAVE file")
@@ -37,8 +39,9 @@ def _chunks(path: str):
     return fmt, data
 
 
-def load_wav(path: str) -> Tuple[np.ndarray, int]:
-    """Returns (audio [C, T] float32 in [-1, 1], sample_rate)."""
+def load_wav(path) -> Tuple[np.ndarray, int]:
+    """Returns (audio [C, T] float32 in [-1, 1], sample_rate) of a path or a
+    binary file object."""
     fmt, data = _chunks(path)
     audio_format, channels, sample_rate, _, _, bits = struct.unpack("<HHIIHH", fmt[:16])
     if audio_format == 0xFFFE and len(fmt) >= 40:  # WAVE_FORMAT_EXTENSIBLE

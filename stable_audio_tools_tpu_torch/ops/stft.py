@@ -1,6 +1,6 @@
 """STFT utilities of the autoencoder losses and discriminators; counterpart of
-stable_audio_tools_tpu/ops/stft.py (`hann_window` :18, `a_weighting_fir`
-:119, `apply_fir` :170, `stft_reim_conv` :222, `stft_mag_conv` :263).
+stable_audio_tools_tpu/ops/stft.py (`hann_window` :18, `mel_filterbank` :72,
+`a_weighting_fir` :119, `apply_fir` :170, `stft_reim_conv` :222, `stft_mag_conv` :263).
 
 Framing follows torch.stft: with `center`, reflect-pad n_fft // 2 on each
 side; frames = 1 + (T - n_fft) // hop of the (padded) signal; a periodic Hann
@@ -58,6 +58,27 @@ def stft_mag(x: torch.Tensor, n_fft: int, hop_length: int, win_length: int,
     (JAX `stft_mag_conv`)."""
     z = stft(x, n_fft, hop_length, win_length, center=center)
     return torch.sqrt(torch.clamp(z.real * z.real + z.imag * z.imag, min=eps))
+
+
+@lru_cache(maxsize=32)
+def mel_filterbank(sr: int, n_fft: int, n_mels: int) -> np.ndarray:
+    """Triangular mel filterbank, f32 [n_mels, n_fft // 2 + 1] (JAX :72):
+    the HTK mel scale from 0 to sr / 2, without normalisation."""
+    def hz_to_mel(f):
+        return 2595.0 * np.log10(1.0 + np.asarray(f) / 700.0)
+
+    def mel_to_hz(m):
+        return 700.0 * (10.0 ** (np.asarray(m) / 2595.0) - 1.0)
+
+    freqs = mel_to_hz(np.linspace(hz_to_mel(0.0), hz_to_mel(sr / 2), n_mels + 2))
+    fft_freqs = np.linspace(0, sr / 2, n_fft // 2 + 1)
+    fb = np.zeros((n_mels, n_fft // 2 + 1), np.float32)
+    for i in range(n_mels):
+        lo, ctr, hi = freqs[i], freqs[i + 1], freqs[i + 2]
+        up = (fft_freqs - lo) / max(ctr - lo, 1e-8)
+        down = (hi - fft_freqs) / max(hi - ctr, 1e-8)
+        fb[i] = np.clip(np.minimum(up, down), 0, None)
+    return fb
 
 
 def a_weighting_fir(ntaps: int = 101, sr: int = 44100) -> np.ndarray:

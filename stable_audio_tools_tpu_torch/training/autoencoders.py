@@ -29,6 +29,8 @@ whose adversarial and feature-matching losses join from `warmup_steps`.
   its LR schedule, then the EMA of the autoencoder's parameters.
 - The discriminator step: the autoencoder forward under `no_grad`, its output
   detached, the hinge loss, the discriminator's AdamW.
+- `val_step` (JAX `make_val_step` :533): the STFT, SI-SDR and mel distances
+  of the eval-mode forward with the training weights.
 
 The losses, STFTs and FIR run in f32; weights, gradients, Adam state and the
 EMA stay f32. Random numbers: the VAE noise is drawn from a `torch.Generator`
@@ -51,6 +53,7 @@ from ..models.discriminators import EncodecDiscriminator
 from .ema import ema_init, ema_update
 from .losses.auraloss import MultiResolutionSTFTLoss, SumAndDifferenceSTFTLoss
 from .losses.losses import AuralossLoss, L1Loss, LossModule, MSELoss, MultiLoss, ValueLoss
+from .losses.metrics import make_eval_metrics
 from .utils import build_optimizer
 
 Tensor = torch.Tensor
@@ -189,6 +192,7 @@ class AutoencoderTrainer:
         # (ms each, the card synchronised at every boundary); None: no timing
         self.gen_split: tp.Optional[tp.Dict[str, float]] = None
         self._lap_t = 0.0
+        self._metrics: tp.Optional[tp.Dict[str, tp.Callable]] = None  # built on first use
 
     @property
     def device(self) -> torch.device:
@@ -322,6 +326,24 @@ class AutoencoderTrainer:
         aux = step_fn(audio, noise, revive_indices)
         self.step += 1
         return aux
+
+    @torch.no_grad()
+    def val_step(self, audio: Tensor, metadata=None, noise: tp.Optional[Tensor] = None
+                 ) -> tp.Dict[str, Tensor]:
+        """Validation metrics of a batch (JAX `make_val_step` :533): the
+        autoencoder in eval mode with the training weights (no EMA), an RVQ's
+        state left as it is, each `make_eval_metrics` metric of the decoded
+        audio against the reals under `val/<name>`. The VAE noise comes from
+        a generator of its own (or `noise`), never the training's."""
+        if self._metrics is None:
+            self._metrics = make_eval_metrics(self.sample_rate)
+        self.model.eval()
+        try:
+            decoded, info = self.ae_forward(audio, noise, self.generator(-1 - self.step))
+        finally:
+            self.model.train()
+        return {f"val/{name}": fn(info["decoded"], info["reals"])
+                for name, fn in self._metrics.items()}
 
     def export_params(self) -> tp.Dict[str, Tensor]:
         """The weights to export: the EMA where kept (JAX :550)."""

@@ -2,11 +2,12 @@
 stable_audio_tools_tpu/training/losses/auraloss.py: SpectralConvergenceLoss
 :38, STFTMagnitudeLoss :45, STFTLoss :61 (spectral convergence + log / linear
 magnitude, A-weighting prefilter, scale invariance), MultiResolutionSTFTLoss
-:165 and SumAndDifferenceSTFTLoss :203.
+:165, SumAndDifferenceSTFTLoss :203, SISDRLoss :235 and MelSTFTLoss :276
+(the mel-scale STFTLoss: magnitudes times the HTK mel filterbank, less the
+bands that hold no FFT bin, which make the JAX package's loss NaN).
 
 Each is a callable loss(input, target) -> scalar over [B, C, T] or [B, T],
-differentiable through `torch.stft`. The mel-scale STFTLoss, MelSTFTLoss and
-the SDR losses are later slices (`scale="mel"` raises).
+differentiable through `torch.stft`.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import typing as tp
 
 import torch
 
-from ...ops.stft import a_weighting_fir, apply_fir, stft_mag
+from ...ops.stft import a_weighting_fir, apply_fir, mel_filterbank, stft_mag
 
 
 class SpectralConvergenceLoss:
@@ -49,8 +50,18 @@ class STFTLoss:
                  scale: tp.Optional[str] = None, n_bins: tp.Optional[int] = None,
                  perceptual_weighting: bool = False, scale_invariance: bool = False,
                  eps: float = 1e-8, mag_distance: str = "L1", **kwargs):
-        if scale is not None:
+        if scale not in (None, "mel"):
             raise NotImplementedError(f"STFTLoss scale={scale!r} is not ported yet")
+        self._fb = None
+        if scale == "mel":
+            if sample_rate is None or n_bins is None:
+                raise ValueError("the mel scale needs sample_rate and n_bins")
+            fb = mel_filterbank(sample_rate, fft_size, n_bins)
+            # bands narrower than the FFT's bin spacing (the lowest HTK bands
+            # at 44.1 kHz and n_fft 1024) hold no bin: their magnitude is 0,
+            # its log -inf, and the loss NaN in the JAX package; they are
+            # left out here, which changes nothing where no band is empty
+            self._fb = torch.from_numpy(fb[fb.any(axis=1)])
         self.fft_size, self.hop_size, self.win_length = fft_size, hop_size, win_length
         self.w_sc, self.w_log_mag, self.w_lin_mag = w_sc, w_log_mag, w_lin_mag
         self.scale_invariance = scale_invariance
@@ -67,6 +78,8 @@ class STFTLoss:
             xy = apply_fir(xy[:, None] if xy.dim() == 2 else xy, self._aw_taps)
         mag = stft_mag(xy.reshape(-1, xy.shape[-1]), self.fft_size, self.hop_size,
                        self.win_length, eps=self.eps)
+        if self._fb is not None:
+            mag = mag @ self._fb.to(mag.device).T
         x_mag, y_mag = mag.chunk(2, dim=0)
         if self.scale_invariance:
             alpha = (x_mag * y_mag).sum(dim=(-2, -1), keepdim=True) / (
@@ -123,3 +136,30 @@ class SumAndDifferenceSTFTLoss:
             raise ValueError("SumAndDifferenceSTFTLoss takes stereo input")
         return self.mrstft(torch.cat([input[:, 0] + input[:, 1], input[:, 0] - input[:, 1]]),
                            torch.cat([target[:, 0] + target[:, 1], target[:, 0] - target[:, 1]]))
+
+
+class SISDRLoss:
+    """Negative scale-invariant SDR in dB, averaged over items and channels."""
+
+    def __init__(self, zero_mean: bool = True, eps: float = 1e-8):
+        self.zero_mean, self.eps = zero_mean, eps
+
+    def __call__(self, input: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        x, y = input, target
+        if self.zero_mean:
+            x = x - x.mean(dim=-1, keepdim=True)
+            y = y - y.mean(dim=-1, keepdim=True)
+        alpha = (x * y).sum(dim=-1, keepdim=True) / ((y * y).sum(dim=-1, keepdim=True) + self.eps)
+        y_scaled = alpha * y
+        sisdr = 10 * torch.log10(((y_scaled ** 2).sum(dim=-1) + self.eps)
+                                 / (((x - y_scaled) ** 2).sum(dim=-1) + self.eps))
+        return -sisdr.mean()
+
+
+class MelSTFTLoss(STFTLoss):
+    """STFTLoss over `n_mels` HTK mel bands."""
+
+    def __init__(self, sample_rate: int, fft_size: int = 1024, hop_size: int = 256,
+                 win_length: int = 1024, n_mels: int = 128, **kwargs):
+        super().__init__(fft_size=fft_size, hop_size=hop_size, win_length=win_length,
+                         sample_rate=sample_rate, scale="mel", n_bins=n_mels, **kwargs)

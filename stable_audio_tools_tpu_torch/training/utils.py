@@ -1,7 +1,7 @@
 """Training utilities: LR schedules, the optimizer factory, logging;
 counterpart of stable_audio_tools_tpu/training/utils.py (get_rank :20,
 inverse_lr_schedule :30, create_optimizer_from_config :56,
-create_schedule_from_config :81, build_optimizer :95, JSONLLogger :112).
+create_schedule_from_config :81, build_optimizer :95, JSONLLogger :112, create_logger :204).
 
 The JAX package builds optax transformations; here the optimizer is a
 `torch.optim` optimizer over the trainable parameters and the schedule a
@@ -105,15 +105,49 @@ def build_optimizer(entry: tp.Dict[str, tp.Any], params: tp.Iterable[torch.nn.Pa
 
 
 class JSONLLogger:
-    """One JSON object per `log_metrics` call, appended to `path`."""
+    """One JSON object per `log_metrics` call, appended to `path`; numbers
+    as floats, other values (demo captions, file lists) as they are. Images
+    and audio are on disk already (the demo directory): `log_image` and
+    `log_audio` record their key (JAX :112-135)."""
 
     def __init__(self, path: str = "train_log.jsonl"):
         self.path = path
 
     def log_metrics(self, metrics: tp.Dict[str, tp.Any], step: tp.Optional[int] = None) -> None:
-        rec = {k: float(v) if isinstance(v, (int, float, torch.Tensor)) else v
-               for k, v in metrics.items()}
+        def ser(v):
+            if isinstance(v, str) or v is None:
+                return v
+            try:
+                return float(v)
+            except (TypeError, ValueError):
+                return v
+
+        rec = {k: ser(v) for k, v in metrics.items()}
         if step is not None:
             rec["step"] = step
         with open(self.path, "a") as f:
             f.write(json.dumps(rec) + "\n")
+
+    def log_image(self, key: str, image, step: tp.Optional[int] = None) -> None:
+        self.log_metrics({key: "image"}, step=step)
+
+    def log_audio(self, key: str, audio, sample_rate: int, caption: tp.Optional[str] = None,
+                  step: tp.Optional[int] = None) -> None:
+        self.log_metrics({key: caption or "audio"}, step=step)
+
+
+# logger backends that need a package neither machine has (ROADMAP queue 1)
+UNPORTED_LOGGERS = ("wandb", "comet")
+
+
+def create_logger(logger_type: str, save_dir: str, project: tp.Optional[str] = None,
+                  name: tp.Optional[str] = None, config: tp.Optional[dict] = None) -> JSONLLogger:
+    """The run's logger (JAX :204): `jsonl` writes `save_dir/train_log.jsonl`
+    (`project`, `name` and `config` are for the hosted backends; JSONL, as
+    in JAX, ignores them). `wandb` and `comet` are refused by name."""
+    if logger_type in UNPORTED_LOGGERS:
+        raise NotImplementedError(f"the {logger_type} logger is not ported (its package is not "
+                                  "installed); use --logger jsonl")
+    if logger_type != "jsonl":
+        raise ValueError(f"unknown logger {logger_type!r}")
+    return JSONLLogger(os.path.join(save_dir, "train_log.jsonl"))

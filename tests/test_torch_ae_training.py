@@ -282,7 +282,7 @@ def test_train_entry_trains_checkpoints_and_resumes(tmp_path):
     assert all("train/lr" in r and "train/lr_disc" in r for r in log)
     assert all(np.isfinite(v) for r in log for v in r.values())
     ckpt = tmp_path / "run" / "step=4.ckpt"
-    fresh, _ = train.build(train.parse_args(argv))
+    fresh = train.build(train.parse_args(argv))[0]
     state = load_training_state(str(ckpt), fresh.wrapper)
     assert {"discriminator", "disc_optimizer", "disc_scheduler"} <= set(state)
     w, f = trainer.wrapper, fresh.wrapper

@@ -2,8 +2,9 @@
 autoencoder GAN generator and discriminator step, an LM training step, a
 KV-cached LM generation, pre-encoding then training from the latents,
 Dance Diffusion's generation and training step, SA-1.0's generation, and the
-training steps of SA-1.0, a DAC VAE-GAN and an EnCodec-style codec)
-with JAX,
+training steps of SA-1.0, a DAC VAE-GAN and an EnCodec-style codec, and
+the training entry with tar shards, demos, validation, --recover,
+unwrap_model and the fine-tuning loads) with JAX,
 flax, transformers and the JAX package unimportable (the machine with the
 card has none of them), and without triton: no module imports it at import
 time."""
@@ -554,3 +555,92 @@ def test_sa1_dac_and_codec_training_run_without_jax_or_triton():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.startswith("ok")
+
+
+ENTRY_SCRIPT = textwrap.dedent("""
+    import sys, tempfile, os, io, json, tarfile
+    for name in ("jax", "jaxlib", "flax", "transformers", "safetensors",
+                 "stable_audio_tools_tpu"):
+        sys.modules[name] = None  # any import of these raises ImportError
+
+    import numpy as np
+    import torch
+    from stable_audio_tools_tpu_torch import train, unwrap_model
+    from stable_audio_tools_tpu_torch.data.wav import save_wav
+
+    oobleck = {"channels": 8, "c_mults": [1, 2], "strides": [2, 4], "use_snake": True}
+    config = {
+        "model_type": "diffusion_cond", "sample_size": 512, "sample_rate": 16000,
+        "model": {
+            "io_channels": 4,
+            "pretransform": {"type": "autoencoder", "config": {
+                "encoder": {"type": "oobleck", "config": dict(oobleck, in_channels=2,
+                                                              latent_dim=8)},
+                "decoder": {"type": "oobleck", "config": dict(oobleck, out_channels=2,
+                                                              latent_dim=4)},
+                "bottleneck": {"type": "vae"}, "latent_dim": 4, "downsampling_ratio": 8,
+                "io_channels": 2}},
+            "conditioning": {"cond_dim": 64, "configs": [
+                {"id": "prompt", "type": "t5", "config": {
+                    "max_length": 8, "allow_random_init": True,
+                    "arch": [64, 128, 1, 2, 32, True]}},
+                {"id": "seconds_total", "type": "number", "config": {"max_val": 512}}]},
+            "diffusion": {"type": "dit", "cross_attention_cond_ids": ["prompt"],
+                          "global_cond_ids": ["seconds_total"],
+                          "config": {"io_channels": 4, "embed_dim": 128, "depth": 1,
+                                     "num_heads": 2, "cond_token_dim": 64,
+                                     "global_cond_dim": 64, "project_cond_tokens": False}}},
+        "training": {"learning_rate": 1e-4, "demo": {
+            "demo_every": 2, "demo_steps": 2, "demo_cfg_scales": [3, 6],
+            "demo_cond": [{"prompt": "rain", "seconds_total": 10}]}}}
+    tmp = tempfile.TemporaryDirectory()  # removed when the process ends
+    root = tmp.name
+    # tar shards of WAVs with JSON metadata (the prompt)
+    rng = np.random.default_rng(0)
+    with tarfile.open(os.path.join(root, "s0.tar"), "w") as tf:
+        for i in range(4):
+            path = os.path.join(root, f"{i}.wav")
+            save_wav(path, 0.3 * rng.standard_normal((2, 700)), 16000)
+            for name, data in ((f"k{i}.wav", open(path, "rb").read()),
+                               (f"k{i}.json", json.dumps({"text": f"noise {i}"}).encode())):
+                info = tarfile.TarInfo(name)
+                info.size = len(data)
+                tf.addfile(info, io.BytesIO(data))
+    with open(os.path.join(root, "data.json"), "w") as f:
+        json.dump({"dataset_type": "tar", "datasets": [{"id": "s", "path": root}]}, f)
+    with open(os.path.join(root, "model.json"), "w") as f:
+        json.dump(config, f)
+    argv = ["--model-config", os.path.join(root, "model.json"), "--dataset-config",
+            os.path.join(root, "data.json"), "--batch-size", "2", "--num-workers", "0",
+            "--device", "cpu", "--save-dir", os.path.join(root, "run"), "--max-steps", "2",
+            "--checkpoint-every", "1", "--save-top-k", "1", "--val-every", "2",
+            "--val-dataset-config", os.path.join(root, "data.json")]
+    trainer = train.main(argv)
+    log = [json.loads(s) for s in open(os.path.join(root, "run", "train_log.jsonl"))]
+    assert any("val/loss_0.5" in r for r in log) and not any("demo/error" in r for r in log)
+    assert sorted(f for f in os.listdir(os.path.join(root, "run", "demos"))
+                  if f.endswith(".wav")) == ["demo_cfg3_step2_0.wav", "demo_cfg6_step2_0.wav"]
+    assert [f for f in os.listdir(os.path.join(root, "run")) if f.endswith(".ckpt")] == [
+        "step=2.ckpt"]
+    resumed = train.main(argv[:-8] + ["--max-steps", "3", "--recover"])
+    assert resumed.wrapper.step == 3
+    out = unwrap_model.main(["--ckpt-path", os.path.join(root, "run", "step=3.ckpt"),
+                             "--name", os.path.join(root, "m"), "--use-safetensors"])
+    args = train.parse_args(argv + ["--pretrained-ckpt-path", out,
+                                    "--pretransform-ckpt-path", out])
+    model, report = train.build_model(args, config, torch.device("cpu"))
+    assert report["pretrained_skipped"] == [] and report["pretransform_loaded"] > 0
+    assert "triton" not in sys.modules
+    print("ok")
+""")
+
+
+def test_training_entry_runs_without_jax_or_triton():
+    # the entry as users run it: local tar shards, demos from the config's
+    # own section, validation, top-k checkpoints, --recover, unwrap_model to
+    # safetensors (the port's own writer) and the fine-tuning loads
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", ENTRY_SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("ok")

@@ -531,8 +531,8 @@ def test_trainer_fit_logs_checkpoints_and_accumulates(train_pair, tmp_path):
 def test_train_entry_runs_resumes_and_refuses_unported_flags(tmp_path):
     # `python -m stable_audio_tools_tpu_torch.train`'s code path on the CPU:
     # WAVs -> audio_dir loader -> 2 steps with a checkpoint each step, then a
-    # resume from the second checkpoint to step 3; JAX flags the port does not
-    # implement, and unknown --precision values, are refused
+    # resume from the second checkpoint to step 3; the JAX flags of several
+    # cards, and unknown --precision values, are refused
     from stable_audio_tools_tpu_torch import train
     from stable_audio_tools_tpu_torch.data.wav import save_wav
 
@@ -562,7 +562,7 @@ def test_train_entry_runs_resumes_and_refuses_unported_flags(tmp_path):
     assert steps == [1, 2, 3]
     args = train.parse_args(argv)
     assert (args.batch_size, args.seed, args.precision) == (2, 42, "16-mixed")  # defaults.ini
-    for bad in (["--val-every", "5"], ["--pretrained-ckpt-path", "x.ckpt"], ["--recover"],
+    for bad in (["--num-gpus", "2"], ["--strategy", "ddp"], ["--multihost"],
                 ["--precision", "fp8"]):
         with pytest.raises(SystemExit):
             train.parse_args(argv + bad)
