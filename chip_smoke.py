@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--phases 2,4,6]
 
 Runs from the repository root on a machine with a CUDA card and `nvcc`;
-needs no network, no Triton and no JAX. Fourteen phases, each printing one
+needs no network, no Triton and no JAX. Fifteen phases, each printing one
 line (phase 2 several); any failure raises and the exit code is nonzero.
 `--phases` (for development runs) runs phase 1 and the phases named, with
 all their checks, and ends on `{"ok": true, "partial": [...]}`, the phases
@@ -242,6 +242,31 @@ every kernel launched on some path and the device line close the run:
    batch 4 x 32,000: as phase 13, the only hand-written kernel row 11
    plain on the towers' bf16 stride-1 convs (14 a generator step,
    asserted).
+
+15. Rectified flow and ARC at SA-Open's width: the shipped
+   stable_audio_open_1_0.json changed in memory only (its objective set to
+   `rf_denoiser` or `rectified_flow`, `distribution_shift_options` set to
+   the class defaults RF_SHIFT, for inpainting `diffusion_cond_inpaint` with
+   input_concat_dim 64 + 1). The four flow samplers of a tiny SA-Open-shaped
+   flow model (2 steps each) agree between the card and the CPU within 5%;
+   then batch 1, 2,097,152 samples: `rf_denoiser` pingpong 8 steps at cfg 1,
+   `rectified_flow` euler 50 at cfg 7, rk4 and dpmpp 4 each, their launches
+   pinned (rows 1 / 2 24 / 72 a DiT call, four calls a step for rk4; rows
+   12 / 3 / 4 16 / 15 / 5 a decode), and one pingpong request with
+   `preview` (8 taps). Then phase 4's set-up (batch 4 x 2,097,152 from the
+   synthetic WAVs, remat) under `rectified_flow` with the shift,
+   p_one_shot 0.1 and log_loss_info for 2 + 5 steps (rows 1 / 6 / 2 48 /
+   24 / 144 a step; every per-sigma bucket finite), the
+   `diffusion_cond_inpaint` variant for 2 + 3 steps and its demo at
+   DEMO_STEPS steps (its three kinds of output; rows 1 / 2 pinned), and ARC
+   from seeded latents [4, 64, 1024] with the config's T5 and number
+   conditioning, student and discriminator both the full-width rf DiT: 2
+   ODE warm-up steps (8 teacher steps, refreshed each step), generator,
+   discriminator, generator, discriminator with the conv head, then one
+   discriminator step with the ConvNeXt head; each step's ms, peak GiB,
+   finite losses and launches pinned (counted from training/arc.py), and
+   row 11 held at the ConvNeXt head's stride-1 conv shapes against its
+   plain version.
 
 The last lines are the kernels' JSON record, the card line and the result
 line {"ok": true, "device": {...}}.
@@ -4622,7 +4647,398 @@ def phase_codec_training(dev) -> dict:
     return rec
 
 
-PHASES = tuple(range(1, 15))
+# Phase 15: rectified flow and ARC at SA-Open's width. The shipped SA-Open
+# config changed in memory only: its objective set to a flow one, the
+# timestep shift's options set to the class defaults (an empty dict is no
+# shift), and for inpainting `diffusion_cond_inpaint` with input_concat_dim
+# 64 + 1.
+RF_SHIFT = {"base_shift": 0.5, "max_shift": 1.15, "min_length": 256, "max_length": 4096}
+# (objective, sampler, steps, cfg scale): the JAX UI's defaults for each
+# objective (rf_denoiser: pingpong 8 at cfg 1; rectified_flow: euler 50 at
+# cfg 7), then rk4 and dpmpp at 4 steps
+RF_CASES = (("rf_denoiser", "pingpong", 8, 1.0), ("rectified_flow", "euler", 50, 7.0),
+            ("rectified_flow", "rk4", 4, 7.0), ("rectified_flow", "dpmpp", 4, 7.0))
+RF_P_ONE_SHOT = 0.1
+INPAINT_TIMED_STEPS = 3
+ARC_BATCH, ARC_LATENTS = 4, 1024
+ARC_CONFIG = {"ode_warmup": {"warmup_steps": 2, "refresh_rate": 1, "n_sampling_steps": 8},
+              "gan": {"grad_penalties": True, "contrastive": True, "head": {"type": "conv"}}}
+ARC_PROMPTS = [{"prompt": p, "seconds_start": 0, "seconds_total": 30} for p in (
+    "An upbeat electronic track with a driving bassline", "A solo piano ballad",
+    "Rain on a tin roof", "A brass band marching in the street")]
+
+
+def rf_sa_open_config(objective: str = "rectified_flow", inpaint: bool = False) -> dict:
+    cfg = sa_open_config()
+    diffusion = cfg["model"]["diffusion"]
+    diffusion["diffusion_objective"] = objective
+    diffusion["distribution_shift_options"] = dict(RF_SHIFT)
+    if inpaint:
+        cfg["model_type"] = "diffusion_cond_inpaint"
+        diffusion["config"]["input_concat_dim"] = diffusion["config"]["io_channels"] + 1
+    return cfg
+
+
+def set_objective(model, objective: str) -> None:
+    """The wrapper's objective (the sampler family) and its DiT's (what the
+    CFG interval gates on), as the factory sets them from the config."""
+    model.diffusion_objective = objective
+    model.model.model.diffusion_objective = objective
+
+
+def dit_calls(forward: int = 0, trained: int = 0, depth: int = 24) -> dict:
+    """Rows 1 / 6 / 2 of `forward` DiT calls without a backward and
+    `trained` with one (each block rematerialised: its forward runs twice),
+    each block one self-attention and three LayerNorms."""
+    runs = forward + 2 * trained
+    return {"flash_attention_prefix": depth * runs, "flash_attention_prefix_bwd": depth * trained,
+            "fused_layer_norm": 3 * depth * runs}
+
+
+def rf_request_launches(sampler: str, steps: int, depth: int = 24) -> dict:
+    """Rows 1 / 2 of one request (a DiT call a sampler step, four for rk4;
+    CFG doubles the batch, not the calls) and the decode's rows 12 / 3 / 4."""
+    launches = dit_calls(forward=steps * (4 if sampler == "rk4" else 1), depth=depth)
+    del launches["flash_attention_prefix_bwd"]
+    return {**launches, **DECODE_LAUNCHES}
+
+
+def arc_step_launches(kind: str, depth: int = 24, teacher_steps: int = 8) -> dict:
+    """Rows 1 / 6 / 2 of one ARC step, counted from training/arc.py: the ODE
+    step = the teacher's calls without grad + the student's forward and
+    backward; the generator step = the student's + the discriminator's on
+    the fakes (the gradient to its input) + its forward on the reals without
+    grad; the discriminator step = the student without grad + the
+    discriminator's five scored inputs (reals, fakes, the two noised for
+    R1/R2, the reals under rolled prompts)."""
+    forward, trained = {"ode": (teacher_steps, 1), "gen": (1, 2), "disc": (1, 5)}[kind]
+    return dit_calls(forward, trained, depth)
+
+
+def convnext_head_wgrad_shapes(in_channels: int, N: int, scored: int = 5) -> dict:
+    """{(Ci, Co, k, L, pad): launches} of row 11 plain in one discriminator
+    step with the ConvNeXt head on N hidden states of `in_channels`, recorded
+    from the head's own convs: the head as ARC builds it runs once in bf16 on
+    the meta device, and each stride-1 conv that `models/convnext.py`
+    hands to `conv1d` (conv_in, each block's 1 x 1 up and down, conv_out) is
+    noted; each launches row 11 once a backward of the `scored` inputs."""
+    import collections
+    from unittest import mock
+
+    import torch.nn.functional as F
+
+    from stable_audio_tools_tpu_torch.models import convnext
+    from stable_audio_tools_tpu_torch.models.arc import ConvNeXtDiscriminator
+
+    shapes = collections.Counter()
+
+    def record(x, w, bias=None, padding=0):
+        shapes[(x.shape[1], w.shape[0], w.shape[-1], x.shape[-1], padding)] += scored
+        return F.conv1d(x, w, bias, padding=padding)
+
+    with torch.device("meta"):
+        head = ConvNeXtDiscriminator(in_channels)
+    with mock.patch.object(convnext, "conv1d", record), torch.no_grad():
+        head(torch.empty(1, N, in_channels, device="meta", dtype=torch.bfloat16))
+    return dict(shapes)
+
+
+@torch.inference_mode()
+def small_rf_check(dev) -> dict:
+    """Largest relative error (max|card - CPU| / max|CPU|) of the final
+    latents of each flow sampler (2 steps; rk4 makes 8 calls) on the tiny
+    SA-Open-shaped model made a flow model with the shift, the kernels on the
+    card against the plain versions on the CPU, with the same initial and
+    pingpong noise: at cfg 1 (`{sampler} cfg 1`, the gate) and at the
+    RF_CASES' scale where it is another (`{sampler} cfg 7`): CFG scales the
+    difference of the two outputs, and with it their bf16 roundings."""
+    cpu = tiny_model().eval()
+    cpu.distribution_shift_options = dict(RF_SHIFT)
+    gpu = copy.deepcopy(cpu).to(dev)
+    from stable_audio_tools_tpu_torch.inference.generation import generate_diffusion_cond
+
+    g = torch.Generator().manual_seed(5)
+    noise = torch.randn(1, 16, 128, generator=g)
+    steps_noise = [torch.randn(1, 16, 128, generator=g) for _ in range(2)]
+    errs = {}
+    for objective, sampler, _, scale in RF_CASES:
+        for cfg_scale in sorted({1.0, scale}):
+            outs = []
+            for model, d in ((cpu, "cpu"), (gpu, dev)):
+                set_objective(model, objective)
+                outs.append(generate_diffusion_cond(
+                    model, steps=2, cfg_scale=cfg_scale, conditioning=PROMPT, batch_size=1,
+                    sample_size=4096, sampler_type=sampler, return_latents=True,
+                    noise=noise.to(d), step_noise=lambda i, x: steps_noise[i].to(x.device)
+                ).float().cpu())
+            want, got = outs
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"small rf {sampler}: non-finite latents on the card")
+            errs[f"{sampler} cfg {cfg_scale:g}"] = ((got - want).abs().max().item()
+                                                    / max(want.abs().max().item(), 1e-6))
+    return errs
+
+
+def rf_generation(dev) -> dict:
+    """(a): the four flow samplers at SA-Open's width, batch 1, 2,097,152
+    samples, each request's wall, audio-s/s, peak GiB and launches (pinned),
+    then one pingpong request with `preview`."""
+    from stable_audio_tools_tpu_torch.inference.generation import generate_diffusion_cond
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+
+    t0 = time.perf_counter()
+    model = create_model_from_config(rf_sa_open_config("rf_denoiser"), dev)
+    init_random_(model, torch.Generator(device=dev).manual_seed(0)).eval()
+    torch.cuda.synchronize()
+    rec = dict(build_s=time.perf_counter() - t0, requests={})
+    kernels = {n: fn for n, fn in counters().items() if n in GENERATION_KERNELS}
+    depth, io = model.model.model.depth, model.io_channels
+    latents = SAMPLE_SIZE // model.pretransform.downsampling_ratio
+
+    def request(objective, sampler, steps, cfg_scale, seed, **kw):
+        set_objective(model, objective)
+        return generate_diffusion_cond(model, steps=steps, cfg_scale=cfg_scale,
+                                       conditioning=PROMPT, batch_size=1,
+                                       sample_size=SAMPLE_SIZE, seed=seed,
+                                       sampler_type=sampler, **kw)
+
+    request("rectified_flow", "euler", 2, 7.0, 0)  # warm-up: cuDNN plans at the full shapes
+    for objective, sampler, steps, cfg_scale in RF_CASES:
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        audio = request(objective, sampler, steps, cfg_scale, 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in kernels.items()}
+        want = rf_request_launches(sampler, steps, depth)
+        if launches != want:
+            raise AssertionError(f"rf {sampler}: launches {launches}, expected {want}")
+        if tuple(audio.shape) != (1, 2, SAMPLE_SIZE) or not torch.isfinite(audio).all():
+            raise AssertionError(f"rf {sampler}: audio {tuple(audio.shape)} "
+                                 f"finite={bool(torch.isfinite(audio).all())}")
+        rec["requests"][sampler] = dict(
+            objective=objective, steps=steps, cfg_scale=cfg_scale, wall_s=wall,
+            audio_s_per_s=SAMPLE_SIZE / 44100.0 / wall,
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, launches=launches)
+        del audio
+    t0 = time.perf_counter()
+    request("rf_denoiser", "pingpong", 8, 1.0, 2, preview=True)
+    torch.cuda.synchronize()
+    buf = model._preview_buffer
+    if len(buf) != 8 or not all(d.shape == (1, io, latents) and math.isfinite(float(abs(d).max()))
+                                for d, _ in buf):
+        raise AssertionError(f"preview: {len(buf)} entries, shapes {[d.shape for d, _ in buf]}")
+    rec["preview"] = dict(wall_s=time.perf_counter() - t0, entries=len(buf),
+                          sigmas=[s for _, s in buf])
+    rec["launches"] = {n: sum(r["launches"].get(n, 0) for r in rec["requests"].values())
+                       for n in kernels}
+    rec["params"] = sum(p.numel() for p in model.parameters())
+    del model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def counted_fit(trainer, loader, steps: int, names) -> tuple:
+    """`steps` more steps through `Trainer.fit`, the launches of `names`
+    counted and the peak memory read over them; returns (launches, peak GiB)."""
+    kernels = {n: fn for n, fn in counters().items() if n in names}
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    trainer.fit(loader, max_steps=trainer.wrapper.step + steps, save_at_end=False)
+    torch.cuda.synchronize()
+    return ({n: fn.launches for n, fn in kernels.items()},
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def rf_training_run(dev, tmp: str, data: str, inpaint: bool, timed: int) -> dict:
+    """(b) / (c): SA-Open at full width trained from the WAVs through the
+    code path of `python -m stable_audio_tools_tpu_torch.train` under the
+    rectified-flow objective with the shift, p_one_shot and log_loss_info
+    (and, for (c), the inpainting model, its masks drawn within the batch's
+    padding masks), WARM_STEPS + `timed` steps, batch TRAIN_BATCH."""
+    from stable_audio_tools_tpu_torch import train
+
+    cfg = rf_sa_open_config("rectified_flow", inpaint=inpaint)
+    cfg["training"].update(p_one_shot=RF_P_ONE_SHOT, log_loss_info=True)
+    cfg["training"]["demo"]["demo_steps"] = DEMO_STEPS
+    name = "inpaint" if inpaint else "rf"
+    cfg_path = os.path.join(tmp, f"{name}.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    argv = ["--model-config", cfg_path, "--dataset-config", data, "--batch-size",
+            str(TRAIN_BATCH), "--num-workers", "4", "--seed", "0", "--checkpoint-every", "0",
+            "--save-dir", os.path.join(tmp, name)]
+    t0 = time.perf_counter()
+    trainer, loader, _ = train.build(train.parse_args(argv), device=dev)
+    torch.cuda.synchronize()
+    rec = dict(build_s=time.perf_counter() - t0)
+    w = trainer.wrapper
+    if (w.diffusion_objective, w.p_one_shot, w.log_loss_info, w.dist_shift is None,
+            w.inpainting_config) != ("rectified_flow", RF_P_ONE_SHOT, True, False,
+                                     {} if inpaint else None):
+        raise AssertionError(f"{name}: the trainer did not take the config's options")
+    trainer.fit(loader, max_steps=WARM_STEPS, save_at_end=False)
+    launches, rec["peak_gib"] = counted_fit(trainer, loader, timed, TRAINING_KERNELS)
+    depth = w.model.model.model.depth
+    want = dit_calls(trained=timed, depth=depth)
+    if any(launches[n] != c for n, c in want.items()) or not all(
+            launches[n] for n in ("snake_conv1d", "snake_conv1d_res")):
+        raise AssertionError(f"{name} training launches {launches}: expected {want} and the "
+                             "encode's rows 12 / 3")
+    rec["launches"] = launches
+    hist = trainer.history
+    losses = [h["train/loss"] for h in hist]
+    buckets = [{k[len("train/loss_all_"):]: v for k, v in h.items()
+                if k.startswith("train/loss_all_")} for h in hist]
+    if (len(losses) != WARM_STEPS + timed or not all(map(math.isfinite, losses))
+            or any(len(b) != 10 or not all(map(math.isfinite, b.values())) for b in buckets)
+            or not any(v > 0 for b in buckets for v in b.values())):
+        raise AssertionError(f"{name} training: losses {losses}, buckets {buckets}")
+    walls = [1e3 / h["train/steps_per_sec"] for h in hist[WARM_STEPS:]]
+    rec.update(losses=losses, buckets=buckets, step_ms=walls,
+               step_ms_median=statistics.median(walls),
+               audio_s_per_s=TRAIN_BATCH * SAMPLE_SIZE / SR / (statistics.median(walls) / 1e3))
+    if inpaint:
+        with open(data) as f:
+            dataset_config = json.load(f)
+        demo, _ = one_demo(trainer, argv + ["--demo-every", "1"], dataset_config,
+                           "SA-Open inpainting")
+        names = sorted(demo["outputs"])
+        scales = cfg["training"]["demo"]["demo_cfg_scales"]
+        if names != sorted(["inpaint_reals", "inpaint_masked_input"]
+                           + [f"inpaint_cfg{s}" for s in scales]):
+            raise AssertionError(f"inpainting demo outputs {names}")
+        want = dit_calls(forward=DEMO_STEPS * len(scales), depth=depth)
+        if any(demo["launches"].get(n, 0) != want[n]
+               for n in ("flash_attention_prefix", "fused_layer_norm")):
+            raise AssertionError(f"inpainting demo launches {demo['launches']}: expected rows "
+                                 f"1 / 2 of {want}")
+        rec["demo"] = demo
+    del trainer, loader, w
+    torch.cuda.empty_cache()
+    return rec
+
+
+def arc_run(dev) -> dict:
+    """(d): ARC from seeded latents [4, 64, 1024] with SA-Open's T5 and
+    number conditioning, the student and the discriminator SA-Open's rf DiT
+    at full width (the factory's: the discriminator a copy of the student,
+    the teacher the student's weights): 2 ODE warm-up steps (8 teacher steps,
+    refreshed each step), then generator, discriminator, generator,
+    discriminator steps with the conv head (R1/R2 by input noise, the
+    contrastive term on the prompts rolled by one), then one discriminator
+    step with the ConvNeXt head. Each step's ms, peak GiB, finite losses and
+    launches (pinned)."""
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+    from stable_audio_tools_tpu_torch.training.arc import ARCTrainer
+    from stable_audio_tools_tpu_torch.training.factory import create_training_wrapper_from_config
+
+    cfg = rf_sa_open_config("rectified_flow")
+    cfg["training"] = {"learning_rate": 1e-5, "arc": copy.deepcopy(ARC_CONFIG)}
+    t0 = time.perf_counter()
+    model = init_random_(create_model_from_config(cfg, dev), torch.Generator(device=dev)
+                         .manual_seed(0))
+    trainer = create_training_wrapper_from_config(cfg, model)
+    torch.cuda.synchronize()
+    rec = dict(build_s=time.perf_counter() - t0, steps=[])
+    io, depth = model.io_channels, model.model.model.depth
+    if not isinstance(trainer, ARCTrainer) or trainer.head.convs[0].in_channels != io:
+        raise AssertionError(f"ARC: the factory did not build the trainer with a head over "
+                             f"the {io} channels of exit layer -1")
+    g = torch.Generator(device=dev).manual_seed(3)
+    latents = torch.randn(ARC_BATCH, io, ARC_LATENTS, generator=g, device=dev)
+    with torch.no_grad():
+        cond = model.conditioner(ARC_PROMPTS, dev)
+        rolled = model.conditioner(ARC_PROMPTS[1:] + ARC_PROMPTS[:1], dev)
+    names = ("flash_attention_prefix", "flash_attention_prefix_bwd", "fused_layer_norm",
+             "conv1d_wgrad")
+    kernels = {n: fn for n, fn in counters().items() if n in names}
+
+    def step(tr, kind, **kw):
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        aux = tr.train_step(latents, cond, rolled_cond_tensors=rolled, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {n: fn.launches for n, fn in kernels.items()}
+        losses = {k: float(v) for k, v in aux.items()}
+        if not all(map(math.isfinite, losses.values())):
+            raise AssertionError(f"ARC {kind} step: losses {losses}")
+        rec["steps"].append(dict(kind=kind, ms=ms, launches=launches, losses=losses,
+                                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30))
+        return launches
+
+    for kind in ("ode", "ode", "gen", "disc", "gen", "disc"):
+        launches = step(trainer, kind)
+        want = dict(arc_step_launches(kind, depth), conv1d_wgrad=0)
+        if launches != want:
+            raise AssertionError(f"ARC {kind} step launches {launches}, expected {want}")
+    trainable = sum(p.numel() for p in trainer.params.values())
+    disc_trainable = sum(p.numel() for p in trainer.disc_params.values())
+    rec["memory_gib"] = dict(  # f32 state reckoned from the shapes: weights, gradients,
+        # AdamW's two moments, and the student's EMA
+        student=20 * trainable / 2 ** 30, discriminator=16 * disc_trainable / 2 ** 30)
+
+    # the ConvNeXt head: a trainer over the same student and discriminator
+    arc_cfg = copy.deepcopy(ARC_CONFIG)
+    arc_cfg["gan"]["head"] = {"type": "convnext"}
+    disc = trainer.discriminator
+    del trainer
+    torch.cuda.empty_cache()
+    opt = {"optimizer": {"type": "AdamW", "config": {"lr": 1e-5}}}
+    convnext = ARCTrainer(model, disc, arc_cfg, {"diffusion": opt, "discriminator": opt},
+                          cfg_dropout_prob=0.1)
+    wgrad = convnext_head_wgrad_shapes(io, 1 + ARC_LATENTS)
+    launches = step(convnext, "disc_convnext", step=3)
+    want = dict(arc_step_launches("disc", depth), conv1d_wgrad=sum(wgrad.values()))
+    if launches != want:
+        raise AssertionError(f"ARC ConvNeXt discriminator step launches {launches}, "
+                             f"expected {want}")
+    rec["launches"] = {n: sum(s["launches"][n] for s in rec["steps"]) for n in names}
+    rec["convnext_wgrad_shapes"] = wgrad
+    rec["step_launches"] = {k: arc_step_launches(k, depth) for k in ("ode", "gen", "disc")}
+    rec.update(trainable=trainable, disc_trainable=disc_trainable)
+    del convnext, model, disc, cond, rolled, latents
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_rf(dev) -> dict:
+    """Phase 15: rectified flow and ARC at SA-Open's width: (a) generation
+    by the four flow samplers (after the tiny card-vs-CPU check of each), (b)
+    rf training from audio, (c) inpainting training and its demo, (d) ARC's
+    ODE, generator and discriminator steps, (e) row 11 held at the ConvNeXt
+    head's shapes (the other rows of this phase run at phase 2's shapes)."""
+    from stable_audio_tools_tpu_torch.ops.kernels import conv1d_snake as cs
+
+    t_phase = time.perf_counter()
+    small, small_tol = small_rf_check(dev), 0.05
+    if max(v for k, v in small.items() if k.endswith(" cfg 1")) > small_tol:
+        raise AssertionError(f"small rf samplers card vs CPU at cfg 1: {small} > {small_tol}")
+    rec = dict(small=small, small_tol=small_tol, generation=rf_generation(dev))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rf_") as tmp:
+        data = write_dataset(tmp)
+        rec["training"] = rf_training_run(dev, tmp, data, inpaint=False, timed=TIMED_STEPS)
+        rec["inpaint"] = rf_training_run(dev, tmp, data, inpaint=True,
+                                         timed=INPAINT_TIMED_STEPS)
+    rec["arc"] = arc_run(dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    randn = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)
+    rec["convnext_wgrad"] = plain_wgrad_checks(cs, randn, rec["arc"].pop("convnext_wgrad_shapes"),
+                                               ARC_BATCH)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+PHASES = tuple(range(1, 16))
 
 
 def parse_phases(argv) -> set:
@@ -5043,6 +5459,39 @@ def main(argv=None) -> int:
 
         torch.cuda.empty_cache()
 
+    if want(15):
+        rf = phase_rf(dev)
+        gen, tr, inp, arc = rf["generation"], rf["training"], rf["inpaint"], rf["arc"]
+        print("phase 15 rectified flow at SA-Open's width (shift " + json.dumps(RF_SHIFT)
+              + "): generation, batch 1 x 2097152: " + "; ".join(
+                  f"{n} {r['steps']} steps cfg {r['cfg_scale']} ({r['objective']}) wall "
+                  f"{r['wall_s']:.3f} s, {r['audio_s_per_s']:.2f} audio-s/s, peak "
+                  f"{r['peak_gib']:.2f} GiB" for n, r in gen["requests"].items())
+              + f"; preview {gen['preview']['entries']} taps in {gen['preview']['wall_s']:.3f} s"
+              + f" (launches pinned, e.g. pingpong {json.dumps(gen['requests']['pingpong']['launches'])})"
+              + f"; small card-vs-CPU {json.dumps({k: round(v, 4) for k, v in rf['small'].items()})}"
+              f" (tol {rf['small_tol']} at cfg 1); rf training batch {TRAIN_BATCH} x {SAMPLE_SIZE} "
+              f"(p_one_shot {RF_P_ONE_SHOT}, log_loss_info): step {tr['step_ms_median']:.1f} ms "
+              f"median of {TIMED_STEPS} ({', '.join(f'{x:.1f}' for x in tr['step_ms'])}), "
+              f"{tr['audio_s_per_s']:.2f} audio-s trained/s, peak {tr['peak_gib']:.2f} GiB, "
+              f"losses {', '.join(f'{x:.4g}' for x in tr['losses'])}, launches "
+              f"{json.dumps(tr['launches'])}; inpainting training: step "
+              f"{inp['step_ms_median']:.1f} ms median of {INPAINT_TIMED_STEPS}, peak "
+              f"{inp['peak_gib']:.2f} GiB, demo {inp['demo']['demo_s']:.2f} s at {DEMO_STEPS} "
+              f"steps (launches {json.dumps(inp['demo']['launches'])}); ARC [4, 64, 1024]: "
+              + ", ".join(f"{s['kind']} {s['ms']:.1f} ms (peak {s['peak_gib']:.2f} GiB, loss "
+                          f"{s['losses']['loss']:.4g})" for s in arc["steps"])
+              + f"; launches a step {json.dumps(arc['step_launches'])}, the ConvNeXt step's row 11 "
+              f"{arc['steps'][-1]['launches']['conv1d_wgrad']}; f32 state reckoned "
+              f"{json.dumps({k: round(v, 2) for k, v in arc['memory_gib'].items()})} GiB; row 11 at "
+              f"the ConvNeXt head's {len(rf['convnext_wgrad']['levels'])} shapes: max rel err "
+              f"{rf['convnext_wgrad']['max_rel_err']:.3g}, {rf['convnext_wgrad']['ms']:.3f} ms a "
+              f"step vs conv1d_weight {rf['convnext_wgrad']['conv1d_weight_ms']:.3f} ms (bound "
+              f"{rf['convnext_wgrad']['bound_ms']:.4f}); phase {rf['phase_s']:.1f} s on {card}",
+              flush=True)
+
+        torch.cuda.empty_cache()
+
     if len(phases) < len(PHASES):
         print(f"phases run: {sorted(phases)} of 1-{len(PHASES)}; the kernels' record and the "
               "check that every kernel launched on some path need every phase", flush=True)
@@ -5069,7 +5518,13 @@ def main(argv=None) -> int:
                        "vae_demo": ae_rec["entry"]["launches"].get(n, 0),
                        "vae_validation": ae_rec["entry"]["val"]["launches"].get(n, 0),
                        "dance_demo": dance["training"]["demo"]["launches"].get(n, 0),
-                       "lm_demo": lmt["demo"]["launches"].get(n, 0)}
+                       "lm_demo": lmt["demo"]["launches"].get(n, 0),
+                       "rf_generation": rf["generation"]["launches"].get(n, 0),
+                       "rf_training": rf["training"]["launches"].get(n, 0),
+                       "rf_inpaint_training": rf["inpaint"]["launches"].get(n, 0),
+                       "rf_inpaint_demo": rf["inpaint"]["demo"]["launches"].get(n, 0),
+                       **{f"arc_{s['kind']}_{i}": s["launches"].get(n, 0)
+                          for i, s in enumerate(rf["arc"]["steps"])}}
             kernels.append(dict(name=n, route=r["route"], source=r["source"], replaces=r["replaces"],
                                 launches=sum(by_path.values()), launches_by_path=by_path,
                                 max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
@@ -5102,7 +5557,8 @@ def main(argv=None) -> int:
             "sa1_training": {k: v for k, v in sa1t.items() if k != "launches"},
             "dac_training": {n: {k: v for k, v in dac[n].items() if k != "launches"}
                              for n in DAC_VAES},
-            "codec_training": {k: v for k, v in codec.items() if k != "launches"}}))
+            "codec_training": {k: v for k, v in codec.items() if k != "launches"},
+            "rf": rf}))
     print(card)
     if len(phases) < len(PHASES):  # a development run ends on what it ran, not on a pass
         print(json.dumps({"ok": True, "partial": sorted(phases)}))

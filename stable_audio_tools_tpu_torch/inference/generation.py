@@ -1,6 +1,7 @@
 """Generation; counterpart of stable_audio_tools_tpu/inference/generation.py
-(`generate_diffusion_uncond` :131, `generate_diffusion_cond` :207,
-`build_mask` :358, `generate_diffusion_cond_inpaint` :382).
+(`_get_dist_shift` :43, `get_preview_tap` :100, `generate_diffusion_uncond`
+:131, `generate_diffusion_cond` :207, `build_mask` :358,
+`generate_diffusion_cond_inpaint` :382).
 
 An eager Python loop over the sampler steps (the JAX package compiles the
 loop into one program; CUDA graphs are later work). The initial noise and the
@@ -10,9 +11,17 @@ package's random numbers; otherwise all come from a `torch.Generator` seeded
 with `seed`. Audio is returned as [B, C, sample_size]; a pretransform built
 with `chunked` decodes (and encodes `init_audio`) in overlapping windows.
 
-Arguments of the JAX entry points that are not ported are refused, not
-ignored: `mesh` and `tp_rules` (several cards) and `preview` (the UI's
-per-step tap).
+The model's `diffusion_objective` picks the sampler family: `v` runs
+`sample_k` (k-diffusion and v-DDIM), `rectified_flow` and `rf_denoiser` run
+`sample_rf` (euler, rk4, dpmpp, pingpong), and under a flow objective the
+k-diffusion defaults `dpmpp-3m-sde` / `dpmpp-2m-sde` become `euler`. The
+timestep shift is built from the model's `distribution_shift_options` when
+that dict is not empty (an empty dict means no shift, as in JAX).
+
+`preview=True` collects every model call's (denoised latents, sigma) in
+`model._preview_buffer` (cleared at the start of the call), as the JAX
+package's `get_preview_tap`: a numpy copy of the denoised latents each call.
+`mesh` and `tp_rules` (several cards) are refused, not ignored.
 """
 
 from __future__ import annotations
@@ -22,7 +31,7 @@ import typing as tp
 import numpy as np
 import torch
 
-from .sampling import StepNoise, sample_k
+from .sampling import DistributionShift, StepNoise, sample_k, sample_rf
 
 CondTensors = tp.Dict[str, tp.Tuple[torch.Tensor, tp.Optional[torch.Tensor]]]
 
@@ -34,18 +43,66 @@ def _latent_shape(model, batch_size: int, sample_size: int) -> tp.Tuple[int, int
     return (batch_size, model.io_channels, sample_size)
 
 
-def _refuse_unported(mesh, tp_rules, preview) -> None:
+FLOW_OBJECTIVES = ("rectified_flow", "rf_denoiser")
+
+
+def _refuse_unported(mesh, tp_rules) -> None:
     if mesh is not None or tp_rules is not None:
         raise NotImplementedError("mesh / tp_rules: generation across several cards is not "
                                   "ported yet")
+
+
+def _get_dist_shift(model) -> tp.Optional[DistributionShift]:
+    options = getattr(model, "distribution_shift_options", None)
+    return DistributionShift(**dict(options)) if options else None
+
+
+def get_preview_tap(model) -> tp.Callable[[torch.Tensor, float], None]:
+    """The tap that appends (denoised latents as numpy, sigma) to
+    `model._preview_buffer`."""
+    if not hasattr(model, "_preview_buffer"):
+        model._preview_buffer = []
+
+    def tap(denoised: torch.Tensor, sigma: float) -> None:
+        model._preview_buffer.append((denoised.float().cpu().numpy(), float(sigma)))
+
+    return tap
+
+
+def _sampler_kwargs(model, preview: bool, sampler_type: str, **kwargs) -> dict:
+    """The preview tap (its buffer emptied) and cfg++'s model check."""
+    if sampler_type == "v-ddim-cfgpp" and not getattr(model.model, "takes_return_info", False):
+        raise NotImplementedError(
+            f"v-ddim-cfgpp on {type(model.model).__name__}: cfg++ needs the model's unguided "
+            "output (return_info=True), which only the DiT gives; the JAX package cannot run "
+            "it on this model either (its ADP wrapper drops return_info, the unconditional "
+            "models do not take it)")
     if preview:
-        raise NotImplementedError("preview: the per-step denoised tap is not ported yet")
+        kwargs["denoised_tap"] = get_preview_tap(model)
+        model._preview_buffer.clear()
+    return kwargs
+
+
+def _sample(model, model_fn, noise: torch.Tensor, sampler_type: str, sigma_max: float,
+            **kwargs) -> torch.Tensor:
+    """`sample_k` for a v-model; `sample_rf` under a flow objective, its
+    k-diffusion defaults turned to euler and the model's shift handed on."""
+    objective = model.diffusion_objective
+    if objective == "v":
+        return sample_k(model_fn, noise, sampler_type=sampler_type, sigma_max=sigma_max,
+                        **kwargs)
+    if objective not in FLOW_OBJECTIVES:
+        raise ValueError(f"Unknown diffusion objective {objective}")
+    if sampler_type in ("dpmpp-3m-sde", "dpmpp-2m-sde"):
+        sampler_type = "euler"
+    for key in ("sigma_min", "rho"):
+        kwargs.pop(key, None)
+    return sample_rf(model_fn, noise, sampler_type=sampler_type, sigma_max=min(sigma_max, 1.0),
+                     dist_shift=_get_dist_shift(model), **kwargs)
 
 
 def _setup(model, seed: int, batch_size: int, sample_size: int, noise):
     """(device, generator, initial latent noise [B, C, S] f32)."""
-    if model.diffusion_objective != "v":
-        raise NotImplementedError("only the v objective is ported")
     device = next(model.parameters()).device
     if seed == -1:
         seed = int(np.random.randint(0, 2 ** 31 - 1))
@@ -89,15 +146,16 @@ def _encode_init_audio(model, init_audio, device, generator, init_noise) -> torc
 
 
 def _sample_and_decode(model, cond: dict, noise: torch.Tensor, return_latents: bool,
-                       cfg_scale: float, cfg_interval, scale_phi: float,
-                       **sampler_kwargs) -> torch.Tensor:
+                       cfg_scale: float, cfg_interval, scale_phi: float, preview: bool,
+                       sampler_type: str, sigma_max: float, **sampler_kwargs) -> torch.Tensor:
     """The sampler loop over the model with its CFG arguments and `cond`
     bound, then the pretransform's decode."""
-    def model_fn(x, t):
+    def model_fn(x, t, **kwargs):
         return model(x, t, cfg_scale=cfg_scale, cfg_interval=tuple(cfg_interval),
-                     scale_phi=scale_phi, **cond)
+                     scale_phi=scale_phi, **cond, **kwargs)
 
-    latents = sample_k(model_fn, noise, **sampler_kwargs)
+    latents = _sample(model, model_fn, noise, sampler_type, sigma_max,
+                      **_sampler_kwargs(model, preview, sampler_type, **sampler_kwargs))
     if return_latents or model.pretransform is None:
         return latents
     return model.pretransform.decode(latents)
@@ -130,15 +188,21 @@ def generate_diffusion_uncond(
     is varied: the sampler starts from it (or its latents) plus noise at
     sigma `init_noise_level`. Returns audio [B, C, sample_size] (or the
     latents with return_latents, where there is a pretransform)."""
-    _refuse_unported(mesh, tp_rules, preview)
+    _refuse_unported(mesh, tp_rules)
     device, generator, noise = _setup(model, seed, batch_size, sample_size, noise)
     init_data = None
     if init_audio is not None:
         init_data = _encode_init_audio(model, init_audio, device, generator, init_noise)
         sigma_max = init_noise_level
-    out = sample_k(model, noise, init_data=init_data, steps=steps, sampler_type=sampler_type,
-                   sigma_min=sigma_min, sigma_max=sigma_max, rho=rho, generator=generator,
-                   step_noise=step_noise, **sampler_kwargs)
+    kwargs = _sampler_kwargs(model, preview, sampler_type, **sampler_kwargs)
+    if model.diffusion_objective == "v":
+        out = sample_k(model, noise, init_data=init_data, steps=steps, sampler_type=sampler_type,
+                       sigma_min=sigma_min, sigma_max=sigma_max, rho=rho, generator=generator,
+                       step_noise=step_noise, **kwargs)
+    else:  # as the JAX package: no shift and no change of sampler here
+        out = sample_rf(model, noise, init_data=init_data, steps=steps,
+                        sampler_type=sampler_type, sigma_max=sigma_max, generator=generator,
+                        step_noise=step_noise, **kwargs)
     if return_latents or model.pretransform is None:
         return out
     return model.pretransform_decode(out)
@@ -180,7 +244,7 @@ def generate_diffusion_cond(
     half. `init_audio` = (sample rate, audio) is encoded and varied: the
     sampler starts from its latents plus noise at sigma `init_noise_level`.
     Returns audio [B, C, sample_size] (or latents with return_latents)."""
-    _refuse_unported(mesh, tp_rules, preview)
+    _refuse_unported(mesh, tp_rules)
     device, generator, noise = _setup(model, seed, batch_size, sample_size, noise)
     cond = _conditioning_inputs(model, device, batch_size, conditioning, conditioning_tensors,
                                 negative_conditioning, negative_conditioning_tensors)
@@ -191,9 +255,9 @@ def generate_diffusion_cond(
 
     return _sample_and_decode(
         model, cond, noise, return_latents, cfg_scale=cfg_scale, cfg_interval=cfg_interval,
-        scale_phi=scale_phi, init_data=init_data, steps=steps, sampler_type=sampler_type,
-        sigma_min=sigma_min, sigma_max=sigma_max, rho=rho, generator=generator,
-        step_noise=step_noise, **sampler_kwargs)
+        scale_phi=scale_phi, preview=preview, init_data=init_data, steps=steps,
+        sampler_type=sampler_type, sigma_min=sigma_min, sigma_max=sigma_max, rho=rho,
+        generator=generator, step_noise=step_noise, **sampler_kwargs)
 
 
 def build_mask(sample_size: int, mask_args: dict) -> torch.Tensor:
@@ -254,7 +318,7 @@ def generate_diffusion_cond_inpaint(
     where the mask (`build_mask(sample_size, mask_args)`, sampled once per
     latent) is 0, and the mask itself are joined to the DiT's input on the
     channel axis at every step. Without `mask_args` everything is generated."""
-    _refuse_unported(mesh, tp_rules, preview)
+    _refuse_unported(mesh, tp_rules)
     if init_audio is None:
         raise ValueError("inpainting requires init_audio")
     device, generator, noise = _setup(model, seed, batch_size, sample_size, noise)
@@ -275,6 +339,6 @@ def generate_diffusion_cond_inpaint(
 
     return _sample_and_decode(
         model, cond, noise, return_latents, cfg_scale=cfg_scale, cfg_interval=cfg_interval,
-        scale_phi=scale_phi, steps=steps, sampler_type=sampler_type, sigma_min=sigma_min,
-        sigma_max=sigma_max, rho=rho, generator=generator, step_noise=step_noise,
-        **sampler_kwargs)
+        scale_phi=scale_phi, preview=preview, steps=steps, sampler_type=sampler_type,
+        sigma_min=sigma_min, sigma_max=sigma_max, rho=rho, generator=generator,
+        step_noise=step_noise, **sampler_kwargs)

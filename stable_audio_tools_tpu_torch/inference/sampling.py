@@ -1,20 +1,29 @@
-"""k-diffusion and v-DDIM samplers as eager loops; counterpart of
+"""Samplers as eager loops; counterpart of
 stable_audio_tools_tpu/inference/sampling.py (t_to_alpha_sigma :42,
-get_sigmas_polyexponential :46, make_v_denoiser :116, the v-DDIM `sample`
-:144, the k-diffusion family :300-657, sample_k :678), and the
+get_sigmas_polyexponential :46, get_rf_schedule :53, make_v_denoiser :116,
+the v-DDIM `sample` :144, the rectified-flow samplers :193-288, the
+k-diffusion family :300-657, sample_k :678, sample_rf :775), and the
 training-time schedule and timestep transforms (get_alphas_sigmas :33,
 DistributionShift :63, sample_timesteps_logsnr :91,
 truncated_logistic_normal_rescaled :98).
 
-Layout: [B, C, T] (the JAX package's scan carries [B, T, C], a TPU layout
-matter that is not ported). The per-step noise of the stochastic samplers
-comes from `step_noise(i, x)` when given (tests replay the JAX package's
-noise through it), else from `torch.randn` with the `generator`. Where the JAX
-scan computes both branches of a step and selects one (`jnp.where` on
-sigma_next == 0), the loop here takes the one branch. The rectified-flow
-family (`sample_rf`) is a later slice, and so is `v-ddim-cfgpp`: the JAX
-package's cfg++ calls the model with `return_info=True`, which none of its
-models accepts.
+Layout: [B, C, T] (the JAX package's k-diffusion scan carries [B, T, C], a
+TPU layout matter that is not ported). The per-step noise of the stochastic
+samplers comes from `step_noise(i, x)` when given (tests replay the JAX
+package's noise through it), else from `torch.randn` with the `generator`.
+Where the JAX scan computes both branches of a step and selects one
+(`jnp.where` on sigma_next == 0), the loop here takes the one branch.
+
+`denoised_tap(denoised, sigma)` is called with each model call's estimate of
+the clean latents and its sigma, as the JAX package's preview taps
+(`_wrap_denoised_tap` :599 and the taps in sample_k / sample_rf): the
+k-diffusion denoiser's output at its sigma, v-DDIM's x·alpha - v·sigma at
+sigma = tan(min(t, 0.9999)·pi/2), rectified flow's x - v·t at t.
+
+`v-ddim-cfgpp` calls the model with `return_info=True` and takes its
+`uncond_output` for the step's noise estimate; only the DiT answers that
+call (generation refuses the other models, as the JAX package cannot run
+them either).
 """
 
 from __future__ import annotations
@@ -48,12 +57,18 @@ class DistributionShift:
         self.min_length = min_length
         self.use_sine = use_sine
 
-    def time_shift(self, t: torch.Tensor, seq_len: int) -> torch.Tensor:
+    def time_shift(self, t, seq_len: int):
+        """t: a torch tensor (training) or a numpy schedule (sampling), whose
+        t = 1 maps to 1 (the division by zero is silenced, as in JAX)."""
         seq_len = min(max(seq_len, self.min_length), self.max_length)
         mu = -(self.base_shift + (self.max_shift - self.base_shift)
                * (seq_len - self.min_length) / (self.max_length - self.min_length))
-        t_out = 1 - math.exp(mu) / (math.exp(mu) + (1 / (1 - t) - 1))
-        return torch.sin(t_out * math.pi / 2) if self.use_sine else t_out
+        with np.errstate(divide="ignore"):
+            t_out = 1 - math.exp(mu) / (math.exp(mu) + (1 / (1 - t) - 1))
+        if not self.use_sine:
+            return t_out
+        return np.sin(t_out * math.pi / 2) if isinstance(t, np.ndarray) else torch.sin(
+            t_out * math.pi / 2)
 
 
 def _normal(shape, generator, device, normal):
@@ -97,6 +112,16 @@ def get_sigmas_polyexponential(n: int, sigma_min: float, sigma_max: float,
     ramp = np.linspace(1, 0, n) ** rho
     sigmas = np.exp(ramp * (math.log(sigma_max) - math.log(sigma_min)) + math.log(sigma_min))
     return np.append(sigmas, 0.0).astype(np.float32)
+
+
+def get_rf_schedule(steps: int, sigma_max: float = 1.0) -> np.ndarray:
+    """Rectified flow's t grid (f32, numpy): sigmoid(-logsnr) over logsnr
+    evenly spaced from log((1 - sigma_max) / sigma_max + 1e-6) (-6 at
+    sigma_max = 1) to 2, with t[0] = sigma_max and t[-1] = 0."""
+    logsnr_max = math.log((1 - sigma_max) / sigma_max + 1e-6) if sigma_max < 1 else -6.0
+    t = 1.0 / (1.0 + np.exp(np.linspace(logsnr_max, 2, steps + 1)))
+    t[0], t[-1] = sigma_max, 0.0
+    return t.astype(np.float32)
 
 
 def make_v_denoiser(model_fn, sigma_data: float = 1.0):
@@ -361,11 +386,13 @@ def sample_dpm_adaptive(denoiser, x: torch.Tensor, sigma_min: float, sigma_max: 
 
 def sample(model_fn, x: torch.Tensor, steps: int, eta: float = 0.0, sigma_max: float = 1.0,
            generator: Optional[torch.Generator] = None, step_noise: Optional[StepNoise] = None,
-           **extra) -> torch.Tensor:
+           cfg_pp: bool = False, **extra) -> torch.Tensor:
     """v-diffusion DDIM from x at t = sigma_max down `steps` even steps of t;
     returns the last step's prediction of the clean signal. With `eta` > 0
     each step but the last adds noise (`step_noise(i, x)`, else the
-    generator's) of the DDIM sigma."""
+    generator's) of the DDIM sigma. `cfg_pp` (CFG++) takes the step's noise
+    estimate from the model's unguided output (`return_info=True`, its
+    `uncond_output`; the guided output where there is none)."""
     t = np.linspace(sigma_max, 0, steps + 1)[:-1].astype(np.float32)
     alphas = np.cos(t * math.pi / 2).astype(np.float32)
     sigmas = np.sin(t * math.pi / 2).astype(np.float32)
@@ -374,11 +401,15 @@ def sample(model_fn, x: torch.Tensor, steps: int, eta: float = 0.0, sigma_max: f
     pred = torch.zeros_like(x)
     for i in range(steps):
         alpha, sigma = float(alphas[i]), float(sigmas[i])
-        v = model_fn(x, ts * float(t[i]), **extra)
+        if cfg_pp:
+            v, info = model_fn(x, ts * float(t[i]), return_info=True, **extra)
+            v_eps = info.get("uncond_output", v)
+        else:
+            v = v_eps = model_fn(x, ts * float(t[i]), **extra)
         pred = x * alpha - v * sigma
         if i == steps - 1:
             break
-        eps = x * sigma + v * alpha
+        eps = x * sigma + v_eps * alpha
         alpha_n, sigma_n = float(alphas[i + 1]), float(sigmas[i + 1])
         ddim_sigma = eta * math.sqrt(sigma_n ** 2 / max(sigma ** 2, 1e-20)) * math.sqrt(
             max(1 - alpha ** 2 / max(alpha_n ** 2, 1e-20), 0.0))
@@ -388,38 +419,150 @@ def sample(model_fn, x: torch.Tensor, steps: int, eta: float = 0.0, sigma_max: f
     return pred
 
 
+# -- rectified flow: x_t = (1 - t) x_0 + t noise, the model predicts v = noise - x_0
+
+
+def _flow_schedule(x: torch.Tensor, steps: Optional[int], sigma_max: float,
+                   sigmas: Optional[np.ndarray], dist_shift: Optional[DistributionShift]
+                   ) -> np.ndarray:
+    """The given schedule, else t evenly from sigma_max to 0 in `steps`,
+    shifted by `dist_shift` for x's length (JAX reads dist_shift only then)."""
+    if sigmas is None:
+        sigmas = np.linspace(sigma_max, 0, steps + 1).astype(np.float32)
+        if dist_shift is not None:
+            sigmas = dist_shift.time_shift(sigmas, x.shape[-1])
+    return np.asarray(sigmas, dtype=np.float32)
+
+
+def sample_discrete_euler(model_fn, x: torch.Tensor, steps: Optional[int] = None,
+                          sigma_max: float = 1.0, sigmas: Optional[np.ndarray] = None,
+                          dist_shift: Optional[DistributionShift] = None,
+                          **extra) -> torch.Tensor:
+    """Euler over the flow's t grid: x += (t_next - t) v."""
+    t = _flow_schedule(x, steps, sigma_max, sigmas, dist_shift)
+    ones = torch.ones((x.shape[0],), dtype=x.dtype, device=x.device)
+    for i in range(len(t) - 1):
+        t_curr, t_next = float(t[i]), float(t[i + 1])
+        x = x + (t_next - t_curr) * model_fn(x, t_curr * ones, **extra)
+    return x
+
+
+def sample_rk4(model_fn, x: torch.Tensor, steps: Optional[int] = None, sigma_max: float = 1.0,
+               sigmas: Optional[np.ndarray] = None,
+               dist_shift: Optional[DistributionShift] = None, **extra) -> torch.Tensor:
+    """Classical Runge-Kutta 4 over the flow's t grid (four model calls a step)."""
+    t = _flow_schedule(x, steps, sigma_max, sigmas, dist_shift)
+    ones = torch.ones((x.shape[0],), dtype=x.dtype, device=x.device)
+    for i in range(len(t) - 1):
+        t_curr, t_next = float(t[i]), float(t[i + 1])
+        dt = t_next - t_curr
+        k1 = model_fn(x, t_curr * ones, **extra)
+        k2 = model_fn(x + dt / 2 * k1, (t_curr + dt / 2) * ones, **extra)
+        k3 = model_fn(x + dt / 2 * k2, (t_curr + dt / 2) * ones, **extra)
+        k4 = model_fn(x + dt * k3, t_next * ones, **extra)
+        x = x + dt / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
+    return x
+
+
+def _flow_log_snr(s: float) -> float:
+    return math.log(max((1 - s) / max(s, 1e-12), 1e-12))
+
+
+def sample_flow_dpmpp(model_fn, x: torch.Tensor, steps: Optional[int] = None,
+                      sigma_max: float = 1.0, sigmas: Optional[np.ndarray] = None,
+                      dist_shift: Optional[DistributionShift] = None,
+                      on_step: Optional[Callable[[int, torch.Tensor], None]] = None,
+                      **extra) -> torch.Tensor:
+    """DPM-Solver++(2M) in the flow's log-SNR (first order on the first step
+    and into t = 0). `on_step(i, x)` sees each step's input state (ARC's
+    teacher trajectory keeps them)."""
+    t = _flow_schedule(x, steps, sigma_max, sigmas, dist_shift)
+    ones = torch.ones((x.shape[0],), dtype=x.dtype, device=x.device)
+    old = None
+    for i in range(len(t) - 1):
+        t_curr, t_next = float(t[i]), float(t[i + 1])
+        if on_step is not None:
+            on_step(i, x)
+        denoised = x - t_curr * model_fn(x, t_curr * ones, **extra)
+        h = _flow_log_snr(t_next) - _flow_log_snr(t_curr)
+        d = denoised
+        if i > 0 and t_next != 0:
+            r = (_flow_log_snr(t_curr) - _flow_log_snr(float(t[i - 1]))) / h
+            d = (1 + 1 / (2 * r)) * denoised - (1 / (2 * r)) * old
+        x = (t_next / t_curr) * x - (1 - t_next) * math.expm1(-h) * d
+        old = denoised
+    return x
+
+
+def sample_flow_pingpong(model_fn, x: torch.Tensor, steps: Optional[int] = None,
+                         sigma_max: float = 1.0, sigmas: Optional[np.ndarray] = None,
+                         dist_shift: Optional[DistributionShift] = None,
+                         generator: Optional[torch.Generator] = None,
+                         step_noise: Optional[StepNoise] = None, **extra) -> torch.Tensor:
+    """Ping-pong: each step denoises fully, then re-noises to t_next with
+    fresh noise (`step_noise(i, x)`, else the generator's)."""
+    t = _flow_schedule(x, steps, sigma_max, sigmas, dist_shift)
+    draw = step_noise if step_noise is not None else _default_noise(generator)
+    ones = torch.ones((x.shape[0],), dtype=x.dtype, device=x.device)
+    for i in range(len(t) - 1):
+        t_curr, t_next = float(t[i]), float(t[i + 1])
+        denoised = x - t_curr * model_fn(x, t_curr * ones, **extra)
+        x = (1 - t_next) * denoised + t_next * draw(i, x)
+    return x
+
+
 K_DIFFUSION_SAMPLERS = ("k-heun", "k-lms", "k-dpmpp-2s-ancestral", "k-dpm-2", "k-dpm-fast",
                         "k-dpm-adaptive", "dpmpp-2m-sde", "dpmpp-3m-sde", "dpmpp-2m")
-# samplers of the JAX package's sample_k and sample_rf that are not ported yet
-UNPORTED_SAMPLERS = ("v-ddim-cfgpp", "euler", "rk4", "dpmpp", "pingpong")
+V_SAMPLERS = ("v-ddim", "v-ddim-cfgpp")
+DenoisedTap = Callable[[torch.Tensor, float], None]
+
+
+def _tapped_denoiser(denoiser, tap: DenoisedTap):
+    def tapped(x, sigma, **kwargs):
+        denoised = denoiser(x, sigma, **kwargs)
+        tap(denoised, float(sigma))
+        return denoised
+    return tapped
+
+
+def _tapped_v_model(model_fn, tap: DenoisedTap):
+    """v-DDIM's tap: x alpha - v sigma at the k-space sigma tan(t pi / 2)
+    (t clipped below 1, as the JAX tap clips it)."""
+    def tapped(x, t, **kwargs):
+        out = model_fn(x, t, **kwargs)
+        v = out[0] if isinstance(out, tuple) else out
+        a, s = (c.view(-1, *([1] * (x.dim() - 1))) for c in t_to_alpha_sigma(t))
+        t_lbl = np.float32(min(float(t.max()), 0.9999))  # in f32, as the JAX tap
+        tap(x * a - v * s, float(np.tan(t_lbl * np.float32(math.pi / 2))))
+        return out
+    return tapped
 
 
 def sample_k(model_fn, noise: torch.Tensor, init_data: Optional[torch.Tensor] = None,
              steps: int = 100, sampler_type: str = "dpmpp-3m-sde", sigma_min: float = 0.01,
              sigma_max: float = 100.0, rho: float = 1.0,
              generator: Optional[torch.Generator] = None,
-             step_noise: Optional[StepNoise] = None, **extra) -> torch.Tensor:
+             step_noise: Optional[StepNoise] = None,
+             denoised_tap: Optional[DenoisedTap] = None, **extra) -> torch.Tensor:
     """Sample from `noise` (standard normal, [B, C, T]) with a v-model;
     `init_data` (latents to vary) is added to the scaled noise. `v-ddim`
-    starts at t = min(sigma_max, 1) and ignores sigma_min and rho, as the
-    JAX package does."""
-    if sampler_type == "v-ddim-cfgpp":
-        raise NotImplementedError("sampler v-ddim-cfgpp is not ported: the JAX package's cfg++ "
-                                  "calls the model with return_info=True, which none of its "
-                                  "models accepts")
-    if sampler_type in UNPORTED_SAMPLERS:
-        raise NotImplementedError(f"sampler {sampler_type} is not ported yet")
-    if sampler_type == "v-ddim":
+    and `v-ddim-cfgpp` start at t = min(sigma_max, 1) and ignore sigma_min
+    and rho, as the JAX package does."""
+    if sampler_type in V_SAMPLERS:
         sigma_max = min(sigma_max, 1.0)
         x = noise
         if init_data is not None:
             alpha, sigma = t_to_alpha_sigma(torch.tensor(sigma_max, dtype=torch.float32))
             x = init_data * alpha.item() + noise * sigma.item()
+        if denoised_tap is not None:
+            model_fn = _tapped_v_model(model_fn, denoised_tap)
         return sample(model_fn, x, steps, eta=0.0, sigma_max=sigma_max, generator=generator,
-                      step_noise=step_noise, **extra)
+                      step_noise=step_noise, cfg_pp=sampler_type == "v-ddim-cfgpp", **extra)
     if sampler_type not in K_DIFFUSION_SAMPLERS:
         raise ValueError(f"Unknown sampler type {sampler_type}")
     denoiser = make_v_denoiser(model_fn)
+    if denoised_tap is not None:
+        denoiser = _tapped_denoiser(denoiser, denoised_tap)
     sigmas = get_sigmas_polyexponential(steps, sigma_min, sigma_max, rho)
     x = noise * float(sigmas[0])
     if init_data is not None:
@@ -442,3 +585,39 @@ def sample_k(model_fn, noise: torch.Tensor, init_data: Optional[torch.Tensor] = 
     if sampler_type == "dpmpp-2m-sde":
         return sample_dpmpp_2m_sde(denoiser, x, sigmas, **rand, **extra)
     return sample_dpmpp_3m_sde(denoiser, x, sigmas, **rand, **extra)
+
+
+def sample_rf(model_fn, noise: torch.Tensor, init_data: Optional[torch.Tensor] = None,
+              steps: int = 100, sampler_type: str = "euler", sigma_max: float = 1.0,
+              generator: Optional[torch.Generator] = None,
+              step_noise: Optional[StepNoise] = None,
+              dist_shift: Optional[DistributionShift] = None,
+              denoised_tap: Optional[DenoisedTap] = None, **extra) -> torch.Tensor:
+    """Sample from `noise` (standard normal, [B, C, T]) with a flow model
+    (v = noise - x_0); `init_data` is mixed in at t = min(sigma_max, 1).
+
+    As in the JAX package (:805-820), `euler`, `dpmpp` and `pingpong` run on
+    `get_rf_schedule(steps, sigma_max)` and are handed it, so they never read
+    `dist_shift`; `rk4` runs on the even grid and shifts it."""
+    sigma_max = min(sigma_max, 1.0)
+    x = noise if init_data is None else init_data * (1 - sigma_max) + noise * sigma_max
+    if denoised_tap is not None:
+        base = model_fn
+
+        def model_fn(x, t, **kwargs):
+            v = base(x, t, **kwargs)
+            denoised_tap(x - v * t.view(-1, *([1] * (x.dim() - 1))), float(t.max()))
+            return v
+
+    t = get_rf_schedule(steps, sigma_max)
+    if sampler_type == "euler":
+        return sample_discrete_euler(model_fn, x, sigmas=t, dist_shift=dist_shift, **extra)
+    if sampler_type == "rk4":
+        return sample_rk4(model_fn, x, steps=steps, sigma_max=sigma_max, dist_shift=dist_shift,
+                          **extra)
+    if sampler_type == "dpmpp":
+        return sample_flow_dpmpp(model_fn, x, sigmas=t, dist_shift=dist_shift, **extra)
+    if sampler_type == "pingpong":
+        return sample_flow_pingpong(model_fn, x, sigmas=t, dist_shift=dist_shift,
+                                    generator=generator, step_noise=step_noise, **extra)
+    raise ValueError(f"Unknown sampler_type: {sampler_type}")

@@ -7,7 +7,8 @@ SA-1.0's ADP `UNetCFG1d`), of a
 package's flat module names), of an
 `AudioLanguageModelWrapper` (with its codec's `quantizer_state` collection,
 where the RVQ codebooks live), of an `AudioAutoencoder` or of an
-`EncodecDiscriminator`, and the frozen T5 tower's own params
+`EncodecDiscriminator`, of ARC's discriminator heads and trainer state, and
+the frozen T5 tower's own params
 (`T5Conditioner._t5.params`), which live outside it. The output is a flat
 {name: numpy array} in the port's names, which are
 the reference torch state-dict names (those io/torch_mapping.py and
@@ -544,4 +545,61 @@ def audio_lm_state_dict(params: Mapping, dim_heads: int,
                                           "pretransform.model.", qs))
     for cid, p in (t5_params or {}).items():
         out.update(t5_state_dict(p, f"conditioner.conditioners.{cid}.model."))
+    return out
+
+
+def conv_discriminator_state_dict(p: Mapping, prefix: str = "") -> StateDict:
+    """ARC's ConvDiscriminator head: conv_{i} / norm_{i} -> convs.{i} /
+    norms.{i} (GroupNorm scale -> weight), conv_out as it is."""
+    out: StateDict = {}
+    for i in range(4):
+        dense_conv = p[f"conv_{i}"]
+        out[f"{prefix}convs.{i}.weight"] = _np(dense_conv["kernel"]).transpose(2, 1, 0)
+        out[f"{prefix}convs.{i}.bias"] = _np(dense_conv["bias"])
+        out[f"{prefix}norms.{i}.weight"] = _np(p[f"norm_{i}"]["scale"])
+        out[f"{prefix}norms.{i}.bias"] = _np(p[f"norm_{i}"]["bias"])
+    out[f"{prefix}conv_out.weight"] = _np(p["conv_out"]["kernel"]).transpose(2, 1, 0)
+    out[f"{prefix}conv_out.bias"] = _np(p["conv_out"]["bias"])
+    return out
+
+
+def convnext_encoder_state_dict(p: Mapping, prefix: str = "") -> StateDict:
+    """ConvNeXtEncoder: stage_{i}.block_{j} -> stages.{i}.blocks.{j}; the
+    depthwise `dw_kernel` [k, 1, C] -> dw_conv [C, 1, k]; weight-normalised
+    convs (g, v) and the plain proj_down as elsewhere."""
+    out: StateDict = {}
+    wn_conv(out, f"{prefix}conv_in", p["conv_in"])
+    wn_conv(out, f"{prefix}conv_out", p["conv_out"])
+    i = 0
+    while f"stage_{i}" in p:
+        stage, name = p[f"stage_{i}"], f"{prefix}stages.{i}"
+        wn_conv(out, f"{name}.downsample", stage["downsample"])
+        j = 0
+        while f"block_{j}" in stage:
+            block, bname = stage[f"block_{j}"], f"{name}.blocks.{j}"
+            out[f"{bname}.dw_conv"] = _np(block["dw_kernel"]).transpose(2, 1, 0)
+            wn_conv(out, f"{bname}.proj_up", block["proj_up"])
+            out[f"{bname}.proj_down.weight"] = _np(block["proj_down"]["kernel"]).transpose(2, 1, 0)
+            out[f"{bname}.proj_down.bias"] = _np(block["proj_down"]["bias"])
+            j += 1
+        i += 1
+    return out
+
+
+def arc_head_state_dict(p: Mapping) -> StateDict:
+    """Either ARC head's params -> the port head's state_dict."""
+    if "encoder" in p:
+        return convnext_encoder_state_dict(p["encoder"], "encoder.")
+    return conv_discriminator_state_dict(p)
+
+
+def arc_state_dicts(state, dim_heads: int = 64) -> Dict[str, StateDict]:
+    """A JAX `ARCTrainState` (or anything with its fields) -> the port
+    trainer's {"model", "discriminator", "head", "ema"} state dicts (the EMA
+    under the student's names)."""
+    out = {"model": diffusion_cond_state_dict(state.gen_params, dim_heads),
+           "discriminator": diffusion_cond_state_dict(state.disc_params, dim_heads),
+           "head": arc_head_state_dict(state.head_params)}
+    if getattr(state, "ema_params", None) is not None:
+        out["ema"] = diffusion_cond_state_dict(state.ema_params, dim_heads)
     return out

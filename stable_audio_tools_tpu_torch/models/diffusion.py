@@ -100,7 +100,10 @@ def create_diffusion_uncond_from_config(config: tp.Dict[str, tp.Any], device=Non
 class DiTWrapper(nn.Module):
     """Adapter: wrapper kwargs -> DiffusionTransformer. As in the JAX package
     (:175), `cross_attn_mask`, `negative_global_cond` and
-    `negative_input_concat_cond` are accepted and not used by the DiT."""
+    `negative_input_concat_cond` are accepted and not used by the DiT; the
+    rest (`return_info`, `exit_layer_ix`, ...) pass through."""
+
+    takes_return_info = True  # cfg++ and ARC call the model with it
 
     def __init__(self, model: DiffusionTransformer):
         super().__init__()
@@ -127,7 +130,8 @@ class ConditionedDiffusionModelWrapper(nn.Module):
                  cross_attn_cond_ids: tp.Sequence[str] = (),
                  global_cond_ids: tp.Sequence[str] = (),
                  input_concat_ids: tp.Sequence[str] = (),
-                 prepend_cond_ids: tp.Sequence[str] = ()):
+                 prepend_cond_ids: tp.Sequence[str] = (),
+                 distribution_shift_options: tp.Optional[tp.Mapping[str, tp.Any]] = None):
         super().__init__()
         self.model = model
         self.conditioner = conditioner
@@ -139,6 +143,8 @@ class ConditionedDiffusionModelWrapper(nn.Module):
         self.global_cond_ids = tuple(global_cond_ids)
         self.input_concat_ids = tuple(input_concat_ids)
         self.prepend_cond_ids = tuple(prepend_cond_ids)
+        # the timestep shift's options (JAX :76); an empty dict means no shift
+        self.distribution_shift_options = distribution_shift_options
 
     def get_conditioning_inputs(self, cond: tp.Dict[str, tp.Tuple[torch.Tensor, torch.Tensor]],
                                 negative: bool = False) -> tp.Dict[str, torch.Tensor]:
@@ -208,7 +214,9 @@ def create_diffusion_cond_from_config(config: tp.Dict[str, tp.Any], device=None
         conditioner = (create_multi_conditioner_from_conditioning_config(conditioning)
                        if conditioning is not None else None)
         if diffusion["type"] == "dit":
-            model = DiTWrapper(DiffusionTransformer(**diffusion["config"]))
+            model = DiTWrapper(DiffusionTransformer(
+                **diffusion["config"],
+                diffusion_objective=diffusion.get("diffusion_objective", "v")))
         else:
             model = create_adp_cond_wrapper(diffusion["type"], diffusion["config"])
     return ConditionedDiffusionModelWrapper(
@@ -221,4 +229,5 @@ def create_diffusion_cond_from_config(config: tp.Dict[str, tp.Any], device=None
         global_cond_ids=diffusion.get("global_cond_ids", ()),
         input_concat_ids=diffusion.get("input_concat_ids", ()),
         prepend_cond_ids=diffusion.get("prepend_cond_ids", ()),
+        distribution_shift_options=diffusion.get("distribution_shift_options"),
     )

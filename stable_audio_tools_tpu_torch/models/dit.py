@@ -12,6 +12,15 @@ conditioning, `scale_phi` rescale and `cfg_interval`, and bf16 compute over
 f32 parameters. Layout: x [B, C, T]. adaLN conditioning and patching are later
 slices.
 
+`diffusion_objective` sets what `cfg_interval` gates on: sigma = sin(t pi/2)
+for `v`, sigma = t for the flow objectives (JAX :299-302). `return_info`
+returns (output, info) with the blocks' `hidden_states` and, under CFG, the
+unguided half's `uncond_output` (the CFG pass then runs doubled whatever the
+interval, as in JAX); `exit_layer_ix` skips CFG and dropout and returns the
+transformer's output at that block, [B, P + N, C] with the P prepended tokens
+kept, in the compute dtype: `embed_dim` wide at a block's index, and
+`project_out`'s io_channels at an index no block has (ARC's default -1).
+
 Training: in `train()` mode with `cfg_dropout_prob` > 0 (and no CFG), whole
 samples' cross-attention tokens are replaced with zeros (JAX
 models/dit.py:282-297); the drop mask is passed in or drawn from a
@@ -48,11 +57,15 @@ class DiffusionTransformer(nn.Module):
                  input_concat_dim: int = 0, prepend_cond_dim: int = 0,
                  depth: int = 12, num_heads: int = 8,
                  transformer_type: str = "continuous_transformer",
-                 compute_dtype: Optional[str] = None, use_checkpointing: bool = True):
+                 compute_dtype: Optional[str] = None, use_checkpointing: bool = True,
+                 diffusion_objective: str = "v"):
         super().__init__()
         if transformer_type != "continuous_transformer":
             raise NotImplementedError(f"transformer_type {transformer_type} is not ported yet")
         self.io_channels = io_channels
+        self.embed_dim = embed_dim
+        self.depth = depth
+        self.diffusion_objective = diffusion_objective
         self.compute_dtype = getattr(torch, compute_dtype) if compute_dtype else None
         self.timestep_features = FourierFeatures(1, 256)
         self.to_timestep_embed = _mlp(256, embed_dim, bias=True)
@@ -76,7 +89,7 @@ class DiffusionTransformer(nn.Module):
             use_checkpointing=use_checkpointing)
 
     def _forward(self, x, t, cross_attn_cond=None, global_embed=None, input_concat_cond=None,
-                 prepend_cond=None):
+                 prepend_cond=None, return_info=False, exit_layer_ix=None):
         in_dtype = x.dtype
         if self.compute_dtype is not None:
             cdt = self.compute_dtype
@@ -101,10 +114,17 @@ class DiffusionTransformer(nn.Module):
 
         x = F.conv1d(x, self.preprocess_conv.weight.to(x.dtype)) + x
         h = self.transformer(x.transpose(1, 2), prepend_embeds=prepend,
-                             context=cross_attn_cond)
+                             context=cross_attn_cond, return_info=return_info,
+                             exit_layer_ix=exit_layer_ix)
+        info = None
+        if return_info:
+            h, info = h
+        if exit_layer_ix is not None:
+            return (h, info) if return_info else h
         out = h.transpose(1, 2)[:, :, prepend.shape[1]:]
         out = F.conv1d(out, self.postprocess_conv.weight.to(out.dtype)) + out
-        return out.to(in_dtype)
+        out = out.to(in_dtype)
+        return (out, info) if return_info else out
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 cross_attn_cond: Optional[torch.Tensor] = None,
@@ -118,7 +138,8 @@ class DiffusionTransformer(nn.Module):
                 cfg_interval: Tuple[float, float] = (0.0, 1.0),
                 scale_phi: float = 0.0, cfg_dropout_prob: float = 0.0,
                 cfg_dropout_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, return_info: bool = False,
+                exit_layer_ix: Optional[int] = None):
         """x [B, C, T], t [B]. CFG doubles the batch: the second half gets
         `negative_cross_attn_cond` (zeros where `negative_cross_attn_mask` is
         off) or null cross-attention tokens, and zeroed `prepend_cond`. In
@@ -130,6 +151,9 @@ class DiffusionTransformer(nn.Module):
         whose transformer reads it only beside a sequence mask the DiT never
         passes."""
         del prepend_cond_mask
+        if exit_layer_ix is not None:
+            return self._forward(x, t, cross_attn_cond, global_embed, input_concat_cond,
+                                 prepend_cond, return_info, exit_layer_ix)
         if self.training and cfg_dropout_prob > 0.0 and cfg_scale == 1.0:
             def drop(cond, mask=None):
                 if mask is None:
@@ -143,13 +167,16 @@ class DiffusionTransformer(nn.Module):
             if prepend_cond is not None:
                 prepend_cond = drop(prepend_cond)
         single = lambda: self._forward(x, t, cross_attn_cond, global_embed, input_concat_cond,
-                                       prepend_cond)
+                                       prepend_cond, return_info)
         if cfg_scale == 1.0 or (cross_attn_cond is None and prepend_cond is None):
             return single()
         lo, hi = cfg_interval
+        in_interval = True
         if (lo, hi) != (0.0, 1.0):
-            sigma = math.sin(float(t[0]) * math.pi / 2)
-            if not lo <= sigma <= hi:  # outside the interval: the cond pass only
+            t0 = float(t[0])
+            sigma = math.sin(t0 * math.pi / 2) if self.diffusion_objective == "v" else t0
+            in_interval = lo <= sigma <= hi
+            if not in_interval and not return_info:  # the cond pass only
                 return single()
         twice = lambda a: torch.cat([a, a]) if a is not None else None
         batch_cond = None
@@ -164,11 +191,15 @@ class DiffusionTransformer(nn.Module):
         out = self._forward(
             twice(x), twice(t), batch_cond, twice(global_embed), twice(input_concat_cond),
             torch.cat([prepend_cond, torch.zeros_like(prepend_cond)])
-            if prepend_cond is not None else None)
+            if prepend_cond is not None else None, return_info)
+        if return_info:
+            out, info = out
         cond, uncond = out.chunk(2)
         cfg = uncond + (cond - uncond) * cfg_scale
         if scale_phi != 0.0:
             cond_std = cond.std(dim=1, keepdim=True, correction=0)
             cfg_std = cfg.std(dim=1, keepdim=True, correction=0)
             cfg = scale_phi * (cfg * (cond_std / (cfg_std + 1e-12))) + (1 - scale_phi) * cfg
-        return cfg
+        if not in_interval:
+            cfg = cond
+        return (cfg, dict(info, uncond_output=uncond)) if return_info else cfg

@@ -19,6 +19,11 @@ writes its step into its own cache (`init_kv_cache`) in place, the rotary
 runs at `cache_index`, and the cross-attention reads K/V projected once per
 request (`compute_cross_kv`, JAX :372-392). Remat stays off there.
 
+`return_info` (JAX :505) also returns {"hidden_states": [each block's
+output, prepended tokens kept]}; `exit_layer_ix` = i returns block i's output
+and skips the rest and `project_out` (an index no block has, such as -1, runs
+them all, as in JAX :507-516).
+
 `use_checkpointing` rematerialises each block in training: under autograd in
 `train()` mode every block runs inside `torch.utils.checkpoint` (non-
 reentrant), so only the block inputs are kept and the block's forward runs
@@ -123,7 +128,8 @@ class ContinuousTransformer(nn.Module):
                 context_mask: Optional[torch.Tensor] = None,
                 caches: Optional[List[Dict[str, torch.Tensor]]] = None,
                 cache_index: Optional[int] = None,
-                cross_kvs: Optional[List] = None) -> torch.Tensor:
+                cross_kvs: Optional[List] = None, return_info: bool = False,
+                exit_layer_ix: Optional[int] = None):
         """x [B, N, dim_in]; prepend_embeds [B, P, dim] go ahead of the
         sequence and stay in the output (the caller strips them). With
         `caches` (one per layer), x is the token at `cache_index` ([B, 1,
@@ -140,6 +146,7 @@ class ContinuousTransformer(nn.Module):
                  and caches is None)
         # the rotary's cos / sin tables, once per forward for every block
         tables = rotary_tables(rope) if caches is None else None
+        info = {"hidden_states": []}
         for i, layer in enumerate(self.layers):
             if caches is not None:
                 x = layer(x, context, context_mask, rope, cache=caches[i],
@@ -149,6 +156,10 @@ class ContinuousTransformer(nn.Module):
             args = (x, context, context_mask, rope, prefix_len)
             x = (checkpoint(layer, *args, use_reentrant=False, rope_tables=tables) if remat
                  else layer(*args, rope_tables=tables))
+            if return_info:
+                info["hidden_states"].append(x)
+            if i == exit_layer_ix:
+                return (x, info) if return_info else x
         if self.project_out is not None:
             x = self.project_out(x)
-        return x
+        return (x, info) if return_info else x

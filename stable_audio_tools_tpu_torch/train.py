@@ -31,7 +31,10 @@ current CUDA card (on the CPU only with `--device cpu`), writing
 Defaults come from the repository's `defaults.ini`. The flags of several
 cards (`--num-gpus` above 1, `--num-nodes` above 1, a `--strategy` other
 than `auto`, `--mesh-model` other than 1, `--multihost`) are refused by name:
-the port trains on one card.
+the port trains on one card. A model config whose training section holds
+`arc` is refused with the reason (`ARC_REFUSAL`): the JAX entry cannot run
+ARC either, and ARC runs through the training factory and
+`ARCTrainer.train_step` (training/arc.py).
 """
 
 from __future__ import annotations
@@ -242,10 +245,12 @@ def configure(trainer, args: argparse.Namespace, dataset_config: dict):
     trainer.demo_every = demo_every
     trainer.demo_callback = None
     if demo_every:
-        # the autoencoder demo reads its reals from a loader of its own, in
-        # this process and in order, so the training loader never moves
+        # the autoencoder and inpainting demos read their reals from a loader
+        # of their own, in this process and in order, so the training loader
+        # never moves
         demo_dl = (make_loader(args, model_config, dataset_config, shuffle=False, num_workers=0)
-                   if model_config["model_type"] == "autoencoder" else None)
+                   if model_config["model_type"] in ("autoencoder", "diffusion_cond_inpaint")
+                   else None)
         trainer.demo_callback = create_demo_callback_from_config(
             model_config, demo_dir=os.path.join(args.save_dir, "demos"), demo_dl=demo_dl,
             logger=trainer.logger)
@@ -258,6 +263,17 @@ def configure(trainer, args: argparse.Namespace, dataset_config: dict):
     return make_loader(args, model_config, _read_json(args.val_dataset_config), shuffle=False)
 
 
+# the JAX entry cannot run ARC either: train.py:233 calls
+# wrapper.init_state(variables) and training/trainer.py:228 calls
+# wrapper.train_step(state, audio, rng, step), neither of which matches
+# ARCTrainer's signatures (training/arc.py :201, :440)
+ARC_REFUSAL = ("a training config with `arc`: ARC post-training does not run through the "
+               "training entry, in the JAX package or here (its ARCTrainer's init_state and "
+               "train_step do not take what the entry passes); build it with "
+               "training/factory.py create_training_wrapper_from_config and call "
+               "ARCTrainer.train_step(latents, cond_tensors, ...)")
+
+
 def build(args: argparse.Namespace, device: tp.Optional[torch.device] = None):
     """(Trainer, dataloader, validation loader or None) for the parsed
     arguments; the model lives on `device` (default: --device, else the
@@ -268,6 +284,8 @@ def build(args: argparse.Namespace, device: tp.Optional[torch.device] = None):
 
     device = resolve_device(device if device is not None else args.device)
     model_config = _read_json(args.model_config)
+    if "arc" in model_config.get("training", {}):
+        raise NotImplementedError(ARC_REFUSAL)
     dataset_config = _read_json(args.dataset_config)
     model, _ = build_model(args, model_config, device)
     wrapper = create_training_wrapper_from_config(

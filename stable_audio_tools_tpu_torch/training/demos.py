@@ -1,7 +1,8 @@
 """Demo callbacks: audio rendered during training; counterpart of
 stable_audio_tools_tpu/training/demos.py (`create_demo_callback_from_config`
 :18, `_DemoBase._save` :53, `DiffusionCondDemoCallback` :111,
-`DiffusionUncondDemoCallback` :252, `LMDemoCallback` :266,
+`DiffusionCondInpaintDemoCallback` :153, `DiffusionUncondDemoCallback` :252,
+`LMDemoCallback` :266,
 `AutoencoderDemoCallback` :298 with `_disc_sensitivity_probe` :341).
 
 A callback is called as `callback(wrapper, step)` by the trainer (rank 0,
@@ -16,8 +17,8 @@ pretransform's decode, the path a user's request takes.
 the batch's peak, logs the first item and the file list, and, where
 matplotlib is installed, the mel spectrogram (and the latents' heat map and
 PCA) as PNGs; without matplotlib it writes the audio only. `outputs` holds
-the last call's audio (before the peak scaling) by name. The inpainting and
-diffusion-autoencoder demos are refused by name (their model types are not
+the last call's audio (before the peak scaling) by name. The
+diffusion-autoencoder demo is refused by name (its model type is not
 ported), as is the autoencoder demo's `compute_fad`.
 """
 
@@ -32,18 +33,22 @@ import torch
 
 from .ema import ema_weights
 
-UNPORTED_DEMOS = ("diffusion_cond_inpaint", "diffusion_autoencoder")
+UNPORTED_DEMOS = ("diffusion_autoencoder",)
 
 
 def create_demo_callback_from_config(model_config: dict, demo_dir: str = "demos", demo_dl=None,
                                      logger=None):
     """The demo callback of the config's model type, configured by its
-    `training.demo` section; `demo_dl` gives the autoencoder demo its reals."""
+    `training.demo` section; `demo_dl` gives the autoencoder and inpainting
+    demos their reals."""
     model_type = model_config["model_type"]
     demo_config = model_config.get("training", {}).get("demo", {})
     if model_type in UNPORTED_DEMOS:
         raise NotImplementedError(f"the {model_type} demo is not ported yet (its model type "
                                   "is not)")
+    if model_type == "diffusion_cond_inpaint":
+        return DiffusionCondInpaintDemoCallback(model_config, demo_dir, demo_config, demo_dl,
+                                                logger)
     if model_type == "diffusion_cond":
         return DiffusionCondDemoCallback(model_config, demo_dir, demo_config, logger)
     if model_type == "diffusion_uncond":
@@ -150,6 +155,46 @@ class DiffusionCondDemoCallback(_DemoBase):
                            caption=f"cfg={scale} | {caption}")
 
 
+class DiffusionCondInpaintDemoCallback(_DemoBase):
+    """`num_demos` reals from `demo_dl` (cut to the demo's sample size), the
+    same reals masked by `demo_mask_args` (default: the middle half with
+    soft edges) for display, and one inpainting request per
+    `demo_cfg_scales` entry that regenerates the masked region, conditioned
+    on the reals' metadata: `inpaint_reals`, `inpaint_masked_input` and
+    `inpaint_cfg{scale}`."""
+
+    def __init__(self, model_config, demo_dir, demo_config, demo_dl, logger=None):
+        super().__init__(model_config, demo_dir, demo_config, logger)
+        self.demo_dl = demo_dl
+
+    def __call__(self, wrapper, step: int) -> None:
+        from ..inference.generation import build_mask, generate_diffusion_cond_inpaint
+
+        if self.demo_dl is None:
+            return
+        num_demos = self.demo_config.get("num_demos", 2)
+        audio, metadata = next(iter(self.demo_dl))
+        audio = np.asarray(audio, np.float32)[:num_demos]
+        metadata = list(metadata)[:num_demos]
+        T = min(audio.shape[-1], self.sample_size)
+        audio = audio[..., :T]
+        self._save(audio, "inpaint_reals", step)
+        mask_args = self.demo_config.get("demo_mask_args", {
+            "maskstart": T // 4, "maskend": 3 * T // 4, "softnessL": 0.05, "softnessR": 0.05})
+        self._save(audio * build_mask(T, mask_args).numpy()[None, None, :],
+                   "inpaint_masked_input", step)
+        model = wrapper.model
+        with ema_weights(wrapper.params, wrapper.ema), _eval_mode(model):
+            for scale in self.demo_config.get("demo_cfg_scales", [6.0]):
+                out = generate_diffusion_cond_inpaint(
+                    model, steps=self.demo_config.get("demo_steps", 50), cfg_scale=scale,
+                    conditioning=metadata if model.conditioner is not None else None,
+                    batch_size=audio.shape[0], sample_size=T, seed=step,
+                    init_audio=(self.sample_rate, audio), mask_args=mask_args)
+                self._save(out.float().cpu().numpy(), f"inpaint_cfg{scale}", step,
+                           caption=f"inpaint cfg={scale}")
+
+
 class DiffusionUncondDemoCallback(_DemoBase):
     """`num_demos` unconditional clips of `demo_steps` sampler steps."""
 
@@ -195,7 +240,7 @@ class AutoencoderDemoCallback(_DemoBase):
         super().__init__(model_config, demo_dir, demo_config, logger)
         if demo_config.get("compute_fad"):
             raise NotImplementedError("compute_fad: FAD is not ported yet (ROADMAP queue 1 "
-                                      "item 5)")
+                                      "item 4)")
         self.demo_dl = demo_dl
 
     def __call__(self, wrapper, step: int) -> None:

@@ -4,7 +4,7 @@ stable_audio_tools_tpu/training/diffusion.py (`_sobol_timesteps` :46,
 `DiffusionUncondTrainer` :418).
 
 One train step: the frozen pretransform encodes the audio (no gradient), a
-timestep t and noise are drawn, the v-objective target is formed, the model
+timestep t and noise are drawn, the objective's target is formed, the model
 runs with CFG dropout on the conditioned inputs, the MSE is taken, then the
 backward, the optimizer and scheduler step, and the EMA update.
 
@@ -14,18 +14,31 @@ encoded (JAX :177-180). `mask_padding`: the MSE is averaged over the
 positions of the batch's `padding_mask` (the items' metadata) only; a mask
 at the audio rate is taken to the latent rate by nearest-index sampling when
 the step encodes (JAX :171-176). `mask_padding_dropout` is accepted and
-stored as the JAX trainer stores it; neither reads it. The JAX trainer's
-other options (inpainting, one-shot t, per-sigma loss logging, the timestep
-shift, non-v objectives) are later slices; the training factory refuses
-configs that set them.
+stored as the JAX trainer stores it; neither reads it.
 `accum_steps` > 1 splits the batch into microbatches whose gradients are
 averaged (the JAX package's `lax.scan` accumulation).
 
+Under a flow objective (`rectified_flow`, `rf_denoiser`) the noised input is
+(1 - t) x + t noise and the target noise - x (JAX :194-204, `val_step`
+:318-330). The model's `distribution_shift_options` (when not empty) shift
+the drawn t by the latents' length (:188-189); `p_one_shot` sets t to 1 for
+that share of the batch (:190-192); `log_loss_info` adds the per-sample MSE
+averaged over the samples whose sigma (sin(t pi/2), or t under a flow
+objective) falls in each tenth of [0, 1) as `loss_all_{lo:.1f}` (0 where
+none does; :231-241); `inpainting_config` (a `diffusion_cond_inpaint`
+model's, `{}` by default) draws `random_inpaint_mask` over the latents
+within the step's padding masks, and joins the masked latents and the mask
+as the DiT's `input_concat_cond` (:207-218). As in JAX, the inpainting runs
+only where the batch's items carry padding masks, and the MSE reads them
+only with `mask_padding`.
+
 Where the JAX step is one jitted program with an explicit PRNG key, this
 step runs eagerly and draws its random numbers (the VAE's sampling noise, t,
-the diffusion noise, the CFG-dropout mask, in that order) from a
+the diffusion noise, then, where they are on, the one-shot uniforms and the
+inpainting mask's draws, then the CFG-dropout mask, in that order) from a
 `torch.Generator` seeded from (seed, step, microbatch), so a resumed run
-draws what the uninterrupted one would have. Tests inject each of them.
+draws what the uninterrupted one would have; a config without the new
+options draws what it drew before them. Tests inject each of them.
 
 Trainable: the parameters with `requires_grad` (the DiT and the
 conditioners' own layers; models/diffusion.py). The JAX step hands its whole
@@ -43,10 +56,12 @@ import numpy as np
 import torch
 
 from ..inference.sampling import (
+    DistributionShift,
     get_alphas_sigmas,
     sample_timesteps_logsnr,
     truncated_logistic_normal_rescaled,
 )
+from ..models.inpainting import random_inpaint_mask
 from .ema import ema_init, ema_update
 from .losses.losses import MSELoss, MultiLoss
 from .utils import build_optimizer
@@ -100,12 +115,20 @@ class DiffusionCondTrainer:
                  timestep_sampler_options: tp.Optional[dict] = None,
                  validation_timesteps: tp.Sequence[float] = (0.1, 0.3, 0.5, 0.7, 0.9),
                  gradient_clip_val: float = 0.0, seed: int = 42, pre_encoded: bool = False,
-                 mask_padding: bool = False, mask_padding_dropout: float = 0.0):
+                 mask_padding: bool = False, mask_padding_dropout: float = 0.0,
+                 log_loss_info: bool = False, p_one_shot: float = 0.0,
+                 inpainting_config: tp.Optional[dict] = None):
         if lr is None and optimizer_configs is None:
             raise ValueError("Must specify either lr or optimizer_configs in training config")
-        if model.diffusion_objective != "v":
-            raise NotImplementedError(f"the {model.diffusion_objective} objective is not ported")
+        if model.diffusion_objective not in ("v", "rectified_flow", "rf_denoiser"):
+            raise ValueError(f"Unknown diffusion objective {model.diffusion_objective}")
         self.model = model
+        self.diffusion_objective = model.diffusion_objective
+        options = getattr(model, "distribution_shift_options", None)
+        self.dist_shift = DistributionShift(**dict(options)) if options else None
+        self.log_loss_info = log_loss_info
+        self.p_one_shot = p_one_shot
+        self.inpainting_config = inpainting_config
         self.cfg_dropout_prob = cfg_dropout_prob
         self.timestep_sampler = timestep_sampler
         self.timestep_sampler_options = dict(timestep_sampler_options or {})
@@ -155,11 +178,11 @@ class DiffusionCondTrainer:
 
     def padding_mask(self, metadata: tp.Sequence[dict], length: int) -> tp.Optional[Tensor]:
         """The batch's padding masks [B, length] f32 on the card when the
-        loss reads them (`mask_padding` and every item has one), else None.
-        A mask at another rate (the audio's, when the step encodes) is
-        sampled at floor(i * T / length) (JAX :171-176)."""
-        if not self.mask_padding or not metadata or any(
-                "padding_mask" not in md for md in metadata):
+        step reads them (`mask_padding` or inpainting, and every item has
+        one), else None. A mask at another rate (the audio's, when the step
+        encodes) is sampled at floor(i * T / length) (JAX :171-176)."""
+        wanted = self.mask_padding or self.inpainting_config is not None
+        if not wanted or not metadata or any("padding_mask" not in md for md in metadata):
             return None
         mask = torch.from_numpy(np.stack([np.asarray(md["padding_mask"], np.float32)
                                           for md in metadata]))
@@ -175,36 +198,74 @@ class DiffusionCondTrainer:
             return {}
         return self.model.get_conditioning_inputs(self.model.conditioner(metadata, self.device))
 
+    def alphas_sigmas(self, t: Tensor) -> tp.Tuple[Tensor, Tensor]:
+        """The objective's signal and noise scales at t."""
+        if self.diffusion_objective == "v":
+            return get_alphas_sigmas(t)
+        return 1 - t, t
+
     def loss(self, latents: Tensor, cond: tp.Dict[str, Tensor], t: tp.Optional[Tensor] = None,
              noise: tp.Optional[Tensor] = None, cfg_dropout_mask: tp.Optional[Tensor] = None,
              generator: tp.Optional[torch.Generator] = None, counter: tp.Optional[int] = None,
-             train: bool = True, padding_mask: tp.Optional[Tensor] = None
+             train: bool = True, padding_mask: tp.Optional[Tensor] = None,
+             one_shot: tp.Optional[Tensor] = None,
+             inpaint_draws: tp.Optional[tp.Dict[str, Tensor]] = None
              ) -> tp.Tuple[Tensor, tp.Dict[str, Tensor]]:
         """The diffusion loss of one batch of latents [B, C, T] (JAX
         `_loss_and_info`); `counter` indexes the Sobol sequence; the MSE is
-        averaged over `padding_mask` [B, T] where it is given."""
+        averaged over `padding_mask` [B, T] where it is given and
+        `mask_padding` is set. `t` replaces the timestep draw; in training
+        the shift and the one-shot draw then apply to it (validation takes its
+        t as it is). `one_shot` [B] and `inpaint_draws` (models/inpainting.py)
+        replace those draws."""
         B, device = latents.shape[0], latents.device
         if t is None:
             t = sample_timesteps(B, self.timestep_sampler, self.timestep_sampler_options,
                                  generator=generator, device=device, step=counter)
         t = t.to(device=device, dtype=torch.float32)
-        alphas, sigmas = (a[:, None, None] for a in get_alphas_sigmas(t))
+        if train and self.dist_shift is not None:
+            t = self.dist_shift.time_shift(t, latents.shape[2])
         if noise is None:
             noise = torch.randn(latents.shape, generator=generator, device=device)
         noise = noise.to(device=device, dtype=latents.dtype)
-        output = self.denoise(latents * alphas + noise * sigmas, t, cond, train,
-                              cfg_dropout_mask, generator)
-        loss, losses = self.losses({"output": output, "targets": noise * alphas - latents * sigmas,
-                                    "padding_mask": padding_mask})
+        if train and self.p_one_shot > 0:
+            if one_shot is None:
+                one_shot = torch.rand((B,), generator=generator, device=device)
+            t = torch.where(one_shot.to(device) < self.p_one_shot, torch.ones_like(t), t)
+        alphas, sigmas = (a[:, None, None] for a in self.alphas_sigmas(t))
+        noised = latents * alphas + noise * sigmas
+        targets = noise * alphas - latents * sigmas if self.diffusion_objective == "v" \
+            else noise - latents
+        extra = {}
+        if train and self.inpainting_config is not None and padding_mask is not None:
+            masked, mask = random_inpaint_mask(
+                latents, generator, padding_masks=padding_mask, draws=inpaint_draws,
+                **self.inpainting_config.get("mask_kwargs", {}))
+            extra["input_concat_cond"] = torch.cat([masked, mask], dim=1)
+        output = self.denoise(noised, t, cond, train, cfg_dropout_mask, generator, **extra)
+        loss, losses = self.losses({
+            "output": output, "targets": targets,
+            "padding_mask": padding_mask if self.mask_padding else None})
         aux = {"loss": loss.detach(), "std_data": latents.std(correction=0).detach(),
                **{k: v.detach() for k, v in losses.items()}}
+        if self.log_loss_info:
+            mse_all = (output.detach().float() - targets.float()).square().mean(dim=(1, 2))
+            sig = sigmas.reshape(-1)
+            for i in range(10):
+                lo, hi = i / 10, (i + 1) / 10
+                in_bucket = (sig >= lo) & (sig < hi)
+                aux[f"loss_all_{lo:.1f}"] = (torch.where(in_bucket, mse_all, 0.0).sum()
+                                             / in_bucket.sum().clamp(min=1))
         return loss, aux
 
     def denoise(self, x: Tensor, t: Tensor, cond: tp.Dict[str, Tensor], train: bool,
-                cfg_dropout_mask: tp.Optional[Tensor], generator: tp.Optional[torch.Generator]
-                ) -> Tensor:
-        """The model's output on the noised input, with CFG dropout in training."""
-        return self.model(x, t, **cond, cfg_dropout_prob=self.cfg_dropout_prob if train else 0.0,
+                cfg_dropout_mask: tp.Optional[Tensor], generator: tp.Optional[torch.Generator],
+                **extra) -> Tensor:
+        """The model's output on the noised input, with CFG dropout in
+        training; `extra` (the inpainting's input_concat_cond) overrides the
+        conditioning's routing."""
+        return self.model(x, t, **{**cond, **extra},
+                          cfg_dropout_prob=self.cfg_dropout_prob if train else 0.0,
                           cfg_dropout_mask=cfg_dropout_mask, generator=generator)
 
     def optimizer_step(self) -> None:
@@ -223,10 +284,14 @@ class DiffusionCondTrainer:
     def train_step(self, audio: Tensor, metadata: tp.Sequence[dict], accum_steps: int = 1,
                    t: tp.Optional[Tensor] = None, noise: tp.Optional[Tensor] = None,
                    encode_noise: tp.Optional[Tensor] = None,
-                   cfg_dropout_mask: tp.Optional[Tensor] = None) -> tp.Dict[str, Tensor]:
+                   cfg_dropout_mask: tp.Optional[Tensor] = None,
+                   one_shot: tp.Optional[Tensor] = None,
+                   inpaint_draws: tp.Optional[tp.Dict[str, Tensor]] = None
+                   ) -> tp.Dict[str, Tensor]:
         """One optimizer step on a batch; returns the step's losses (device
-        scalars, averaged over microbatches). t, noise, encode_noise and
-        cfg_dropout_mask replace the generator's draws (whole batch)."""
+        scalars, averaged over microbatches). t, noise, encode_noise,
+        cfg_dropout_mask, one_shot and inpaint_draws replace the generator's
+        draws (whole batch; a given t is used as it is, unshifted)."""
         B = audio.shape[0]
         if B % accum_steps:
             raise ValueError(f"batch {B} does not split into {accum_steps} microbatches")
@@ -244,7 +309,10 @@ class DiffusionCondTrainer:
                                   t=part(t), noise=part(noise),
                                   cfg_dropout_mask=part(cfg_dropout_mask), generator=gen,
                                   counter=counter,
-                                  padding_mask=self.padding_mask(metadata[sl], latents.shape[2]))
+                                  padding_mask=self.padding_mask(metadata[sl], latents.shape[2]),
+                                  one_shot=part(one_shot),
+                                  inpaint_draws=None if inpaint_draws is None else
+                                  {k: v[sl] for k, v in inpaint_draws.items()})
             (loss / accum_steps).backward()
             auxs.append(aux)
         self.optimizer_step()
@@ -253,16 +321,20 @@ class DiffusionCondTrainer:
         return {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
 
     @torch.no_grad()
-    def val_step(self, audio: Tensor, metadata: tp.Sequence[dict]) -> tp.Dict[str, Tensor]:
-        """Fixed-timestep validation losses (JAX `make_val_step`)."""
+    def val_step(self, audio: Tensor, metadata: tp.Sequence[dict],
+                 noises: tp.Optional[tp.Sequence[Tensor]] = None,
+                 encode_noise: tp.Optional[Tensor] = None) -> tp.Dict[str, Tensor]:
+        """Fixed-timestep validation losses (JAX `make_val_step`); `noises`
+        (one per validation timestep) and `encode_noise` replace the draws."""
         self.model.eval()
         gen = self.generator(-1 - self.step)
-        latents = self.encode(audio, generator=gen)
+        latents = self.encode(audio, generator=gen, noise=encode_noise)
         cond = self.condition(metadata)
         out = {}
-        for vt in self.validation_timesteps:
+        for i, vt in enumerate(self.validation_timesteps):
             t = torch.full((latents.shape[0],), vt, device=latents.device)
-            _, aux = self.loss(latents, cond, t=t, generator=gen, train=False)
+            _, aux = self.loss(latents, cond, t=t, generator=gen, train=False,
+                               noise=None if noises is None else noises[i])
             out[f"val/loss_{vt:.1f}"] = aux["mse_loss"]
         self.model.train()
         return out

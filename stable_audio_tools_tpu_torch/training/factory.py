@@ -1,18 +1,15 @@
 """Training factory; counterpart of stable_audio_tools_tpu/training/factory.py
 (`create_training_wrapper_from_config` :8). The port trains `autoencoder`
 (:17; Oobleck, DAC and SEANet towers, VAE and RVQ bottlenecks),
-`diffusion_uncond` (:33), `diffusion_cond` (the DiT and the ADP
-`adp_cfg_1d` UNet) and `lm` (:116) models; the other model and diffusion
-types raise NotImplementedError."""
+`diffusion_uncond` (:33), `diffusion_cond` and `diffusion_cond_inpaint`
+(:43; the DiT and the ADP `adp_cfg_1d` UNet; with `arc` in the training
+config, ARC post-training, training/arc.py) and `lm` (:116) models; the
+other model and diffusion types raise NotImplementedError."""
 
 from __future__ import annotations
 
+import copy
 import typing as tp
-
-# training-config keys of the JAX DiffusionCondTrainer that this port does not
-# implement yet; a config that sets one (to a true value) is refused rather
-# than half-run
-_UNPORTED = ("arc", "inpainting_config", "p_one_shot", "log_loss_info")
 
 
 def create_training_wrapper_from_config(model_config: tp.Dict[str, tp.Any], model,
@@ -62,19 +59,17 @@ def create_training_wrapper_from_config(model_config: tp.Dict[str, tp.Any], mode
             gradient_clip_val=gradient_clip_val,
             seed=seed,
         )
-    if model_type != "diffusion_cond":
+    if model_type not in ("diffusion_cond", "diffusion_cond_inpaint"):
         raise NotImplementedError(f"training {model_type} models is not ported yet")
     diffusion_type = model_config["model"]["diffusion"]["type"]
     if diffusion_type not in ("dit", "adp_cfg_1d"):
         raise NotImplementedError(f"training diffusion model type {diffusion_type} is not "
                                   "ported yet (ROADMAP.md queue 1)")
-    unported = [k for k in _UNPORTED if training_config.get(k)]
-    if model_config["model"]["diffusion"].get("distribution_shift_options"):
-        unported.append("distribution_shift_options")
-    if unported:
-        raise NotImplementedError(f"training config keys not ported yet: {unported}")
+    if "arc" in training_config:
+        return _arc_trainer(model_config, model, training_config, seed)
     from .diffusion import DiffusionCondTrainer
 
+    inpaint_default = {} if model_type == "diffusion_cond_inpaint" else None
     return DiffusionCondTrainer(
         model,
         lr=training_config.get("learning_rate"),
@@ -88,4 +83,41 @@ def create_training_wrapper_from_config(model_config: tp.Dict[str, tp.Any], mode
         pre_encoded=training_config.get("pre_encoded", False),
         mask_padding=training_config.get("mask_padding", False),
         mask_padding_dropout=training_config.get("mask_padding_dropout", 0.0),
+        log_loss_info=training_config.get("log_loss_info", False),
+        p_one_shot=training_config.get("p_one_shot", 0.0),
+        inpainting_config=training_config.get("inpainting_config", inpaint_default),
+    )
+
+
+def _arc_trainer(model_config: dict, model, training_config: dict, seed: int):
+    """ARC post-training (JAX :44-80). The discriminator is built from
+    `discriminator_base_model` (a model config) or, by default, is a copy of
+    the student with its weights. The teacher is the student's own weights:
+    the JAX factory builds a `teacher_model` but hands the trainer no
+    variables for it, so its trajectories always run on the student's
+    parameters (JAX training/arc.py:235); the port does the same and builds
+    no teacher."""
+    from ..models.factory import create_model_from_config
+    from .arc import ARCTrainer
+
+    arc_config = training_config["arc"]
+    disc_config = arc_config.get("discriminator_base_model")
+    if disc_config is None and arc_config.get("use_model_as_discriminator", True):
+        discriminator = copy.deepcopy(model)
+    else:
+        device = next(model.parameters()).device
+        discriminator = create_model_from_config(disc_config, device)
+    lr = training_config.get("learning_rate", 1e-5)
+    default_opt = {"optimizer": {"type": "AdamW", "config": {"lr": lr}}}
+    return ARCTrainer(
+        model=model,
+        discriminator=discriminator,
+        arc_config=arc_config,
+        optimizer_configs=training_config.get(
+            "optimizer_configs", {"diffusion": default_opt, "discriminator": default_opt}),
+        use_ema=training_config.get("use_ema", True),
+        cfg_dropout_prob=training_config.get("cfg_dropout_prob", 0.1),
+        clip_grad_norm=training_config.get("clip_grad_norm", 0.0),
+        trim_config=training_config.get("trim_config"),
+        seed=seed,
     )

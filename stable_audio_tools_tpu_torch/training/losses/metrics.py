@@ -3,7 +3,7 @@ stable_audio_tools_tpu/training/losses/metrics.py (`make_eval_metrics` :18).
 
 `stft` (a three-resolution STFT distance), `sisdr` (negative SI-SDR) and
 `mel` (a 128-band mel STFT distance), each a callable (decoded, reals) ->
-scalar on the card. PESQ is refused by name (ROADMAP queue 1 item 5).
+scalar on the card. PESQ is refused by name (ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ def make_eval_metrics(sample_rate: int, eval_loss_config: tp.Optional[dict] = No
     (default: stft, sisdr and mel)."""
     cfg = eval_loss_config or {"stft": {}, "sisdr": {}, "mel": {}}
     if "pesq" in cfg:
-        raise NotImplementedError("the pesq metric is not ported yet (ROADMAP queue 1 item 5)")
+        raise NotImplementedError("the pesq metric is not ported yet (ROADMAP queue 1 item 4)")
     metrics = {}
     if "stft" in cfg:
         metrics["stft"] = MultiResolutionSTFTLoss(

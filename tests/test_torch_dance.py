@@ -231,11 +231,27 @@ def test_generate_diffusion_uncond_matches_jax(tiny_pair, sampler, with_init):
 
 
 def test_generation_refuses_what_is_not_ported(tiny_pair):
-    _, _, port = tiny_pair
-    for kw in ({"mesh": object()}, {"tp_rules": ()}, {"preview": True},
-               {"sampler_type": "v-ddim-cfgpp"}, {"sampler_type": "euler"}):
+    # several cards are refused; cfg++ is refused by name on this model, which
+    # the JAX package cannot run it on either (the DAU1d takes no
+    # return_info); a flow sampler on a v-model is unknown to sample_k, as in
+    # JAX; preview collects each denoiser call's estimate
+    jm, variables, port = tiny_pair
+    for kw in ({"mesh": object()}, {"tp_rules": ()}):
         with pytest.raises(NotImplementedError, match="not ported"):
             tgen.generate_diffusion_uncond(port, steps=2, sample_size=T, seed=0, **kw)
+    with pytest.raises(NotImplementedError, match="v-ddim-cfgpp"):
+        tgen.generate_diffusion_uncond(port, steps=2, sample_size=T, seed=0,
+                                       sampler_type="v-ddim-cfgpp")
+    with pytest.raises(TypeError):
+        jgen.generate_diffusion_uncond(jm, variables, steps=2, sample_size=T, seed=0,
+                                       sampler_type="v-ddim-cfgpp")
+    for gen, args in ((tgen.generate_diffusion_uncond, (port,)),
+                      (jgen.generate_diffusion_uncond, (jm, variables))):
+        with pytest.raises(ValueError, match="Unknown sampler"):
+            gen(*args, steps=2, sample_size=T, seed=0, sampler_type="euler")
+    tgen.generate_diffusion_uncond(port, steps=2, sample_size=T, seed=0, preview=True,
+                                   sampler_type="dpmpp-2m")
+    assert [s for _, s in port._preview_buffer] == pytest.approx([500.0, 0.3])
 
 
 # -- training ------------------------------------------------------------------

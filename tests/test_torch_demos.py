@@ -92,7 +92,11 @@ def test_pictures_match_jax():
 
 
 def test_unported_demos_are_refused():
-    for model_type in ("diffusion_cond_inpaint", "diffusion_autoencoder"):
+    # the inpainting demo is ported (tests/test_torch_rf_training.py)
+    assert isinstance(tdemos.create_demo_callback_from_config({
+        "model_type": "diffusion_cond_inpaint", "sample_rate": 1, "sample_size": 1}),
+        tdemos.DiffusionCondInpaintDemoCallback)
+    for model_type in ("diffusion_autoencoder",):
         with pytest.raises(NotImplementedError, match=model_type):
             tdemos.create_demo_callback_from_config({"model_type": model_type,
                                                      "sample_rate": 1, "sample_size": 1})

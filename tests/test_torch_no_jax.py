@@ -4,7 +4,9 @@ KV-cached LM generation, pre-encoding then training from the latents,
 Dance Diffusion's generation and training step, SA-1.0's generation, and the
 training steps of SA-1.0, a DAC VAE-GAN and an EnCodec-style codec, and
 the training entry with tar shards, demos, validation, --recover,
-unwrap_model and the fine-tuning loads) with JAX,
+unwrap_model and the fine-tuning loads, and rectified flow: the four flow
+samplers with preview, inpainting training, ARC's three steps, each new
+module imported alone) with JAX,
 flax, transformers and the JAX package unimportable (the machine with the
 card has none of them), and without triton: no module imports it at import
 time."""
@@ -13,6 +15,8 @@ import os
 import subprocess
 import sys
 import textwrap
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -641,6 +645,100 @@ def test_training_entry_runs_without_jax_or_triton():
     # safetensors (the port's own writer) and the fine-tuning loads
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", ENTRY_SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
+BLOCK = """
+import sys
+for name in ("jax", "jaxlib", "flax", "transformers", "safetensors", "stable_audio_tools_tpu"):
+    sys.modules[name] = None  # any import of these raises ImportError
+"""
+
+RF_MODULES = ("stable_audio_tools_tpu_torch.models.convnext",
+              "stable_audio_tools_tpu_torch.models.arc",
+              "stable_audio_tools_tpu_torch.training.arc")
+
+
+@pytest.mark.parametrize("module", RF_MODULES)
+def test_rf_slice_module_imports_without_jax(module):
+    # each module the rectified-flow slice added, imported alone
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    script = BLOCK + f"import importlib; importlib.import_module({module!r})\n" + \
+        "assert 'triton' not in sys.modules\nprint('ok')\n"
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip() == "ok"
+
+
+RF_SCRIPT = BLOCK + textwrap.dedent("""
+    import torch
+    from stable_audio_tools_tpu_torch.inference.generation import (
+        generate_diffusion_cond, generate_diffusion_cond_inpaint)
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+    from stable_audio_tools_tpu_torch.training.factory import create_training_wrapper_from_config
+
+    def config(model_type, objective, concat=0):
+        return {
+            "model_type": model_type, "sample_size": 64, "sample_rate": 16000,
+            "model": {"io_channels": 4,
+                      "conditioning": {"cond_dim": 16, "configs": [
+                          {"id": "n", "type": "number", "config": {"max_val": 1}}]},
+                      "diffusion": {"type": "dit", "cross_attention_cond_ids": ["n"],
+                                    "diffusion_objective": objective,
+                                    "distribution_shift_options": {"base_shift": 0.5},
+                                    "config": {"io_channels": 4, "embed_dim": 32, "depth": 2,
+                                               "num_heads": 2, "cond_token_dim": 16,
+                                               "input_concat_dim": concat,
+                                               "compute_dtype": "bfloat16"}}},
+            "training": {"learning_rate": 1e-4, "p_one_shot": 0.5, "log_loss_info": True}}
+
+    meta = [{"n": 0.2}, {"n": 0.9}]
+    gen = torch.Generator().manual_seed(0)
+    model = init_random_(create_model_from_config(config("diffusion_cond", "rf_denoiser"), "cpu"),
+                         gen)
+    for sampler in ("pingpong", "euler", "rk4", "dpmpp"):
+        out = generate_diffusion_cond(model.eval(), steps=3, cfg_scale=1.0, conditioning=meta,
+                                      batch_size=2, sample_size=64, seed=0, sampler_type=sampler,
+                                      preview=True)
+        assert out.shape == (2, 4, 64) and torch.isfinite(out).all()
+        assert len(model._preview_buffer) == (12 if sampler == "rk4" else 3)
+    cfg = config("diffusion_cond_inpaint", "rectified_flow", 5)
+    inpaint = init_random_(create_model_from_config(cfg, "cpu"), gen)
+    out = generate_diffusion_cond_inpaint(inpaint.eval(), steps=3, cfg_scale=7.0,
+                                          conditioning=meta, batch_size=2, sample_size=64, seed=0,
+                                          init_audio=(16000, torch.randn(2, 4, 64)),
+                                          mask_args={"maskstart": 10, "maskend": 40})
+    assert out.shape == (2, 4, 64) and torch.isfinite(out).all()
+    wrapper = create_training_wrapper_from_config(cfg, inpaint)
+    pm = [1.0] * 50 + [0.0] * 14
+    aux = wrapper.train_step(torch.randn(2, 4, 64), [dict(m, padding_mask=pm) for m in meta])
+    assert "loss_all_0.5" in aux and all(torch.isfinite(v) for v in aux.values())
+
+    arc_cfg = config("diffusion_cond", "rectified_flow")
+    arc_cfg["training"] = {"arc": {"ode_warmup": {"warmup_steps": 1, "n_sampling_steps": 2},
+                                   "gan": {"head": {"type": "conv"}}}}
+    student = init_random_(create_model_from_config(arc_cfg, "cpu"), gen)
+    arc = create_training_wrapper_from_config(arc_cfg, student)
+    cond = student.conditioner(meta, "cpu")
+    rolled = student.conditioner(meta[::-1], "cpu")
+    keys = [set(arc.train_step(torch.randn(2, 4, 64), cond, rolled_cond_tensors=rolled))
+            for _ in range(3)]
+    assert "ode_mse_loss" in keys[0] and "loss_dis" in keys[1] and "adv_loss" in keys[2]
+    assert "triton" not in sys.modules
+    print("ok")
+""")
+
+
+def test_rf_and_arc_run_without_jax_or_triton():
+    # rf generation by the four flow samplers with preview, inpainting
+    # generation and an inpainting rf training step (shift, one-shot, the
+    # per-sigma buckets), and ARC's ODE, discriminator and generator steps, in
+    # bf16 at toy size
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", RF_SCRIPT], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.strip().endswith("ok")

@@ -407,9 +407,11 @@ def test_stochastic_samplers_draw_from_the_generator_and_unported_ones_are_refus
         run = lambda seed: tsamp.sample_k(v, noise, steps=5, sampler_type=sampler,
                                           generator=torch.Generator().manual_seed(seed))
         assert torch.equal(run(1), run(1)) and not torch.equal(run(1), run(2))
-    for sampler in ("v-ddim-cfgpp", "euler", "rk4", "dpmpp", "pingpong"):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    for sampler in ("euler", "rk4", "dpmpp", "pingpong"):  # sample_rf's, as in JAX
+        with pytest.raises(ValueError, match="Unknown sampler"):
             tsamp.sample_k(v, noise, sampler_type=sampler)
+    with pytest.raises(TypeError, match="return_info"):  # cfg++ asks the model for its info
+        tsamp.sample_k(v, noise, steps=2, sampler_type="v-ddim-cfgpp")
     out = tsamp.sample_k(v, noise, steps=5, sampler_type="v-ddim")
     assert out.shape == noise.shape and torch.isfinite(out).all()
     with pytest.raises(ValueError, match="Unknown sampler"):
@@ -717,19 +719,23 @@ def test_generate_inpaint_matches_jax(clap_path):
 
 
 def test_generation_refuses_what_is_not_ported(sa2_pair):
+    # several cards are refused; the flow samplers are unknown to a v-model's
+    # sample_k (as in JAX); cfg++ and preview run on the DiT
     _, _, port = sa2_pair
-    for kw in ({"mesh": object()}, {"tp_rules": ()}, {"preview": True}):
+    for kw in ({"mesh": object()}, {"tp_rules": ()}):
         for fn in (tgen.generate_diffusion_cond, tgen.generate_diffusion_cond_inpaint):
             with pytest.raises(NotImplementedError, match="not ported"):
                 fn(port, conditioning=META, sample_size=2048, init_audio=(16000, np.zeros((2, 8))),
                    **kw)
-    for sampler in ("v-ddim-cfgpp", "euler", "rk4", "dpmpp", "pingpong"):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    for sampler in ("euler", "rk4", "dpmpp", "pingpong"):
+        with pytest.raises(ValueError, match="Unknown sampler"):
             tgen.generate_diffusion_cond(port, conditioning=META, sample_size=2048,
                                          sampler_type=sampler, steps=2)
-    audio = tgen.generate_diffusion_cond(port, conditioning=META, sample_size=2048,
-                                         sampler_type="v-ddim", steps=2, seed=0)
-    assert audio.shape == (1, 2, 2048) and torch.isfinite(audio).all()
+    for sampler in ("v-ddim", "v-ddim-cfgpp"):
+        audio = tgen.generate_diffusion_cond(port, conditioning=META, sample_size=2048,
+                                             sampler_type=sampler, steps=2, seed=0, preview=True)
+        assert audio.shape == (1, 2, 2048) and torch.isfinite(audio).all()
+        assert len(port._preview_buffer) == 2
     with pytest.raises(ValueError, match="conditioning"):
         tgen.generate_diffusion_cond(port, sample_size=2048)
 

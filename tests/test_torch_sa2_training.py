@@ -368,9 +368,10 @@ def test_factory_takes_the_new_keys_and_refuses_inpainting(pair):
     plain = create_training_wrapper_from_config(dict(config, training=SA2_TRAINING), port)
     assert (plain.pre_encoded, plain.mask_padding, plain.losses.losses[0].mask_key) == (
         False, False, None)
+    # inpainting is taken now (the flow-objective slice trains it)
     config["training"]["inpainting_config"] = {"mask_kwargs": {}}
-    with pytest.raises(NotImplementedError, match="inpainting_config"):
-        create_training_wrapper_from_config(config, port)
+    assert create_training_wrapper_from_config(config, port).inpainting_config == {
+        "mask_kwargs": {}}
 
 
 def test_train_entry_trains_from_pre_encoded_latents(tmp_path):

@@ -570,9 +570,20 @@ def test_train_entry_runs_resumes_and_refuses_unported_flags(tmp_path):
 
 @pytest.mark.parametrize("key", ["arc", "p_one_shot", "log_loss_info", "inpainting_config"])
 def test_factory_refuses_training_options_not_ported(train_pair, key):
-    # a config asking for a JAX trainer option the port lacks is refused, not
-    # trained without it; SA-Open's explicit "log_loss_info": false is fine
+    # every JAX trainer option of this list is ported now: the factory takes
+    # each (`arc` builds the ARC trainer; tests/test_torch_rf_training.py and
+    # test_torch_arc.py hold them against JAX); SA-Open's explicit
+    # "log_loss_info": false stays off
+    from stable_audio_tools_tpu_torch.training.arc import ARCTrainer
+
     config = _train_config()
+    assert create_training_wrapper_from_config(config, train_pair[2]).log_loss_info is False
     config["training"][key] = {"mask_kwargs": {}} if key == "inpainting_config" else True
-    with pytest.raises(NotImplementedError, match=key):
-        create_training_wrapper_from_config(config, train_pair[2])
+    if key == "arc":  # ARC's default optimizers: SA-Open's names no discriminator's
+        config["training"][key] = {}
+        del config["training"]["optimizer_configs"]
+    wrapper = create_training_wrapper_from_config(config, train_pair[2])
+    if key == "arc":
+        assert isinstance(wrapper, ARCTrainer)
+    else:
+        assert getattr(wrapper, key) == config["training"][key]
