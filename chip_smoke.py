@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--phases 2,4,6]
 
 Runs from the repository root on a machine with a CUDA card and `nvcc`;
-needs no network, no Triton and no JAX. Fifteen phases, each printing one
+needs no network, no Triton and no JAX. Sixteen phases, each printing one
 line (phase 2 several); any failure raises and the exit code is nonzero.
 `--phases` (for development runs) runs phase 1 and the phases named, with
 all their checks, and ends on `{"ok": true, "partial": [...]}`, the phases
@@ -40,7 +40,12 @@ every kernel launched on some path and the device line close the run:
    calls must give the same bits. The causal / sliding-window `flash_attention` and the
    banded backward (both routes) are held at the LM's causal shapes and
    TAAE's windowed ones (FLASH_SHAPES), each timed beside SDPA with the same
-   mask, and `flash_attention_nhd`'s causal backward at [1, 4096, 16, 64].
+   mask, and `flash_attention_nhd`'s causal backward at [1, 4096, 16, 64];
+   at the TAAE's four windowed training shapes (TAAE_FLASH_SHAPES, batch 4,
+   1 to 8 heads of 128 over 32,768 to 128 rows, window (31, 32)) rows 5 and
+   6 (both routes) against a banded plain version that walks the queries
+   in chunks, timed beside it, SDPA with the band as a mask (up to 8,192
+   rows) and the bound.
    The fused-QKV entry `flash_attention_fused_qkv` (the rotary pass, then
    the attention kernel) is held at SA-2.0's training shape [4, 6145, 24, 64] with rotary
    32 and at FUSED_CASES, its Function's gradient against autograd through
@@ -124,7 +129,11 @@ every kernel launched on some path and the device line close the run:
    cfg 6, dpmpp-3m-sde, 100 steps, 12,582,912 samples (6144 latents, 64
    decode chunks). The audio must be finite [1, 2, 12582912], the path must
    launch `flash_attention_nhd` 2400 times and every other forward kernel,
-   and must not launch `flash_attention_prefix`.
+   and must not launch `flash_attention_prefix`. Then the Oobleck decode's
+   bf16 distance from f32 (`oobleck_bf16_check`: the SA-2.0 VAE decoder's
+   five levels at channels 32 with seeded weights, bf16 on the card against
+   f32 on the CPU) must stay within twice the JAX package's own
+   (OOBLECK_BF16_JAX, measured by tests/test_torch_taae.py).
 
 6. Autoencoder GAN training: one generator and one discriminator step of a
    tiny SA-2.0-VAE-shaped model (deterministic algorithms on, warn only)
@@ -267,6 +276,21 @@ every kernel launched on some path and the device line close the run:
    finite losses and launches pinned (counted from training/arc.py), and
    row 11 held at the ConvNeXt head's stride-1 conv shapes against its
    plain version.
+
+16. The transformer autoencoder (TAAE): the shipped SA-2.0 VAE config with
+   TAAE towers at the JAX classes' defaults (`taae_config`: 156.3 M
+   parameters, 24 blocks of heads of 128 under the window (31, 32), ratio
+   512), seeded random weights, bf16: (a) one request, encode + decode of
+   2,097,152 samples unchunked (4,096 latents), and one of its dithered-FSQ
+   variant with the codes decoded by `decode_tokens`: wall, audio-s/s, peak
+   GiB, busy share and top kernels, launches pinned (rows 5 / 2 24 / 96);
+   (c) tiny card-vs-CPU steps within 5%: the latent mask, the frozen
+   encoder and a teacher in one trainer, the dithered FSQ and the
+   Wasserstein bottlenecks, and a tiny DiT's forward with the config keys
+   no shipped config sets (adaLN, memory tokens, patch_size 2, the
+   timestep by input_concat, LayerScale, qk-norm, a window); (b) `gan_phase` of the full config at batch 4 x
+   65,536, 2 + 5 pairs (rows 5 / 2 / 6 / 11 plain 24 / 96 / 24 / 4 a
+   generator step, 24 / 96 a discriminator step).
 
 The last lines are the kernels' JSON record, the card line and the result
 line {"ok": true, "device": {...}}.
@@ -534,6 +558,9 @@ def phase_kernels(dev):
         fa, randn, F)
     rec["flash_attention"]["ptxas"] = {
         n: r for n, r in _build.ptxas_report("flash_fwd").items() if "flash_" in n}
+    taae = taae_flash_checks(fa, randn, F)
+    rec["flash_attention"]["taae"] = {n: r["forward"] for n, r in taae.items()}
+    rec["flash_attention_prefix_bwd"]["taae"] = {n: r["backward"] for n, r in taae.items()}
 
     # 2. DiT block norms: [2, 1025, 1536] bf16, gamma f32
     x = randn(2, 1025, 1536, scale=3.0)
@@ -574,10 +601,32 @@ def phase_kernels(dev):
         ref = ln.fused_layer_norm_plain(xe, g_, b_)
         errs.append(compare(f"layer norm {shape}", ln.fused_layer_norm(xe, g_, b_), ref,
                             bf16_tol(ref)))
+    # the TAAE's rows at its training batch (4 x 65,536 samples): each
+    # block's bias-less pre_norm / ff_norm at epsilon 1e-2 over [4, N, C],
+    # and the "ln" qk-norm (scale and bias, epsilon 1e-6) over the split
+    # heads [4, C / 128, N, 128] (TAAE_FLASH_SHAPES' [B, H, N], C = 128 H)
+    taae = []
+    for b, h, n in TAAE_FLASH_SHAPES:
+        for shape, beta, eps in (((b, n, 128 * h), False, 1e-2), ((b, h, n, 128), True, 1e-6)):
+            xe = randn(*shape, scale=3.0)
+            g_ = randn(shape[-1], dtype=torch.float32)
+            b_ = randn(shape[-1], dtype=torch.float32) if beta else None
+            run = lambda xe=xe, g_=g_, b_=b_, eps=eps: ln.fused_layer_norm(xe, g_, b_, eps)
+            ref = ln.fused_layer_norm_plain(xe, g_, b_, eps)
+            errs.append(compare(f"TAAE layer norm {list(shape)}", run(), ref, bf16_tol(ref)))
+            taae.append(dict(
+                shape=f"x {list(shape)} bf16, gamma{' + beta' if beta else ''} f32, eps {eps}",
+                max_abs_err=errs[-1], ms=cuda_ms(run, 50),
+                plain_ms=cuda_ms(lambda: ln.fused_layer_norm_plain(xe, g_, b_, eps), 20),
+                library_ms=cuda_ms(lambda: F.layer_norm(xe, shape[-1:], g_.to(bf),
+                                                        None if b_ is None else b_.to(bf), eps),
+                                   50),
+                **bound(8.0 * xe.numel(), xe, g_, b_, ref)))
+    rec["fused_layer_norm"]["taae"] = taae
     rec["fused_layer_norm"]["max_abs_err"] = max(errs)
     rec["fused_layer_norm"]["shape"] += ("; [2,6145,1536], bf16 gamma + beta, [5,1000], [3,100], "
-                                         "[7,16384] checked")
-    del x2, ref
+                                         "[7,16384] and the TAAE's rows checked")
+    del x2, ref, xe
     # 2b. its autograd Function (the kernel forward, plain backward as the JAX
     #     package's) at the training shape against autograd through the plain
     #     version: bf16 dx, f32 dgamma, 1% of each gradient's peak; and under
@@ -1749,6 +1798,107 @@ def flash_checks(fa, randn, F):
     return forward, banded
 
 
+# (B, H, N) of the TAAE's windowed self-attention at head dim 128 in a
+# training step at batch 4 x 65,536 (`taae_config`: widths 128 / 256 / 512 /
+# 1024 at 32,768 / 8,192 / 1,024 / 128 rows), the window (31, 32)
+TAAE_FLASH_SHAPES = ((4, 1, 32768), (4, 2, 8192), (4, 4, 1024), (4, 8, 128))
+TAAE_WINDOW = (31, 32)
+# SDPA with the band as a boolean [N, N] mask is timed up to this N
+SDPA_MASK_MAX_N = 8192
+
+
+def banded_plain(q, k, v, window, chunk: int = 4096):
+    """`flash_attention_plain` under `window` one query chunk at a time, each
+    against its band of keys (the [N, N] logits of N = 32,768 would not fit):
+    (out in q's dtype, lse f32)."""
+    left, right = window
+    N, scale = q.shape[2], q.shape[-1] ** -0.5
+    outs, lses = [], []
+    for a in range(0, N, chunk):
+        b, lo = min(N, a + chunk), max(0, a - left)
+        hi = min(N, b + right)
+        i = torch.arange(a, b, device=q.device)[:, None]
+        j = torch.arange(lo, hi, device=q.device)[None, :]
+        logits = (q[:, :, a:b].float() @ k[:, :, lo:hi].float().transpose(-1, -2)) * scale
+        logits = logits.masked_fill(~((j >= i - left) & (j <= i + right)), float("-inf"))
+        lse = torch.logsumexp(logits, dim=-1)
+        outs.append(torch.exp(logits - lse[..., None]) @ v[:, :, lo:hi].float())
+        lses.append(lse)
+    return torch.cat(outs, 2).to(q.dtype), torch.cat(lses, 2)
+
+
+def banded_plain_bwd(q, k, v, out, lse, dout, window, chunk: int = 4096):
+    """`flash_attention_prefix_bwd_plain` under `window`, a query chunk at a
+    time: (dq, dk, dv) in the inputs' dtypes."""
+    left, right = window
+    N, scale = q.shape[2], q.shape[-1] ** -0.5
+    dq = torch.empty(q.shape, device=q.device, dtype=torch.float32)
+    dk, dv = (torch.zeros(t.shape, device=q.device, dtype=torch.float32) for t in (k, v))
+    for a in range(0, N, chunk):
+        b, lo = min(N, a + chunk), max(0, a - left)
+        hi = min(N, b + right)
+        i = torch.arange(a, b, device=q.device)[:, None]
+        j = torch.arange(lo, hi, device=q.device)[None, :]
+        qf, kf, vf = q[:, :, a:b].float(), k[:, :, lo:hi].float(), v[:, :, lo:hi].float()
+        gf = dout[:, :, a:b].float()
+        p = torch.exp(qf @ kf.transpose(-1, -2) * scale - lse[:, :, a:b, None])
+        p = p.masked_fill(~((j >= i - left) & (j <= i + right)), 0.0)
+        dsum = (gf * out[:, :, a:b].float()).sum(-1, keepdim=True)
+        ds = p * (gf @ vf.transpose(-1, -2) - dsum) * scale
+        dq[:, :, a:b] = ds @ kf
+        dk[:, :, lo:hi] += ds.transpose(-1, -2) @ qf
+        dv[:, :, lo:hi] += p.transpose(-1, -2) @ gf
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def taae_flash_checks(fa, randn, F) -> dict:
+    """Rows 5 and 6 (both backward routes) at TAAE_FLASH_SHAPES, head dim 128,
+    window (31, 32): each against `banded_plain` / `banded_plain_bwd`, timed
+    beside them, beside SDPA with the band as a boolean mask (forward, and
+    autograd's backward) where N <= SDPA_MASK_MAX_N, and beside the bound
+    from the visible pairs."""
+    out_rec = {}
+    for B, H, N in TAAE_FLASH_SHAPES:
+        name, D = f"[{B},{H},{N},128]", 128
+        q, k, v, dout = (randn(B, H, N, D) for _ in range(4))
+        out, lse = fa.flash_attention(q, k, v, False, TAAE_WINDOW)
+        ref, ref_lse = banded_plain(q, k, v, TAAE_WINDOW)
+        err = compare(f"flash_attention taae {name}", out, ref, bf16_tol(ref))
+        compare(f"flash_attention taae {name} lse", lse, ref_lse, 1e-3)
+        pairs = B * H * band_pairs(fa, N, False, TAAE_WINDOW)
+        iters = 20 if B * H * N <= 65536 else 5
+        mask = fa.band_mask(N, False, TAAE_WINDOW, q.device) if N <= SDPA_MASK_MAX_N else None
+        fwd = dict(ms=cuda_ms(lambda: fa.flash_attention(q, k, v, False, TAAE_WINDOW), iters),
+                   plain_ms=cuda_ms(lambda: banded_plain(q, k, v, TAAE_WINDOW), 1),
+                   library_ms=None if mask is None else cuda_ms(
+                       lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), iters),
+                   max_abs_err=err, visible_pairs=pairs,
+                   **bound(4.0 * D * pairs, q, k, v, out, lse))
+        want = banded_plain_bwd(q, k, v, out, lse, dout, TAAE_WINDOW)
+        bwd = dict(routes={}, **bound(10.0 * D * pairs, q, k, v, out, lse, dout, q, k, v))
+        for route in fa.BWD_ROUTES:
+            run = lambda route=route: fa.flash_attention_prefix_bwd(
+                q, k, v, out, lse, dout, route=route, window=TAAE_WINDOW)
+            rel = max(rel_err(f"flash bwd taae {name} {route} d{n}", a, b, BWD_REL_TOL)
+                      for n, a, b in zip("qkv", run(), want))
+            bwd["routes"][route] = dict(max_rel_err=rel, ms=cuda_ms(run, iters))
+        bwd.update(ms=bwd["routes"][fa.BWD_ROUTE]["ms"],
+                   max_rel_err=bwd["routes"][fa.BWD_ROUTE]["max_rel_err"],
+                   plain_ms=cuda_ms(lambda: banded_plain_bwd(q, k, v, out, lse, dout,
+                                                             TAAE_WINDOW), 1))
+        bwd["library_ms"] = None
+        if mask is not None:
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            lib_out = F.scaled_dot_product_attention(*qkv, attn_mask=mask)
+            bwd["library_ms"] = cuda_ms(lambda: torch.autograd.grad(lib_out, qkv, dout,
+                                                                    retain_graph=True), iters)
+            del qkv, lib_out
+        out_rec[name] = dict(forward=fwd, backward=bwd)
+        del q, k, v, dout, out, lse, ref, ref_lse, want, mask
+        torch.cuda.empty_cache()
+    return out_rec
+
+
 def counters():
     from stable_audio_tools_tpu_torch.ops.kernels import conv1d_snake as cs
     from stable_audio_tools_tpu_torch.ops.kernels import flash_attention as fa
@@ -2577,7 +2727,8 @@ def phase_sa2(dev) -> dict:
                 audio_s_per_s=SA2_SAMPLE_SIZE / 44100.0 / wall, launches=launches,
                 params=n_params, build_s=build_s, small=small, small_tol=small_tol,
                 peak_gib=peak_gib,
-                breakdown=stage_breakdown(model, dev, SA2_PROMPT, SA2_SAMPLE_SIZE))
+                breakdown=stage_breakdown(model, dev, SA2_PROMPT, SA2_SAMPLE_SIZE),
+                oobleck_bf16=oobleck_bf16_check(dev))
 
 
 SA2_VAE = os.path.join(ROOT, "stable_audio_tools_tpu", "configs", "model_configs",
@@ -2632,19 +2783,35 @@ SMALL_AE_GAIN = 0.3
 GAN_SPREAD = 2.0
 
 
+# a TAAE's LayerScale gains in the tiny card-vs-CPU checks (their init, 1e-5,
+# would leave the transformer blocks' kernels out of the outputs compared)
+SMALL_LAYER_SCALE = 0.1
+
+
+@torch.no_grad()
+def scale_gains(model, gain: float) -> None:
+    """The weight-norm gains times `gain`; LayerScales set to
+    SMALL_LAYER_SCALE."""
+    from stable_audio_tools_tpu_torch.ops.norms import LayerScale
+
+    for n, p in model.named_parameters():
+        if n.endswith("weight_g"):
+            p.mul_(gain)
+    for m in model.modules():
+        if isinstance(m, LayerScale):
+            m.scale.fill_(SMALL_LAYER_SCALE)
+
+
 def tiny_gan_trainer(cfg: dict, dev, disc: dict | None = None, gain: float = 1.0):
     """`cfg`'s trainer on `dev`, its weights made on the CPU from seed 1, the
-    weight-norm gains times `gain` (the discriminator's weights from `disc`
+    gains set by `scale_gains` (the discriminator's weights from `disc`
     where given, else its own seeded init)."""
     from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
     from stable_audio_tools_tpu_torch.training.factory import create_training_wrapper_from_config
 
     model = init_random_(create_model_from_config(copy.deepcopy(cfg), "cpu"),
                          torch.Generator().manual_seed(1))
-    with torch.no_grad():
-        for n, p in model.named_parameters():
-            if n.endswith("weight_g"):
-                p.mul_(gain)
+    scale_gains(model, gain)
     w = create_training_wrapper_from_config(copy.deepcopy(cfg), model.to(dev))
     if disc is not None:
         w.discriminator.load_state_dict(disc)
@@ -2866,7 +3033,8 @@ def gan_training(dev, cfg: dict, tmp: str, dataset: str, gen_launches: dict,
                                  f"nonzero gradient: {bad[:8]}")
     trainer.fit(loader, max_steps=2 * GAN_WARM_PAIRS, save_at_end=False)
     torch.cuda.synchronize()
-    kernels = {n: fn for n, fn in counters().items() if n in AE_KERNELS}
+    counted = set(AE_KERNELS) | set(gen_launches) | set(disc_launches)
+    kernels = {n: fn for n, fn in counters().items() if n in counted}
     for fn in kernels.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -2875,7 +3043,7 @@ def gan_training(dev, cfg: dict, tmp: str, dataset: str, gen_launches: dict,
     rec["launches"] = {n: fn.launches for n, fn in kernels.items()}
     rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     want = {n: GAN_TIMED_PAIRS * (gen_launches.get(n, 0) + disc_launches.get(n, 0))
-            for n in AE_KERNELS}
+            for n in kernels}
     if rec["launches"] != want:
         raise AssertionError(f"GAN training launches {rec['launches']}, expected {want}")
     hist = trainer.history
@@ -4652,6 +4820,77 @@ def phase_codec_training(dev) -> dict:
 # timestep shift's options set to the class defaults (an empty dict is no
 # shift), and for inpainting `diffusion_cond_inpaint` with input_concat_dim
 # 64 + 1.
+# the transformer autoencoder (phase 16): the shipped SA-2.0 VAE config with
+# TAAE towers at the JAX classes' defaults (depths [3, 3, 3, 3], window
+# (31, 32), ELU, heads of 128) over strides [2, 4, 8, 8] (ratio 512)
+TAAE_TOWER = {"channels": 128, "c_mults": [1, 2, 4, 8], "strides": [2, 4, 8, 8]}
+TAAE_DITHERED_FSQ = {"type": "dithered_fsq", "config": {"dim": 4, "levels": 5,
+                                                         "num_codebooks": 16}}
+
+
+def taae_config(fsq: bool = False) -> dict:
+    """`taae_vae_gan` (the VAE bottleneck) or, with `fsq`, `taae_dithered_fsq`
+    (16 codebooks of 4 dims at 5 levels over the 64 latent channels; the
+    encoder's latent_dim 64, no bottleneck loss weights): everything but the
+    towers, the ratio and that bottleneck as shipped."""
+    cfg = sa2_vae_config()
+    m = cfg["model"]
+    m["encoder"] = {"type": "taae", "config": dict(TAAE_TOWER, in_channels=2,
+                                                   latent_dim=64 if fsq else 128)}
+    m["decoder"] = {"type": "taae", "config": dict(TAAE_TOWER, out_channels=2, latent_dim=64)}
+    m["downsampling_ratio"] = 512
+    if fsq:
+        m["bottleneck"] = copy.deepcopy(TAAE_DITHERED_FSQ)
+        cfg["training"]["loss_configs"].pop("bottleneck", None)
+    return cfg
+
+
+def tiny_taae_config(compute_dtype: str = "bfloat16", fsq: bool = False) -> dict:
+    """`taae_config` at toy size for the card-vs-CPU checks: channels 64,
+    c_mults [2, 4], strides [2, 4] (one head of 128, then two: row 5 and row
+    6 at head dim 128), depths [1, 1] under the window (31, 32), latent 8,
+    `tiny_ae_config`'s discriminator and MRSTFT, `compute_dtype`."""
+    cfg = taae_config(fsq)
+    small = tiny_ae_config(compute_dtype)
+    cfg["sample_size"] = small["sample_size"]
+    cfg["training"] = small["training"]
+    if fsq:
+        cfg["training"]["loss_configs"].pop("bottleneck", None)
+    m = cfg["model"]
+    tower = dict(channels=64, c_mults=[2, 4], strides=[2, 4], transformer_depths=[1, 1])
+    m["encoder"]["config"].update(tower, latent_dim=8 if fsq else 16)
+    m["decoder"]["config"].update(tower, latent_dim=8)
+    m.update(latent_dim=8, downsampling_ratio=8)
+    if fsq:
+        m["bottleneck"]["config"].update(num_codebooks=2)
+    return cfg
+
+
+# the JAX package's own bf16-vs-f32 distance of `oobleck_bf16_case`'s decode
+# (||bf16 - f32|| / ||f32||, CPU; tests/test_torch_taae.py measures it and
+# holds this record to it); phase 16 holds the card's to twice it
+OOBLECK_BF16_JAX = 0.11165536
+
+
+def oobleck_bf16_case():
+    """(config, latents [1, 64, 16]): the shipped SA-2.0 VAE with its
+    decoder's five levels at channels 32 (2 -> 512 channels), the latents
+    from torch's CPU generator at seed 0."""
+    cfg = sa2_vae_config()
+    cfg["model"]["decoder"]["config"]["channels"] = 32
+    cfg["model"]["encoder"]["config"]["channels"] = 32
+    return cfg, torch.randn(1, 64, 16, generator=torch.Generator().manual_seed(0)).numpy()
+
+
+def oobleck_bf16_decoder(cfg: dict, dev="cpu"):
+    """`oobleck_bf16_case`'s decoder, its weights from `init_random_` on the
+    CPU at seed 0 (the same on every machine), on `dev`."""
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+
+    model = init_random_(create_model_from_config(cfg, "cpu"), torch.Generator().manual_seed(0))
+    return model.decoder.eval().to(dev)
+
+
 RF_SHIFT = {"base_shift": 0.5, "max_shift": 1.15, "min_length": 256, "max_length": 4096}
 # (objective, sampler, steps, cfg scale): the JAX UI's defaults for each
 # objective (rf_denoiser: pingpong 8 at cfg 1; rectified_flow: euler 50 at
@@ -5038,7 +5277,267 @@ def phase_rf(dev) -> dict:
     return rec
 
 
-PHASES = tuple(range(1, 16))
+TAAE_REQUEST_SAMPLES = 2097152  # 47.6 s of 44.1 kHz stereo: 4,096 latents at ratio 512
+
+
+def taae_launches(model) -> dict:
+    """Launches counted from a TAAE autoencoder: a forward (encode + decode)
+    runs row 5 once a transformer block (its windowed self-attention) and
+    row 2 for each of its LayerNorms (pre_norm, ff_norm and the "ln"
+    qk-norm's two); a generator step adds row 6 once a block (the
+    attention's backward) and row 11 plain once a stride-1 conv (each
+    tower's conv_in and conv_out; a stage's conv is strided or transposed,
+    cuDNN's); a discriminator step runs the forward under no_grad."""
+    from stable_audio_tools_tpu_torch.ops.transformer import TransformerBlock
+
+    blocks = [m for m in model.modules() if isinstance(m, TransformerBlock)]
+    forward = {"flash_attention": len(blocks),
+               "fused_layer_norm": sum(2 + 2 * (b.self_attn.qk_norm == "ln") for b in blocks)}
+    gen = dict(forward, flash_attention_prefix_bwd=len(blocks),
+               conv1d_wgrad=2 * len((model.encoder, model.decoder)))
+    return {"forward": forward, "gen": gen, "disc": dict(forward)}
+
+
+def taae_request(dev, fsq: bool) -> dict:
+    """One request of `taae_config(fsq)` at full width, seeded random weights,
+    bf16 compute: encode then decode one stereo clip of TAAE_REQUEST_SAMPLES
+    unchunked (the FSQ's codes decoded back by `decode_tokens`), after a
+    warm-up round trip at the same size (the allocator's growth and the
+    libraries' algorithm choices at these shapes stay out of the timed
+    one): wall s, audio-s/s, peak GiB, the
+    launches (pinned to `taae_launches`), then the same round trip under
+    the profiler (device-busy share, top kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+
+    model = init_random_(create_model_from_config(taae_config(fsq), dev),
+                         torch.Generator(device=dev).manual_seed(16)).eval()
+    want = taae_launches(model)["forward"]
+    g = torch.Generator(device=dev).manual_seed(17)
+    audio = (0.3 * torch.randn(1, 2, TAAE_REQUEST_SAMPLES, generator=g, device=dev)).to(
+        torch.bfloat16)
+
+    def round_trip(x):
+        latents, info = model.encode(x, generator=g, return_info=True)
+        if fsq:
+            return latents, info, model.decode_tokens(info["quantizer_indices"],
+                                                      dtype=torch.bfloat16)
+        return latents, info, model.decode(latents)
+
+    kernels = counters()
+    with torch.no_grad():
+        round_trip(audio)
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        latents, info, decoded = round_trip(audio)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in kernels.items() if fn.launches}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        latent_shape = (1, 64, TAAE_REQUEST_SAMPLES // 512)
+        if (tuple(latents.shape) != latent_shape or tuple(decoded.shape) != tuple(audio.shape)
+                or not torch.isfinite(decoded.float()).all()):
+            raise AssertionError(f"TAAE request: latents {tuple(latents.shape)}, audio "
+                                 f"{tuple(decoded.shape)}, finite "
+                                 f"{bool(torch.isfinite(decoded.float()).all())}")
+        if launches != want:
+            raise AssertionError(f"TAAE request launches {launches}, expected {want}")
+        rec = {}
+        if fsq:
+            codes = model.bottleneck.decode_tokens(info["quantizer_indices"])
+            if not torch.equal(codes.to(latents.dtype), latents):
+                raise AssertionError("TAAE FSQ: decode_tokens of the codes is not the latents")
+            rec["codes"] = list(info["quantizer_indices"].shape)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            round_trip(audio)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in events)
+    if busy_us <= 0:
+        raise AssertionError("TAAE request: the profiler saw no kernel")
+    rec.update(params=sum(p.numel() for p in model.parameters()), wall_s=wall,
+               audio_s_per_s=TAAE_REQUEST_SAMPLES / 44100 / wall, peak_gib=peak,
+               launches=launches, profiled_wall_ms=wall_us / 1e3, device_busy=busy_us / wall_us,
+               top_kernels_ms={e.key[:60]: round(e.self_device_time_total / 1e3, 3) for e in
+                               sorted(events, key=lambda e: -e.self_device_time_total)[:6]})
+    del model, audio, latents, info, decoded, prof
+    torch.cuda.empty_cache()
+    return rec
+
+
+def small_taae_option_checks(dev) -> dict:
+    """Tiny TAAE trainers (bf16, gains as `small_gan_check`'s reduced ones)
+    with the kernels on the card against the plain versions on the CPU, the
+    same weights, batch and draws on both sides, deterministic algorithms
+    on: "options" (`latent_mask_ratio` 0.5, `encoder_freeze_on_warmup`
+    after a one-step warm-up and a teacher: generator, discriminator, frozen
+    generator), "dithered_fsq" and "wasserstein" (a generator and a
+    discriminator step). Each step's largest relative error of its named
+    losses and ||card - CPU|| / ||CPU|| of its side's whole gradient."""
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+    from stable_audio_tools_tpu_torch.training.autoencoders import AutoencoderTrainer
+
+    wasserstein = tiny_taae_config()  # the encoder's 8 channels are the latents
+    wasserstein["model"]["bottleneck"] = {"type": "wasserstein"}
+    wasserstein["model"]["encoder"]["config"]["latent_dim"] = 8
+    cases = {"options": (tiny_taae_config(), True),
+             "dithered_fsq": (tiny_taae_config(fsq=True), False),
+             "wasserstein": (wasserstein, False)}
+
+    def model_on(cfg, seed, where):
+        model = init_random_(create_model_from_config(copy.deepcopy(cfg), "cpu"),
+                             torch.Generator().manual_seed(seed))
+        scale_gains(model, SMALL_AE_GAIN)
+        return model.to(where)
+
+    def moved(x, where):
+        return {k: v.to(where) for k, v in x.items()} if isinstance(x, dict) else x.to(where)
+
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, (cfg, options) in cases.items():
+            tr = cfg["training"]
+            sides = []
+            for where in ("cpu", dev):
+                kw = {}
+                if options:
+                    kw = dict(latent_mask_ratio=0.5, encoder_freeze_on_warmup=True,
+                              warmup_steps=1, teacher_model=model_on(cfg, 2, where))
+                w = AutoencoderTrainer(model_on(cfg, 1, where), sample_rate=cfg["sample_rate"],
+                                       loss_config=tr["loss_configs"],
+                                       optimizer_configs=tr.get("optimizer_configs"),
+                                       lr=tr.get("learning_rate"),
+                                       compute_dtype=tr.get("compute_dtype"), **kw)
+                if sides:
+                    w.discriminator.load_state_dict(sides[0].discriminator.state_dict())
+                sides.append(w)
+            cpu, card = sides
+            g = torch.Generator().manual_seed(3)
+            audio = 0.3 * torch.randn(2, cfg["audio_channels"], cfg["sample_size"], generator=g)
+            m = cfg["model"]
+            shape = (2, m["latent_dim"], cfg["sample_size"] // m["downsampling_ratio"])
+            rec = {}
+            for step in range(3 if options else 2):
+                noise = ({"keep": torch.tensor([True, False]), "apply": torch.tensor([False, True]),
+                          "dither": torch.rand(*shape, generator=g)}
+                         if name == "dithered_fsq" else torch.randn(*shape, generator=g))
+                draws = {"latent_mask": torch.rand(*shape, generator=g),
+                         "teacher_noise": torch.randn(*shape, generator=g)}
+                ac = cpu.train_step(audio, noise=noise, draws=draws)
+                ag = card.train_step(audio.to(dev), noise=moved(noise, dev),
+                                     draws=moved(draws, dev))
+                if not all(math.isfinite(float(v)) for v in ag.values()):
+                    raise AssertionError(f"small TAAE {name} step {step}: losses {ag}")
+                side = "disc" if step == 1 else "gen"
+                pick = (lambda w: w.disc_params) if side == "disc" else (lambda w: w.params)
+                rec[f"step{step}_{side}_loss_rel_err"] = max(
+                    abs(float(ag[k]) - float(v)) / max(abs(float(v)), 1e-6) for k, v in ac.items())
+                rec[f"step{step}_{side}_grad_rel_err"] = grad_rel_errs(pick(card), pick(cpu))[2]
+            out[name] = rec
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
+
+
+# the DiT's config keys no shipped config sets, at toy size (heads of 64
+# under a window, so row 5 runs; bf16)
+SMALL_DIT_OPTIONS = dict(io_channels=8, embed_dim=128, depth=2, num_heads=2, cond_token_dim=16,
+                         global_cond_dim=12, patch_size=2, global_cond_type="adaLN",
+                         timestep_cond_type="input_concat", timestep_embed_dim=24,
+                         layer_scale=True, qk_norm="ln", ff_mult=2, num_memory_tokens=2,
+                         sliding_window=(31, 32), compute_dtype="bfloat16",
+                         use_checkpointing=False)
+
+
+def small_dit_options_check(dev) -> dict:
+    """A tiny DiT with adaLN, memory tokens, patch_size 2, the timestep by
+    input_concat, LayerScale (set to SMALL_LAYER_SCALE), the "ln" qk-norm
+    and a window: its forward on the card (row 5 once a block, row 2 for
+    each norm) against the CPU's, the same seeded weights and inputs:
+    ||card - CPU|| / ||CPU|| and the launches."""
+    from stable_audio_tools_tpu_torch.models.dit import DiffusionTransformer
+    from stable_audio_tools_tpu_torch.models.factory import init_random_
+
+    g = torch.Generator().manual_seed(4)
+    x, t = torch.randn(2, 8, 512, generator=g), torch.rand(2, generator=g)
+    ctx, glob = torch.randn(2, 5, 16, generator=g), torch.randn(2, 12, generator=g)
+    outs, launches = [], {}
+    for where in ("cpu", dev):
+        model = init_random_(DiffusionTransformer(**SMALL_DIT_OPTIONS),
+                             torch.Generator().manual_seed(5))
+        scale_gains(model, 1.0)
+        model = model.to(where).eval()
+        kernels = counters()
+        for fn in kernels.values():
+            fn.launches = 0
+        with torch.no_grad():
+            outs.append(model(x.to(where), t.to(where), cross_attn_cond=ctx.to(where),
+                              global_embed=glob.to(where)).float().cpu())
+        launches = {n: fn.launches for n, fn in kernels.items() if fn.launches}
+    # a block: one windowed self-attention; pre_norm, cross_attend_norm,
+    # ff_norm and the two attentions' q and k norms
+    want = {"flash_attention": 2, "fused_layer_norm": 2 * 7}
+    if launches != want:
+        raise AssertionError(f"small DiT options: launches {launches}, expected {want}")
+    err = float((outs[1] - outs[0]).norm() / outs[0].norm())
+    return dict(rel_err=err, launches=launches)
+
+
+def oobleck_bf16_check(dev) -> dict:
+    """`oobleck_bf16_case`'s decode in bf16 on the card (the kernels) against
+    the port's f32 decode on the CPU (the plain versions) with the same
+    weights: ||card - f32|| / ||f32|| may be at most twice the JAX
+    package's own bf16 distance, OOBLECK_BF16_JAX."""
+    cfg, z = oobleck_bf16_case()
+    z = torch.from_numpy(z)
+    with torch.no_grad():
+        want = oobleck_bf16_decoder(cfg)(z)
+        got = oobleck_bf16_decoder(cfg, dev)(z.to(dev, torch.bfloat16)).float().cpu()
+    dist = float((got - want).norm() / want.norm())
+    if not dist <= 2 * OOBLECK_BF16_JAX:
+        raise AssertionError(f"the card's bf16 Oobleck decode lies {dist:.4g} from f32, more "
+                             f"than 2 x the JAX package's {OOBLECK_BF16_JAX}")
+    return dict(card_bf16_vs_f32=dist, jax_bf16_vs_f32=OOBLECK_BF16_JAX, samples=got.shape[-1])
+
+
+def phase_taae(dev) -> dict:
+    """Phase 16: the transformer autoencoder at full width: (a) a request of
+    `taae_vae_gan` and of `taae_dithered_fsq`; (c) the tiny option checks
+    and the tiny DiT's;
+    (b) `gan_phase` of `taae_vae_gan` (its tiny twin's `small_gan_check`,
+    then 2 + 5 pairs at batch 4 x 65,536), launches pinned from
+    `taae_launches` (rows 5 / 2 24 / 96 a forward, rows 6 / 11 plain 24 / 4
+    more a generator step). Rows 5 and 6 at the training shapes: phase 2."""
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config
+
+    t_phase = time.perf_counter()
+    counts = taae_launches(create_model_from_config(taae_config(), "meta"))
+    pinned = {"flash_attention": 24, "fused_layer_norm": 96, "flash_attention_prefix_bwd": 24,
+              "conv1d_wgrad": 4}
+    if counts["gen"] != pinned:
+        raise AssertionError(f"TAAE launches {counts['gen']}, pinned {pinned}")
+    rec = {"request": taae_request(dev, fsq=False), "fsq_request": taae_request(dev, fsq=True)}
+    options, tol = small_taae_option_checks(dev), 0.05
+    options["dit"] = small_dit_options_check(dev)
+    worst = max(v for r in options.values() for k, v in r.items() if k.endswith("rel_err"))
+    if not worst <= tol:
+        raise AssertionError(f"small TAAE option steps card vs CPU: {options} > {tol}")
+    rec["training"] = gan_phase(dev, taae_config(), tiny_taae_config,
+                                dict(gen=counts["gen"], disc=counts["disc"]))
+    rec.update(options=options, options_tol=tol, counts=counts,
+               phase_s=time.perf_counter() - t_phase)
+    return rec
+
+
+PHASES = tuple(range(1, 17))
 
 
 def parse_phases(argv) -> set:
@@ -5191,6 +5690,21 @@ def main(argv=None) -> int:
                       rec["snake_conv1d_dx"]["dac"]["cases"], rec["snake_conv1d_wgrad"]["dac"]["cases"]))
               + f"; every call launched its kernel; on {card}", flush=True)
 
+        fw, bw = rec["flash_attention"]["taae"], rec["flash_attention_prefix_bwd"]["taae"]
+        fmt = lambda v: "n/a" if v is None else f"{v:.4f}"
+        print("phase 2 rows 5 | 6 at the TAAE's training shapes, head dim 128, window (31, 32) "
+              "(ms; two-pass | fused backward; plain; SDPA with the band as a mask, forward | "
+              "backward; bounds; max err | rel err): " + "; ".join(
+                  f"{n} {f['ms']:.4f} | {b['routes']['two_pass']['ms']:.4f} | "
+                  f"{b['routes']['fused']['ms']:.4f}; {f['plain_ms']:.3f} | {b['plain_ms']:.3f}; "
+                  f"{fmt(f['library_ms'])} | {fmt(b['library_ms'])}; {f['bound_ms']:.4f} | "
+                  f"{b['bound_ms']:.4f}; {f['max_abs_err']:.3g} | {b['max_rel_err']:.3g}"
+                  for (n, f), b in zip(fw.items(), bw.values())) + f" on {card}", flush=True)
+        print("phase 2 row 2 at the TAAE's rows (ms; plain; F.layer_norm; bound; max err): "
+              + "; ".join(f"{c['shape']} {c['ms']:.4f}; {c['plain_ms']:.4f}; "
+                          f"{c['library_ms']:.4f}; {c['bound_ms']:.4f}; {c['max_abs_err']:.3g}"
+                          for c in rec["fused_layer_norm"]["taae"]) + f" on {card}", flush=True)
+
     if want(3):
         main_rec = phase_main_path(dev)
         print(f"phase 3 generation: SA-Open {main_rec['params'] / 1e9:.3f}B params, {STEPS} steps "
@@ -5249,7 +5763,10 @@ def main(argv=None) -> int:
               f"kernels ms {json.dumps(bd['step_top_kernels_ms'])}; launches "
               f"{json.dumps(sa2_rec['launches'])}; small card-vs-CPU rel errs "
               f"{json.dumps({k: round(v, 4) for k, v in sa2_rec['small'].items()})} "
-              f"(tol {sa2_rec['small_tol']}) on {card}", flush=True)
+              f"(tol {sa2_rec['small_tol']}); the Oobleck decode's bf16 distance from f32 "
+              f"(SA-2.0 VAE decoder at channels 32, {sa2_rec['oobleck_bf16']['samples']} "
+              f"samples): card {sa2_rec['oobleck_bf16']['card_bf16_vs_f32']:.4g}, the JAX "
+              f"package's {OOBLECK_BF16_JAX} (limit 2x) on {card}", flush=True)
 
         torch.cuda.empty_cache()
 
@@ -5492,6 +6009,26 @@ def main(argv=None) -> int:
 
         torch.cuda.empty_cache()
 
+    if want(16):
+        taae = phase_taae(dev)
+        req, fq = taae["request"], taae["fsq_request"]
+        print(f"phase 16 TAAE: taae_vae_gan {req['params'] / 1e6:.1f}M params, bf16, one "
+              f"request of {TAAE_REQUEST_SAMPLES} samples encode + decode unchunked: wall "
+              f"{req['wall_s']:.3f} s, {req['audio_s_per_s']:.2f} audio-s/s, peak "
+              f"{req['peak_gib']:.2f} GiB, profiled {req['profiled_wall_ms']:.1f} ms at "
+              f"{req['device_busy']:.1%} busy, top kernels ms {json.dumps(req['top_kernels_ms'])}, "
+              f"launches {json.dumps(req['launches'])}; taae_dithered_fsq (codes "
+              f"{fq['codes']} through decode_tokens) wall {fq['wall_s']:.3f} s, "
+              f"{fq['audio_s_per_s']:.2f} audio-s/s, peak {fq['peak_gib']:.2f} GiB, busy "
+              f"{fq['device_busy']:.1%}; training: {gan_line(taae['training'])}; small "
+              f"card-vs-CPU {json.dumps(taae['training']['small'])} (tol "
+              f"{taae['training']['small_tol']} at gains x {SMALL_AE_GAIN}, LayerScale "
+              f"{SMALL_LAYER_SCALE}); option steps "
+              f"{json.dumps({k: {s: round(v, 4) if isinstance(v, float) else v for s, v in r.items()} for k, r in taae['options'].items()})}"
+              f" (tol {taae['options_tol']}); phase {taae['phase_s']:.1f} s on {card}", flush=True)
+
+        torch.cuda.empty_cache()
+
     if len(phases) < len(PHASES):
         print(f"phases run: {sorted(phases)} of 1-{len(PHASES)}; the kernels' record and the "
               "check that every kernel launched on some path need every phase", flush=True)
@@ -5524,7 +6061,10 @@ def main(argv=None) -> int:
                        "rf_inpaint_training": rf["inpaint"]["launches"].get(n, 0),
                        "rf_inpaint_demo": rf["inpaint"]["demo"]["launches"].get(n, 0),
                        **{f"arc_{s['kind']}_{i}": s["launches"].get(n, 0)
-                          for i, s in enumerate(rf["arc"]["steps"])}}
+                          for i, s in enumerate(rf["arc"]["steps"])},
+                       "taae_request": taae["request"]["launches"].get(n, 0),
+                       "taae_fsq_request": taae["fsq_request"]["launches"].get(n, 0),
+                       "taae_training": taae["training"]["launches"].get(n, 0)}
             kernels.append(dict(name=n, route=r["route"], source=r["source"], replaces=r["replaces"],
                                 launches=sum(by_path.values()), launches_by_path=by_path,
                                 max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
@@ -5537,7 +6077,7 @@ def main(argv=None) -> int:
                                     "deterministic", "ptxas", "profiled", "library_profiled",
                                     "host_us", "library_host_us", "no_grad_bit_identical",
                                     "levels", "generator_step", "decode_group", "dance_step",
-                                    "sa1", "sa1_f32", "dac")
+                                    "sa1", "sa1_f32", "dac", "taae")
                                     if k in r}))
         unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
         if unlaunched:
@@ -5558,7 +6098,7 @@ def main(argv=None) -> int:
             "dac_training": {n: {k: v for k, v in dac[n].items() if k != "launches"}
                              for n in DAC_VAES},
             "codec_training": {k: v for k, v in codec.items() if k != "launches"},
-            "rf": rf}))
+            "rf": rf, "taae": taae}))
     print(card)
     if len(phases) < len(PHASES):  # a development run ends on what it ran, not on a pass
         print(json.dumps({"ok": True, "partial": sorted(phases)}))

@@ -65,24 +65,69 @@ def dense(out: StateDict, name: str, p: Mapping) -> None:
         out[f"{name}.bias"] = _np(p["bias"])
 
 
-def transformer_block_state_dict(p: Mapping, prefix: str, dim_heads: int) -> StateDict:
-    out: StateDict = {}
-    out[f"{prefix}.pre_norm.gamma"] = _np(p["pre_norm"]["gamma"])
-    out[f"{prefix}.ff_norm.gamma"] = _np(p["ff_norm"]["gamma"])
-    out[f"{prefix}.self_attn.to_qkv.weight"] = deinterleave_fused(
-        _np(p["self_attn"]["to_qkv"]["kernel"]), 3, dim_heads).T
-    dense(out, f"{prefix}.self_attn.to_out", p["self_attn"]["to_out"])
-    if "cross_attn" in p:
-        out[f"{prefix}.cross_attend_norm.gamma"] = _np(p["cross_attend_norm"]["gamma"])
-        dense(out, f"{prefix}.cross_attn.to_q", p["cross_attn"]["to_q"])
-        out[f"{prefix}.cross_attn.to_kv.weight"] = deinterleave_fused(
-            _np(p["cross_attn"]["to_kv"]["kernel"]), 2, dim_heads).T
-        dense(out, f"{prefix}.cross_attn.to_out", p["cross_attn"]["to_out"])
-    proj = p["ff"]["linear_in"]["proj"]
-    out[f"{prefix}.ff.ff.0.proj.weight"] = deinterleave_glu(_np(proj["kernel"])).T
+def _leaves(out: StateDict, name: str, p: Mapping) -> None:
+    """Every leaf of p under `name` as it is (LayerNorm gamma, DynamicTanh,
+    LayerScale)."""
+    for key, value in p.items():
+        out[f"{name}.{key}"] = _np(value)
+
+
+def _glu(out: StateDict, name: str, proj: Mapping) -> None:
+    out[f"{name}.proj.weight"] = deinterleave_glu(_np(proj["kernel"])).T
     if "bias" in proj:
-        out[f"{prefix}.ff.ff.0.proj.bias"] = deinterleave_glu(_np(proj["bias"]))
+        out[f"{name}.proj.bias"] = deinterleave_glu(_np(proj["bias"]))
+
+
+def attention_state_dict(out: StateDict, name: str, p: Mapping, dim_heads: int) -> None:
+    """A JAX `Attention`: the fused projections de-interleaved (a
+    differential one's concat layout as it is), flax LayerNorm qk-norms'
+    scale / bias -> weight / bias, DynamicTanh and feat_scale leaves as they
+    are."""
+    if "to_qkv" in p:
+        k = _np(p["to_qkv"]["kernel"])
+        differential = k.shape[1] == 5 * k.shape[0]
+        out[f"{name}.to_qkv.weight"] = (k if differential else deinterleave_fused(k, 3, dim_heads)).T
+    else:
+        dense(out, f"{name}.to_q", p["to_q"])
+        k = _np(p["to_kv"]["kernel"])
+        differential = _np(p["to_q"]["kernel"]).shape[1] == 2 * _np(p["to_q"]["kernel"]).shape[0]
+        out[f"{name}.to_kv.weight"] = (k if differential else deinterleave_fused(k, 2, dim_heads)).T
+    dense(out, f"{name}.to_out", p["to_out"])
+    for norm in ("q_norm", "k_norm"):
+        if norm in p:
+            if "scale" in p[norm]:
+                _affine(out, f"{name}.{norm}", p[norm])
+            else:
+                _leaves(out, f"{name}.{norm}", p[norm])
+    for key in ("lambda_dc", "lambda_hf"):
+        if key in p:
+            out[f"{name}.{key}"] = _np(p[key])
+
+
+def transformer_block_state_dict(p: Mapping, prefix: str, dim_heads: int) -> StateDict:
+    """A JAX `TransformerBlock` with any of its options (DynamicTanh norms,
+    LayerScale, the conformer, qk-norm, the feed-forward's bias, adaLN's
+    `to_scale_shift_gate`)."""
+    out: StateDict = {}
+    for name in ("pre_norm", "ff_norm", "cross_attend_norm", "self_attn_scale",
+                 "cross_attn_scale", "conformer_scale", "ff_scale"):
+        if name in p:
+            _leaves(out, f"{prefix}.{name}", p[name])
+    attention_state_dict(out, f"{prefix}.self_attn", p["self_attn"], dim_heads)
+    if "cross_attn" in p:
+        attention_state_dict(out, f"{prefix}.cross_attn", p["cross_attn"], dim_heads)
+    _glu(out, f"{prefix}.ff.ff.0", p["ff"]["linear_in"]["proj"])
     dense(out, f"{prefix}.ff.ff.2", p["ff"]["linear_out"])
+    if "conformer" in p:
+        c, name = p["conformer"], f"{prefix}.conformer"
+        _leaves(out, f"{name}.in_norm", c["in_norm"])
+        _leaves(out, f"{name}.mid_norm", c["mid_norm"])
+        dense(out, f"{name}.pointwise_conv", c["pointwise_conv"])
+        dense(out, f"{name}.pointwise_conv_2", c["pointwise_conv_2"])
+        _glu(out, f"{name}.glu", c["glu"]["proj"])
+        out[f"{name}.depthwise_conv.weight"] = _np(c["depthwise_kernel"]).transpose(2, 1, 0)
+    if "to_scale_shift_gate" in p:
+        out[f"{prefix}.to_scale_shift_gate"] = _np(p["to_scale_shift_gate"])
     return out
 
 
@@ -101,6 +146,11 @@ def dit_state_dict(p: Mapping, dim_heads: int, prefix: str = "") -> StateDict:
     for name in ("project_in", "project_out"):
         if name in tr:
             dense(out, f"{prefix}transformer.{name}", tr[name])
+    if "memory_tokens" in tr:
+        out[f"{prefix}transformer.memory_tokens"] = _np(tr["memory_tokens"])
+    if "global_embed_0" in tr:  # adaLN's projection of the global condition
+        dense(out, f"{prefix}transformer.global_embed.0", tr["global_embed_0"])
+        dense(out, f"{prefix}transformer.global_embed.2", tr["global_embed_1"])
     i = 0
     while f"layers_{i}" in tr:
         out.update(transformer_block_state_dict(
@@ -123,14 +173,20 @@ def snake(out: StateDict, name: str, p: Mapping) -> None:
 
 
 def residual_unit(out: StateDict, name: str, p: Mapping) -> None:
-    snake(out, f"{name}.layers.0", p["SnakeBeta_0"])
+    if "SnakeBeta_0" in p:  # an ELU unit has no activation parameters
+        snake(out, f"{name}.layers.0", p["SnakeBeta_0"])
+        snake(out, f"{name}.layers.2", p["SnakeBeta_1"])
     wn_conv(out, f"{name}.layers.1", p["conv1"])
-    snake(out, f"{name}.layers.2", p["SnakeBeta_1"])
     wn_conv(out, f"{name}.layers.3", p["conv2"])
 
 
 def _n_blocks(p: Mapping) -> int:
     return sum(1 for k in p if k.startswith("block_"))
+
+
+def _snake_if(out: StateDict, name: str, p: Mapping) -> None:
+    if "SnakeBeta_0" in p:
+        snake(out, name, p["SnakeBeta_0"])
 
 
 def oobleck_decoder_state_dict(p: Mapping, prefix: str = "") -> StateDict:
@@ -139,11 +195,11 @@ def oobleck_decoder_state_dict(p: Mapping, prefix: str = "") -> StateDict:
     wn_conv(out, f"{prefix}layers.0", p["conv_in"])
     for j in range(n):
         blk, name = p[f"block_{j}"], f"{prefix}layers.{j + 1}"
-        snake(out, f"{name}.layers.0", blk["SnakeBeta_0"])
+        _snake_if(out, f"{name}.layers.0", blk)
         wn_conv(out, f"{name}.layers.1", blk["up"], transposed=True)
         for i in range(3):
             residual_unit(out, f"{name}.layers.{i + 2}", blk[f"res_{i}"])
-    snake(out, f"{prefix}layers.{n + 1}", p["SnakeBeta_0"])
+    _snake_if(out, f"{prefix}layers.{n + 1}", p)
     wn_conv(out, f"{prefix}layers.{n + 2}", p["conv_out"])
     return out
 
@@ -156,10 +212,32 @@ def oobleck_encoder_state_dict(p: Mapping, prefix: str = "") -> StateDict:
         blk, name = p[f"block_{j}"], f"{prefix}layers.{j + 1}"
         for i in range(3):
             residual_unit(out, f"{name}.layers.{i}", blk[f"res_{i}"])
-        snake(out, f"{name}.layers.3", blk["SnakeBeta_0"])
+        _snake_if(out, f"{name}.layers.3", blk)
         wn_conv(out, f"{name}.layers.4", blk["down"])
-    snake(out, f"{prefix}layers.{n + 1}", p["SnakeBeta_0"])
+    _snake_if(out, f"{prefix}layers.{n + 1}", p)
     wn_conv(out, f"{prefix}layers.{n + 2}", p["conv_out"])
+    return out
+
+
+def taae_state_dict(p: Mapping, prefix: str = "", decoder: bool = False) -> StateDict:
+    """A TAAEEncoder's or TAAEDecoder's params -> the port's (named after the
+    JAX tree, models/autoencoders.py): block_{i} -> blocks.{i}, its
+    transformer_{j} -> transformers.{j} (heads of min(128, width)), a
+    decoder block's conv transposed; the snake, where `use_snake`, -> act."""
+    out: StateDict = {}
+    wn_conv(out, f"{prefix}conv_in", p["conv_in"])
+    wn_conv(out, f"{prefix}conv_out", p["conv_out"])
+    _snake_if(out, f"{prefix}act", p)
+    for i in range(_n_blocks(p)):
+        blk, name = p[f"block_{i}"], f"{prefix}blocks.{i}"
+        j = 0
+        while f"transformer_{j}" in blk:
+            t = blk[f"transformer_{j}"]
+            width = _np(t["pre_norm"]["gamma"]).shape[0]
+            out.update(transformer_block_state_dict(t, f"{name}.transformers.{j}",
+                                                    min(128, width)))
+            j += 1
+        wn_conv(out, f"{name}.conv", blk["conv"], transposed=decoder)
     return out
 
 
@@ -254,14 +332,17 @@ def dac_decoder_state_dict(p: Mapping, prefix: str = "") -> StateDict:
 def _tower_state_dict(p: Mapping, prefix: str, oobleck, dac) -> StateDict:
     if "res_0_0" in p:
         return seanet_state_dict(p, prefix)
+    if "conv" in p.get("block_0", {}):
+        return taae_state_dict(p, prefix, decoder=oobleck is oobleck_decoder_state_dict)
     return dac(p, prefix) if "Snake1d_0" in p else oobleck(p, prefix)
 
 
 def autoencoder_state_dict(p: Mapping, prefix: str = "",
                            quantizer_state: Optional[Mapping] = None) -> StateDict:
-    """An AudioAutoencoder's params (Oobleck, SEANet or DAC towers) -> the port's;
-    `quantizer_state` (the autoencoder's collection of that name) brings the
-    RVQ's state: `codebooks`, `ema_counts`, `ema_sums`, `initted`."""
+    """An AudioAutoencoder's params (Oobleck, TAAE, SEANet or DAC towers; a
+    bottleneck's own parameters) -> the port's; `quantizer_state` (the
+    autoencoder's collection of that name) brings the RVQ's state:
+    `codebooks`, `ema_counts`, `ema_sums`, `initted`."""
     out: StateDict = {}
     if "encoder" in p:
         out.update(_tower_state_dict(p["encoder"], f"{prefix}encoder.",
@@ -269,6 +350,8 @@ def autoencoder_state_dict(p: Mapping, prefix: str = "",
     if "decoder" in p:
         out.update(_tower_state_dict(p["decoder"], f"{prefix}decoder.",
                                      oobleck_decoder_state_dict, dac_decoder_state_dict))
+    if "bottleneck" in p:  # SoftNorm's scaling_factor and bias
+        _leaves(out, f"{prefix}bottleneck", p["bottleneck"])
     if quantizer_state is not None:
         for name, value in quantizer_state["bottleneck"]["quantizer"].items():
             out[f"{prefix}bottleneck.quantizer.{name}"] = _np(value)

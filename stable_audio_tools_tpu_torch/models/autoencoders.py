@@ -1,20 +1,37 @@
-"""Oobleck audio autoencoder; counterpart of
+"""Oobleck and transformer (TAAE) audio autoencoders; counterpart of
 stable_audio_tools_tpu/models/autoencoders.py.
 
 Layout: [B, C, T] throughout (the public audio/latent layout, and torch's
-conv order). Module and parameter names follow the reference torch
+conv order). Oobleck's module and parameter names follow the reference torch
 Sequential layout (`layers.{i}`), so published checkpoints map by name.
 
-The residual fusion is explicit: every snake -> WNConv1d pair passes the
-snake's parameters to the conv (`pre_snake`), which runs the fused
-snake-conv kernel; the ResidualUnit's skip add rides conv2's epilogue
-(`residual=`). The snake before each strided or transposed conv runs the
-fused snake kernel and then cuDNN's conv. Every one of these is
-differentiable: the snake and snake-conv kernels are autograd Functions with
-backward kernels, and the plain convs without a snake (`conv_in`) take the
-hand-written weight gradient (ops/conv.py `Conv1dS1`), so the autoencoder
-trains (training/autoencoders.py). Covered: the snake activation (SA-Open's
-and SA-2.0's VAEs); ELU and anti-aliased activations are later slices.
+Oobleck with the snake (`use_snake=True`, SA-Open's and SA-2.0's VAEs): the
+residual fusion is explicit: every snake -> WNConv1d pair passes the snake's
+parameters to the conv (`pre_snake`), which runs the fused snake-conv kernel;
+the ResidualUnit's skip add rides conv2's epilogue (`residual=`). The snake
+before each strided or transposed conv runs the fused snake kernel and then
+cuDNN's conv. Every one of these is differentiable: the snake and snake-conv
+kernels are autograd Functions with backward kernels, and the plain convs
+without a snake (`conv_in`) take the hand-written weight gradient
+(ops/conv.py `Conv1dS1`), so the autoencoder trains
+(training/autoencoders.py). With `use_snake=False` every activation is an
+ELU (`nn.ELU`, no parameters, at the snake's place in `layers`), and each
+stride-1 conv is `Conv1dS1` (row 11 plain for its weight gradient in bf16)
+with the residual added after it. The anti-aliased activations are not
+ported.
+
+TAAE (JAX `TAAEBlock` :248, `TAAEEncoder` :299, `TAAEDecoder` :332): a
+stride stage is a strided WNConv1d (k = 2s, padding ceil(s / 2)) followed by
+`transformer_depth` TransformerBlocks at its output width (the encoder), or
+the blocks at its input width followed by the transposed conv (the
+decoder). Every block is the JAX package's: heads of 128 (min(128, width)),
+qk-norm "ln", LayerScale, its own rotary over 64 dims, norms of epsilon
+1e-2, the feed-forward's output bias, the sliding window (31, 32) by
+default; on the card the window runs row 5 forward and row 6 backward (head
+dim 128 or 64) and the norms row 2. The blocks run on [B, T, C]. Parameter
+names follow the JAX module tree (`conv_in`, `blocks.{i}.conv`,
+`blocks.{i}.transformers.{j}.*`, `act`, `conv_out`): the JAX package has no
+TAAE importer and the reference sources are not at hand to check theirs.
 
 `encode_audio` / `decode_audio` are the chunked overlap-paste codec for long
 audio (JAX :462-553): windows of `chunk_size` latents every `chunk_size -
@@ -27,46 +44,61 @@ package's `chunk_pspec` (sharding chunks over a mesh) is not ported.
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..ops.activations import SnakeBeta
+from ..ops.activations import SnakeBeta, get_activation
 from ..ops.conv import WNConv1d, WNConvTranspose1d
+from ..ops.transformer import TransformerBlock
 
 
-def _require_snake(use_snake: bool) -> None:
-    if not use_snake:
-        raise NotImplementedError("only use_snake=True (SA-Open's VAE) is ported")
+def _act(use_snake: bool, channels: int) -> nn.Module:
+    return get_activation("snake" if use_snake else "elu", channels)
+
+
+def _act_conv(act: nn.Module, conv: WNConv1d, x: torch.Tensor,
+              residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """conv(act(x)) (+ residual): a snake rides the fused snake-conv kernel."""
+    if isinstance(act, SnakeBeta):
+        return conv(x, pre_snake=act.params(x.dtype), residual=residual)
+    return conv(act(x), residual=residual)
+
+
+def _strided_conv(conv: WNConv1d, x: torch.Tensor, stride: int) -> torch.Tensor:
+    """A WNConv1d's weights at `stride` (cuDNN; the kernels are stride 1)."""
+    bias = conv.bias.to(x.dtype) if conv.bias is not None else None
+    return F.conv1d(x, conv.weight(x.dtype), bias, stride=stride, padding=conv.padding)
 
 
 class ResidualUnit(nn.Module):
-    def __init__(self, channels: int, dilation: int):
+    def __init__(self, channels: int, dilation: int, use_snake: bool = True):
         super().__init__()
         pad = (dilation * (7 - 1)) // 2
         self.layers = nn.Sequential(
-            SnakeBeta(channels),
+            _act(use_snake, channels),
             WNConv1d(channels, channels, 7, padding=pad, dilation=dilation),
-            SnakeBeta(channels),
+            _act(use_snake, channels),
             WNConv1d(channels, channels, 1),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         act1, conv1, act2, conv2 = self.layers
-        h = conv1(x, pre_snake=act1.params(x.dtype))
-        return conv2(h, pre_snake=act2.params(x.dtype), residual=x)
+        return _act_conv(act2, conv2, _act_conv(act1, conv1, x), residual=x)
 
 
 class EncoderBlock(nn.Module):
-    def __init__(self, in_channels: int, out_channels: int, stride: int):
+    def __init__(self, in_channels: int, out_channels: int, stride: int,
+                 use_snake: bool = True):
         super().__init__()
         self.stride = stride
         self.layers = nn.Sequential(
-            ResidualUnit(in_channels, 1),
-            ResidualUnit(in_channels, 3),
-            ResidualUnit(in_channels, 9),
-            SnakeBeta(in_channels),
+            ResidualUnit(in_channels, 1, use_snake),
+            ResidualUnit(in_channels, 3, use_snake),
+            ResidualUnit(in_channels, 9, use_snake),
+            _act(use_snake, in_channels),
             WNConv1d(in_channels, out_channels, 2 * stride,
                      padding=math.ceil(stride / 2)),
         )
@@ -74,24 +106,21 @@ class EncoderBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for unit in self.layers[:3]:
             x = unit(x)
-        act, down = self.layers[3], self.layers[4]
-        # strided conv: snake then cuDNN (the fused kernel is stride 1)
-        w = down.weight(x.dtype)
-        bias = down.bias.to(x.dtype) if down.bias is not None else None
-        return nn.functional.conv1d(act(x), w, bias, stride=self.stride,
-                                    padding=down.padding)
+        # strided conv: the activation (the snake kernel), then cuDNN
+        return _strided_conv(self.layers[4], self.layers[3](x), self.stride)
 
 
 class DecoderBlock(nn.Module):
-    def __init__(self, in_channels: int, out_channels: int, stride: int):
+    def __init__(self, in_channels: int, out_channels: int, stride: int,
+                 use_snake: bool = True):
         super().__init__()
         self.layers = nn.Sequential(
-            SnakeBeta(in_channels),
+            _act(use_snake, in_channels),
             WNConvTranspose1d(in_channels, out_channels, 2 * stride, stride=stride,
                               padding=math.ceil(stride / 2)),
-            ResidualUnit(out_channels, 1),
-            ResidualUnit(out_channels, 3),
-            ResidualUnit(out_channels, 9),
+            ResidualUnit(out_channels, 1, use_snake),
+            ResidualUnit(out_channels, 3, use_snake),
+            ResidualUnit(out_channels, 9, use_snake),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -103,21 +132,19 @@ class OobleckEncoder(nn.Module):
                  c_mults: Sequence[int] = (1, 2, 4, 8), strides: Sequence[int] = (2, 4, 8, 8),
                  use_snake: bool = False):
         super().__init__()
-        _require_snake(use_snake)
         c_mults = [1] + list(c_mults)
         layers = [WNConv1d(in_channels, c_mults[0] * channels, 7, padding=3)]
         for i in range(len(c_mults) - 1):
             layers.append(EncoderBlock(c_mults[i] * channels, c_mults[i + 1] * channels,
-                                       strides[i]))
-        layers += [SnakeBeta(c_mults[-1] * channels),
+                                       strides[i], use_snake))
+        layers += [_act(use_snake, c_mults[-1] * channels),
                    WNConv1d(c_mults[-1] * channels, latent_dim, 3, padding=1)]
         self.layers = nn.Sequential(*layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.layers[:-2]:
             x = layer(x)
-        act, conv_out = self.layers[-2], self.layers[-1]
-        return conv_out(x, pre_snake=act.params(x.dtype))
+        return _act_conv(self.layers[-2], self.layers[-1], x)
 
 
 class OobleckDecoder(nn.Module):
@@ -125,31 +152,116 @@ class OobleckDecoder(nn.Module):
                  c_mults: Sequence[int] = (1, 2, 4, 8), strides: Sequence[int] = (2, 4, 8, 8),
                  use_snake: bool = False, final_tanh: bool = True):
         super().__init__()
-        _require_snake(use_snake)
         c_mults = [1] + list(c_mults)
         self.final_tanh = final_tanh
         layers = [WNConv1d(latent_dim, c_mults[-1] * channels, 7, padding=3)]
         for i in range(len(c_mults) - 1, 0, -1):
             layers.append(DecoderBlock(c_mults[i] * channels, c_mults[i - 1] * channels,
-                                       strides[i - 1]))
-        layers += [SnakeBeta(c_mults[0] * channels),
+                                       strides[i - 1], use_snake))
+        layers += [_act(use_snake, c_mults[0] * channels),
                    WNConv1d(c_mults[0] * channels, out_channels, 7, padding=3, bias=False)]
         self.layers = nn.Sequential(*layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.layers[:-2]:
             x = layer(x)
-        act, conv_out = self.layers[-2], self.layers[-1]
-        x = conv_out(x, pre_snake=act.params(x.dtype))
+        x = _act_conv(self.layers[-2], self.layers[-1], x)
+        return torch.tanh(x) if self.final_tanh else x
+
+
+class TAAEBlock(nn.Module):
+    """A stride stage of the TAAE (JAX :248); x [B, C, T] in and out."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int,
+                 block_type: str = "encoder", transformer_depth: int = 3,
+                 sliding_window: Tuple[int, int] = (31, 32), conformer: bool = False,
+                 layer_scale: bool = True):
+        super().__init__()
+        if block_type not in ("encoder", "decoder"):
+            raise ValueError(f"block_type must be 'encoder' or 'decoder', got {block_type!r}")
+        self.encoder = block_type == "encoder"
+        self.stride = stride
+        width = out_channels if self.encoder else in_channels
+        self.transformers = nn.ModuleList([
+            TransformerBlock(width, 128, conformer=conformer, layer_scale=layer_scale,
+                             add_rope=True, qk_norm="ln", ff_mult=4, ff_no_bias=False,
+                             norm_eps=1e-2, sliding_window=tuple(sliding_window))
+            for _ in range(transformer_depth)])
+        conv = WNConv1d if self.encoder else WNConvTranspose1d
+        kw = {} if self.encoder else {"stride": stride}
+        self.conv = conv(in_channels, out_channels, 2 * stride, padding=math.ceil(stride / 2),
+                         **kw)
+
+    def run_transformers(self, x: torch.Tensor) -> torch.Tensor:
+        """The blocks over x [B, C, T], on [B, T, C], their rotary tables
+        made once."""
+        h = x.transpose(1, 2)
+        if self.transformers:
+            tables = self.transformers[0].block_rope(h.shape[1], h.device)
+            for block in self.transformers:
+                h = block(h, rope_tables=tables)
+        return h.transpose(1, 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.encoder:
+            return self.run_transformers(_strided_conv(self.conv, x, self.stride))
+        return self.conv(self.run_transformers(x))
+
+
+class TAAEEncoder(nn.Module):
+    def __init__(self, in_channels: int = 2, channels: int = 128, latent_dim: int = 32,
+                 c_mults: Sequence[int] = (1, 2, 4, 8), strides: Sequence[int] = (2, 4, 8, 8),
+                 transformer_depths: Optional[Sequence[int]] = None, use_snake: bool = False,
+                 sliding_window: Tuple[int, int] = (31, 32)):
+        super().__init__()
+        c_mults = [1] + list(c_mults)
+        depths = transformer_depths or [3] * (len(c_mults) - 1)
+        self.conv_in = WNConv1d(in_channels, c_mults[0] * channels, 7, padding=3)
+        self.blocks = nn.ModuleList([
+            TAAEBlock(c_mults[i] * channels, c_mults[i + 1] * channels, strides[i], "encoder",
+                      depths[i], sliding_window) for i in range(len(c_mults) - 1)])
+        self.act = _act(use_snake, c_mults[-1] * channels)
+        self.conv_out = WNConv1d(c_mults[-1] * channels, latent_dim, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv_in(x)
+        for block in self.blocks:
+            x = block(x)
+        return _act_conv(self.act, self.conv_out, x)
+
+
+class TAAEDecoder(nn.Module):
+    def __init__(self, out_channels: int = 2, channels: int = 128, latent_dim: int = 32,
+                 c_mults: Sequence[int] = (1, 2, 4, 8), strides: Sequence[int] = (2, 4, 8, 8),
+                 transformer_depths: Optional[Sequence[int]] = None, use_snake: bool = False,
+                 sliding_window: Tuple[int, int] = (31, 32), final_tanh: bool = True):
+        super().__init__()
+        c_mults = [1] + list(c_mults)
+        depth = len(c_mults)
+        depths = transformer_depths or [3] * (depth - 1)
+        self.final_tanh = final_tanh
+        self.conv_in = WNConv1d(latent_dim, c_mults[-1] * channels, 7, padding=3)
+        self.blocks = nn.ModuleList([
+            TAAEBlock(c_mults[i] * channels, c_mults[i - 1] * channels, strides[i - 1],
+                      "decoder", depths[i - 1], sliding_window)
+            for i in range(depth - 1, 0, -1)])
+        self.act = _act(use_snake, c_mults[0] * channels)
+        self.conv_out = WNConv1d(c_mults[0] * channels, out_channels, 7, padding=3, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv_in(x)
+        for block in self.blocks:
+            x = block(x)
+        x = _act_conv(self.act, self.conv_out, x)
         return torch.tanh(x) if self.final_tanh else x
 
 
 class AudioAutoencoder(nn.Module):
     """Encoder + bottleneck + decoder; encode/decode take and return [B, C, T].
-    The encoder and decoder are Oobleck's or SEANet's (models/seanet.py), the
-    bottleneck a VAE or, for a discrete codec, an RVQ (`is_discrete`:
-    `encode(..., return_info=True)` gives its codes, `decode_tokens` decodes
-    them)."""
+    The encoder and decoder are Oobleck's, the TAAE's, DAC's or SEANet's, the
+    bottleneck any of models/bottleneck.py's; for a discrete one (an RVQ or
+    an FSQ, `is_discrete`) `encode(..., return_info=True)` gives its codes
+    and `decode_tokens` decodes them."""
 
     def __init__(self, encoder: Optional[nn.Module], decoder: nn.Module, latent_dim: int,
                  downsampling_ratio: int, sample_rate: int, io_channels: int = 2,
@@ -191,11 +303,16 @@ class AudioAutoencoder(nn.Module):
         decoded = self.decoder(latents)
         return torch.tanh(decoded) if self.soft_clip else decoded
 
-    def decode_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Codes [B, Q, T] of a discrete bottleneck -> audio [B, C, T * ratio]."""
+    def decode_tokens(self, tokens: torch.Tensor, dtype: Optional[torch.dtype] = None
+                      ) -> torch.Tensor:
+        """Codes of a discrete bottleneck (the layout its `decode_tokens`
+        takes) -> audio [B, C, T * ratio]; the latents in `dtype` when given
+        (the bottlenecks give f32; the card's kernels take bf16)."""
         if not self.is_discrete:
-            raise ValueError("decode_tokens needs a discrete (RVQ) bottleneck")
-        return self.decode(self.bottleneck.decode_tokens(tokens), skip_bottleneck=True)
+            raise ValueError("decode_tokens needs a discrete (RVQ or FSQ) bottleneck")
+        latents = self.bottleneck.decode_tokens(tokens)
+        return self.decode(latents if dtype is None else latents.to(dtype),
+                           skip_bottleneck=True)
 
     # -- chunked overlap-paste codec ---------------------------------------
 

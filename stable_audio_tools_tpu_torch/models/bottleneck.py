@@ -1,16 +1,285 @@
 """Bottlenecks; counterpart of stable_audio_tools_tpu/models/bottleneck.py:
-`VAEBottleneck` (`vae_sample` :103; the channel axis holds [mean | scale])
-and `ResidualVQ` (:211, with its training state: k-means init, EMA codebook
-update, dead-code revival) with `RVQBottleneck` (:364). The other
-bottlenecks are later slices. Layout: [B, C, T]."""
+`VAEBottleneck` (`vae_sample` :103; the channel axis holds [mean | scale]),
+`ResidualVQ` (:211, with its training state: k-means init, EMA codebook
+update, dead-code revival) with `RVQBottleneck` (:364), `TanhBottleneck`
+(:51), `SoftNormBottleneck` (:64), `WassersteinBottleneck` (:138, with
+`compute_mmd` :125), `L2Bottleneck` (:168), and the finite scalar quantizers
+`FSQBottleneck` (:696) and `DitheredFSQBottleneck` (:753) over `FSQCore`
+(:664). Layout: [B, C, T]; the JAX package's is [B, T, C], so its "time"
+axis 1 is the port's axis 2.
+
+Every draw comes from the `generator` handed to `encode`, or is injected as
+`noise` (the tests replay the JAX package's): the VAE's and the Wasserstein
+MMD's standard normals [B, C, T], the dithered FSQ's {"keep": [B] bool,
+"dither": [B, C, T] uniform in [0, 1), "apply": [B] bool}. The noise
+augmentation of the decoders (`noise_augment_dim`) and SoftNorm's
+`noise_regularize` draw inside `decode`, which takes no generator here, and
+are refused by name; `rvq_vae`, `dac_rvq` and `dac_rvq_vae` are not ported
+(models/factory.py refuses them).
+
+The FSQ rounding is the straight-through round half to even of
+`jnp.round` and `torch.round` alike; indices are int64. `FSQBottleneck`
+reports its codes [B, Q, T] and `decode_tokens` takes [B, Q, T] or [B, T, Q]
+([B, Q, T] when ambiguous); `DitheredFSQBottleneck` reports and takes [B, T,
+Q], as the JAX package's does."""
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Dict, Optional, Sequence, Union
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def _refuse_noise(name: str, noise_augment_dim: int, noise_regularize: bool = False) -> None:
+    if noise_augment_dim or noise_regularize:
+        raise NotImplementedError(f"{name}: noise_augment_dim / noise_regularize are not "
+                                  "ported (their draws sit in decode, which takes no generator)")
+
+
+class TanhBottleneck(nn.Module):
+    def __init__(self, scale: float = 1.0):
+        super().__init__()
+        self.scale = scale
+
+    def encode(self, x: torch.Tensor, return_info: bool = False, **_):
+        x = torch.tanh(x / self.scale) * self.scale
+        return (x, {}) if return_info else x
+
+    def decode(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+class SoftNormBottleneck(nn.Module):
+    """x * scaling_factor + bias per channel; in training with `return_info`
+    {"softnorm_loss": the mean over (item, channel) of mean^2 + var - log var
+    - 1 over time, + 0.4 x the same over channels per (item, time), var
+    clipped at 1e-4} (JAX :64; its trainer adds no loss module for it)."""
+
+    def __init__(self, dim: int = 32, noise_augment_dim: int = 0,
+                 noise_regularize: bool = False):
+        super().__init__()
+        _refuse_noise("SoftNormBottleneck", noise_augment_dim, noise_regularize)
+        self.scaling_factor = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def encode(self, x: torch.Tensor, return_info: bool = False, train: bool = False, **_):
+        x = x * self.scaling_factor.to(x.dtype)[:, None] + self.bias.to(x.dtype)[:, None]
+        info = {}
+        if train and return_info:
+            def kl(axis):
+                var = x.var(dim=axis, correction=0).clamp(min=1e-4)
+                mean = x.mean(dim=axis)
+                return (mean * mean + var - torch.log(var) - 1).mean()
+
+            info["softnorm_loss"] = kl(2) + 0.4 * kl(1)
+        return (x, info) if return_info else x
+
+    def decode(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+def compute_mmd(latents: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """RBF-kernel MMD of latents [B, C, T] against `noise` [B, C, T] drawn
+    from N(0, I) (JAX :125): the rows are the (item, time) pairs; the kernel
+    exp(-mean_c (a - b)^2 / C), its means over every pair of rows (the mean
+    square by |a|^2 + |b|^2 - 2 a.b: memory N^2, not N^2 C; in f32 whatever
+    the latents' type, since that expansion cancels badly in bf16)."""
+    C = latents.shape[1]
+    z, n = (t.float().transpose(1, 2).reshape(-1, C) for t in (latents, noise))
+
+    def mean_kernel(a, b):
+        sq = ((a * a).sum(1)[:, None] + (b * b).sum(1)[None] - 2 * a @ b.T).clamp(min=0)
+        return torch.exp(-(sq / C) / C).mean()
+
+    return mean_kernel(z, z) + mean_kernel(n, n) - 2 * mean_kernel(z, n)
+
+
+class WassersteinBottleneck(nn.Module):
+    """In training with `return_info` {"mmd": `compute_mmd` of x} (zero with
+    `bypass_mmd`); then tanh(x / tanh_scale) * tanh_scale with `use_tanh`
+    (JAX :138)."""
+
+    def __init__(self, noise_augment_dim: int = 0, bypass_mmd: bool = False,
+                 use_tanh: bool = False, tanh_scale: float = 5.0):
+        super().__init__()
+        _refuse_noise("WassersteinBottleneck", noise_augment_dim)
+        self.bypass_mmd, self.use_tanh, self.tanh_scale = bypass_mmd, use_tanh, tanh_scale
+
+    def encode(self, x: torch.Tensor, return_info: bool = False, train: bool = False,
+               generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None, **_):
+        info = {}
+        if train and return_info:
+            if self.bypass_mmd:
+                info["mmd"] = x.new_zeros(())
+            else:
+                if noise is None:
+                    noise = torch.randn(x.shape, generator=generator, device=x.device,
+                                        dtype=x.dtype)
+                info["mmd"] = compute_mmd(x, noise)
+        if self.use_tanh:
+            x = torch.tanh(x / self.tanh_scale) * self.tanh_scale
+        return (x, info) if return_info else x
+
+    def decode(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+class L2Bottleneck(nn.Module):
+    """x over its channel norm (+ 1e-12), on the way in and out (JAX :168)."""
+
+    @staticmethod
+    def _normalize(x: torch.Tensor) -> torch.Tensor:
+        return x / (torch.linalg.vector_norm(x, dim=1, keepdim=True) + 1e-12)
+
+    def encode(self, x: torch.Tensor, return_info: bool = False, **_):
+        x = self._normalize(x)
+        return (x, {}) if return_info else x
+
+    def decode(self, x: torch.Tensor) -> torch.Tensor:
+        return self._normalize(x)
+
+
+def _round_ste(z: torch.Tensor) -> torch.Tensor:
+    return z + (torch.round(z) - z).detach()
+
+
+class FSQCore:
+    """The FSQ maths (JAX :664, scale 1): per dim d of a codebook, levels
+    L_d, the code grid {-1 + 2 k / (L_d - 1)}; an index is the mixed-radix
+    number of the grid positions (so the product of the levels must fit an
+    int64)."""
+
+    def __init__(self, levels: Sequence[int], num_codebooks: int = 1, scale: float = 1.0):
+        self.levels = list(levels)
+        self.num_codebooks, self.scale = num_codebooks, scale
+        self.codebook_dim = len(self.levels)
+        self.codebook_size = int(np.prod(np.asarray(self.levels, dtype=np.int64)))
+        self._basis = [int(b) for b in np.cumprod([1] + self.levels[:-1], dtype=np.int64)]
+        self.half_l = scale * 2.0 / (np.asarray(self.levels, dtype=np.float64) - 1)
+        self.dim = self.codebook_dim * num_codebooks
+
+    def bounded(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, Q * D, T] -> tanh(x) [B, T, Q, D] in f32, the codebooks split."""
+        B, _, T = x.shape
+        return torch.tanh(x.float().transpose(1, 2).reshape(B, T, self.num_codebooks,
+                                                            self.codebook_dim))
+
+    def _half_l(self, t: torch.Tensor) -> torch.Tensor:
+        return torch.tensor(self.half_l, dtype=t.dtype, device=t.device)
+
+    def scale_and_shift(self, z: torch.Tensor) -> torch.Tensor:
+        return (z + self.scale) / self._half_l(z)
+
+    def scale_and_shift_inverse(self, li: torch.Tensor) -> torch.Tensor:
+        return li * self._half_l(li) - self.scale
+
+    def quantize_det(self, z: torch.Tensor) -> torch.Tensor:
+        return self.scale_and_shift_inverse(_round_ste(self.scale_and_shift(z)))
+
+    def codes_to_indices(self, zhat: torch.Tensor) -> torch.Tensor:
+        li = torch.round(self.scale_and_shift(zhat)).long()
+        return (li * torch.tensor(self._basis, device=li.device)).sum(-1)
+
+    def indices_to_codes(self, indices: torch.Tensor) -> torch.Tensor:
+        basis = torch.tensor(self._basis, device=indices.device)
+        levels = torch.tensor(self.levels, device=indices.device)
+        li = torch.div(indices.long()[..., None], basis, rounding_mode="floor") % levels
+        return self.scale_and_shift_inverse(li.float())
+
+
+class FSQBottleneck(nn.Module):
+    """FSQ (JAX :696): x [B, Q * D, T] in f32 through tanh, each codebook's
+    D dims rounded to their grid (straight through), the codes back in x's
+    dtype; info {"quantizer_indices": [B, Q, T]}."""
+
+    is_discrete = True
+    tokens_id = "quantizer_indices"
+
+    def __init__(self, levels: Sequence[int] = (8, 5, 5, 5), num_codebooks: int = 1,
+                 noise_augment_dim: int = 0):
+        super().__init__()
+        _refuse_noise("FSQBottleneck", noise_augment_dim)
+        self.core = FSQCore(levels, num_codebooks)
+        self.num_quantizers = num_codebooks
+        self.codebook_size = self.core.codebook_size
+
+    def encode(self, x: torch.Tensor, return_info: bool = False, **_):
+        codes = self.core.quantize_det(self.core.bounded(x))
+        indices = self.core.codes_to_indices(codes).transpose(1, 2)  # [B, Q, T]
+        out = codes.flatten(2).transpose(1, 2).to(x.dtype)
+        return (out, {"quantizer_indices": indices}) if return_info else out
+
+    def decode(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def decode_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens [B, Q, T] or [B, T, Q] -> codes [B, C, T] (f32)."""
+        if tokens.shape[1] == self.num_quantizers:
+            tokens = tokens.transpose(1, 2)  # [B, Q, T] wins when ambiguous, as JAX
+        return self.decode(self.core.indices_to_codes(tokens).flatten(2).transpose(1, 2))
+
+
+class DitheredFSQBottleneck(nn.Module):
+    """Dithered FSQ (JAX :753): `levels` per dim (an int: the same for each
+    of `dim` dims) in each of `num_codebooks` codebooks over x [B, C, T], C =
+    dim x num_codebooks. In training each item keeps its unquantized tanh
+    with probability `noise_dropout`, and (drawn apart) takes tanh + uniform
+    dither of one grid step with probability `noise_dropout`, which wins;
+    otherwise, and in eval, the rounded codes. info {"quantizer_indices":
+    [B, T, Q]}, the rounded codes' indices. `dither_inference` is kept as a
+    setting and, as in JAX, read nowhere."""
+
+    is_discrete = True
+    tokens_id = "quantizer_indices"
+
+    def __init__(self, dim: int = 32, levels: Union[int, Sequence[int]] = 5,
+                 num_codebooks: int = 1, dither_inference: bool = True,
+                 noise_dropout: float = 0.05):
+        super().__init__()
+        levels = [levels] * dim if isinstance(levels, int) else list(levels)
+        self.core = FSQCore(levels, num_codebooks)
+        self.num_quantizers = num_codebooks
+        self.codebook_size = self.core.codebook_size
+        self.dither_inference, self.noise_dropout = dither_inference, noise_dropout
+
+    def draws(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+              ) -> Dict[str, torch.Tensor]:
+        """A training pass's draws for x [B, C, T]."""
+        B, dev = x.shape[0], x.device
+        rand = lambda *shape: torch.rand(shape, generator=generator, device=dev)
+        return {"keep": rand(B) < self.noise_dropout, "dither": rand(*x.shape),
+                "apply": rand(B) < self.noise_dropout}
+
+    def encode(self, x: torch.Tensor, return_info: bool = False, train: bool = False,
+               generator: Optional[torch.Generator] = None,
+               noise: Optional[Dict[str, torch.Tensor]] = None, **_):
+        B, C, T = x.shape
+        z = self.core.bounded(x)
+        quant = self.core.quantize_det(z)
+        q = quant
+        if train:
+            d = self.draws(x, generator) if noise is None else noise
+            view = lambda m: m.to(device=x.device, dtype=torch.bool).view(B, 1, 1, 1)
+            q = torch.where(view(d["keep"]), z, quant)
+            dither = d["dither"].to(device=x.device, dtype=z.dtype).transpose(1, 2).reshape(
+                z.shape)
+            q = torch.where(view(d["apply"]), z + (dither - 0.5) * self.core._half_l(z), q)
+        indices = self.core.codes_to_indices(quant)
+        out = q.flatten(2).transpose(1, 2).to(x.dtype)
+        return (out, {"quantizer_indices": indices}) if return_info else out
+
+    def decode(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def decode_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens [B, T, Q] -> codes [B, C, T] (f32)."""
+        return self.decode(self.core.indices_to_codes(tokens).flatten(2).transpose(1, 2))
 
 
 class VAEBottleneck(nn.Module):

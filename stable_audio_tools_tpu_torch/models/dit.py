@@ -9,8 +9,15 @@ input-concat conditioning (the inpainting mask and masked latents joined to x
 on the channel axis, nearest-resampled to its length), zero-init 1x1 pre/post
 convs, batch-doubled classifier-free guidance with negative cross-attention
 conditioning, `scale_phi` rescale and `cfg_interval`, and bf16 compute over
-f32 parameters. Layout: x [B, C, T]. adaLN conditioning and patching are later
-slices.
+f32 parameters. Layout: x [B, C, T].
+
+The other config keys of the JAX DiT (:47-71): `global_cond_type="adaLN"`
+(the global condition, timestep included, drives every block's adaLN instead
+of a prepended token), `timestep_cond_type="input_concat"` (the timestep
+embedding, `timestep_embed_dim` wide, joins x on the channel axis),
+`patch_size` (p time steps folded into the channels around the transformer,
+JAX :205-209, :240-246), and the transformer's `layer_scale`, `qk_norm`,
+`ff_mult`, `num_memory_tokens` and `sliding_window` (ops/transformer.py).
 
 `diffusion_objective` sets what `cfg_interval` gates on: sigma = sin(t pi/2)
 for `v`, sigma = t for the flow objectives (JAX :299-302). `return_info`
@@ -58,17 +65,30 @@ class DiffusionTransformer(nn.Module):
                  depth: int = 12, num_heads: int = 8,
                  transformer_type: str = "continuous_transformer",
                  compute_dtype: Optional[str] = None, use_checkpointing: bool = True,
-                 diffusion_objective: str = "v"):
+                 diffusion_objective: str = "v", patch_size: int = 1,
+                 global_cond_type: str = "prepend", timestep_cond_type: str = "global",
+                 timestep_embed_dim: Optional[int] = None, layer_scale: bool = False,
+                 qk_norm: str = "none", ff_mult: float = 4, num_memory_tokens: int = 0,
+                 sliding_window: Optional[Tuple[int, int]] = None):
         super().__init__()
         if transformer_type != "continuous_transformer":
             raise NotImplementedError(f"transformer_type {transformer_type} is not ported yet")
+        if global_cond_type not in ("prepend", "adaLN"):
+            raise ValueError(f"global_cond_type {global_cond_type!r}")
+        if timestep_cond_type not in ("global", "input_concat"):
+            raise ValueError(f"timestep_cond_type {timestep_cond_type!r}")
         self.io_channels = io_channels
         self.embed_dim = embed_dim
         self.depth = depth
         self.diffusion_objective = diffusion_objective
+        self.patch_size = patch_size
+        self.global_cond_type, self.timestep_cond_type = global_cond_type, timestep_cond_type
         self.compute_dtype = getattr(torch, compute_dtype) if compute_dtype else None
         self.timestep_features = FourierFeatures(1, 256)
-        self.to_timestep_embed = _mlp(256, embed_dim, bias=True)
+        ts_dim = embed_dim if timestep_cond_type == "global" else timestep_embed_dim
+        if ts_dim is None:
+            raise ValueError("timestep_cond_type input_concat needs timestep_embed_dim")
+        self.to_timestep_embed = _mlp(256, ts_dim, bias=True)
         cond_embed_dim = embed_dim if project_cond_tokens else cond_token_dim
         self.to_cond_embed = (_mlp(cond_token_dim, cond_embed_dim, bias=False)
                               if cond_token_dim > 0 else None)
@@ -77,16 +97,21 @@ class DiffusionTransformer(nn.Module):
                                 if global_cond_dim > 0 else None)
         self.to_prepend_embed = (_mlp(prepend_cond_dim, embed_dim, bias=False)
                                  if prepend_cond_dim > 0 else None)
-        dim_in = io_channels + input_concat_dim
+        dim_in = io_channels + input_concat_dim + (
+            ts_dim if timestep_cond_type == "input_concat" else 0)
         self.preprocess_conv = nn.Conv1d(dim_in, dim_in, 1, bias=False)
         self.postprocess_conv = nn.Conv1d(io_channels, io_channels, 1, bias=False)
         nn.init.zeros_(self.preprocess_conv.weight)
         nn.init.zeros_(self.postprocess_conv.weight)
         self.transformer = ContinuousTransformer(
-            dim=embed_dim, depth=depth, dim_in=dim_in, dim_out=io_channels,
-            dim_heads=embed_dim // num_heads, cross_attend=cond_token_dim > 0,
+            dim=embed_dim, depth=depth, dim_in=dim_in * patch_size,
+            dim_out=io_channels * patch_size, dim_heads=embed_dim // num_heads,
+            cross_attend=cond_token_dim > 0,
             cond_token_dim=cond_embed_dim if cond_token_dim > 0 else None,
-            use_checkpointing=use_checkpointing)
+            use_checkpointing=use_checkpointing,
+            global_cond_dim=embed_dim if global_cond_type == "adaLN" else None,
+            layer_scale=layer_scale, qk_norm=qk_norm, ff_mult=ff_mult,
+            num_memory_tokens=num_memory_tokens, sliding_window=sliding_window)
 
     def _forward(self, x, t, cross_attn_cond=None, global_embed=None, input_concat_cond=None,
                  prepend_cond=None, return_info=False, exit_layer_ix=None):
@@ -107,21 +132,34 @@ class DiffusionTransformer(nn.Module):
                 input_concat_cond = input_concat_cond[:, :, idx]
             x = torch.cat([x, input_concat_cond.to(x.dtype)], dim=1)
         timestep_embed = self.to_timestep_embed(self.timestep_features(t[:, None]))
-        global_embed = timestep_embed if global_embed is None else global_embed + timestep_embed
-        prepend = global_embed[:, None, :]
-        if prepend_cond is not None:
-            prepend = torch.cat([self.to_prepend_embed(prepend_cond), prepend], dim=1)
+        if self.timestep_cond_type == "global":
+            global_embed = (timestep_embed if global_embed is None
+                            else global_embed + timestep_embed)
+        else:
+            x = torch.cat([x, timestep_embed[:, :, None].expand(-1, -1, x.shape[2])], dim=1)
+        prepend = None if prepend_cond is None else self.to_prepend_embed(prepend_cond)
+        if self.global_cond_type == "prepend" and global_embed is not None:
+            token = global_embed[:, None, :]
+            prepend = token if prepend is None else torch.cat([prepend, token], dim=1)
 
         x = F.conv1d(x, self.preprocess_conv.weight.to(x.dtype)) + x
-        h = self.transformer(x.transpose(1, 2), prepend_embeds=prepend,
-                             context=cross_attn_cond, return_info=return_info,
-                             exit_layer_ix=exit_layer_ix)
+        xl, p = x.transpose(1, 2), self.patch_size
+        if p > 1:  # [B, T, C] -> [B, T / p, C * p], each step's channels together
+            B, T, C = xl.shape
+            xl = xl.reshape(B, T // p, p, C).transpose(2, 3).reshape(B, T // p, C * p)
+        h = self.transformer(xl, prepend_embeds=prepend, context=cross_attn_cond,
+                             return_info=return_info, exit_layer_ix=exit_layer_ix,
+                             global_cond=global_embed if self.global_cond_type == "adaLN"
+                             else None)
         info = None
         if return_info:
             h, info = h
         if exit_layer_ix is not None:
             return (h, info) if return_info else h
-        out = h.transpose(1, 2)[:, :, prepend.shape[1]:]
+        out = h.transpose(1, 2)[:, :, 0 if prepend is None else prepend.shape[1]:]
+        if p > 1:
+            B, CP, S = out.shape
+            out = out.reshape(B, CP // p, p, S).transpose(2, 3).reshape(B, CP // p, S * p)
         out = F.conv1d(out, self.postprocess_conv.weight.to(out.dtype)) + out
         out = out.to(in_dtype)
         return (out, info) if return_info else out

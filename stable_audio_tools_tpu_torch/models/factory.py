@@ -9,9 +9,11 @@ and `autoencoders/dac_2048_32_vae.json` build unchanged.
 Built: `diffusion_cond` and `diffusion_cond_inpaint` (DiT; `diffusion_cond`
 also on the ADP `UNetCFG1d`, models/adp.py), `diffusion_uncond` (Dance
 Diffusion's DAU1d), `lm` (the MusicGen-style token LM, models/lm.py),
-`autoencoder` (Oobleck, SEANet or DAC encoder and decoder; VAE or RVQ
-bottleneck) and the `autoencoder` pretransform; other types raise
-NotImplementedError.
+`autoencoder` (Oobleck with the snake or ELU, TAAE, SEANet or DAC encoder
+and decoder; the VAE, RVQ, tanh, softnorm, Wasserstein, L2, FSQ and dithered
+FSQ bottlenecks) and the `autoencoder` pretransform; other types (and the
+`rvq_vae`, `dac_rvq`, `dac_rvq_vae` bottlenecks, the `local_attn` towers)
+raise NotImplementedError.
 
 Every factory takes the `device` the parameters are created on. The default
 is the current CUDA card, and without one the call raises: a model lands on
@@ -27,8 +29,9 @@ from typing import Any, Dict, Optional, Sequence, Union
 import torch
 from torch import nn
 
-from .autoencoders import AudioAutoencoder, OobleckDecoder, OobleckEncoder
-from .bottleneck import RVQBottleneck, VAEBottleneck
+from . import bottleneck as B
+from .autoencoders import (AudioAutoencoder, OobleckDecoder, OobleckEncoder, TAAEDecoder,
+                           TAAEEncoder)
 from .dac import DACDecoderWrapper, DACEncoderWrapper, Snake1d
 from .pretransforms import AutoencoderPretransform
 from .seanet import SEANetDecoder, SEANetEncoder
@@ -42,6 +45,23 @@ _SEANET_KEYS = ("channels", "dimension", "n_filters", "ratios", "n_residual_laye
 _DAC_ENCODER_KEYS = ("d_model", "strides", "d_latent", "latent_dim", "in_channels")
 _DAC_DECODER_KEYS = {"latent_dim": "input_channel", "channels": "channels", "rates": "rates",
                      "out_channels": "d_out", "final_tanh": "final_tanh"}
+# the JAX factory's TAAE keyword arguments (`_filter_kwargs` of
+# models/autoencoders.py:299, :332)
+_TAAE_KEYS = ("channels", "latent_dim", "c_mults", "strides", "transformer_depths",
+              "use_snake", "sliding_window")
+# bottleneck type -> (class, the JAX factory's config keys) (JAX :131-151)
+_BOTTLENECKS = {
+    "vae": (B.VAEBottleneck, ()),
+    "rvq": (B.RVQBottleneck, None),
+    "tanh": (B.TanhBottleneck, ("scale",)),
+    "l2_norm": (B.L2Bottleneck, ()),
+    "softnorm": (B.SoftNormBottleneck, ("dim", "noise_augment_dim", "noise_regularize")),
+    "wasserstein": (B.WassersteinBottleneck, ("noise_augment_dim", "bypass_mmd", "use_tanh",
+                                              "tanh_scale")),
+    "fsq": (B.FSQBottleneck, ("levels", "num_codebooks", "noise_augment_dim")),
+    "dithered_fsq": (B.DitheredFSQBottleneck, ("dim", "levels", "num_codebooks",
+                                               "dither_inference", "noise_dropout")),
+}
 Device = Optional[Union[str, torch.device]]
 
 
@@ -107,9 +127,17 @@ def _dac(section: Dict[str, Any], cls):
     return cls(**{new: cfg[old] for old, new in _DAC_DECODER_KEYS.items() if old in cfg})
 
 
+def _taae(section: Dict[str, Any], io_key: str, cls):
+    cfg = section.get("config", {})
+    keys = _TAAE_KEYS + (io_key,) + (("final_tanh",) if cls is TAAEDecoder else ())
+    return cls(**{k: cfg[k] for k in keys if k in cfg})
+
+
 def _tower(section: Dict[str, Any], io_key: str, oobleck, seanet, dac):
     if section["type"] == "oobleck":
         return _oobleck(section, io_key, oobleck)
+    if section["type"] == "taae":
+        return _taae(section, io_key, TAAEEncoder if oobleck is OobleckEncoder else TAAEDecoder)
     if section["type"] == "seanet":
         return _seanet(section, seanet)
     if section["type"] == "dac":
@@ -120,11 +148,11 @@ def _tower(section: Dict[str, Any], io_key: str, oobleck, seanet, dac):
 def _bottleneck(section: Optional[Dict[str, Any]]):
     if section is None:
         return None
-    if section["type"] == "vae":
-        return VAEBottleneck()
-    if section["type"] == "rvq":
-        return RVQBottleneck(**section.get("config", {}))
-    raise NotImplementedError(f"{section['type']} bottleneck is not ported yet")
+    if section["type"] not in _BOTTLENECKS:
+        raise NotImplementedError(f"{section['type']} bottleneck is not ported yet")
+    cls, keys = _BOTTLENECKS[section["type"]]
+    cfg = section.get("config", {})
+    return cls(**{k: v for k, v in cfg.items() if keys is None or k in keys})
 
 
 def create_autoencoder_from_config(config: Dict[str, Any], device: Device = None
@@ -173,11 +201,15 @@ def init_random_(model: nn.Module, generator: torch.Generator,
     scales 1 (GroupNorm and the ADP LayerNorm biases 0), log-scale snake
     parameters 0, DAC's snake alpha 1,
     Fourier weights ~ N(0, 1), weight-norm g = ||v||, LSTM weights ~
-    N(0, 1/fan_in) with zero biases, RVQ codebooks ~ N(0, 1) (and their EMA sums)."""
+    N(0, 1/fan_in) with zero biases, RVQ codebooks ~ N(0, 1) (and their EMA sums),
+    LayerScale 1e-5, DynamicTanh alpha 10, gamma 1, beta 0, adaLN's
+    scale / shift / gate ~ N(0, 1/dim) and memory tokens ~ N(0, 1), as the
+    JAX package initialises them."""
     from ..ops.activations import SnakeBeta
     from ..ops.conv import WNConv1d, WNConv2d, WNConvTranspose1d
     from ..ops.embeddings import FourierFeatures
-    from ..ops.norms import BiasedLayerNorm, LayerNorm
+    from ..ops.norms import BiasedLayerNorm, DynamicTanh, LayerNorm, LayerScale
+    from ..ops.transformer import ContinuousTransformer, TransformerBlock
     from .bottleneck import ResidualVQ
     from .conditioners import LearnedPositionalEmbedding
     from .t5 import T5LayerNorm
@@ -230,6 +262,16 @@ def init_random_(model: nn.Module, generator: torch.Generator,
                     normal_(p, 1.0 / math.sqrt(p.shape[1]))
                 else:
                     p.zero_()
+        elif isinstance(m, LayerScale):
+            m.scale.fill_(1e-5)
+        elif isinstance(m, DynamicTanh):
+            m.alpha.fill_(10.0)
+            m.gamma.fill_(1.0)
+            m.beta.zero_()
+        elif isinstance(m, TransformerBlock) and m.to_scale_shift_gate is not None:
+            normal_(m.to_scale_shift_gate, m.to_scale_shift_gate.shape[0] ** -0.5 * 6 ** 0.5)
+        elif isinstance(m, ContinuousTransformer) and m.num_memory_tokens:
+            normal_(m.memory_tokens, 1.0)
         elif isinstance(m, ResidualVQ):
             normal_(m.codebooks, 1.0)
             m.ema_sums.copy_(m.codebooks)  # the trackers start from the codebook, as JAX's

@@ -1,4 +1,6 @@
-"""Activations; counterpart of stable_audio_tools_tpu/ops/activations.py.
+"""Activations; counterpart of stable_audio_tools_tpu/ops/activations.py
+(`SnakeBeta`, and `get_activation`'s "elu" / "snake" / "none"; the
+anti-aliased wrapper is not ported).
 
 SnakeBeta: snake_beta(x, a, b) = x + sin^2(a x) / (b + 1e-9), per channel,
 with log-scale parameters (alpha = exp(log_alpha)). The maths is exact sin in
@@ -41,3 +43,16 @@ class SnakeBeta(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return snake_beta(x, *self.params(x.dtype))
+
+
+def get_activation(name: str, channels: int) -> nn.Module:
+    """JAX `get_activation` (:243) without anti-aliasing: "elu" (torch's ELU,
+    alpha 1, as `jax.nn.elu`), "snake" (`SnakeBeta` over `channels`) or
+    "none"."""
+    if name == "elu":
+        return nn.ELU()
+    if name == "snake":
+        return SnakeBeta(channels)
+    if name == "none":
+        return nn.Identity()
+    raise ValueError(f"Unknown activation {name}")

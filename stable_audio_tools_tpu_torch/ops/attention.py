@@ -50,8 +50,24 @@ runs at the cache position, and `cached_decode_attention` attends over the
 whole cache with the positions past the step masked, in plain PyTorch as the
 JAX package leaves it to XLA.
 
-Not ported on this path: qk-norm, differential attention and `feat_scale`
-(`Attention` refuses them by name); the LM uses none of them.
+The options of the JAX `Attention` (:365), which the TAAE and the DiT's
+config keys reach:
+- `qk_norm` ("l2", "ln", "dyt"): q and k normalised over the head dim after
+  the head split and before the rotary (JAX :585-595): "l2" divides by the
+  norm + 1e-12, "ln" is flax's `nn.LayerNorm` (scale and bias, epsilon 1e-6,
+  in f32, cast back; `BiasedLayerNorm`, so the card runs it on row 2's beta
+  variant), "dyt" a `DynamicTanh`; the cross-attention normalises its
+  queries and its keys (`compute_kv`, so the cached decode's K/V carry it).
+  The fused-QKV route cannot normalise, so qk-normed training forwards take
+  `flash_attention_nhd` on the normalised views.
+- `differential`: a second query / key pair (`to_qkv` [q | k | v | q_diff |
+  k_diff], the cross-attention's `to_q` [q | q_diff] and `to_kv` [k | k_diff
+  | v], in the concat layout the JAX package keeps for it), the output
+  attn(q, k, v) - attn(q_diff, k_diff, v) (JAX :481-500, :652-656); it
+  takes the [B, H, N, D] route and no cache.
+- `feat_scale`: out + lambda_dc * mean_N(out) + lambda_hf * (out -
+  mean_N(out)) after `to_out` (JAX :380-392); not with the cache (JAX
+  refuses it there too).
 """
 
 from __future__ import annotations
@@ -67,6 +83,9 @@ from .embeddings import apply_rotary_pos_emb, rotary_tables, rotate, rotate_nhd
 from .kernels.flash_attention import (HEAD_DIM, HEAD_DIMS, MAX_PREFIX, MAX_PREFIX_NHD,
                                       flash_attention, flash_attention_fused_qkv,
                                       flash_attention_nhd, flash_attention_prefix)
+from .norms import BiasedLayerNorm, DynamicTanh
+
+QK_NORMS = ("none", "l2", "ln", "dyt")
 
 # Main-sequence length from which self-attention takes `flash_attention_nhd`:
 # between SA-Open's 1024 and SA-2.0's 6144. Both entries launch the same
@@ -174,7 +193,8 @@ def cached_decode_attention(q: torch.Tensor, k_step: torch.Tensor, v_step: torch
 class Attention(nn.Module):
     """Multi-head attention: self-attention (fused `to_qkv`) or
     cross-attention (`to_q` + fused `to_kv`) when `dim_context` is set;
-    `causal` and `sliding_window` = (left, right) mask it (JAX `Attention`).
+    `causal` and `sliding_window` = (left, right) mask it (JAX `Attention`);
+    `qk_norm`, `differential` and `feat_scale` as the module note says.
 
     As in the reference, cross-attention keys and values keep the context's
     width: dim_context // dim_heads key/value heads, each shared by
@@ -189,49 +209,72 @@ class Attention(nn.Module):
         """`nhd_min_seq`: the main-sequence length from which self-attention
         takes the strided-layout kernel (default NHD_MIN_SEQ)."""
         super().__init__()
-        for name, value in (("qk_norm", qk_norm != "none"), ("differential", differential),
-                            ("feat_scale", feat_scale)):
-            if value:
-                raise NotImplementedError(f"Attention: {name} is not ported")
+        if qk_norm not in QK_NORMS:
+            raise ValueError(f"qk_norm must be one of {QK_NORMS}, got {qk_norm!r}")
         self.dim = dim
         self.dim_heads = dim_heads
         self.nhd_min_seq = NHD_MIN_SEQ if nhd_min_seq is None else nhd_min_seq
         self.causal = causal
         self.sliding_window = None if sliding_window is None else tuple(sliding_window)
+        self.qk_norm, self.differential, self.feat_scale = qk_norm, differential, feat_scale
         self.cross = dim_context is not None
         if self.cross:
-            self.to_q = Linear(dim, dim, bias=False)
-            self.to_kv = Linear(dim_context, 2 * dim_context, bias=False)
+            self.to_q = Linear(dim, dim * (2 if differential else 1), bias=False)
+            self.to_kv = Linear(dim_context, dim_context * (3 if differential else 2), bias=False)
         else:
-            self.to_qkv = Linear(dim, 3 * dim, bias=False)
+            self.to_qkv = Linear(dim, dim * (5 if differential else 3), bias=False)
         self.to_out = Linear(dim, dim, bias=False)
+        if qk_norm in ("ln", "dyt"):
+            norm = BiasedLayerNorm if qk_norm == "ln" else DynamicTanh
+            self.q_norm, self.k_norm = norm(dim_heads), norm(dim_heads)
+        if feat_scale:
+            self.lambda_dc = nn.Parameter(torch.zeros(dim))
+            self.lambda_hf = nn.Parameter(torch.zeros(dim))
 
     def _split_heads(self, t: torch.Tensor) -> torch.Tensor:
         b, n, _ = t.shape
         return t.view(b, n, -1, self.dim_heads).transpose(1, 2)
 
+    def _norm(self, t: torch.Tensor, which: str) -> torch.Tensor:
+        """The qk-norm of q or k (`which`) over t's last axis (the head dim)."""
+        if self.qk_norm == "l2":
+            return t / (torch.linalg.vector_norm(t, dim=-1, keepdim=True) + 1e-12)
+        if self.qk_norm == "none":
+            return t
+        return (self.q_norm if which == "q" else self.k_norm)(t)
+
+    def _project_out(self, out: torch.Tensor) -> torch.Tensor:
+        """to_out of out [B, N, dim], then the feature scaling."""
+        out = self.to_out(out)
+        if not self.feat_scale:
+            return out
+        dc = out.mean(dim=-2, keepdim=True)
+        return (out + self.lambda_dc.to(out.dtype) * dc
+                + self.lambda_hf.to(out.dtype) * (out - dc))
+
     def _merge_heads(self, out: torch.Tensor) -> torch.Tensor:
         b, _, n, _ = out.shape
-        return self.to_out(out.transpose(1, 2).reshape(b, n, self.dim))
+        return self._project_out(out.transpose(1, 2).reshape(b, n, self.dim))
 
     @staticmethod
-    def _repeat_kv(q, k, v):
-        if k.shape[1] != q.shape[1]:
-            rep = q.shape[1] // k.shape[1]
-            k, v = k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1)
-        return k, v
+    def _repeat_kv(q, *kv):
+        if kv[0].shape[1] != q.shape[1]:
+            rep = q.shape[1] // kv[0].shape[1]
+            kv = tuple(t.repeat_interleave(rep, dim=1) for t in kv)
+        return kv
 
     def _forward_nhd(self, q, k, v, tables, prefix_len, causal) -> torch.Tensor:
         """q, k, v: [B, N, dim] views of the fused projection; tables: the
         rotary's (cos, sin) [N, rot_dim] or None. Nothing is transposed or
-        made contiguous: the rotary writes new q and k, v stays a view, and
-        the kernel reads each through its own strides."""
+        made contiguous: the qk-norm and the rotary write new q and k, v
+        stays a view, and the kernel reads each through its own strides."""
         b, n, _ = q.shape
         q, k, v = (t.view(b, n, -1, self.dim_heads) for t in (q, k, v))
+        q, k = self._norm(q, "q"), self._norm(k, "k")
         if tables is not None:
             q, k = rotate_nhd(q, *tables), rotate_nhd(k, *tables)
         out = flash_attention_nhd(q, k, v, causal=causal, prefix_len=prefix_len)
-        return self.to_out(out.view(b, n, self.dim))
+        return self._project_out(out.view(b, n, self.dim))
 
     def _forward_fused(self, qkv, tables, causal) -> torch.Tensor:
         """qkv: the `to_qkv` output [B, N, 3 * dim], read by the kernel as it
@@ -239,13 +282,17 @@ class Attention(nn.Module):
         b, n, _ = qkv.shape
         out = flash_attention_fused_qkv(qkv, *tables, self.dim // self.dim_heads,
                                         causal=causal)
-        return self.to_out(out.view(b, n, self.dim))
+        return self._project_out(out.view(b, n, self.dim))
 
     def compute_kv(self, context: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Split-head cross-attention K/V [B, H_kv, N_ctx, D] of a constant
-        context, projected once for every decode step (JAX `kv_only`)."""
+        context, the keys qk-normed, projected once for every decode step
+        (JAX `kv_only`)."""
+        if self.differential:
+            raise NotImplementedError("differential attention has no precomputed K/V "
+                                      "(as in JAX)")
         k, v = self.to_kv(context).chunk(2, dim=-1)
-        return self._split_heads(k), self._split_heads(v)
+        return self._norm(self._split_heads(k), "k"), self._split_heads(v)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 rotary_pos_emb: Optional[torch.Tensor] = None,
@@ -255,42 +302,71 @@ class Attention(nn.Module):
                 precomputed_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                 ) -> torch.Tensor:
-        """`rope_tables`: `rotary_tables` of `rotary_pos_emb` over this
-        call's N rows, made once per forward by the caller (built here when
-        absent); the cached decode rotates at its position instead."""
+        """`rope_tables`: the rotary's cos / sin tables over this call's N
+        rows, made once per forward by the caller (built here from
+        `rotary_pos_emb` when absent); the cached decode rotates at its
+        position instead."""
         # a single query row is never causal (JAX :645-646)
         causal = self.causal and x.shape[1] != 1
         if self.cross:
-            q = self._split_heads(self.to_q(x))
-            if precomputed_kv is not None:  # cached decode: causal=False, as JAX :460
-                k, v = (t.to(q.dtype) for t in precomputed_kv)
-                causal = False
-            else:
-                k, v = self.compute_kv(context)
-            k, v = self._repeat_kv(q, k, v)
-            return self._merge_heads(dot_product_attention(q, k, v, causal, None, mask))
+            return self._forward_cross(x, context, mask, precomputed_kv, causal)
         qkv = self.to_qkv(x)
-        q, k, v = qkv.chunk(3, dim=-1)
         if cache is not None:
-            q, k, v = self._split_heads(q), self._split_heads(k), self._split_heads(v)
+            if self.differential or self.feat_scale:
+                raise NotImplementedError("the KV-cached decode takes no differential "
+                                          "attention or feat_scale (as in JAX)")
+            q, k, v = (self._split_heads(t) for t in qkv.chunk(3, dim=-1))
+            q, k = self._norm(q, "q"), self._norm(k, "k")
             if rotary_pos_emb is not None:  # at the absolute cache position
                 step = rotary_pos_emb[cache_index:cache_index + 1]
                 q, k = apply_rotary_pos_emb(q, step), apply_rotary_pos_emb(k, step)
             return self._merge_heads(cached_decode_attention(q, k, v, cache, cache_index))
-        tables = None
-        if rotary_pos_emb is not None:
-            tables = (rope_tables if rope_tables is not None
-                      else rotary_tables(rotary_pos_emb[-x.shape[1]:]))
+        tables = rope_tables
+        if tables is None and rotary_pos_emb is not None:
+            tables = rotary_tables(rotary_pos_emb[-x.shape[1]:])
         window = self.sliding_window
+        if self.differential:
+            parts = [self._split_heads(t) for t in qkv.chunk(5, dim=-1)]
+            q, k, v, q_diff, k_diff = parts
+            q, k = self._norm(q, "q"), self._norm(k, "k")
+            if tables is not None:
+                q, k, q_diff, k_diff = (rotate(t, *tables) for t in (q, k, q_diff, k_diff))
+            out = attention_core(q, k, v, mask=mask, prefix_len=prefix_len, causal=causal,
+                                 window=window)
+            out = out - attention_core(q_diff, k_diff, v, mask=mask, prefix_len=prefix_len,
+                                       causal=causal, window=window)
+            return self._merge_heads(out)
+        q, k, v = qkv.chunk(3, dim=-1)
         if (mask is None and window is None and self.dim_heads == HEAD_DIM
                 and prefix_len <= MAX_PREFIX_NHD and not (causal and prefix_len)
                 and x.shape[1] - prefix_len >= self.nhd_min_seq):
-            if tables is not None and self.training and torch.is_grad_enabled():
+            if (tables is not None and self.qk_norm == "none" and self.training
+                    and torch.is_grad_enabled()):
                 return self._forward_fused(qkv, tables, causal)
             return self._forward_nhd(q, k, v, tables, prefix_len, causal)
         q, k, v = self._split_heads(q), self._split_heads(k), self._split_heads(v)
+        q, k = self._norm(q, "q"), self._norm(k, "k")
         if tables is not None:
             q, k = rotate(q, *tables), rotate(k, *tables)
         out = attention_core(q, k, v, mask=mask, prefix_len=prefix_len, causal=causal,
                              window=window)
         return self._merge_heads(out)
+
+    def _forward_cross(self, x, context, mask, precomputed_kv, causal) -> torch.Tensor:
+        q = self.to_q(x)
+        if self.differential:
+            q, q_diff = (self._split_heads(t) for t in q.chunk(2, dim=-1))
+            k, k_diff, v = (self._split_heads(t) for t in self.to_kv(context).chunk(3, dim=-1))
+            q, k = self._norm(q, "q"), self._norm(k, "k")
+            k, k_diff, v = self._repeat_kv(q, k, k_diff, v)
+            out = (dot_product_attention(q, k, v, causal, None, mask)
+                   - dot_product_attention(q_diff, k_diff, v, causal, None, mask))
+            return self._merge_heads(out)
+        q = self._norm(self._split_heads(q), "q")
+        if precomputed_kv is not None:  # cached decode: causal=False, as JAX :460
+            k, v = (t.to(q.dtype) for t in precomputed_kv)
+            causal = False
+        else:
+            k, v = self.compute_kv(context)
+        k, v = self._repeat_kv(q, k, v)
+        return self._merge_heads(dot_product_attention(q, k, v, causal, None, mask))

@@ -1,7 +1,8 @@
 """Normalization layers; counterpart of stable_audio_tools_tpu/ops/norms.py
-(`LayerNorm`, last-axis features) and of flax's `nn.LayerNorm` and
-`nn.GroupNorm` as the JAX UNets use them (`BiasedLayerNorm`, `GroupNorm`
-over the channels of [B, C, T]), with flax's epsilon 1e-6."""
+(`LayerNorm`, last-axis features; `DynamicTanh`, `LayerScale`) and of flax's
+`nn.LayerNorm` and `nn.GroupNorm` as the JAX modules use them
+(`BiasedLayerNorm`, also the attention's "ln" qk-norm; `GroupNorm` over the
+channels of [B, C, T]), with flax's epsilon 1e-6."""
 
 from __future__ import annotations
 
@@ -59,3 +60,31 @@ class GroupNorm(nn.GroupNorm):
         tail = (1,) * (x.dim() - 2)
         return torch.addcmul(shift.reshape(B, C, *tail), x,
                              scale.reshape(B, C, *tail)).to(x.dtype)
+
+
+class DynamicTanh(nn.Module):
+    """DyT, the norm-free block's replacement (JAX :70): gamma * tanh(alpha *
+    x) + beta over the last axis, a scalar alpha (init 10), the parameters
+    cast to x's dtype."""
+
+    def __init__(self, dim: int, init_alpha: float = 10.0):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.full((1,), init_alpha))
+        self.gamma = nn.Parameter(torch.ones(dim))
+        self.beta = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = torch.tanh(self.alpha.to(x.dtype) * x)
+        return self.gamma.to(x.dtype) * out + self.beta.to(x.dtype)
+
+
+class LayerScale(nn.Module):
+    """x * scale over the last axis (JAX :87; scale init 1e-5), the scale cast
+    to x's dtype."""
+
+    def __init__(self, dim: int, init_val: float = 1e-5):
+        super().__init__()
+        self.scale = nn.Parameter(torch.full((dim,), init_val))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.scale.to(x.dtype)

@@ -32,13 +32,34 @@ whose adversarial and feature-matching losses join from `warmup_steps`.
 - `val_step` (JAX `make_val_step` :533): the STFT, SI-SDR and mel distances
   of the eval-mode forward with the training weights.
 
+- `encoder_freeze_on_warmup` (JAX :365-367, :442): once warmed up, the
+  generator step detaches the latents and the bottleneck's info, so the
+  encoder takes a zero gradient; as in JAX every parameter without a
+  gradient gets zeros, so AdamW still moves it by its moments and its weight
+  decay.
+- `latent_mask_ratio` (JAX :379-382): in the training passes (both steps,
+  as JAX's `train=True`), the latents are zeroed where a uniform draw falls
+  below the ratio, after `info["latents"]` keeps them whole.
+- `teacher_model` (+ `teacher_variables`, a state dict loaded into it, as
+  JAX takes them :100-101): a frozen autoencoder. Its encode of the input
+  gives `teacher_latents`; its decodes of those and of the (masked) student
+  latents, and the student's decode of the teacher latents, feed five
+  losses at weight mrstft x 0.25 that replace the MRSTFT terms (JAX
+  :211-230, :371-376, :425-436): latent MSE, MRSTFT of the output, of the
+  output against the teacher's, of each cross decode. The decodes take the
+  latents in the compute dtype, as the student's own.
+- The stochastic bottlenecks' training behaviour (the dithered FSQ's
+  dropout and dither, the Wasserstein MMD) runs in both steps, as JAX's
+  `train=True`; an RVQ's state moves in the generator step only.
+
 The losses, STFTs and FIR run in f32; weights, gradients, Adam state and the
-EMA stay f32. Random numbers: the VAE noise is drawn from a `torch.Generator`
-seeded from (seed, step), or injected (`noise=`, as the tests replay the JAX
-package's). Teacher distillation, latent masking, `encoder_freeze_on_warmup`,
-the mrmel and hubert losses, the other discriminators and the losses of the
-bottlenecks other than the VAE and the RVQ are later slices and are refused
-by name.
+EMA stay f32. Random numbers come from a `torch.Generator` seeded from
+(seed, step), or are injected, as the tests replay the JAX package's:
+`noise=` (the bottleneck's: the VAE's normals, the Wasserstein's, the
+dithered FSQ's dict) and `draws=` ({"latent_mask": [B, C, T] uniform,
+"teacher_noise": the teacher's VAE normals}). The mrmel and hubert losses
+and the discriminators other than EnCodec's are refused by name, and so is
+gradient accumulation (JAX's GAN trainer ignores `accum_batches`).
 """
 
 from __future__ import annotations
@@ -48,7 +69,7 @@ import typing as tp
 
 import torch
 
-from ..models.bottleneck import RVQBottleneck, VAEBottleneck
+from ..models import bottleneck as B
 from ..models.discriminators import EncodecDiscriminator
 from .ema import ema_init, ema_update
 from .losses.auraloss import MultiResolutionSTFTLoss, SumAndDifferenceSTFTLoss
@@ -61,12 +82,18 @@ Tensor = torch.Tensor
 
 def create_loss_modules_from_bottleneck(bottleneck, loss_config: dict) -> tp.List[LossModule]:
     """The bottleneck's losses (JAX :54): the VAE's KL, the RVQ's commitment
-    loss (`quantizer_loss`, weight 1)."""
+    loss (`quantizer_loss`, weight 1), the Wasserstein's MMD (weight 100 by
+    default); the tanh, softnorm, L2 and FSQ bottlenecks take none."""
     weights = loss_config.get("bottleneck", {}).get("weights", {})
-    if isinstance(bottleneck, VAEBottleneck):
+    if isinstance(bottleneck, B.VAEBottleneck):
         return [ValueLoss(key="kl", weight=weights.get("kl", 1e-6), name="kl_loss")]
-    if isinstance(bottleneck, RVQBottleneck):
+    if isinstance(bottleneck, B.RVQBottleneck):
         return [ValueLoss(key="quantizer_loss", weight=1.0, name="quantizer_loss")]
+    if isinstance(bottleneck, B.WassersteinBottleneck):
+        return [ValueLoss(key="mmd", weight=weights.get("mmd", 100), name="mmd_loss")]
+    if isinstance(bottleneck, (B.TanhBottleneck, B.SoftNormBottleneck, B.L2Bottleneck,
+                               B.FSQBottleneck, B.DitheredFSQBottleneck)):
+        return []
     raise NotImplementedError(f"losses of the {type(bottleneck).__name__} bottleneck "
                               "are not ported yet")
 
@@ -101,18 +128,21 @@ class AutoencoderTrainer:
                  warmup_steps: int = 0, warmup_mode: str = "adv",
                  encoder_freeze_on_warmup: bool = False, use_ema: bool = True,
                  latent_mask_ratio: float = 0.0,
-                 teacher_model=None, clip_grad_norm: float = 0.0,
+                 teacher_model=None, teacher_variables: tp.Optional[dict] = None,
+                 clip_grad_norm: float = 0.0,
                  compute_dtype: tp.Optional[str] = None, seed: int = 42):
-        unported = [name for name, on in (("encoder_freeze_on_warmup", encoder_freeze_on_warmup),
-                                          ("latent_mask_ratio", latent_mask_ratio > 0),
-                                          ("teacher_model", teacher_model is not None)) if on]
-        if unported:
-            raise NotImplementedError(f"autoencoder training options not ported yet: {unported}")
         if warmup_mode not in ("adv", "full"):
             raise ValueError(f"warmup_mode must be 'adv' or 'full', got {warmup_mode!r}")
         self.model = autoencoder
         self.sample_rate = sample_rate
         self.warmup_steps, self.warmup_mode = warmup_steps, warmup_mode
+        self.encoder_freeze_on_warmup = encoder_freeze_on_warmup
+        self.latent_mask_ratio = latent_mask_ratio
+        self.teacher = teacher_model
+        if teacher_model is not None:
+            if teacher_variables is not None:
+                teacher_model.load_state_dict(teacher_variables)
+            teacher_model.requires_grad_(False)
         self.clip_grad_norm = clip_grad_norm
         self.compute_dtype = getattr(torch, compute_dtype) if compute_dtype else None
         self.seed = seed
@@ -155,14 +185,28 @@ class AutoencoderTrainer:
                           name="feature_matching_loss")]
         decay = loss_config["spectral"].get("decay", 1.0)
         weight = loss_config["spectral"]["weights"]["mrstft"]
-        gen_losses.append(AuralossLoss(self.sdstft, input_key="decoded", target_key="reals",
-                                       name="mrstft_loss", weight=weight, decay=decay))
+        if teacher_model is not None:
+            w = weight * 0.25
+            gen_losses += [
+                MSELoss("teacher_latents", "latents", weight=w, name="latent_distill_loss",
+                        decay=decay),
+                *(AuralossLoss(self.sdstft, input_key=a, target_key=b, name=name, weight=w,
+                               decay=decay) for a, b, name in (
+                    ("decoded", "reals", "mrstft_loss"),
+                    ("decoded", "teacher_decoded", "mrstft_loss_distill"),
+                    ("own_latents_teacher_decoded", "reals", "mrstft_loss_own_latents_teacher"),
+                    ("teacher_latents_own_decoded", "reals", "mrstft_loss_teacher_latents_own")))]
+        else:
+            gen_losses.append(AuralossLoss(self.sdstft, input_key="decoded", target_key="reals",
+                                           name="mrstft_loss", weight=weight, decay=decay))
         if self.out_channels == 2:
             self.lrstft = MultiResolutionSTFTLoss(*scales, sample_rate=sample_rate, **stft_args)
-            gen_losses += [AuralossLoss(self.lrstft, input_key=f"decoded_{side}",
-                                        target_key=f"reals_{side}", name=f"stft_loss_{side}",
-                                        weight=weight / 2, decay=decay)
-                           for side in ("left", "right")]
+            if teacher_model is None:
+                gen_losses += [AuralossLoss(self.lrstft, input_key=f"decoded_{side}",
+                                            target_key=f"reals_{side}",
+                                            name=f"stft_loss_{side}", weight=weight / 2,
+                                            decay=decay)
+                               for side in ("left", "right")]
         time_cfg = loss_config.get("time", {})
         tw, tdecay = time_cfg.get("weights", {}), time_cfg.get("decay", 1.0)
         if tw.get("l1", 0.0) > 0.0:
@@ -211,26 +255,47 @@ class AutoencoderTrainer:
 
     # -- pieces of a step ---------------------------------------------------
 
-    def ae_forward(self, reals: Tensor, noise: tp.Optional[Tensor] = None,
+    def ae_forward(self, reals: Tensor, noise=None,
                    generator: tp.Optional[torch.Generator] = None, train: bool = False,
-                   revive_indices: tp.Optional[Tensor] = None
+                   revive_indices: tp.Optional[Tensor] = None, keep_state: bool = True,
+                   freeze_encoder: bool = False, draws: tp.Optional[dict] = None
                    ) -> tp.Tuple[Tensor, tp.Dict[str, Tensor]]:
-        """(decoded f32, loss info) of reals [B, C, T]; `train` moves an RVQ's
-        state (`revive_indices` replaces its dead-code draws)."""
+        """(decoded f32, loss info) of reals [B, C, T]. `train` is JAX's
+        training pass (the latent mask, the bottleneck's training draws);
+        with `keep_state` False an RVQ quantizes without moving its state
+        (`revive_indices` replaces its dead-code draws); `freeze_encoder`
+        detaches the latents; `draws` injects the trainer's own draws."""
+        draws = draws or {}
         info: tp.Dict[str, Tensor] = {"encoder_input": reals}
         encoder_input = reals
         if self.compute_dtype is not None:
             encoder_input = encoder_input.to(self.compute_dtype)
         extra = {} if revive_indices is None else {"revive_indices": revive_indices}
-        latents, enc_info = self.model.encode(encoder_input, generator=generator, noise=noise,
-                                              return_info=True, train=train, **extra)
+        stateful = isinstance(self.model.bottleneck, B.RVQBottleneck)
+        latents, enc_info = self.model.encode(
+            encoder_input, generator=generator, noise=noise, return_info=True,
+            train=train and (keep_state or not stateful), **extra)
+        if freeze_encoder:
+            latents = latents.detach()
+            enc_info = {k: v.detach() if torch.is_tensor(v) else v for k, v in enc_info.items()}
         info["latents"] = latents
         info.update(enc_info)
+        if self.teacher is not None:
+            with torch.no_grad():
+                info["teacher_latents"] = self.teacher.encode(
+                    encoder_input, generator=generator, noise=draws.get("teacher_noise"))
+        if self.latent_mask_ratio > 0 and train:
+            mask = draws.get("latent_mask")
+            if mask is None:
+                mask = torch.rand(latents.shape, generator=generator, device=latents.device)
+            latents = torch.where(mask.to(latents.device) < self.latent_mask_ratio,
+                                  torch.zeros_like(latents), latents)
         # the decoder computes in the compute dtype: a DAC encoder's f32
         # proj_out and an RVQ give f32 latents, which would carry the JAX
         # decoder into f32 (and the card's bf16 snake kernels refuse them)
-        decoded = self.model.decode(latents if self.compute_dtype is None
-                                    else latents.to(self.compute_dtype))
+        to_compute = (lambda t: t) if self.compute_dtype is None else (
+            lambda t: t.to(self.compute_dtype))
+        decoded = self.model.decode(to_compute(latents))
         if self.compute_dtype is not None:
             # the losses and the discriminator's STFT run in f32
             decoded = decoded.float()
@@ -242,6 +307,12 @@ class AutoencoderTrainer:
         if self.out_channels == 2:
             info.update(decoded_left=decoded[:, 0:1], decoded_right=decoded[:, 1:2],
                         reals_left=reals[:, 0:1], reals_right=reals[:, 1:2])
+        if self.teacher is not None:
+            t_latents = to_compute(info["teacher_latents"])
+            with torch.no_grad():
+                info["teacher_decoded"] = self.teacher.decode(t_latents).float()
+            info["own_latents_teacher_decoded"] = self.teacher.decode(to_compute(latents)).float()
+            info["teacher_latents_own_decoded"] = self.model.decode(t_latents).float()
         return decoded, info
 
     def _lap(self, piece: tp.Optional[str] = None) -> None:
@@ -259,15 +330,16 @@ class AutoencoderTrainer:
         if self.clip_grad_norm > 0:
             torch.nn.utils.clip_grad_norm_(params, self.clip_grad_norm)
 
-    def gen_step(self, reals: Tensor, noise: tp.Optional[Tensor] = None,
-                 revive_indices: tp.Optional[Tensor] = None) -> tp.Dict[str, Tensor]:
+    def gen_step(self, reals: Tensor, noise=None, revive_indices: tp.Optional[Tensor] = None,
+                 draws: tp.Optional[dict] = None) -> tp.Dict[str, Tensor]:
         """One generator update (JAX :441); returns its losses (device scalars)."""
         warmed_up = self.step >= self.warmup_steps
         self._lap()
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         decoded, info = self.ae_forward(reals, noise, self.generator(self.step), train=True,
-                                        revive_indices=revive_indices)
+                                        revive_indices=revive_indices, draws=draws,
+                                        freeze_encoder=warmed_up and self.encoder_freeze_on_warmup)
         self._lap("ae_forward")
         if self.use_disc:
             if warmed_up:
@@ -280,6 +352,9 @@ class AutoencoderTrainer:
         self._lap("losses")
         params = list(self.params.values())
         loss.backward(inputs=params)  # the discriminator takes no gradient
+        for p in params:  # JAX's zero gradient (a frozen encoder): AdamW moves it all the same
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         self._lap("backward")
         self._clip(params)
         self.optimizer.step()
@@ -292,13 +367,15 @@ class AutoencoderTrainer:
                "data_std": reals.std(correction=0), **losses}
         return {k: v.detach() for k, v in aux.items()}
 
-    def disc_step(self, reals: Tensor, noise: tp.Optional[Tensor] = None,
-                  revive_indices: tp.Optional[Tensor] = None) -> tp.Dict[str, Tensor]:
-        """One discriminator update (JAX :483) against the autoencoder's output
-        under no_grad (an RVQ's state stays); returns its losses."""
+    def disc_step(self, reals: Tensor, noise=None, revive_indices: tp.Optional[Tensor] = None,
+                  draws: tp.Optional[dict] = None) -> tp.Dict[str, Tensor]:
+        """One discriminator update (JAX :483) against the autoencoder's
+        training pass under no_grad (an RVQ's state stays); returns its
+        losses."""
         del revive_indices
         with torch.no_grad():
-            decoded, info = self.ae_forward(reals, noise, self.generator(self.step))
+            decoded, info = self.ae_forward(reals, noise, self.generator(self.step), train=True,
+                                            keep_state=False, draws=draws)
         self.disc_optimizer.zero_grad(set_to_none=True)
         info["loss_dis"], _, _ = self.discriminator.loss(info["reals"], decoded)
         loss, losses = self.losses_disc(info, self.step)
@@ -315,15 +392,17 @@ class AutoencoderTrainer:
         return (self.use_disc and step % 2 == 1
                 and (self.warmup_mode == "adv" or warmed_up))
 
-    def train_step(self, audio: Tensor, metadata=None, accum_steps: int = 1,
-                   noise: tp.Optional[Tensor] = None,
-                   revive_indices: tp.Optional[Tensor] = None) -> tp.Dict[str, Tensor]:
-        """The step's update, by parity; `noise` replaces the VAE's draw,
-        `revive_indices` [Q, K] the RVQ's dead-code draws."""
+    def train_step(self, audio: Tensor, metadata=None, accum_steps: int = 1, noise=None,
+                   revive_indices: tp.Optional[Tensor] = None,
+                   draws: tp.Optional[dict] = None) -> tp.Dict[str, Tensor]:
+        """The step's update, by parity; `noise` replaces the bottleneck's
+        draws, `revive_indices` [Q, K] the RVQ's dead-code draws, `draws`
+        the latent mask's and the teacher's (module note)."""
         if accum_steps != 1:
-            raise NotImplementedError("gradient accumulation is not ported for autoencoders")
+            raise NotImplementedError("gradient accumulation is not ported for autoencoders "
+                                      "(the JAX GAN trainer ignores accum_batches)")
         step_fn = self.disc_step if self.uses_disc(self.step) else self.gen_step
-        aux = step_fn(audio, noise, revive_indices)
+        aux = step_fn(audio, noise, revive_indices, draws)
         self.step += 1
         return aux
 

@@ -1,6 +1,10 @@
 """Training factory; counterpart of stable_audio_tools_tpu/training/factory.py
 (`create_training_wrapper_from_config` :8). The port trains `autoencoder`
-(:17; Oobleck, DAC and SEANet towers, VAE and RVQ bottlenecks),
+(:17; Oobleck, TAAE, DAC and SEANet towers, the bottlenecks
+models/factory.py builds; `encoder_freeze_on_warmup` and
+`latent_mask_ratio` from the config, as JAX :25, :30; a `teacher_model` key
+is refused by name: the JAX factory builds no teacher and ignores the key,
+and a teacher is handed to `AutoencoderTrainer(teacher_model=...)`),
 `diffusion_uncond` (:33), `diffusion_cond` and `diffusion_cond_inpaint`
 (:43; the DiT and the ADP `adp_cfg_1d` UNet; with `arc` in the training
 config, ARC post-training, training/arc.py) and `lm` (:116) models; the
@@ -21,6 +25,11 @@ def create_training_wrapper_from_config(model_config: tp.Dict[str, tp.Any], mode
     if model_type == "autoencoder":
         from .autoencoders import AutoencoderTrainer
 
+        if "teacher_model" in training_config:
+            raise NotImplementedError("teacher_model in the config: the factory builds no "
+                                      "teacher (the JAX factory ignores the key); pass one to "
+                                      "AutoencoderTrainer(teacher_model=..., teacher_variables=...)")
+
         return AutoencoderTrainer(
             model,
             lr=training_config.get("learning_rate"),
@@ -32,7 +41,6 @@ def create_training_wrapper_from_config(model_config: tp.Dict[str, tp.Any], mode
             optimizer_configs=training_config.get("optimizer_configs"),
             use_ema=training_config.get("use_ema", True),
             latent_mask_ratio=training_config.get("latent_mask_ratio", 0.0),
-            teacher_model=training_config.get("teacher_model"),
             compute_dtype=training_config.get("compute_dtype"),
             clip_grad_norm=gradient_clip_val,
             seed=seed,

@@ -147,9 +147,17 @@ def test_cached_transformer_steps_match_jax():
 
 
 def test_attention_refuses_unported_options():
-    for kwargs in ({"qk_norm": "l2"}, {"differential": True}, {"feat_scale": True}):
+    # qk-norm, differential attention and feat_scale are ported (held to JAX
+    # in tests/test_torch_transformer_options.py); what stays refused is what
+    # JAX refuses too: an unknown qk-norm, and differential attention or
+    # feat_scale in the KV-cached decode
+    with pytest.raises(ValueError, match="qk_norm"):
+        tatt.Attention(128, 64, qk_norm="rms")
+    cache = tatt.init_kv_cache(1, 2, 4, 64)
+    for kwargs in ({"differential": True}, {"feat_scale": True}):
         with pytest.raises(NotImplementedError, match=next(iter(kwargs))):
-            tatt.Attention(128, 64, **kwargs)
+            tatt.Attention(128, 64, **kwargs)(torch.zeros(1, 1, 128), cache=cache,
+                                              cache_index=0)
 
 
 # -- codebook patterns ----------------------------------------------------

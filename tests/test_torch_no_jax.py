@@ -742,3 +742,69 @@ def test_rf_and_arc_run_without_jax_or_triton():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.strip().endswith("ok")
+
+
+TAAE_SCRIPT = textwrap.dedent("""
+    import sys
+    for name in ("jax", "jaxlib", "flax", "transformers", "safetensors",
+                 "stable_audio_tools_tpu"):
+        sys.modules[name] = None  # any import of these raises ImportError
+
+    import torch
+    import chip_smoke
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+    from stable_audio_tools_tpu_torch.ops.transformer import ContinuousTransformer
+    from stable_audio_tools_tpu_torch.training.autoencoders import AutoencoderTrainer
+    from stable_audio_tools_tpu_torch.training.factory import create_training_wrapper_from_config
+
+    g = torch.Generator().manual_seed(0)
+    cfg = chip_smoke.tiny_taae_config("bfloat16")
+    cfg["model"]["encoder"]["config"].update(channels=8, c_mults=[1, 2], strides=[4, 4])
+    cfg["model"]["decoder"]["config"].update(channels=8, c_mults=[1, 2], strides=[4, 4])
+    cfg["model"]["downsampling_ratio"] = 16
+    cfg["sample_size"] = 1024
+    cfg["training"].update(latent_mask_ratio=0.3, encoder_freeze_on_warmup=True,
+                           warmup_steps=1)
+    model = init_random_(create_model_from_config(cfg, "cpu"), g)
+    teacher = init_random_(create_model_from_config(cfg, "cpu"), g)
+    wrapper = create_training_wrapper_from_config(cfg, model)
+    assert wrapper.latent_mask_ratio == 0.3 and wrapper.encoder_freeze_on_warmup
+    tr = cfg["training"]
+    wrapper = AutoencoderTrainer(model, sample_rate=cfg["sample_rate"],
+                                 loss_config=tr["loss_configs"], latent_mask_ratio=0.3,
+                                 encoder_freeze_on_warmup=True, warmup_steps=1,
+                                 teacher_model=teacher, compute_dtype="bfloat16")
+    audio = torch.randn(2, 2, 1024, generator=g) * 0.3
+    for step in range(3):
+        aux = wrapper.train_step(audio)
+        assert all(torch.isfinite(v) for v in aux.values()), aux
+    assert "latent_distill_loss" in aux
+    fsq = init_random_(create_model_from_config(chip_smoke.tiny_taae_config(fsq=True), "cpu"), g)
+    codes, info = fsq.encode(audio, return_info=True)
+    assert info["quantizer_indices"].shape == (2, 1024 // 8, 2)  # [B, T, Q]
+    assert torch.allclose(fsq.decode_tokens(info["quantizer_indices"]),
+                          fsq.decode(codes), atol=1e-5)
+    elu = dict(chip_smoke.tiny_ae_config("float32"))
+    elu["model"]["encoder"]["config"]["use_snake"] = False
+    elu["model"]["decoder"]["config"]["use_snake"] = False
+    elu_model = init_random_(create_model_from_config(elu, "cpu"), g)
+    assert torch.isfinite(elu_model.decode(elu_model.encode(audio[..., :4096 // 4 * 4]))).all()
+    stack = ContinuousTransformer(64, 2, dim_heads=32, global_cond_dim=16, num_memory_tokens=2,
+                                  layer_scale=True, qk_norm="dyt", conformer=True)
+    out = stack(torch.randn(1, 20, 64, generator=g), global_cond=torch.randn(1, 16, generator=g))
+    assert out.shape == (1, 20, 64) and torch.isfinite(out).all()
+    assert "triton" not in sys.modules
+    print("ok")
+""")
+
+
+def test_taae_slice_runs_without_jax_or_triton():
+    # the TAAE slice at toy size, bf16: three AE-GAN steps with the latent
+    # mask, the encoder frozen after the warm-up and a teacher; the dithered
+    # FSQ's codes and decode_tokens; the ELU Oobleck; a transformer stack with
+    # adaLN, memory tokens, DyT qk-norm and the conformer
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", TAAE_SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.startswith("ok")
