@@ -158,7 +158,7 @@ def _sample_and_decode(model, cond: dict, noise: torch.Tensor, return_latents: b
                       **_sampler_kwargs(model, preview, sampler_type, **sampler_kwargs))
     if return_latents or model.pretransform is None:
         return latents
-    return model.pretransform.decode(latents)
+    return model.pretransform.decode(latents, generator=sampler_kwargs.get("generator"))
 
 
 @torch.inference_mode()
@@ -205,7 +205,7 @@ def generate_diffusion_uncond(
                         step_noise=step_noise, **kwargs)
     if return_latents or model.pretransform is None:
         return out
-    return model.pretransform_decode(out)
+    return model.pretransform_decode(out, generator=generator)
 
 
 @torch.inference_mode()

@@ -1,10 +1,11 @@
 """JAX-package parameters -> the port's state_dict (numpy only).
 
 Inputs are the JAX package's flax parameters as nested dicts of numpy arrays:
-the `params` collection of a `ConditionedDiffusionModelWrapper` (a DiT or
-SA-1.0's ADP `UNetCFG1d`), of a
+the `params` collection of a `ConditionedDiffusionModelWrapper` (a DiT,
+SA-1.0's ADP `UNetCFG1d` or the plain `UNet1d`), of a
 `DiffusionModelWrapper` (Dance Diffusion's DAU1d, whose port keeps the JAX
-package's flat module names), of an
+package's flat module names, the `UNet1d` or the DiT), of a
+`DiffusionAutoencoder`, of an
 `AudioLanguageModelWrapper` (with its codec's `quantizer_state` collection,
 where the RVQ codebooks live), of an `AudioAutoencoder` or of an
 `EncodecDiscriminator`, of ARC's discriminator heads and trainer state, and
@@ -20,7 +21,9 @@ Transforms:
 - WIO conv kernels [k, in, out] -> [out, in, k]; transposed-conv kernels
   [k, in, out] -> [in, out, k]; HWIO 2-D kernels [kh, kw, in, out] ->
   [out, in, kh, kw];
-- weight norm: v as above, g -> [out, 1, 1] (transposed: [in, 1, 1]);
+- weight norm: v as above, g -> [out, 1, 1] (transposed: [in, 1, 1]); the
+  DAC quantizers' Dense projections become weight-norm 1 x 1 convs, v the
+  kernel transposed and g = ||v|| per output channel;
 - log-scale snake alpha / beta as they are, DAC's snake alpha [C] ->
   [1, C, 1]; GroupNorm and LayerNorm scale / bias -> weight / bias;
   embedding tables as they are;
@@ -350,12 +353,41 @@ def autoencoder_state_dict(p: Mapping, prefix: str = "",
     if "decoder" in p:
         out.update(_tower_state_dict(p["decoder"], f"{prefix}decoder.",
                                      oobleck_decoder_state_dict, dac_decoder_state_dict))
-    if "bottleneck" in p:  # SoftNorm's scaling_factor and bias
-        _leaves(out, f"{prefix}bottleneck", p["bottleneck"])
+    if "bottleneck" in p:
+        bottleneck_state_dict(out, f"{prefix}bottleneck", p["bottleneck"])
     if quantizer_state is not None:
         for name, value in quantizer_state["bottleneck"]["quantizer"].items():
             out[f"{prefix}bottleneck.quantizer.{name}"] = _np(value)
     return out
+
+
+def dense_as_wn_conv(out: StateDict, name: str, p: Mapping) -> None:
+    """A flax Dense [in, out] -> a weight-norm 1 x 1 conv: v [out, in, 1]
+    (the kernel transposed), g = ||v|| per output channel [out, 1, 1]."""
+    v = _np(p["kernel"]).T[:, :, None]
+    out[f"{name}.weight_v"] = v
+    out[f"{name}.weight_g"] = np.sqrt((v.astype(np.float64) ** 2).sum(axis=(1, 2),
+                                                                      keepdims=True)).astype(
+        np.float32)
+    out[f"{name}.bias"] = _np(p["bias"])
+
+
+def bottleneck_state_dict(out: StateDict, name: str, p: Mapping) -> None:
+    """A bottleneck's own parameters: the DAC RVQs' stages
+    (`quantizer.quantizers_{i}`: in_proj / out_proj Dense -> weight-norm
+    1 x 1 convs, the codebook -> `codebook.weight`); SoftNorm's
+    scaling_factor, bias and noise_scaling_factor as they are."""
+    stages = p.get("quantizer", {})
+    if not stages:
+        _leaves(out, name, p)
+        return
+    i = 0
+    while f"quantizers_{i}" in stages:
+        q, qn = stages[f"quantizers_{i}"], f"{name}.quantizer.quantizers.{i}"
+        dense_as_wn_conv(out, f"{qn}.in_proj", q["in_proj"])
+        dense_as_wn_conv(out, f"{qn}.out_proj", q["out_proj"])
+        out[f"{qn}.codebook.weight"] = _np(q["codebook"])
+        i += 1
 
 
 def wn_conv2d(out: StateDict, name: str, p: Mapping) -> None:
@@ -472,12 +504,11 @@ def _adp_tpe(out: StateDict, name: str, p: Mapping) -> None:
     dense(out, f"{name}.1", p["to_out"])
 
 
-def adp_unet_cfg_state_dict(p: Mapping, prefix: str = "") -> StateDict:
-    """`params` of the JAX UNetCFG1d ({"unet": UNet1d, "fixed_embedding"})
-    -> the port's UNetCFG1d (models/adp.py), the reference layout: conv
-    kernels [k, in, out] -> [out, in, k] (transposed convs [in, out, k])."""
-    out: StateDict = {f"{prefix}fixed_embedding.embedding.weight": _np(p["fixed_embedding"])}
-    u = p["unet"]
+def adp_unet_state_dict(u: Mapping, prefix: str = "") -> StateDict:
+    """`params` of the JAX UNet1d -> the port's UNet1d (models/adp.py), the
+    reference layout: conv kernels [k, in, out] -> [out, in, k] (transposed
+    convs [in, out, k])."""
+    out: StateDict = {}
     if "to_time" in u:
         _adp_tpe(out, f"{prefix}to_time.0", u["to_time"])
     if "to_features" in u:
@@ -514,6 +545,14 @@ def adp_unet_cfg_state_dict(p: Mapping, prefix: str = "") -> StateDict:
     return out
 
 
+def adp_unet_cfg_state_dict(p: Mapping, prefix: str = "") -> StateDict:
+    """`params` of the JAX UNetCFG1d ({"unet": UNet1d, "fixed_embedding"})
+    -> the port's UNetCFG1d: `adp_unet_state_dict` and the null context."""
+    out = adp_unet_state_dict(p["unet"], prefix)
+    out[f"{prefix}fixed_embedding.embedding.weight"] = _np(p["fixed_embedding"])
+    return out
+
+
 def diffusion_cond_state_dict(params: Mapping, dim_heads: int = 64,
                               t5_params: Optional[Mapping[str, Mapping]] = None,
                               roberta_params: Optional[Mapping[str, Mapping]] = None
@@ -525,9 +564,7 @@ def diffusion_cond_state_dict(params: Mapping, dim_heads: int = 64,
     conditioner id to its RoBERTa tower's; the CLAP joint-space projection
     (`text_projection`) is not part of either and keeps what the port's
     conditioner loaded from the CLAP checkpoint."""
-    inner = params["model"]
-    out = (dit_state_dict(inner["dit"], dim_heads, prefix="model.model.") if "dit" in inner
-           else adp_unet_cfg_state_dict(inner["unet"], prefix="model.model."))
+    out = diffusion_model_state_dict(params["model"], dim_heads, "model.model.")
     if "pretransform" in params:
         out.update(autoencoder_state_dict(params["pretransform"]["model"], "pretransform.model."))
     for key, mod in params.get("conditioner", {}).items():
@@ -545,6 +582,21 @@ def diffusion_cond_state_dict(params: Mapping, dim_heads: int = 64,
     for cid, p in (roberta_params or {}).items():
         out.update(roberta_state_dict(p, f"conditioner.conditioners.{cid}.model."))
     return out
+
+
+def diffusion_model_state_dict(inner: Mapping, dim_heads: int = 64,
+                               prefix: str = "model.model.") -> StateDict:
+    """A wrapper's diffusion model (`{"dit": ...}`, `{"unet": UNetCFG1d}`,
+    `{"unet": UNet1d}` or `{"unet": DiffusionAttnUnet1D}`) -> the port's
+    names under `prefix`."""
+    if "dit" in inner:
+        return dit_state_dict(inner["dit"], dim_heads, prefix=prefix)
+    u = inner["unet"]
+    if "fixed_embedding" in u:
+        return adp_unet_cfg_state_dict(u, prefix)
+    if "timestep_embed" in u:
+        return dance_unet_state_dict(u, prefix)
+    return adp_unet_state_dict(u, prefix)
 
 
 def _pop_conv(out: StateDict, name: str, p: dict) -> None:
@@ -568,7 +620,7 @@ def dance_unet_state_dict(params: Mapping, prefix: str = "") -> StateDict:
     out: StateDict = {}
     for name, mod in p.items():
         pfx = f"{prefix}{name}"
-        if name == "timestep_embed":  # FourierFeatures
+        if name in ("timestep_embed", "aug_embed"):  # FourierFeatures
             out[f"{pfx}.weight"] = _np(mod.pop("weight"))
         elif "qkv_proj" in mod:  # SelfAttention1d
             _pop_group_norm(out, f"{pfx}.norm", mod["norm"])
@@ -588,10 +640,29 @@ def dance_unet_state_dict(params: Mapping, prefix: str = "") -> StateDict:
     return out
 
 
-def diffusion_uncond_state_dict(params: Mapping) -> StateDict:
-    """`params` of a DiffusionModelWrapper (DAU1d, and its pretransform where
-    it has one) -> the port's DiffusionModelWrapper state_dict."""
-    out = dance_unet_state_dict(params["model"], prefix="model.")
+def diffusion_uncond_state_dict(params: Mapping, dim_heads: int = 64) -> StateDict:
+    """`params` of a DiffusionModelWrapper (DAU1d; the ADP UNet1d under
+    `UNet1DUncondWrapper`; the DiT under `DiTUncondWrapper`, heads of
+    `dim_heads`; and its pretransform where it has one) -> the port's
+    DiffusionModelWrapper state_dict."""
+    model = params["model"]
+    if "unet" in model or "dit" in model:
+        out = diffusion_model_state_dict(model, dim_heads, "model.model.")
+    else:
+        out = dance_unet_state_dict(model, prefix="model.")
+    if "pretransform" in params:
+        out.update(autoencoder_state_dict(params["pretransform"]["model"], "pretransform.model."))
+    return out
+
+
+def diffusion_ae_state_dict(params: Mapping, dim_heads: int = 64) -> StateDict:
+    """`params` of a DiffusionAutoencoder (its encoder / decoder towers,
+    bottleneck, diffusion model and pretransform) -> the port's
+    (models/diffusion_ae.py): `encoder.*`, `decoder.*`, `bottleneck.*`,
+    `diffusion.model.*`, `pretransform.model.*`."""
+    out = autoencoder_state_dict({k: v for k, v in params.items()
+                                  if k in ("encoder", "decoder", "bottleneck")})
+    out.update(diffusion_model_state_dict(params["diffusion"], dim_heads, "diffusion.model."))
     if "pretransform" in params:
         out.update(autoencoder_state_dict(params["pretransform"]["model"], "pretransform.model."))
     return out

@@ -4,7 +4,8 @@ counterpart of stable_audio_tools_tpu/models/adp.py (`_pad_conv1d` :30,
 `ResnetBlock1d` :121, `Patcher` :151, `Unpatcher` :171, `ADPAttention` :190,
 `ADPTransformerBlock` :229, `Transformer1d` :252, `TimePositionalEmbedding`
 :273, the down / up / bottleneck blocks :300-421, `UNet1d` :509, `UNetCFG1d`
-:733, `UNetCFG1DWrapper` :1034, `create_adp_cond_wrapper` :1079).
+:733, `UNet1DUncondWrapper` :1017, `UNetCFG1DWrapper` :1034, `UNet1DCondWrapper` :1065,
+`create_adp_cond_wrapper` :1079).
 
 Layout: [B, C, T] (the JAX package runs [B, T, C] inside; its public layout
 is this one), the transformers [B, T, C]. Module and parameter names follow
@@ -28,8 +29,11 @@ Refused by name, where the JAX package has them: the spectral-domain UNet
 (`use_stft`, `use_stft_context`), noise channel conditioning (`use_ncca`),
 the time token in the context (`use_xattn_time`), the nearest-neighbour
 upsampling (`use_nearest_upsample`; SA-1.0's is transposed), causal convs and
-attention (the wrappers never set them), and the `adp_1d` and
-`adp_uncond_1d` model types (ROADMAP.md queue 1).
+attention (the wrappers never set them) (ROADMAP.md queue 1).
+
+The plain `UNet1d` also runs under `UNet1DCondWrapper` (model type
+`adp_1d`, JAX :1065: `input_concat_cond` as its `channels_list`) and
+`UNet1DUncondWrapper` (`adp_uncond_1d`, :1017), each holding it as `model`.
 """
 
 from __future__ import annotations
@@ -602,24 +606,64 @@ class UNetCFG1DWrapper(nn.Module):
             train=self.training, generator=generator, embedding_drop_mask=cfg_dropout_mask)
 
 
-# the keyword arguments of UNetCFG1d: the JAX factory's filter of the config
-# (its `stft_*` keys go unused, since `use_stft` is refused)
-UNETCFG_FIELDS = (
+class UNet1DCondWrapper(nn.Module):
+    """The conditioned wrapper's model for `adp_1d` (JAX :1065): the plain
+    `UNet1d` with `input_concat_cond` as its `channels_list`, `global_cond`
+    as its `features`, the cross-attention context and mask as its
+    `embedding`; every other keyword (the CFG arguments, which the plain
+    UNet has no use for) is accepted and ignored, as in JAX."""
+
+    def __init__(self, model: UNet1d):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x, t, input_concat_cond=None, global_cond=None, cross_attn_cond=None,
+                cross_attn_mask=None, **kwargs):
+        del kwargs
+        return self.model(x, t, features=global_cond,
+                          channels_list=[input_concat_cond] if input_concat_cond is not None
+                          else None,
+                          embedding=cross_attn_cond, embedding_mask=cross_attn_mask)
+
+
+class UNet1DUncondWrapper(nn.Module):
+    """The unconditional wrapper's model for `adp_uncond_1d` (JAX :1017):
+    the plain `UNet1d` on (x, t), passing on the UNet's own keywords
+    (`features`, `channels_list`, `embedding`, `embedding_mask`) and
+    dropping the rest. The reference halves every parameter once at init; the
+    JAX package does not, nor does the port."""
+
+    def __init__(self, model: UNet1d):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x, t, **kwargs):
+        return self.model(x, t, **{k: v for k, v in kwargs.items()
+                                   if k in ("features", "channels_list", "embedding",
+                                            "embedding_mask")})
+
+
+# the keyword arguments of UNet1d and UNetCFG1d: the JAX factory's filter of
+# the config (its `stft_*` keys go unused, since `use_stft` is refused)
+UNET_FIELDS = (
     "in_channels", "channels", "multipliers", "factors", "num_blocks", "attentions",
     "patch_size", "resnet_groups", "use_context_time", "kernel_multiplier_downsample",
     "use_nearest_upsample", "use_skip_scale", "out_channels", "context_features",
     "context_features_multiplier", "context_channels", "context_embedding_features",
-    "attention_heads", "attention_features", "attention_multiplier",
-    "context_embedding_max_length") + tuple(_REFUSED)
+    "attention_heads", "attention_features", "attention_multiplier", "use_stft",
+    "use_stft_context")
+UNETCFG_FIELDS = UNET_FIELDS + ("context_embedding_max_length", "use_ncca", "use_xattn_time")
 
 
-def create_adp_cond_wrapper(model_type: str, config: tp.Dict[str, tp.Any]) -> UNetCFG1DWrapper:
-    """`adp_cfg_1d` -> UNetCFG1DWrapper(UNetCFG1d(...)) from the config's
-    keys the UNet takes (the JAX factory's filter); `adp_1d` is refused."""
+def create_adp_cond_wrapper(model_type: str, config: tp.Dict[str, tp.Any]
+                            ) -> tp.Union[UNetCFG1DWrapper, UNet1DCondWrapper]:
+    """`adp_cfg_1d` -> UNetCFG1DWrapper(UNetCFG1d(...)), `adp_1d` ->
+    UNet1DCondWrapper(UNet1d(...)), from the config's keys the UNet takes
+    (the JAX factory's filter)."""
+    if model_type == "adp_cfg_1d":
+        return UNetCFG1DWrapper(UNetCFG1d(**{k: v for k, v in config.items()
+                                             if k in UNETCFG_FIELDS}))
     if model_type == "adp_1d":
-        raise NotImplementedError("diffusion model type adp_1d (UNet1DCondWrapper) is not "
-                                  "ported yet (ROADMAP.md queue 1)")
-    if model_type != "adp_cfg_1d":
-        raise ValueError(f"Unknown adp model type {model_type}")
-    return UNetCFG1DWrapper(UNetCFG1d(**{k: v for k, v in config.items()
-                                         if k in UNETCFG_FIELDS}))
+        return UNet1DCondWrapper(UNet1d(**{k: v for k, v in config.items()
+                                           if k in UNET_FIELDS}))
+    raise ValueError(f"Unknown adp model type {model_type}")

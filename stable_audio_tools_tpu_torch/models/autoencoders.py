@@ -280,7 +280,8 @@ class AudioAutoencoder(nn.Module):
                noise: Optional[torch.Tensor] = None, return_info: bool = False,
                train: bool = False, **bottleneck_kwargs):
         """audio [B, C, T] -> latents; with `return_info`, (latents, info) with
-        the bottleneck's losses (the VAE's "kl", the RVQ's "quantizer_loss").
+        the bottleneck's losses (the VAE's "kl", the RVQ's "quantizer_loss",
+        the DAC RVQ's "vq/*" and its quantized "z").
         `train` lets a bottleneck with training state (the RVQ) update it;
         `bottleneck_kwargs` (the RVQ's `revive_indices`) go to the
         bottleneck."""
@@ -297,20 +298,30 @@ class AudioAutoencoder(nn.Module):
     def is_discrete(self) -> bool:
         return getattr(self.bottleneck, "is_discrete", False)
 
-    def decode(self, latents: torch.Tensor, skip_bottleneck: bool = False) -> torch.Tensor:
+    def decode(self, latents: torch.Tensor, skip_bottleneck: bool = False,
+               train: bool = False, quantized: bool = False,
+               generator: Optional[torch.Generator] = None, noise=None) -> torch.Tensor:
+        """latents [B, latent_dim, S] -> audio, through the bottleneck's
+        decode (`quantized`: its `decode_quantized`, for a latent its encode
+        already quantized, JAX :438) whose noise augmentation draws from
+        `generator` or takes `noise` (models/bottleneck.py); `train` is
+        JAX's training pass (softnorm's `noise_regularize`)."""
         if self.bottleneck is not None and not skip_bottleneck:
-            latents = self.bottleneck.decode(latents)
+            fn = self.bottleneck.decode_quantized if quantized else self.bottleneck.decode
+            latents = fn(latents, train=train, generator=generator, noise=noise)
         decoded = self.decoder(latents)
         return torch.tanh(decoded) if self.soft_clip else decoded
 
-    def decode_tokens(self, tokens: torch.Tensor, dtype: Optional[torch.dtype] = None
+    def decode_tokens(self, tokens: torch.Tensor, dtype: Optional[torch.dtype] = None,
+                      generator: Optional[torch.Generator] = None, noise=None
                       ) -> torch.Tensor:
         """Codes of a discrete bottleneck (the layout its `decode_tokens`
         takes) -> audio [B, C, T * ratio]; the latents in `dtype` when given
-        (the bottlenecks give f32; the card's kernels take bf16)."""
+        (the bottlenecks give f32; the card's kernels take bf16); the noise
+        augmentation's draw from `generator` or `noise`."""
         if not self.is_discrete:
-            raise ValueError("decode_tokens needs a discrete (RVQ or FSQ) bottleneck")
-        latents = self.bottleneck.decode_tokens(tokens)
+            raise ValueError("decode_tokens needs a discrete (RVQ, DAC RVQ or FSQ) bottleneck")
+        latents = self.bottleneck.decode_tokens(tokens, generator=generator, noise=noise)
         return self.decode(latents if dtype is None else latents.to(dtype),
                            skip_bottleneck=True)
 
@@ -368,14 +379,16 @@ class AudioAutoencoder(nn.Module):
                                    total // spl, overlap // 2)
 
     def decode_audio(self, latents: torch.Tensor, chunked: bool = False, overlap: int = 32,
-                     chunk_size: int = 128, chunk_batch: int = 8) -> torch.Tensor:
+                     chunk_size: int = 128, chunk_batch: int = 8,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """latents [B, latent_dim, S] -> audio; `chunk_size` and `overlap` in
-        latents."""
+        latents; a noise-augmenting bottleneck draws from `generator`."""
+        decode = lambda z: self.decode(z, generator=generator)
         if not chunked or latents.shape[2] <= chunk_size:
-            return self.decode(latents)
+            return decode(latents)
         spl = self.downsampling_ratio
         total = latents.shape[2]
         starts = self._chunk_starts(total, chunk_size, chunk_size - overlap)
-        chunks = self._run_chunks(self.decode, latents, starts, chunk_size, chunk_batch)
+        chunks = self._run_chunks(decode, latents, starts, chunk_size, chunk_batch)
         return self._overlap_paste(chunks, [s * spl for s in starts], chunk_size * spl,
                                    total * spl, (overlap // 2) * spl)

@@ -1,32 +1,46 @@
 """Bottlenecks; counterpart of stable_audio_tools_tpu/models/bottleneck.py:
 `VAEBottleneck` (`vae_sample` :103; the channel axis holds [mean | scale]),
 `ResidualVQ` (:211, with its training state: k-means init, EMA codebook
-update, dead-code revival) with `RVQBottleneck` (:364), `TanhBottleneck`
-(:51), `SoftNormBottleneck` (:64), `WassersteinBottleneck` (:138, with
-`compute_mmd` :125), `L2Bottleneck` (:168), and the finite scalar quantizers
-`FSQBottleneck` (:696) and `DitheredFSQBottleneck` (:753) over `FSQCore`
-(:664). Layout: [B, C, T]; the JAX package's is [B, T, C], so its "time"
-axis 1 is the port's axis 2.
+update, dead-code revival) with `RVQBottleneck` (:364) and
+`RVQVAEBottleneck` (:405, the VAE's sample then the RVQ), the projected
+DAC quantizers `DACVectorQuantize` (:452) and `DACResidualVQ` (:487) under
+`DACRVQBottleneck` (:534) and `DACRVQVAEBottleneck` (:601),
+`TanhBottleneck` (:51), `SoftNormBottleneck` (:64), `WassersteinBottleneck`
+(:138, with `compute_mmd` :125), `L2Bottleneck` (:168), and the finite
+scalar quantizers `FSQBottleneck` (:696) and `DitheredFSQBottleneck` (:753)
+over `FSQCore` (:664). Layout: [B, C, T]; the JAX package's is [B, T, C], so
+its "time" axis 1 is the port's axis 2.
 
-Every draw comes from the `generator` handed to `encode`, or is injected as
-`noise` (the tests replay the JAX package's): the VAE's and the Wasserstein
-MMD's standard normals [B, C, T], the dithered FSQ's {"keep": [B] bool,
-"dither": [B, C, T] uniform in [0, 1), "apply": [B] bool}. The noise
-augmentation of the decoders (`noise_augment_dim`) and SoftNorm's
-`noise_regularize` draw inside `decode`, which takes no generator here, and
-are refused by name; `rvq_vae`, `dac_rvq` and `dac_rvq_vae` are not ported
-(models/factory.py refuses them).
+Every draw comes from the `generator` handed to `encode` or `decode`, or is
+injected as `noise` (the tests replay the JAX package's): the VAE's and the
+Wasserstein MMD's standard normals [B, C, T], the dithered FSQ's {"keep":
+[B] bool, "dither": [B, C, T] uniform in [0, 1), "apply": [B] bool}. On the
+decode side, `noise_augment_dim` (softnorm, Wasserstein, FSQ, DAC RVQ) joins
+D standard-normal channels [B, D, T] after the latents (softnorm's scaled
+by its `noise_scaling_factor`), and softnorm's `noise_regularize` adds, in
+training, normals times each channel's standard deviation over time x 1e-2;
+softnorm's `noise` is then a dict {"regularize": [B, C, T], "augment": [B,
+D, T]}.
 
 The FSQ rounding is the straight-through round half to even of
 `jnp.round` and `torch.round` alike; indices are int64. `FSQBottleneck`
 reports its codes [B, Q, T] and `decode_tokens` takes [B, Q, T] or [B, T, Q]
-([B, Q, T] when ambiguous); `DitheredFSQBottleneck` reports and takes [B, T,
-Q], as the JAX package's does."""
+([B, Q, T] when ambiguous), as do the RVQs and the DAC RVQs (whose codes are
+`info["codes"]`); `DitheredFSQBottleneck` reports and takes [B, T, Q], as the
+JAX package's does.
+
+The DAC quantizers compute in f32 whatever the input's dtype (the JAX
+package's f32 Dense projections promote), their projections are weight-norm
+1 x 1 convs under the reference's names (`quantizers.{i}.in_proj`,
+`.out_proj`, `.codebook.weight`), run as products on [B, T, C]. The JAX
+`DACResidualVQ` has a `quantizer_dropout` field that nothing reads (its
+bottlenecks do not pass it and its call ignores it); the port's takes and
+ignores it too."""
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -34,11 +48,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.conv import WNConv1d
 
-def _refuse_noise(name: str, noise_augment_dim: int, noise_regularize: bool = False) -> None:
-    if noise_augment_dim or noise_regularize:
-        raise NotImplementedError(f"{name}: noise_augment_dim / noise_regularize are not "
-                                  "ported (their draws sit in decode, which takes no generator)")
+
+def augment_noise(x: torch.Tensor, dim: int, generator: Optional[torch.Generator] = None,
+                  noise: Optional[torch.Tensor] = None,
+                  scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x [B, C, T] with `dim` standard-normal channels [B, dim, T] joined
+    after it (times `scale` [dim] where given): the decoders' noise
+    augmentation (JAX :92-99, :158-164, :570-577, :733-739). `noise`
+    replaces the draw."""
+    if dim <= 0:
+        return x
+    if noise is None:
+        noise = torch.randn((x.shape[0], dim, x.shape[2]), generator=generator,
+                            device=x.device, dtype=x.dtype)
+    noise = noise.to(device=x.device, dtype=x.dtype)
+    if scale is not None:
+        noise = scale.to(x.dtype)[:, None] * noise
+    return torch.cat([x, noise], dim=1)
 
 
 class TanhBottleneck(nn.Module):
@@ -50,7 +78,7 @@ class TanhBottleneck(nn.Module):
         x = torch.tanh(x / self.scale) * self.scale
         return (x, {}) if return_info else x
 
-    def decode(self, x: torch.Tensor) -> torch.Tensor:
+    def decode(self, x: torch.Tensor, **_) -> torch.Tensor:
         return x
 
 
@@ -58,14 +86,19 @@ class SoftNormBottleneck(nn.Module):
     """x * scaling_factor + bias per channel; in training with `return_info`
     {"softnorm_loss": the mean over (item, channel) of mean^2 + var - log var
     - 1 over time, + 0.4 x the same over channels per (item, time), var
-    clipped at 1e-4} (JAX :64; its trainer adds no loss module for it)."""
+    clipped at 1e-4} (JAX :64; its trainer adds no loss module for it).
+    `decode`: in training with `noise_regularize`, x plus normals times each
+    channel's standard deviation over time x 1e-2; then `noise_augment_dim`
+    normals times `noise_scaling_factor` joined (module note)."""
 
     def __init__(self, dim: int = 32, noise_augment_dim: int = 0,
                  noise_regularize: bool = False):
         super().__init__()
-        _refuse_noise("SoftNormBottleneck", noise_augment_dim, noise_regularize)
         self.scaling_factor = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
+        self.noise_augment_dim, self.noise_regularize = noise_augment_dim, noise_regularize
+        self.noise_scaling_factor = (nn.Parameter(torch.ones(noise_augment_dim))
+                                     if noise_augment_dim > 0 else None)
 
     def encode(self, x: torch.Tensor, return_info: bool = False, train: bool = False, **_):
         x = x * self.scaling_factor.to(x.dtype)[:, None] + self.bias.to(x.dtype)[:, None]
@@ -79,8 +112,18 @@ class SoftNormBottleneck(nn.Module):
             info["softnorm_loss"] = kl(2) + 0.4 * kl(1)
         return (x, info) if return_info else x
 
-    def decode(self, x: torch.Tensor) -> torch.Tensor:
-        return x
+    def decode(self, x: torch.Tensor, train: bool = False,
+               generator: Optional[torch.Generator] = None,
+               noise: Optional[Dict[str, torch.Tensor]] = None, **_) -> torch.Tensor:
+        noise = noise or {}
+        if self.noise_regularize and train:
+            reg = noise.get("regularize")
+            if reg is None:
+                reg = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+            x = x + reg.to(device=x.device, dtype=x.dtype) * x.std(
+                dim=2, keepdim=True, correction=0) * 1e-2
+        return augment_noise(x, self.noise_augment_dim, generator, noise.get("augment"),
+                             self.noise_scaling_factor)
 
 
 def compute_mmd(latents: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
@@ -107,7 +150,7 @@ class WassersteinBottleneck(nn.Module):
     def __init__(self, noise_augment_dim: int = 0, bypass_mmd: bool = False,
                  use_tanh: bool = False, tanh_scale: float = 5.0):
         super().__init__()
-        _refuse_noise("WassersteinBottleneck", noise_augment_dim)
+        self.noise_augment_dim = noise_augment_dim
         self.bypass_mmd, self.use_tanh, self.tanh_scale = bypass_mmd, use_tanh, tanh_scale
 
     def encode(self, x: torch.Tensor, return_info: bool = False, train: bool = False,
@@ -126,8 +169,9 @@ class WassersteinBottleneck(nn.Module):
             x = torch.tanh(x / self.tanh_scale) * self.tanh_scale
         return (x, info) if return_info else x
 
-    def decode(self, x: torch.Tensor) -> torch.Tensor:
-        return x
+    def decode(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None, **_) -> torch.Tensor:
+        return augment_noise(x, self.noise_augment_dim, generator, noise)
 
 
 class L2Bottleneck(nn.Module):
@@ -141,7 +185,7 @@ class L2Bottleneck(nn.Module):
         x = self._normalize(x)
         return (x, {}) if return_info else x
 
-    def decode(self, x: torch.Tensor) -> torch.Tensor:
+    def decode(self, x: torch.Tensor, **_) -> torch.Tensor:
         return self._normalize(x)
 
 
@@ -204,7 +248,7 @@ class FSQBottleneck(nn.Module):
     def __init__(self, levels: Sequence[int] = (8, 5, 5, 5), num_codebooks: int = 1,
                  noise_augment_dim: int = 0):
         super().__init__()
-        _refuse_noise("FSQBottleneck", noise_augment_dim)
+        self.noise_augment_dim = noise_augment_dim
         self.core = FSQCore(levels, num_codebooks)
         self.num_quantizers = num_codebooks
         self.codebook_size = self.core.codebook_size
@@ -215,14 +259,17 @@ class FSQBottleneck(nn.Module):
         out = codes.flatten(2).transpose(1, 2).to(x.dtype)
         return (out, {"quantizer_indices": indices}) if return_info else out
 
-    def decode(self, x: torch.Tensor) -> torch.Tensor:
-        return x
+    def decode(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None, **_) -> torch.Tensor:
+        return augment_noise(x, self.noise_augment_dim, generator, noise)
 
-    def decode_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens [B, Q, T] or [B, T, Q] -> codes [B, C, T] (f32)."""
+    def decode_tokens(self, tokens: torch.Tensor, **kwargs) -> torch.Tensor:
+        """tokens [B, Q, T] or [B, T, Q] -> codes [B, C, T] (f32), through
+        `decode` (its noise augmentation; `kwargs` are decode's)."""
         if tokens.shape[1] == self.num_quantizers:
             tokens = tokens.transpose(1, 2)  # [B, Q, T] wins when ambiguous, as JAX
-        return self.decode(self.core.indices_to_codes(tokens).flatten(2).transpose(1, 2))
+        return self.decode(self.core.indices_to_codes(tokens).flatten(2).transpose(1, 2),
+                           **kwargs)
 
 
 class DitheredFSQBottleneck(nn.Module):
@@ -274,35 +321,39 @@ class DitheredFSQBottleneck(nn.Module):
         out = q.flatten(2).transpose(1, 2).to(x.dtype)
         return (out, {"quantizer_indices": indices}) if return_info else out
 
-    def decode(self, x: torch.Tensor) -> torch.Tensor:
+    def decode(self, x: torch.Tensor, **_) -> torch.Tensor:
         return x
 
-    def decode_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+    def decode_tokens(self, tokens: torch.Tensor, **_) -> torch.Tensor:
         """tokens [B, T, Q] -> codes [B, C, T] (f32)."""
         return self.decode(self.core.indices_to_codes(tokens).flatten(2).transpose(1, 2))
+
+
+def vae_sample(x: torch.Tensor, generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean + stdev * noise, KL to N(0, 1)) of x [B, 2 C, T] = [mean |
+    scale] (JAX `vae_sample` :103): stdev = softplus(scale) + 1e-4; `noise`
+    [B, C, T] standard normal when given, else drawn from `generator`; the
+    KL the sum over channels of mean^2 + var - log var - 1, averaged over
+    batch and time, in f32."""
+    mean, scale = x.chunk(2, dim=1)
+    stdev = F.softplus(scale) + 1e-4
+    if noise is None:
+        noise = torch.randn(mean.shape, generator=generator, device=mean.device,
+                            dtype=mean.dtype)
+    latents = noise.to(mean.dtype) * stdev + mean
+    m, var = mean.float(), stdev.float() ** 2
+    return latents, (m * m + var - torch.log(var) - 1).sum(dim=1).mean()
 
 
 class VAEBottleneck(nn.Module):
     def encode(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                noise: Optional[torch.Tensor] = None, return_info: bool = False, **_):
-        """Sample mean + stdev * noise; `noise` [B, C/2, T] standard normal
-        when given (tests replay the JAX package's), else drawn from
-        `generator`. With `return_info`, also {"kl": KL to N(0, 1)}: the sum
-        over channels of mean^2 + var - log var - 1, averaged over batch and
-        time, in f32."""
-        mean, scale = x.chunk(2, dim=1)
-        stdev = F.softplus(scale) + 1e-4
-        if noise is None:
-            noise = torch.randn(mean.shape, generator=generator, device=mean.device,
-                                dtype=mean.dtype)
-        latents = noise.to(mean.dtype) * stdev + mean
-        if not return_info:
-            return latents
-        m, var = mean.float(), stdev.float() ** 2
-        kl = (m * m + var - torch.log(var) - 1).sum(dim=1).mean()
-        return latents, {"kl": kl}
+        """`vae_sample` of x; with `return_info`, also {"kl": its KL}."""
+        latents, kl = vae_sample(x, generator, noise)
+        return (latents, {"kl": kl}) if return_info else latents
 
-    def decode(self, x: torch.Tensor) -> torch.Tensor:
+    def decode(self, x: torch.Tensor, **_) -> torch.Tensor:
         return x
 
 
@@ -447,21 +498,207 @@ class RVQBottleneck(nn.Module):
                                     kmeans_init=kmeans_init, kmeans_iters=kmeans_iters,
                                     threshold_ema_dead_code=threshold_ema_dead_code)
 
+    def quantize(self, x: torch.Tensor, info: dict, train: bool,
+                 generator: Optional[torch.Generator],
+                 revive_indices: Optional[torch.Tensor]) -> torch.Tensor:
+        z, indices, loss = self.quantizer(x.transpose(1, 2), train=train, generator=generator,
+                                          revive_indices=revive_indices)
+        info.update(quantizer_indices=indices.transpose(1, 2), quantizer_loss=loss.mean())
+        return z.transpose(1, 2)
+
     def encode(self, x: torch.Tensor, return_info: bool = False, train: bool = False,
                generator: Optional[torch.Generator] = None,
                revive_indices: Optional[torch.Tensor] = None, **_):
-        z, indices, loss = self.quantizer(x.transpose(1, 2), train=train, generator=generator,
-                                          revive_indices=revive_indices)
-        z = z.transpose(1, 2)
-        if not return_info:
-            return z
-        return z, {"quantizer_indices": indices.transpose(1, 2), "quantizer_loss": loss.mean()}
+        info = {}
+        z = self.quantize(x, info, train, generator, revive_indices)
+        return (z, info) if return_info else z
 
-    def decode(self, x: torch.Tensor) -> torch.Tensor:
+    def decode(self, x: torch.Tensor, **_) -> torch.Tensor:
         return x
 
-    def decode_tokens(self, codes: torch.Tensor) -> torch.Tensor:
+    def decode_tokens(self, codes: torch.Tensor, **_) -> torch.Tensor:
         """codes [B, Q, T] (or [B, T, Q]) -> latents [B, C, T]."""
         if codes.shape[1] == self.num_quantizers:
             codes = codes.transpose(1, 2)  # [B, Q, T] wins when ambiguous, as JAX
         return self.quantizer.get_outputs_from_indices(codes).transpose(1, 2)
+
+
+class RVQVAEBottleneck(RVQBottleneck):
+    """`vae_sample` of x [B, 2 dim, T], then the RVQ (JAX :405); info adds
+    the VAE's "kl". The VAE's `noise` is injected as `VAEBottleneck`'s."""
+
+    def encode(self, x: torch.Tensor, return_info: bool = False, train: bool = False,
+               generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None,
+               revive_indices: Optional[torch.Tensor] = None, **_):
+        z, kl = vae_sample(x, generator, noise)
+        info = {"kl": kl}
+        z = self.quantize(z, info, train, generator, revive_indices)
+        return (z, info) if return_info else z
+
+
+class DACProjection(WNConv1d):
+    """A weight-norm 1 x 1 conv (the reference's `in_proj` / `out_proj`
+    names) applied as a product in f32 over the last axis of [..., C]."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = torch.promote_types(x.dtype, self.weight_v.dtype)
+        return F.linear(x.to(dtype), self.weight(dtype)[:, :, 0], self.bias.to(dtype))
+
+
+class DACVectorQuantize(nn.Module):
+    """One DAC stage (JAX :452) on z [B, T, C] in f32: z_e = in_proj(z);
+    the code of z_e / (||z_e|| + 1e-12) against the codebook's rows
+    normalised alike, by the largest dot product (the first on a tie); the
+    straight-through z_e + (codeword - z_e).detach() through out_proj. The
+    commitment loss is the mean of (z_e - codeword.detach())^2, the codebook
+    loss the mean of (z_e.detach() - codeword)^2."""
+
+    def __init__(self, input_dim: int, codebook_size: int, codebook_dim: int):
+        super().__init__()
+        self.in_proj = DACProjection(input_dim, codebook_dim)
+        self.out_proj = DACProjection(codebook_dim, input_dim)
+        self.codebook = nn.Embedding(codebook_size, codebook_dim)
+
+    def forward(self, z: torch.Tensor):
+        """-> (z_q [B, T, input_dim], commitment, codebook_loss, codes [B, T],
+        z_e [B, T, codebook_dim])."""
+        z_e = self.in_proj(z)
+        cb = self.codebook.weight
+        e = z_e / (torch.linalg.vector_norm(z_e, dim=-1, keepdim=True) + 1e-12)
+        c = cb / (torch.linalg.vector_norm(cb, dim=-1, keepdim=True) + 1e-12)
+        idx = (-(e @ c.T)).argmin(dim=-1)
+        z_q = cb[idx]
+        commitment = ((z_e - z_q.detach()) ** 2).mean()
+        codebook_loss = ((z_e.detach() - z_q) ** 2).mean()
+        z_q = z_e + (z_q - z_e).detach()
+        return self.out_proj(z_q), commitment, codebook_loss, idx, z_e
+
+    def from_codes(self, codes: torch.Tensor) -> torch.Tensor:
+        return self.out_proj(self.codebook.weight[codes])
+
+
+class DACResidualVQ(nn.Module):
+    """`n_codebooks` DAC stages over the residual (JAX :487), each stage's
+    output subtracted from it as it comes (not detached); `n_quantizers`
+    zeroes the outputs of the stages from that index on (their codes and
+    losses still count). `quantizer_dropout` is kept and read nowhere, as
+    in JAX (module note)."""
+
+    def __init__(self, input_dim: int, n_codebooks: int, codebook_size: int,
+                 codebook_dim: int = 8, quantizer_dropout: float = 0.0):
+        super().__init__()
+        self.quantizer_dropout = quantizer_dropout
+        self.quantizers = nn.ModuleList(DACVectorQuantize(input_dim, codebook_size, codebook_dim)
+                                        for _ in range(n_codebooks))
+
+    def forward(self, z: torch.Tensor, n_quantizers: Optional[int] = None):
+        """z [B, T, C] -> (z_q f32, codes [B, T, Q], latents [B, T, Q x
+        codebook_dim], the summed commitment and codebook losses)."""
+        residual = z.to(torch.promote_types(z.dtype, torch.float32))
+        z_q = torch.zeros_like(residual)
+        commitment = codebook_loss = 0.0
+        codes, latents = [], []
+        for i, quantizer in enumerate(self.quantizers):
+            z_q_i, commit_i, cb_i, idx_i, z_e_i = quantizer(residual)
+            if n_quantizers is not None and i >= n_quantizers:
+                z_q_i = z_q_i * 0.0
+            z_q = z_q + z_q_i
+            residual = residual - z_q_i
+            commitment = commitment + commit_i
+            codebook_loss = codebook_loss + cb_i
+            codes.append(idx_i)
+            latents.append(z_e_i)
+        return z_q, torch.stack(codes, -1), torch.cat(latents, -1), commitment, codebook_loss
+
+    def from_codes(self, codes: torch.Tensor) -> torch.Tensor:
+        """codes [B, T, Q] -> the summed projected codewords [B, T, C]."""
+        return sum(q.from_codes(codes[..., i]) for i, q in enumerate(self.quantizers))
+
+
+class DACRVQBottleneck(nn.Module):
+    """The DAC residual VQ as a bottleneck (JAX :534). `encode` gives the
+    quantized latents (f32) and, with `return_info`, {"pre_quantizer",
+    "z", "codes" [B, Q, T], "latents", "vq/commitment_loss",
+    "vq/codebook_loss"} (the losses over `n_codebooks`). With
+    `quantize_on_decode` `encode` passes its input through (with
+    `return_info` it still quantizes, for the codes and losses) and `decode`
+    quantizes; `decode_quantized` (encode's info["z"]) and `decode_tokens`
+    never quantize again. `decode` then joins `noise_augment_dim` noise
+    channels."""
+
+    is_discrete = True
+    tokens_id = "codes"
+
+    def __init__(self, input_dim: int = 32, n_codebooks: int = 9, codebook_size: int = 1024,
+                 codebook_dim: int = 8, quantize_on_decode: bool = False,
+                 noise_augment_dim: int = 0):
+        super().__init__()
+        self.n_codebooks = n_codebooks
+        self.codebook_size = codebook_size
+        self.quantize_on_decode, self.noise_augment_dim = quantize_on_decode, noise_augment_dim
+        self.quantizer = DACResidualVQ(input_dim, n_codebooks, codebook_size, codebook_dim)
+
+    def quantize(self, x: torch.Tensor, info: dict,
+                 n_quantizers: Optional[int] = None) -> torch.Tensor:
+        """x [B, C, T] -> z_q [B, C, T]; the codes and losses into `info`."""
+        z, codes, latents, commitment, codebook_loss = self.quantizer(x.transpose(1, 2),
+                                                                      n_quantizers)
+        z = z.transpose(1, 2)
+        info.update({"z": z, "codes": codes.transpose(1, 2), "latents": latents.transpose(1, 2),
+                     "vq/commitment_loss": commitment / self.n_codebooks,
+                     "vq/codebook_loss": codebook_loss / self.n_codebooks})
+        return z
+
+    def encode(self, x: torch.Tensor, return_info: bool = False,
+               n_quantizers: Optional[int] = None, **_):
+        info = {"pre_quantizer": x}
+        if self.quantize_on_decode and not return_info:
+            return x
+        z = self.quantize(x, info, n_quantizers)
+        if not return_info:
+            return z
+        return (x if self.quantize_on_decode else z), info
+
+    def decode(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None, **_) -> torch.Tensor:
+        if self.quantize_on_decode:
+            x = self.quantize(x, {})
+        return augment_noise(x, self.noise_augment_dim, generator, noise)
+
+    def decode_quantized(self, z_q: torch.Tensor, generator: Optional[torch.Generator] = None,
+                         noise: Optional[torch.Tensor] = None, **_) -> torch.Tensor:
+        return augment_noise(z_q, self.noise_augment_dim, generator, noise)
+
+    def decode_tokens(self, codes: torch.Tensor, generator: Optional[torch.Generator] = None,
+                      noise: Optional[torch.Tensor] = None, **_) -> torch.Tensor:
+        """codes [B, Q, T] (or [B, T, Q]) -> latents [B, C (+ noise), T]."""
+        if codes.shape[1] == self.n_codebooks:
+            codes = codes.transpose(1, 2)  # [B, Q, T] wins when ambiguous, as JAX
+        return self.decode_quantized(self.quantizer.from_codes(codes).transpose(1, 2),
+                                     generator, noise)
+
+
+class DACRVQVAEBottleneck(DACRVQBottleneck):
+    """`vae_sample` of x [B, 2 input_dim, T], then the DAC RVQ (JAX :601);
+    info {"pre_quantizer": the sample, "kl", and, unless
+    `quantize_on_decode` (then `encode` returns the sample and `decode`
+    quantizes), the DAC RVQ's}. No noise augmentation."""
+
+    def __init__(self, input_dim: int = 32, n_codebooks: int = 9, codebook_size: int = 1024,
+                 codebook_dim: int = 8, quantize_on_decode: bool = False):
+        super().__init__(input_dim, n_codebooks, codebook_size, codebook_dim,
+                         quantize_on_decode)
+
+    def encode(self, x: torch.Tensor, return_info: bool = False,
+               generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None,
+               n_quantizers: Optional[int] = None, **_):
+        z, kl = vae_sample(x, generator, noise)
+        info = {"pre_quantizer": z, "kl": kl}
+        if not self.quantize_on_decode:
+            z = self.quantize(z, info, n_quantizers)
+        return (z, info) if return_info else z

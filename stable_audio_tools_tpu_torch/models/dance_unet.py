@@ -22,10 +22,15 @@ parameters, so there only the first block's first conv and skip run in the
 compute dtype and the rest in f32: the port keeps the config's dtype
 throughout, which is also the dtype the weight-gradient kernel takes.
 
-Refused, where the JAX module takes them: conditioning (`cond_dim`,
-`cond_noise_aug` and a `cond` input; the JAX factory never builds
-`DAU1DCondWrapper`), `learned_resample` (the JAX module ignores it) and
-strides other than 1 and 2 (the JAX module resamples only at 2).
+Conditioning (JAX :115-151; the diffusion autoencoder's `DAU1DCondWrapper`):
+with `cond_dim` the `cond` input [B, cond_dim, T'] joins the input after
+the timestep planes, resized to x's length first where T' differs
+(`linear_resize`, `jax.image.resize(..., "linear")`). With `cond_noise_aug`
+each item's level (uniform from the generator, or `cond_aug_scale`) scales
+normal noise added to `cond`, and `aug_embed`'s Fourier features of the
+level join as 16 planes before it. `learned_resample` is accepted and
+ignored, as in the JAX module (the cubic filter resamples). Strides other
+than 1 and 2 are refused (the JAX module resamples only at 2).
 """
 
 from __future__ import annotations
@@ -107,6 +112,26 @@ class SelfAttention1d(nn.Module):
         return x + self.out_proj(y)
 
 
+def linear_resize(x: torch.Tensor, length: int) -> torch.Tensor:
+    """x [B, C, T] -> [B, C, length] as `jax.image.resize(..., "linear")`
+    resizes the time axis: half-pixel centres, the triangle kernel widened
+    by T / length when shrinking (antialiasing), each output's weights
+    normalised, outputs whose centre falls outside the input zero; the
+    weights built in f32 and cast to x's dtype (JAX
+    `jax/_src/image/scale.py::compute_weight_mat`)."""
+    T = x.shape[-1]
+    inv_scale = T / length
+    kernel_scale = max(inv_scale, 1.0)
+    arange = lambda n: torch.arange(n, dtype=torch.float32, device=x.device)
+    sample = (arange(length) + 0.5) * inv_scale - 0.5
+    w = (1 - (sample[None, :] - arange(T)[:, None]).abs() / kernel_scale).clamp(min=0)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)), 0.0)
+    w = torch.where(((sample >= -0.5) & (sample <= T - 0.5))[None, :], w, 0.0)
+    return torch.einsum("bct,tl->bcl", x, w.to(x.dtype))
+
+
 def cubic_taps(device=None) -> torch.Tensor:
     """The cubic resampling filter's 8 taps, f32."""
     return torch.tensor(_CUBIC, device=device)
@@ -143,17 +168,13 @@ class DiffusionAttnUnet1D(nn.Module):
                  learned_resample: bool = False, strides: tp.Sequence[int] = (2,) * 13,
                  conv_bias: bool = True, compute_dtype: tp.Optional[str] = None):
         super().__init__()
-        if cond_dim or cond_noise_aug:
-            raise NotImplementedError("DAU1d conditioning (cond_dim, cond_noise_aug) is not "
-                                      "ported: the unconditional model only")
-        if learned_resample:
-            raise NotImplementedError("DAU1d learned_resample is not ported (the JAX module "
-                                      "ignores it and resamples with the cubic filter)")
+        del learned_resample  # accepted and ignored, as by the JAX module
         channels, strides = list(channels), [1] + list(strides)
         if any(s not in (1, 2) for s in strides[1:depth]):
             raise NotImplementedError(f"DAU1d strides {strides[1:depth]}: only 1 and 2 are "
                                       "ported (the JAX module resamples only at 2)")
         self.io_channels = io_channels
+        self.cond_dim, self.cond_noise_aug = cond_dim, cond_noise_aug and cond_dim > 0
         self.depth = depth
         self.n_attn_layers = n_attn_layers
         self.channels = channels
@@ -170,13 +191,14 @@ class DiffusionAttnUnet1D(nn.Module):
                 self.add_module(name, SelfAttention1d(c, max(c // 32, 1)))
 
         self.timestep_embed = FourierFeatures(1, 16)
+        self.aug_embed = FourierFeatures(1, 16) if self.cond_noise_aug else None
         # kept on the model's device: a tensor made from the list at each call
         # is a host-to-device copy that waits for the card
         self.register_buffer("fir_taps", cubic_taps(), persistent=False)
         # the forward program: (kind, module name or None) in order
         self._program: tp.List[tp.Tuple[str, tp.Optional[str]]] = []
         c0 = channels[0]
-        c_in = io_channels + 16
+        c_in = io_channels + 16 + cond_dim + (16 if self.cond_noise_aug else 0)
         for j in range(3):
             conv(f"head_{j}", c_in, c0, c0)
             self._program.append(("block", f"head_{j}"))
@@ -211,15 +233,43 @@ class DiffusionAttnUnet1D(nn.Module):
             self._program.append(("block", f"tail_{j}"))
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
-                cond: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
-        if cond is not None:
-            raise NotImplementedError("DAU1d conditioning is not ported")
+                cond: tp.Optional[torch.Tensor] = None,
+                cond_aug_scale: tp.Optional[float] = None,
+                generator: tp.Optional[torch.Generator] = None,
+                aug_level: tp.Optional[torch.Tensor] = None,
+                cond_noise: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`cond` [B, cond_dim, T'] where the model has `cond_dim`; with
+        `cond_noise_aug` the level [B] and the noise [B, cond_dim, T] come
+        from `generator` (the level from `cond_aug_scale` where given), or
+        are injected as `aug_level` / `cond_noise`."""
+        if (cond is None) != (self.cond_dim == 0):
+            raise ValueError(f"DAU1d with cond_dim {self.cond_dim} takes "
+                             f"{'a' if self.cond_dim else 'no'} cond")
         in_dtype = x.dtype
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
         B, _, T = x.shape
         temb = self.timestep_embed(t.float()[:, None])
-        h = torch.cat([x, temb[:, :, None].expand(B, 16, T).to(x.dtype)], dim=1)
+        inputs = [x, temb[:, :, None].expand(B, 16, T).to(x.dtype)]
+        if cond is not None:
+            cond = cond.to(x.dtype)
+            if cond.shape[2] != T:
+                cond = linear_resize(cond, T)
+            if self.cond_noise_aug:
+                if aug_level is None:
+                    aug_level = (torch.full((B,), float(cond_aug_scale), device=x.device)
+                                 if cond_aug_scale is not None else
+                                 torch.rand((B,), generator=generator, device=x.device))
+                aug_level = aug_level.to(device=x.device, dtype=torch.float32)
+                if cond_noise is None:
+                    cond_noise = torch.randn(cond.shape, generator=generator, device=x.device,
+                                             dtype=cond.dtype)
+                cond = cond + cond_noise.to(device=x.device, dtype=cond.dtype) * aug_level[
+                    :, None, None]
+                aug = self.aug_embed(aug_level[:, None])
+                inputs.append(aug[:, :, None].expand(B, 16, T).to(x.dtype))
+            inputs.append(cond.to(x.dtype))
+        h = torch.cat(inputs, dim=1)
         skips = []
         for kind, name in self._program:
             if kind == "block":

@@ -1,15 +1,19 @@
 """Diffusion wrappers; counterpart of stable_audio_tools_tpu/models/diffusion.py
 (DiffusionModelWrapper :33, ConditionedDiffusionModelWrapper :62, DiTWrapper
-:175, create_diffusion_uncond_from_config :234,
-create_diffusion_cond_from_config :285).
+:175, DiTUncondWrapper :208, DAU1DCondWrapper :215,
+create_diffusion_uncond_from_config :234, create_diffusion_cond_from_config
+:285).
 
 Module names follow the reference checkpoint layout: `model.model.*` (the
 DiT, or SA-1.0's ADP `UNetCFG1d`, models/adp.py), `conditioner.conditioners.<id>.*`,
 `pretransform.model.*`.
 
 The unconditional wrapper holds the v-model under `model` (Dance Diffusion's
-`DAU1d`, models/dance_unet.py; the JAX factory's `adp_uncond_1d` and `dit`
-branches are not ported yet) and an optional pretransform.
+`DAU1d`, models/dance_unet.py; `adp_uncond_1d`, the ADP `UNet1d` under
+`UNet1DUncondWrapper`; `dit`, the DiT under `DiTUncondWrapper`, its
+objective "v") and an optional pretransform. The conditioned one also takes
+`adp_1d` (models/adp.py `UNet1DCondWrapper`); `DAU1DCondWrapper` is the
+diffusion autoencoder's (models/diffusion_ae.py).
 
 Trainable: the DiT and the conditioners' own layers (the number embedders, a
 T5 projection), which get gradients in the JAX package and the reference.
@@ -25,7 +29,8 @@ import typing as tp
 import torch
 from torch import nn
 
-from .adp import UNetCFG1DWrapper, create_adp_cond_wrapper
+from .adp import (UNET_FIELDS, UNet1d, UNet1DCondWrapper, UNet1DUncondWrapper,
+                  UNetCFG1DWrapper, create_adp_cond_wrapper)
 from .conditioners import MultiConditioner, create_multi_conditioner_from_conditioning_config
 from .dance_unet import DiffusionAttnUnet1D
 from .dit import DiffusionTransformer
@@ -55,8 +60,8 @@ class DiffusionModelWrapper(nn.Module):
     def pretransform_encode(self, audio: torch.Tensor, generator=None, noise=None) -> torch.Tensor:
         return self.pretransform.encode(audio, generator=generator, noise=noise)
 
-    def pretransform_decode(self, latents: torch.Tensor) -> torch.Tensor:
-        return self.pretransform.decode(latents)
+    def pretransform_decode(self, latents: torch.Tensor, generator=None) -> torch.Tensor:
+        return self.pretransform.decode(latents, generator=generator)
 
 
 # the keyword arguments of the JAX DiffusionAttnUnet1D (its factory drops others)
@@ -77,10 +82,7 @@ def create_diffusion_uncond_from_config(config: tp.Dict[str, tp.Any], device=Non
     for key in ("sample_size", "sample_rate"):
         if config.get(key) is None:
             raise ValueError(f"Must specify {key} in config")
-    if model_type in ("adp_uncond_1d", "dit"):
-        raise NotImplementedError(f"unconditional diffusion model type {model_type} is not "
-                                  "ported yet (ROADMAP.md queue 1)")
-    if model_type != "DAU1d":
+    if model_type not in ("DAU1d", "adp_uncond_1d", "dit"):
         raise NotImplementedError(f"Unknown model type: {model_type}")
     pretransform = model_config.get("pretransform")
     min_input_length = 1
@@ -90,11 +92,51 @@ def create_diffusion_uncond_from_config(config: tp.Dict[str, tp.Any], device=Non
         min_input_length = pretransform.downsampling_ratio
     cfg = model_config.get("config", {})
     with device:
-        unet = DiffusionAttnUnet1D(**{k: cfg[k] for k in DAU1D_FIELDS if k in cfg})
+        if model_type == "DAU1d":
+            model = DiffusionAttnUnet1D(**{k: cfg[k] for k in DAU1D_FIELDS if k in cfg})
+            io_channels = model.io_channels
+            min_input_length *= math.prod(model.strides)
+        elif model_type == "adp_uncond_1d":
+            model = UNet1DUncondWrapper(UNet1d(**{k: v for k, v in cfg.items()
+                                                  if k in UNET_FIELDS}))
+            io_channels = cfg["in_channels"]
+            min_input_length *= math.prod(cfg["factors"]) * cfg.get("patch_size", 1)
+        else:
+            model = DiTUncondWrapper(DiffusionTransformer(**cfg, diffusion_objective="v"))
+            io_channels = model.model.io_channels
+            min_input_length *= model.model.patch_size
     return DiffusionModelWrapper(
-        unet, io_channels=unet.io_channels, sample_size=config["sample_size"],
-        sample_rate=config["sample_rate"],
-        min_input_length=min_input_length * math.prod(unet.strides), pretransform=pretransform)
+        model, io_channels=io_channels, sample_size=config["sample_size"],
+        sample_rate=config["sample_rate"], min_input_length=min_input_length,
+        pretransform=pretransform)
+
+
+class DiTUncondWrapper(nn.Module):
+    """The unconditional DiT (JAX :208): forward(x, t, **kwargs) ->
+    the DiT's."""
+
+    def __init__(self, model: DiffusionTransformer):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x, t, **kwargs):
+        return self.model(x, t, **kwargs)
+
+
+class DAU1DCondWrapper(nn.Module):
+    """Dance's UNet with input-concat conditioning (JAX :215): the
+    conditioned wrappers' `input_concat_cond` as its `cond`; its draws
+    (`generator`, `aug_level`, `cond_noise`) pass on, the rest is dropped."""
+
+    def __init__(self, model: DiffusionAttnUnet1D):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x, t, input_concat_cond=None, generator=None, aug_level=None,
+                cond_noise=None, **kwargs):
+        del kwargs
+        return self.model(x, t, cond=input_concat_cond, generator=generator,
+                          aug_level=aug_level, cond_noise=cond_noise)
 
 
 class DiTWrapper(nn.Module):

@@ -7,13 +7,14 @@ The JSON model config is the public API: the shipped
 `txt2audio/stable_audio_1_0.json`, `autoencoders/stable_audio_1_0_vae.json`
 and `autoencoders/dac_2048_32_vae.json` build unchanged.
 Built: `diffusion_cond` and `diffusion_cond_inpaint` (DiT; `diffusion_cond`
-also on the ADP `UNetCFG1d`, models/adp.py), `diffusion_uncond` (Dance
-Diffusion's DAU1d), `lm` (the MusicGen-style token LM, models/lm.py),
+also on the ADP `UNetCFG1d` and `UNet1d`, models/adp.py), `diffusion_uncond`
+(Dance Diffusion's DAU1d, the ADP `UNet1d`, the DiT), `diffusion_autoencoder`
+(models/diffusion_ae.py), `lm` (the MusicGen-style token LM, models/lm.py),
 `autoencoder` (Oobleck with the snake or ELU, TAAE, SEANet or DAC encoder
-and decoder; the VAE, RVQ, tanh, softnorm, Wasserstein, L2, FSQ and dithered
-FSQ bottlenecks) and the `autoencoder` pretransform; other types (and the
-`rvq_vae`, `dac_rvq`, `dac_rvq_vae` bottlenecks, the `local_attn` towers)
-raise NotImplementedError.
+and decoder; every bottleneck of the JAX factory: VAE, RVQ, RVQ-VAE, DAC
+RVQ, DAC RVQ-VAE, tanh, softnorm, Wasserstein, L2, FSQ and dithered FSQ)
+and the `autoencoder` pretransform; other types (the `local_attn` towers,
+the other pretransforms) raise NotImplementedError.
 
 Every factory takes the `device` the parameters are created on. The default
 is the current CUDA card, and without one the call raises: a model lands on
@@ -49,10 +50,16 @@ _DAC_DECODER_KEYS = {"latent_dim": "input_channel", "channels": "channels", "rat
 # models/autoencoders.py:299, :332)
 _TAAE_KEYS = ("channels", "latent_dim", "c_mults", "strides", "transformer_depths",
               "use_snake", "sliding_window")
+_DAC_RVQ_KEYS = ("input_dim", "n_codebooks", "codebook_size", "codebook_dim",
+                 "quantize_on_decode")
 # bottleneck type -> (class, the JAX factory's config keys) (JAX :131-151)
 _BOTTLENECKS = {
     "vae": (B.VAEBottleneck, ()),
     "rvq": (B.RVQBottleneck, None),
+    "rvq_vae": (B.RVQVAEBottleneck, ("dim", "codebook_size", "num_quantizers", "kmeans_init",
+                                     "kmeans_iters", "decay", "threshold_ema_dead_code")),
+    "dac_rvq": (B.DACRVQBottleneck, _DAC_RVQ_KEYS + ("noise_augment_dim",)),
+    "dac_rvq_vae": (B.DACRVQVAEBottleneck, _DAC_RVQ_KEYS),
     "tanh": (B.TanhBottleneck, ("scale",)),
     "l2_norm": (B.L2Bottleneck, ()),
     "softnorm": (B.SoftNormBottleneck, ("dim", "noise_augment_dim", "noise_regularize")),
@@ -91,6 +98,10 @@ def create_model_from_config(model_config: Dict[str, Any], device: Device = None
         from .lm import create_audio_lm_from_config
 
         return create_audio_lm_from_config(model_config, device)
+    if model_type == "diffusion_autoencoder":
+        from .diffusion_ae import create_diffAE_from_config
+
+        return create_diffAE_from_config(model_config, device)
     raise NotImplementedError(f"model type {model_type} is not ported yet")
 
 

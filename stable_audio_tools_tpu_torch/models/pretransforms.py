@@ -63,16 +63,18 @@ class AutoencoderPretransform(nn.Module):
             raise ValueError("tokenize needs a discrete pretransform")
         return self.model.encode(x, return_info=True)[1][self.model.bottleneck.tokens_id]
 
-    def decode_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+    def decode_tokens(self, tokens: torch.Tensor, generator=None) -> torch.Tensor:
         """Codes [B, Q, T] -> audio (JAX `decode_tokens` :75)."""
         if not self.is_discrete:
             raise ValueError("decode_tokens needs a discrete pretransform")
-        return self.model.decode_tokens(tokens)
+        return self.model.decode_tokens(tokens, generator=generator)
 
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
+    def decode(self, z: torch.Tensor, generator=None) -> torch.Tensor:
+        """Latents -> audio; a noise-augmenting bottleneck draws from
+        `generator`."""
         z = z * self.scale
         if self.model_half:
             z = z.to(torch.bfloat16)
-        out = torch.cat([self.model.decode_audio(z[i], chunked=self.chunked)
+        out = torch.cat([self.model.decode_audio(z[i], chunked=self.chunked, generator=generator)
                          for i in self._items(z.shape[0])])
         return out.float() if self.model_half else out

@@ -4,7 +4,8 @@
         --dataset-config DATASET.json [--batch-size 4] [--max-steps N] ...
 
 Builds the model from its JSON config (a conditioned or unconditional
-diffusion model, an autoencoder or a token LM; random weights drawn from a
+diffusion model, an autoencoder, a diffusion autoencoder or a token LM;
+random weights drawn from a
 `torch.Generator` seeded with --seed; the T5 tower is random unless the
 config's conditioner loads weights), then, in the JAX entry's order
 (`train.py:218-232`): `--remove-pretransform-weight-norm pre_load`, the
@@ -15,7 +16,8 @@ every tensor of the pretransform must be there), `post_load`, then
 what matches by name and shape is copied and the counts printed). Then the
 training wrapper from the config's `training` section (for an autoencoder
 the GAN trainer with its discriminator, for an LM the next-token trainer
-over the frozen codec's codes), the dataloader (`audio_dir`, local `tar`
+over the frozen codec's codes, for a diffusion autoencoder its v-objective
+trainer), the dataloader (`audio_dir`, local `tar`
 shards, or `pre_encoded` latents for a diffusion model whose training config
 sets `pre_encoded`; `latent_crop_length` defaults, as in the JAX entry, to
 the model's sample_size), the validation loader (`--val-dataset-config`,
@@ -53,7 +55,8 @@ import torch
 DEFAULTS_INI = Path(__file__).resolve().parents[1] / "defaults.ini"
 
 # --precision values -> the compute dtype when the config sets none: the
-# DiT's, the unconditional model's (`model.config`), or the autoencoder
+# DiT's (a diffusion autoencoder's diffusion model's), the unconditional
+# model's (`model.config`), or the autoencoder
 # trainer's `training.compute_dtype` (the JAX entry's mapping; it does not
 # reach an LM, whose backbone config rules)
 PRECISION_DTYPE = {
@@ -245,11 +248,12 @@ def configure(trainer, args: argparse.Namespace, dataset_config: dict):
     trainer.demo_every = demo_every
     trainer.demo_callback = None
     if demo_every:
-        # the autoencoder and inpainting demos read their reals from a loader
-        # of their own, in this process and in order, so the training loader
-        # never moves
+        # the autoencoder, diffusion autoencoder and inpainting demos read
+        # their reals from a loader of their own, in this process and in
+        # order, so the training loader never moves
         demo_dl = (make_loader(args, model_config, dataset_config, shuffle=False, num_workers=0)
-                   if model_config["model_type"] in ("autoencoder", "diffusion_cond_inpaint")
+                   if model_config["model_type"] in ("autoencoder", "diffusion_autoencoder",
+                                                     "diffusion_cond_inpaint")
                    else None)
         trainer.demo_callback = create_demo_callback_from_config(
             model_config, demo_dir=os.path.join(args.save_dir, "demos"), demo_dl=demo_dl,

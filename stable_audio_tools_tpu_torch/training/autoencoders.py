@@ -8,7 +8,10 @@ steps train the discriminator (from step 0 with `warmup_mode` "adv", from
 whose adversarial and feature-matching losses join from `warmup_steps`.
 
 - `ae_forward` (JAX `_ae_forward` :337): encode with the bottleneck's loss
-  (the VAE's KL, the RVQ's commitment loss), decode, in `compute_dtype`
+  (the VAE's KL, the RVQ's commitment loss, the DAC RVQ's codebook and
+  commitment losses), decode (a `quantize_on_decode` bottleneck's quantized
+  latents from the encode's info, unless the latents were masked; the
+  decode-side noise augmentation drawn there), in `compute_dtype`
   (bf16 on the card); decoded audio, latents and the loss info come back in
   f32 (:403-412), trimmed to the shorter length, with the left/right
   channels split out for stereo. The decoder takes the latents in
@@ -57,7 +60,8 @@ EMA stay f32. Random numbers come from a `torch.Generator` seeded from
 (seed, step), or are injected, as the tests replay the JAX package's:
 `noise=` (the bottleneck's: the VAE's normals, the Wasserstein's, the
 dithered FSQ's dict) and `draws=` ({"latent_mask": [B, C, T] uniform,
-"teacher_noise": the teacher's VAE normals}). The mrmel and hubert losses
+"teacher_noise": the teacher's VAE normals, "decode_noise": the
+bottleneck's decode-side draws, models/bottleneck.py}). The mrmel and hubert losses
 and the discriminators other than EnCodec's are refused by name, and so is
 gradient accumulation (JAX's GAN trainer ignores `accum_batches`).
 """
@@ -81,21 +85,32 @@ Tensor = torch.Tensor
 
 
 def create_loss_modules_from_bottleneck(bottleneck, loss_config: dict) -> tp.List[LossModule]:
-    """The bottleneck's losses (JAX :54): the VAE's KL, the RVQ's commitment
-    loss (`quantizer_loss`, weight 1), the Wasserstein's MMD (weight 100 by
-    default); the tanh, softnorm, L2 and FSQ bottlenecks take none."""
+    """The bottleneck's losses (JAX :54), in JAX's order: the KL of the VAE,
+    RVQ-VAE and DAC RVQ-VAE (weight `kl`, 1e-6 by default), the RVQs'
+    commitment loss (`quantizer_loss`, weight 1), the DAC RVQs' codebook and
+    commitment losses (`codebook` 1.0, `commitment` 0.25 by default), the
+    Wasserstein's MMD (`mmd`, 100); the tanh, softnorm, L2 and FSQ
+    bottlenecks take none; a bottleneck of another class is refused."""
     weights = loss_config.get("bottleneck", {}).get("weights", {})
-    if isinstance(bottleneck, B.VAEBottleneck):
-        return [ValueLoss(key="kl", weight=weights.get("kl", 1e-6), name="kl_loss")]
+    losses: tp.List[LossModule] = []
+    if isinstance(bottleneck, (B.VAEBottleneck, B.DACRVQVAEBottleneck, B.RVQVAEBottleneck)):
+        losses.append(ValueLoss(key="kl", weight=weights.get("kl", 1e-6), name="kl_loss"))
     if isinstance(bottleneck, B.RVQBottleneck):
-        return [ValueLoss(key="quantizer_loss", weight=1.0, name="quantizer_loss")]
+        losses.append(ValueLoss(key="quantizer_loss", weight=1.0, name="quantizer_loss"))
+    if isinstance(bottleneck, B.DACRVQBottleneck):
+        losses += [ValueLoss(key="vq/codebook_loss", weight=weights.get("codebook", 1.0),
+                             name="codebook_loss"),
+                   ValueLoss(key="vq/commitment_loss", weight=weights.get("commitment", 0.25),
+                             name="commitment_loss")]
     if isinstance(bottleneck, B.WassersteinBottleneck):
-        return [ValueLoss(key="mmd", weight=weights.get("mmd", 100), name="mmd_loss")]
-    if isinstance(bottleneck, (B.TanhBottleneck, B.SoftNormBottleneck, B.L2Bottleneck,
-                               B.FSQBottleneck, B.DitheredFSQBottleneck)):
-        return []
-    raise NotImplementedError(f"losses of the {type(bottleneck).__name__} bottleneck "
-                              "are not ported yet")
+        losses.append(ValueLoss(key="mmd", weight=weights.get("mmd", 100), name="mmd_loss"))
+    if not isinstance(bottleneck, (B.VAEBottleneck, B.RVQBottleneck, B.DACRVQBottleneck,
+                                   B.WassersteinBottleneck, B.TanhBottleneck,
+                                   B.SoftNormBottleneck, B.L2Bottleneck, B.FSQBottleneck,
+                                   B.DitheredFSQBottleneck)):
+        raise NotImplementedError(f"losses of the {type(bottleneck).__name__} bottleneck "
+                                  "are not ported")
+    return losses
 
 
 def _default_loss_config() -> dict:
@@ -290,12 +305,19 @@ class AutoencoderTrainer:
                 mask = torch.rand(latents.shape, generator=generator, device=latents.device)
             latents = torch.where(mask.to(latents.device) < self.latent_mask_ratio,
                                   torch.zeros_like(latents), latents)
+        # a quantize_on_decode bottleneck's encode already quantized (its
+        # info["z"]): decode that, unless the latents were masked (JAX :384-395)
+        decode_in, quantized = latents, False
+        if (getattr(self.model.bottleneck, "quantize_on_decode", False) and "z" in enc_info
+                and not (self.latent_mask_ratio > 0 and train)):
+            decode_in, quantized = enc_info["z"], True
         # the decoder computes in the compute dtype: a DAC encoder's f32
         # proj_out and an RVQ give f32 latents, which would carry the JAX
         # decoder into f32 (and the card's bf16 snake kernels refuse them)
         to_compute = (lambda t: t) if self.compute_dtype is None else (
             lambda t: t.to(self.compute_dtype))
-        decoded = self.model.decode(to_compute(latents))
+        decoded = self.model.decode(to_compute(decode_in), train=train, quantized=quantized,
+                                    generator=generator, noise=draws.get("decode_noise"))
         if self.compute_dtype is not None:
             # the losses and the discriminator's STFT run in f32
             decoded = decoded.float()

@@ -2,7 +2,7 @@
 stable_audio_tools_tpu/training/demos.py (`create_demo_callback_from_config`
 :18, `_DemoBase._save` :53, `DiffusionCondDemoCallback` :111,
 `DiffusionCondInpaintDemoCallback` :153, `DiffusionUncondDemoCallback` :252,
-`LMDemoCallback` :266,
+`LMDemoCallback` :266, `DiffusionAutoencoderDemoCallback` :214,
 `AutoencoderDemoCallback` :298 with `_disc_sensitivity_probe` :341).
 
 A callback is called as `callback(wrapper, step)` by the trainer (rank 0,
@@ -17,9 +17,8 @@ pretransform's decode, the path a user's request takes.
 the batch's peak, logs the first item and the file list, and, where
 matplotlib is installed, the mel spectrogram (and the latents' heat map and
 PCA) as PNGs; without matplotlib it writes the audio only. `outputs` holds
-the last call's audio (before the peak scaling) by name. The
-diffusion-autoencoder demo is refused by name (its model type is not
-ported), as is the autoencoder demo's `compute_fad`.
+the last call's audio (before the peak scaling) by name. The autoencoder
+demo's `compute_fad` is refused by name.
 """
 
 from __future__ import annotations
@@ -33,19 +32,16 @@ import torch
 
 from .ema import ema_weights
 
-UNPORTED_DEMOS = ("diffusion_autoencoder",)
-
-
 def create_demo_callback_from_config(model_config: dict, demo_dir: str = "demos", demo_dl=None,
                                      logger=None):
     """The demo callback of the config's model type, configured by its
-    `training.demo` section; `demo_dl` gives the autoencoder and inpainting
-    demos their reals."""
+    `training.demo` section; `demo_dl` gives the autoencoder, diffusion
+    autoencoder and inpainting demos their reals."""
     model_type = model_config["model_type"]
     demo_config = model_config.get("training", {}).get("demo", {})
-    if model_type in UNPORTED_DEMOS:
-        raise NotImplementedError(f"the {model_type} demo is not ported yet (its model type "
-                                  "is not)")
+    if model_type == "diffusion_autoencoder":
+        return DiffusionAutoencoderDemoCallback(model_config, demo_dir, demo_config, demo_dl,
+                                                logger)
     if model_type == "diffusion_cond_inpaint":
         return DiffusionCondInpaintDemoCallback(model_config, demo_dir, demo_config, demo_dl,
                                                 logger)
@@ -147,7 +143,8 @@ class DiffusionCondDemoCallback(_DemoBase):
                     return_latents=True)
                 if model.pretransform is not None:
                     with torch.inference_mode():
-                        audio = model.pretransform.decode(latents)
+                        audio = model.pretransform.decode(
+                            latents, generator=self._generator(wrapper, step))
                 else:
                     audio, latents = latents, None
                 self._save(audio.float().cpu().numpy(), f"demo_cfg{scale}", step,
@@ -207,6 +204,29 @@ class DiffusionUncondDemoCallback(_DemoBase):
                 batch_size=self.demo_config.get("num_demos", 2), sample_size=self.sample_size,
                 seed=step)
         self._save(audio.float().cpu().numpy(), "demo", step)
+
+
+class DiffusionAutoencoderDemoCallback(_DemoBase):
+    """`num_demos` (default 2) reals from `demo_dl` encoded and decoded in
+    `demo_steps` (default 50) with the EMA weights (JAX :214): `diffae_reals`
+    and `diffae_recon` (with the latents)."""
+
+    def __init__(self, model_config, demo_dir, demo_config, demo_dl, logger=None):
+        super().__init__(model_config, demo_dir, demo_config, logger)
+        self.demo_dl = demo_dl
+
+    def __call__(self, wrapper, step: int) -> None:
+        if self.demo_dl is None:
+            return
+        audio = np.asarray(next(iter(self.demo_dl))[0],
+                           np.float32)[:self.demo_config.get("num_demos", 2)]
+        model, g = wrapper.model, self._generator(wrapper, step)
+        with torch.no_grad(), ema_weights(wrapper.params, wrapper.ema), _eval_mode(model):
+            latents = model.encode(torch.from_numpy(audio).to(wrapper.device), generator=g)
+            recon = model.decode(latents, self.demo_config.get("demo_steps", 50), generator=g)
+        self._save(audio, "diffae_reals", step)
+        self._save(recon.float().cpu().numpy(), "diffae_recon", step,
+                   latents=latents.float().cpu().numpy())
 
 
 class LMDemoCallback(_DemoBase):

@@ -1,7 +1,7 @@
 """Diffusion training; counterpart of
 stable_audio_tools_tpu/training/diffusion.py (`_sobol_timesteps` :46,
 `_sample_timesteps` :62, `DiffusionCondTrainer` :85,
-`DiffusionUncondTrainer` :418).
+`DiffusionAutoencoderTrainer` :338, `DiffusionUncondTrainer` :418).
 
 One train step: the frozen pretransform encodes the audio (no gradient), a
 timestep t and noise are drawn, the objective's target is formed, the model
@@ -341,15 +341,16 @@ class DiffusionCondTrainer:
 
 
 class DiffusionUncondTrainer(DiffusionCondTrainer):
-    """Trains an unconditional DiffusionModelWrapper (Dance Diffusion): the
-    conditioned step without conditioning or CFG dropout, its timesteps the
-    dimension-1 Sobol sequence continued across steps (JAX :418). The
-    batch's metadata is ignored.
+    """Trains an unconditional DiffusionModelWrapper (Dance Diffusion's
+    DAU1d, the ADP `UNet1d`, the DiT): the conditioned step without
+    conditioning or CFG dropout, its timesteps the dimension-1 Sobol
+    sequence continued across steps (JAX :418). The batch's metadata is
+    ignored.
 
-    On the card the model must compute in bfloat16: the weight gradient of
-    its convs is the hand-written kernel (`conv1d_wgrad`), which takes
-    bfloat16 only, so an f32 model is refused here rather than failing in
-    its first backward."""
+    On the card a DAU1d must compute in bfloat16: the weight gradient of its
+    convs is the hand-written kernel (`conv1d_wgrad`), which takes bfloat16
+    only, so an f32 DAU1d is refused here rather than failing in its first
+    backward."""
 
     def __init__(self, model, lr: float = 1e-4, use_ema: bool = True,
                  optimizer_configs: tp.Optional[dict] = None, pre_encoded: bool = False,
@@ -358,8 +359,11 @@ class DiffusionUncondTrainer(DiffusionCondTrainer):
                          cfg_dropout_prob=0.0, timestep_sampler="sobol",
                          gradient_clip_val=gradient_clip_val, seed=seed,
                          pre_encoded=pre_encoded)
+        from ..models.dance_unet import DiffusionAttnUnet1D
+
         dtype = getattr(model.model, "compute_dtype", None)
-        if self.device.type == "cuda" and dtype != torch.bfloat16:
+        if (self.device.type == "cuda" and isinstance(model.model, DiffusionAttnUnet1D)
+                and dtype != torch.bfloat16):
             raise TypeError(f"training this model on the card needs compute_dtype bfloat16, "
                             f"not {dtype}: its convs' weight gradient (conv1d_wgrad) takes "
                             "bfloat16 only")
@@ -369,3 +373,97 @@ class DiffusionUncondTrainer(DiffusionCondTrainer):
 
     def denoise(self, x, t, cond, train, cfg_dropout_mask, generator) -> Tensor:
         return self.model(x, t)
+
+
+class DiffusionAutoencoderTrainer:
+    """Trains a DiffusionAutoencoder (models/diffusion_ae.py) in place (JAX
+    :338): encoder, bottleneck and diffusion model together. A step: the
+    encode with the bottleneck's info (its VAE noise; an RVQ's state moves),
+    t uniform [B], the target at the pretransform's rate (its encode of the
+    audio, frozen) noised by v-diffusion, the model's v conditioned on the
+    latents, the MSE to noise x alpha - x x sigma, plus 1e-6 x the
+    bottleneck's KL where it reports one (`kl_loss`); the gradient reaches
+    the encoder through the latents. Adam at `lr` unless
+    `optimizer_configs["diffusion"]`, then the EMA of the trainable
+    parameters.
+
+    `use_reconstruction_loss` is stored and `accum_steps` accepted, and
+    neither is read, as in JAX (:343-345, :401). The draws come from a
+    generator seeded from (seed, step), in the order of the JAX step (the
+    encode's noise, t, the diffusion noise, then the model's own: a DAU1d's
+    conditioning augmentation), or are injected (`encode_noise`, `t`,
+    `noise`, `aug_level`, `cond_noise`)."""
+
+    def __init__(self, model, lr: float = 1e-4, use_ema: bool = True,
+                 optimizer_configs: tp.Optional[dict] = None,
+                 use_reconstruction_loss: bool = False, gradient_clip_val: float = 0.0,
+                 seed: int = 42):
+        self.model = model
+        self.use_reconstruction_loss = use_reconstruction_loss
+        self.gradient_clip_val = gradient_clip_val
+        self.seed = seed
+        if optimizer_configs is None:
+            optimizer_configs = {"diffusion": {"optimizer": {"type": "Adam",
+                                                             "config": {"lr": lr}}}}
+        self.params = {n: p for n, p in model.named_parameters() if p.requires_grad}
+        self.optimizer, self.scheduler = build_optimizer(optimizer_configs["diffusion"],
+                                                         list(self.params.values()))
+        self.ema = ema_init(self.params) if use_ema else None
+        self.step = 0
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.params.values())).device
+
+    def learning_rates(self) -> tp.Dict[str, float]:
+        return {"lr": self.optimizer.param_groups[0]["lr"]}
+
+    def generator(self, step: int) -> torch.Generator:
+        seed = (self.seed * 0x9E3779B1 + step) % (2 ** 63)
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def loss(self, audio: Tensor, generator: tp.Optional[torch.Generator] = None,
+             t: tp.Optional[Tensor] = None, noise: tp.Optional[Tensor] = None,
+             encode_noise=None, **model_draws) -> tp.Tuple[Tensor, tp.Dict[str, Tensor]]:
+        """The step's loss of audio [B, C, T] and its parts (JAX `_loss`)."""
+        model = self.model
+        latents, info = model.encode(audio, return_info=True, train=True, generator=generator,
+                                     noise=encode_noise)
+        B, device = audio.shape[0], audio.device
+        if t is None:
+            t = torch.rand((B,), generator=generator, device=device)
+        t = t.to(device=device, dtype=torch.float32)
+        alphas, sigmas = (a[:, None, None] for a in get_alphas_sigmas(t))
+        target = model.pretransform_encode(audio) if model.pretransform is not None else audio
+        if noise is None:
+            noise = torch.randn(target.shape, generator=generator, device=device)
+        noise = noise.to(device=device, dtype=target.dtype)
+        noised = target * alphas + noise * sigmas
+        targets = noise * alphas - target * sigmas
+        v = model.diffusion_forward(noised, t, latents, generator=generator, **model_draws)
+        loss = (v.float() - targets.float()).square().mean()
+        aux = {"mse_loss": loss.detach()}
+        if "kl" in info:
+            kl = info["kl"] * 1e-6
+            loss = loss + kl
+            aux["kl_loss"] = kl.detach()
+        aux["loss"] = loss.detach()
+        return loss, aux
+
+    def train_step(self, audio: Tensor, metadata=None, accum_steps: int = 1,
+                   **draws) -> tp.Dict[str, Tensor]:
+        """One Adam step on a batch (metadata ignored; `accum_steps` unread,
+        as in JAX); `draws` replace the generator's (class note)."""
+        del metadata, accum_steps
+        self.model.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, aux = self.loss(audio, self.generator(self.step), **draws)
+        loss.backward()
+        if self.gradient_clip_val > 0:
+            torch.nn.utils.clip_grad_norm_(list(self.params.values()), self.gradient_clip_val)
+        self.optimizer.step()
+        self.scheduler.step()
+        if self.ema is not None:
+            ema_update(self.ema, self.params, self.step)
+        self.step += 1
+        return aux

@@ -5,10 +5,11 @@ models/factory.py builds; `encoder_freeze_on_warmup` and
 `latent_mask_ratio` from the config, as JAX :25, :30; a `teacher_model` key
 is refused by name: the JAX factory builds no teacher and ignores the key,
 and a teacher is handed to `AutoencoderTrainer(teacher_model=...)`),
-`diffusion_uncond` (:33), `diffusion_cond` and `diffusion_cond_inpaint`
-(:43; the DiT and the ADP `adp_cfg_1d` UNet; with `arc` in the training
-config, ARC post-training, training/arc.py) and `lm` (:116) models; the
-other model and diffusion types raise NotImplementedError."""
+`diffusion_uncond` (:33; DAU1d, `adp_uncond_1d`, `dit`), `diffusion_cond`
+and `diffusion_cond_inpaint` (:43; the DiT and the ADP `adp_cfg_1d` and
+`adp_1d` UNets; with `arc` in the training config, ARC post-training,
+training/arc.py), `diffusion_autoencoder` (:104) and `lm` (:116) models;
+another model type raises NotImplementedError."""
 
 from __future__ import annotations
 
@@ -67,12 +68,20 @@ def create_training_wrapper_from_config(model_config: tp.Dict[str, tp.Any], mode
             gradient_clip_val=gradient_clip_val,
             seed=seed,
         )
+    if model_type == "diffusion_autoencoder":
+        from .diffusion import DiffusionAutoencoderTrainer
+
+        return DiffusionAutoencoderTrainer(
+            model,
+            lr=training_config.get("learning_rate", 1e-4),
+            use_ema=training_config.get("use_ema", True),
+            optimizer_configs=training_config.get("optimizer_configs"),
+            use_reconstruction_loss=training_config.get("use_reconstruction_loss", False),
+            gradient_clip_val=gradient_clip_val,
+            seed=seed,
+        )
     if model_type not in ("diffusion_cond", "diffusion_cond_inpaint"):
-        raise NotImplementedError(f"training {model_type} models is not ported yet")
-    diffusion_type = model_config["model"]["diffusion"]["type"]
-    if diffusion_type not in ("dit", "adp_cfg_1d"):
-        raise NotImplementedError(f"training diffusion model type {diffusion_type} is not "
-                                  "ported yet (ROADMAP.md queue 1)")
+        raise NotImplementedError(f"Unknown model type: {model_type}")
     if "arc" in training_config:
         return _arc_trainer(model_config, model, training_config, seed)
     from .diffusion import DiffusionCondTrainer

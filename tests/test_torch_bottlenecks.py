@@ -210,8 +210,11 @@ def test_factory_builds_the_bottleneck_types_and_refuses_the_rest():
                       ("softnorm", tbn.SoftNormBottleneck), ("fsq", tbn.FSQBottleneck),
                       ("wasserstein", tbn.WassersteinBottleneck)):
         assert isinstance(_bottleneck({"type": kind}), cls)
-    for kind in ("rvq_vae", "dac_rvq", "dac_rvq_vae"):
-        with pytest.raises(NotImplementedError, match=kind):
-            _bottleneck({"type": kind, "config": {}})
-    with pytest.raises(NotImplementedError, match="noise_augment_dim"):
-        _bottleneck({"type": "fsq", "config": {"noise_augment_dim": 2}})
+    # the RVQ-VAE and the DAC RVQs (tests/test_torch_dac_rvq.py), and the
+    # noise augmentation, are built; an unknown type is refused
+    for kind, cls in (("rvq_vae", tbn.RVQVAEBottleneck), ("dac_rvq", tbn.DACRVQBottleneck),
+                      ("dac_rvq_vae", tbn.DACRVQVAEBottleneck)):
+        assert type(_bottleneck({"type": kind, "config": {}})) is cls
+    assert _bottleneck({"type": "fsq", "config": {"noise_augment_dim": 2}}).noise_augment_dim == 2
+    with pytest.raises(NotImplementedError, match="lookup_free"):
+        _bottleneck({"type": "lookup_free", "config": {}})

@@ -362,16 +362,23 @@ def test_factory_refuses_what_is_not_ported():
         cfg["model"]["config"].update(changes)
         return cfg
 
-    for cfg, match in ((with_model(model={"type": "adp_uncond_1d"}), "adp_uncond_1d"),
-                       (with_model(model={"type": "dit"}), "dit"),
-                       (with_model(cond_dim=4), "cond_dim"),
-                       (with_model(cond_noise_aug=True), "cond_noise_aug"),
-                       (with_model(learned_resample=True), "learned_resample"),
-                       (with_model(strides=[2, 4, 2]), "strides")):
-        with pytest.raises(NotImplementedError, match=match):
-            create_model_from_config(cfg, "cpu")
+    # strides other than 1 and 2 stay refused (the JAX module resamples only
+    # at 2); the unconditional adp_uncond_1d and dit, DAU1d's conditioning
+    # and learned_resample are built
+    # (tests/test_torch_uncond_backbones.py, tests/test_torch_diffae.py)
+    with pytest.raises(NotImplementedError, match="strides"):
+        create_model_from_config(with_model(strides=[2, 4, 2]), "cpu")
+    assert create_model_from_config(with_model(model={"type": "dit", "config": {
+        "io_channels": 2, "embed_dim": 64, "depth": 1, "num_heads": 1}}), "cpu").model.model
+    for cfg in (with_model(model={"type": "adp_uncond_1d", "config": {
+                    "in_channels": 2, "channels": 8, "multipliers": [1, 1], "factors": [2],
+                    "num_blocks": [1], "attentions": [0, 0], "resnet_groups": 4}}),
+                with_model(cond_dim=4), with_model(cond_dim=4, cond_noise_aug=True),
+                with_model(learned_resample=True)):
+        create_model_from_config(cfg, "cpu")
+    # the unconditional model takes no cond
     model = create_model_from_config(TINY, "cpu")
-    with pytest.raises(NotImplementedError, match="conditioning"):
+    with pytest.raises(ValueError, match="cond"):
         model.model(torch.zeros(1, 2, T), torch.zeros(1), cond=torch.zeros(1, 2, T))
 
 

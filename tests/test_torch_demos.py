@@ -96,10 +96,11 @@ def test_unported_demos_are_refused():
     assert isinstance(tdemos.create_demo_callback_from_config({
         "model_type": "diffusion_cond_inpaint", "sample_rate": 1, "sample_size": 1}),
         tdemos.DiffusionCondInpaintDemoCallback)
-    for model_type in ("diffusion_autoencoder",):
-        with pytest.raises(NotImplementedError, match=model_type):
-            tdemos.create_demo_callback_from_config({"model_type": model_type,
-                                                     "sample_rate": 1, "sample_size": 1})
+    # the diffusion-autoencoder demo is ported
+    # (tests/test_torch_diffae.py)
+    assert isinstance(tdemos.create_demo_callback_from_config({
+        "model_type": "diffusion_autoencoder", "sample_rate": 1, "sample_size": 1}),
+        tdemos.DiffusionAutoencoderDemoCallback)
     with pytest.raises(NotImplementedError, match="compute_fad"):
         tdemos.create_demo_callback_from_config({
             "model_type": "autoencoder", "sample_rate": 1, "sample_size": 1,

@@ -5,8 +5,9 @@ Dance Diffusion's generation and training step, SA-1.0's generation, and the
 training steps of SA-1.0, a DAC VAE-GAN and an EnCodec-style codec, and
 the training entry with tar shards, demos, validation, --recover,
 unwrap_model and the fine-tuning loads, and rectified flow: the four flow
-samplers with preview, inpainting training, ARC's three steps, each new
-module imported alone) with JAX,
+samplers with preview, inpainting training, ARC's three steps, the
+diffusion autoencoders, the unconditional ADP UNet and DiT, the DAC RVQ codec
+and the new bottlenecks, each new module imported alone) with JAX,
 flax, transformers and the JAX package unimportable (the machine with the
 card has none of them), and without triton: no module imports it at import
 time."""
@@ -808,3 +809,70 @@ def test_taae_slice_runs_without_jax_or_triton():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.startswith("ok")
+
+
+DIFFAE_MODULES = ("stable_audio_tools_tpu_torch.models.diffusion_ae",)
+
+
+@pytest.mark.parametrize("module", DIFFAE_MODULES)
+def test_diffae_slice_module_imports_without_jax(module):
+    # each module the diffusion-autoencoder slice added, imported alone
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    script = BLOCK + f"import importlib; importlib.import_module({module!r})\n" + \
+        "assert 'triton' not in sys.modules\nprint('ok')\n"
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip() == "ok"
+
+
+DIFFAE_SCRIPT = BLOCK + textwrap.dedent("""
+    import torch
+    import chip_smoke
+    from stable_audio_tools_tpu_torch.inference.generation import generate_diffusion_uncond
+    from stable_audio_tools_tpu_torch.models.factory import (_bottleneck,
+                                                             create_model_from_config, init_random_)
+    from stable_audio_tools_tpu_torch.training.factory import create_training_wrapper_from_config
+
+    torch.set_num_threads(1)
+    g = torch.Generator().manual_seed(0)
+    cfg = chip_smoke.tiny_diffae_config("DAU1d")
+    cfg["sample_size"] = 1024
+    model = init_random_(create_model_from_config(cfg, "cpu"), g)
+    aux = create_training_wrapper_from_config(cfg, model).train_step(
+        torch.randn(2, 2, 1024, generator=g) * 0.3)
+    assert all(torch.isfinite(v) for v in aux.values()) and "kl_loss" in aux, aux
+    out = model.eval().decode(model.encode(torch.randn(1, 2, 1024, generator=g)), 2, generator=g)
+    assert out.shape == (1, 2, 1024) and torch.isfinite(out).all()
+    for kind in ("adp_uncond_1d", "dit"):
+        cfg = chip_smoke.tiny_uncond_config(kind)
+        cfg["sample_size"] = 256
+        model = init_random_(create_model_from_config(cfg, "cpu"), g)
+        aux = create_training_wrapper_from_config(cfg, model).train_step(
+            torch.randn(2, 2, 256, generator=g), [{}, {}])
+        assert torch.isfinite(aux["loss"])
+        out = generate_diffusion_uncond(model.eval(), steps=2, sample_size=256, seed=0)
+        assert out.shape == (1, 2, 256) and torch.isfinite(out).all()
+    codec = init_random_(create_model_from_config(chip_smoke.tiny_dac_rvq_config("float32"),
+                                                  "cpu"), g)
+    _, info = codec.encode(torch.randn(1, 1, 1024, generator=g) * 0.3, return_info=True)
+    assert codec.decode_tokens(info["codes"]).shape == (1, 1, 1024)
+    for name, (enc, spec, dec) in chip_smoke.SMALL_BOTTLENECKS.items():
+        b = _bottleneck(spec)
+        z = b.encode(torch.randn(1, enc, 16, generator=g), train=True, generator=g)
+        assert b.decode(z, train=True, generator=g).shape == (1, dec, 16), name
+    assert "triton" not in sys.modules
+    print("ok")
+""")
+
+
+def test_diffae_slice_runs_without_jax_or_triton():
+    # a tiny diffusion AE (DAU1d) trains a step and decodes, the
+    # unconditional adp_uncond_1d and dit train a step and generate, the DAC
+    # RVQ codec round-trips its codes, and every new bottleneck's encode and
+    # decode (the noise augmentation) runs
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", DIFFAE_SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("ok")

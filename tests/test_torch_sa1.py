@@ -339,28 +339,42 @@ def test_unported_unet_options_are_refused_by_name(clap_path, flag):
 
 @pytest.mark.parametrize("kind", ["adp_1d", "adp_uncond_1d"])
 def test_unported_adp_model_types_are_refused_by_name(clap_path, kind):
+    # both plain-UNet model types are built (the name is
+    # kept; their parity: tests/test_torch_uncond_backbones.py): `adp_1d`
+    # under UNet1DCondWrapper, `adp_uncond_1d` under UNet1DUncondWrapper, the
+    # UNet1d with SA-1.0's widths; the refused UNet options still name
+    # themselves in either
+    from stable_audio_tools_tpu_torch.models.adp import (UNet1d, UNet1DCondWrapper,
+                                                         UNet1DUncondWrapper)
+
     if kind == "adp_1d":
         config = _sa1_config(clap_path)
         config["model"]["diffusion"]["type"] = kind
     else:
+        unet = _sa1_config(clap_path)["model"]["diffusion"]["config"]
         config = {"model_type": "diffusion_uncond", "sample_size": 1024, "sample_rate": 16000,
-                  "model": {"type": kind, "config": {}}}
-    with pytest.raises(NotImplementedError, match=kind):
+                  "model": {"type": kind, "config": unet}}
+    model = create_model_from_config(config, "meta")
+    assert type(model.model) is (UNet1DCondWrapper if kind == "adp_1d" else UNet1DUncondWrapper)
+    assert type(model.model.model) is UNet1d
+    (config["model"]["diffusion"] if kind == "adp_1d" else config["model"])["config"][
+        "use_stft"] = True
+    with pytest.raises(NotImplementedError, match="use_stft"):
         create_model_from_config(config, "meta")
 
 
 def test_training_adp_and_dac_is_refused_by_name(clap_path):
     # training `adp_cfg_1d` and DAC towers is ported
     # (tests/test_torch_sa1_training.py, test_torch_dac_training.py): their
-    # trainers build; the plain conditional ADP UNet (`adp_1d`) is still
-    # refused by name
+    # trainers build; the plain conditional ADP UNet
+    # (`adp_1d`) trains too (tests/test_torch_uncond_backbones.py)
     config = _sa1_config(clap_path)
     config["training"] = {"learning_rate": 1e-4}
     w = create_training_wrapper_from_config(config, create_model_from_config(config, "cpu"))
     assert any(n.startswith("model.model.") for n in w.params)
     config["model"]["diffusion"]["type"] = "adp_1d"
-    with pytest.raises(NotImplementedError, match="adp_1d"):
-        create_training_wrapper_from_config(config, None)
+    w = create_training_wrapper_from_config(config, create_model_from_config(config, "meta"))
+    assert any(n.startswith("model.model.to_in.") for n in w.params)
     vae = _sa1_config(clap_path)["model"]["pretransform"]["config"]
     vae = {"model_type": "autoencoder", "sample_size": 2048, "sample_rate": 16000,
            "audio_channels": 2, "model": vae, "training": {"learning_rate": 1e-4}}

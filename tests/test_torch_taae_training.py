@@ -101,9 +101,9 @@ def _pair(cfg, **options):
     state = state.replace(ema_params=jax.tree_util.tree_map(jnp.copy, state.gen_params),
                           gen_opt_state=jtr.gen_optimizer.init(state.gen_params))
     model = create_model_from_config(cfg, "cpu")
-    model.load_state_dict({k: _t(v) for k, v in
-                           autoencoder_state_dict(_tree_np(state.gen_params)).items()},
-                          strict=True)
+    qs = None if state.quantizer_state is None else _tree_np(state.quantizer_state)
+    model.load_state_dict({k: _t(v) for k, v in autoencoder_state_dict(
+        _tree_np(state.gen_params), quantizer_state=qs).items()}, strict=True)
     ttr = AutoencoderTrainer(model, **tkw)
     ttr.discriminator.load_state_dict({k: _t(v) for k, v in encodec_discriminator_state_dict(
         _tree_np(state.disc_params)).items()})
