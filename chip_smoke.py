@@ -3,8 +3,8 @@
     python3 chip_smoke.py [--phases 2,4,6]
 
 Runs from the repository root on a machine with a CUDA card and `nvcc`;
-needs no network, no Triton and no JAX. Seventeen phases, each printing one
-line (phase 2 and 17 several); any failure raises and the exit code is nonzero.
+needs no network, no Triton and no JAX. Eighteen phases, each printing one
+line (phases 2, 17 and 18 several); any failure raises and the exit code is nonzero.
 `--phases` (for development runs) runs phase 1 and the phases named, with
 all their checks, and ends on `{"ok": true, "partial": [...]}`, the phases
 run; without it every phase runs, and the kernels' record, the check that
@@ -312,6 +312,25 @@ every kernel launched on some path and the device line close the run:
    training step and a 10-step decode of a tiny diffusion AE on DAU1d
    (cond_noise_aug), `adp_1d` and `dit`, a training step and a 10-step
    request of the unconditional `adp_uncond_1d` and `dit`.
+18. The other pretransforms and conditioners: (a) SA-Open with an audio
+   prompt through its own VAE (`pretransform`, `use_model_pretransform`,
+   `input_concat_dim` 768) and a `list` label (`audio_prompt_config`): one
+   request of a 47.6 s stereo prompt, 100 steps, cfg 6 (rows 12 / 3 / 4 in
+   the prompt's encode and the decode, rows 1 / 2 in the DiT), and 1 + 3
+   training steps at batch 4 through the entry with a metadata module that
+   gives 4 clips a prompt and a genre (row 6 too), launches pinned from
+   the model (`audio_prompt_launches`); (b) `dac_pretrained` 44 kHz, in
+   bf16 on the card: 47.6 s of mono through encode -> decode (chunked) and
+   tokenize -> decode_tokens, launches pinned from its towers, and the bf16
+   codec held against f32 on the CPU (`dac_f32_divergence`); (c)
+   MusicGen-small over `audiocraft_pretrained` encodec_32khz: 5 s
+   KV-cached (row 2 pinned); (d) `clap_audio` on HTSAT-base: 4 x 10 s at 48
+   kHz, the card against the CPU in f32, no kernel of the port launched;
+   (e) `patched`, `pqmf` (16 bands) and `wavelet` (bior4.4, bior3.5) round
+   trips of 47.6 s of stereo; (f) the tiny twin's prompt encode, its
+   denoiser on the card's own conditioning and on the CPU's, and its decode
+   (5%), a 10-step request (twice the CPU's bf16 distance from f32) and a
+   training step (5%), card against CPU.
 
 The last lines are the kernels' JSON record, the card line and the result
 line {"ok": true, "device": {...}}.
@@ -784,6 +803,7 @@ def phase_kernels(dev):
     rec.update(ae_backward_checks(sn, cs, randn, rec, hold_row3))
     sa1_kernel_checks(rec, cs, sn, ln, F, randn, hold_row3)
     dac_backward_checks(rec, cs, sn, randn)
+    dac_pretrained_kernel_checks(rec, cs, sn, randn, hold_row3)
     rec["snake_conv1d"]["vs_row3"] = dict(max_abs_diff=max(carry["vs_row3"]),
                                           bitwise_equal_cases=carry["bitwise"],
                                           cases=carry["cases"])
@@ -1122,6 +1142,70 @@ def dac_backward_checks(rec, cs, sn, randn) -> None:
                                  "bwd_ms", "bwd_bound_ms")
     rec["snake_fused_bwd"]["dac"] = entry
     rec["snake_fused_bwd"]["max_abs_err"] = max(rec["snake_fused_bwd"]["max_abs_err"], *errs)
+
+
+def dac_pretrained_shapes() -> dict:
+    """The forward kernels' shapes of phase 18b's `dac_pretrained` 44 kHz
+    codec (`dac_step_shapes` of the port factory's architecture and default
+    widths: encoder d_model 64, decoder 1536 channels, latent 1024), batch ->
+    shapes: the chunked encode and decode run groups of 8 chunks of 65,536
+    samples, tokenize and decode_tokens the whole 2,097,152 at batch 1."""
+    from stable_audio_tools_tpu_torch.models.factory import _DAC_ARCHS
+
+    arch = _DAC_ARCHS["44khz"]
+    cfg = {"model": {
+        "encoder": {"config": {"in_channels": 1, "d_model": 64, "strides": arch["strides"]}},
+        "decoder": {"config": {"latent_dim": 1024, "channels": 1536, "rates": arch["dec_rates"],
+                               "out_channels": 1}}}}
+    return {8: dac_step_shapes(cfg, 128 * arch["ratio"]), 1: dac_step_shapes(cfg, SAMPLE_SIZE)}
+
+
+def dac_pretrained_kernel_checks(rec, cs, sn, randn, hold_row3) -> None:
+    """Rows 12, 3 and 4 at every shape of the 44 kHz DAC codec's passes
+    (`dac_pretrained_shapes`: the encoder's 64-channel level takes the
+    64-channel output tile, the decoder's conv_out one channel), each
+    against its plain version on the card within 2 bf16 ulps, row 12 also
+    against row 3; DAC's snake passes alpha as beta. Adds a
+    `dac_pretrained` entry (cases, max_abs_err) to each record and folds the
+    errors into its max_abs_err."""
+    entries = {n: dict(cases=[], max_abs_err=0.0)
+               for n in ("snake_conv1d", "snake_conv1d_res", "snake_fused")}
+
+    def note(name, shape, err):
+        e = entries[name]
+        e["cases"].append(shape)
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+
+    for B, shapes in dac_pretrained_shapes().items():
+        for C, Co, L, kk, d in sorted(shapes["snake_conv"]):
+            res = kk == 1
+            x = randn(B, C, L)
+            w = randn(Co, C, kk, scale=(C * kk) ** -0.5)
+            bias_t = randn(Co, dtype=torch.float32) * 0.1
+            a = randn(C, dtype=torch.float32).exp()
+            r = randn(B, Co, L) if res else None
+            pad = d * (kk - 1) // 2
+            ref = cs.snake_conv1d_plain(x, w, bias_t, a, a, pad, pad, d, r)
+            out = (counted(cs.snake_conv1d_res, x, w, bias_t, a, a, r, pad, pad, d) if res
+                   else counted(cs.snake_conv1d, x, w, bias_t, a, a, pad, pad, d))
+            shape = f"[{B},{C},{L}] -> {Co} k={kk} d={d}"
+            name = f"dac_pretrained snake_conv1d {shape} res={res}"
+            note("snake_conv1d_res" if res else "snake_conv1d", shape,
+                 compare(name, out, ref, bf16_tol(ref)))
+            if not res:
+                hold_row3(name, x, w, bias_t, a, a, pad, d, out)
+            del x, w, r, ref, out
+        for C, L in sorted(shapes["snake"]):
+            x = randn(B, C, L, scale=2.0)
+            a = randn(C, dtype=torch.float32).exp()
+            ref = sn.snake_fused_plain(x, a, a)
+            note("snake_fused", f"[{B},{C},{L}]",
+                 compare(f"dac_pretrained snake [{B},{C},{L}]", counted(sn.snake_fused, x, a, a),
+                         ref, bf16_tol(ref)))
+            del x, ref
+    for name, entry in entries.items():
+        rec[name]["dac_pretrained"] = entry
+        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], entry["max_abs_err"])
 
 
 def carry_ab(cs, F, randn, B, C, L, d, iters=3) -> dict:
@@ -3062,13 +3146,32 @@ def gan_training(dev, cfg: dict, tmp: str, dataset: str, gen_launches: dict,
         raise AssertionError(f"GAN training log: {hist}")
     walls = [1e3 / h["train/steps_per_sec"] for h in hist[2 * warm:]]
     pairs = [walls[i] + walls[i + 1] for i in range(0, len(walls), 2)]
-    unmoved = [n for n, p in w.params.items() if torch.equal(p.detach(), before[n])]
-    unmoved += [n for n, p in w.disc_params.items() if torch.equal(p.detach(), disc_before[n])
-                and not n.endswith("conv_post.bias")]  # zero-initialised, maybe no gradient
-    ema_unmoved = [n for n, e in w.ema.items() if torch.equal(e, before[n])]
+    # A one-element parameter may come back to its own bits. The shipped
+    # schedules' InverseLR warm-up (0.999) scales the first steps' rates by
+    # 1 - 0.999^k: the discriminator's 3e-4 gives 3e-7 to 1.2e-6, a few ulps
+    # of a weight_g near 0.58 a step. A scale's conv_post.weight_g takes the
+    # gradient (mean fake - mean real logit) / g, whose sign a fresh
+    # discriminator draws from batch to batch, so the steps can cancel
+    # (sizes 1, 2, 3, 4 with signs + - - +). Such a parameter passes if
+    # AdamW holds a nonzero second moment for it, i.e. it took gradients.
+    # A scale's last bias may take exact zeros (see above): it is exempt.
+    def stepped_in_place(p, opt):
+        state = opt.state.get(p, {})
+        return p.numel() == 1 and bool(state) and state["exp_avg_sq"].item() > 0
+
+    unmoved, cancelled = [], []
+    for params, before_, opt in ((w.params, before, w.optimizer),
+                                 (w.disc_params, disc_before, w.disc_optimizer)):
+        for n, p in params.items():
+            if not torch.equal(p.detach(), before_[n]) or n.endswith("conv_post.bias"):
+                continue
+            (cancelled if stepped_in_place(p, opt) else unmoved).append(n)
+    ema_unmoved = [n for n, e in w.ema.items()
+                   if torch.equal(e, before[n]) and n not in cancelled]
     if unmoved or ema_unmoved:
         raise AssertionError(f"parameters that did not move: {unmoved[:8]}; "
                              f"EMA entries that did not move: {ema_unmoved[:8]}")
+    rec["stepped_back_to_own_bits"] = cancelled
     del before, disc_before
     losses = {k: [h[k] for h in hist if k in h]
               for k in sorted({k for h in hist for k in h if k.startswith("train/")})}
@@ -6100,7 +6203,627 @@ def phase_diffae(dev) -> dict:
     return rec
 
 
-PHASES = tuple(range(1, 18))
+# -- phase 18: the other pretransforms and conditioners -------------------------------------
+
+AP_GENRES = ("ambient", "rock", "jazz", "folk", "techno", "classical", "hiphop", "pop")
+AP_META_MODULE = """
+import zlib
+GENRES = %r
+def get_custom_metadata(info, audio):
+    # the clip reversed in time as its audio prompt, a genre from its name
+    return {"prompt": "synthetic partials, clip " + info["relpath"],
+            "audio_prompt": audio[:, ::-1].copy(),
+            "genre": GENRES[zlib.crc32(info["relpath"].encode()) %% len(GENRES)]}
+""" % (AP_GENRES,)
+# phase 18's step counts: generation as phase 3; training 1 + 3 steps as phase 4
+# on 4 of phase 4's clips; the LM over encodec_32khz 250 frames (5 s; its ms a
+# step is phase 7's metric), cut from 10 s to keep the script within 950 s
+AP_WARM_STEPS, AP_TIMED_STEPS = 1, 3
+AP_WAVS, AP_LM_FRAMES = 4, 250
+DAC_PRETRAINED = {"type": "dac_pretrained", "config": {"model_type": "44khz"}}
+ENCODEC_PRETRAINED = {"type": "audiocraft_pretrained",
+                      "config": {"model_type": "facebook/encodec_32khz"}}
+CLAP_CLIPS, CLAP_SR, CLAP_SAMPLES = 4, 48000, 480000  # 4 x 10 s at 48 kHz
+CLAP_TOL = 1e-3  # card vs CPU, f32 (TF32 off), max|card - CPU| / max|CPU| of the embeddings
+SIGNAL_PRETRANSFORMS = {
+    "patched": {"type": "patched", "config": {"patch_size": 64, "io_channels": 2}},
+    "pqmf_16": {"type": "pqmf", "config": {"attenuation": 100, "num_bands": 16}},
+    "wavelet_bior4.4": {"type": "wavelet", "config": {"channels": 2, "levels": 3,
+                                                      "wavelet": "bior4.4"}},
+    "wavelet_bior3.5": {"type": "wavelet", "config": {"channels": 2, "levels": 3,
+                                                      "wavelet": "bior3.5"}},
+}
+# round-trip bounds: patching is exact; the wavelet banks reconstruct
+# perfectly (f32 roundings over 3 levels); the PQMF bank is near-perfect (its
+# design's aliasing; relative L2 away from the ends, as the JAX package's test)
+SIGNAL_TOL = {"patched": 0.0, "pqmf_16": 1e-2, "wavelet_bior4.4": 1e-5, "wavelet_bior3.5": 1e-5}
+
+
+def audio_prompt_config() -> dict:
+    """SA-Open's shipped config with two conditioners added in memory: an
+    audio prompt through the model's own VAE (`pretransform`,
+    `use_model_pretransform`) projected to cond_dim 768 and concatenated to
+    the DiT's input (`input_concat_ids`, `input_concat_dim` 768), and a
+    `list` label of AP_GENRES cross-attended beside the prompt and the
+    numbers. Its demo section goes (a demo would need an audio prompt, which
+    JSON cannot carry)."""
+    cfg = sa_open_config()
+    m = cfg["model"]
+    dim = m["conditioning"]["cond_dim"]
+    m["conditioning"]["configs"] += [
+        {"id": "audio_prompt", "type": "pretransform",
+         "config": {"use_model_pretransform": True, "sample_rate": cfg["sample_rate"]}},
+        {"id": "genre", "type": "list", "config": {"options": list(AP_GENRES)}}]
+    d = m["diffusion"]
+    d["cross_attention_cond_ids"] = d["cross_attention_cond_ids"] + ["genre"]
+    d["input_concat_ids"] = ["audio_prompt"]
+    d["config"]["input_concat_dim"] = dim
+    cfg["training"].pop("demo", None)
+    return cfg
+
+
+def tower_launches(tower, unit_cls, block_cls) -> dict:
+    """Snake-conv launches of one pass of an Oobleck or DAC tower, counted
+    from it: each residual unit row 12 (k = 7) and row 3 (k = 1 + skip), the
+    final snake + conv row 12, the snake before each strided or transposed
+    conv row 4."""
+    units = sum(isinstance(m, unit_cls) for m in tower.modules())
+    blocks = sum(isinstance(m, block_cls) for m in tower.modules())
+    return {"snake_conv1d": units + 1, "snake_conv1d_res": units, "snake_fused": blocks}
+
+
+def add_launches(*parts, scale: int = 1) -> dict:
+    out = {}
+    for part in parts:
+        for k, v in part.items():
+            out[k] = out.get(k, 0) + scale * v
+    return {k: v for k, v in out.items() if v}
+
+
+def audio_prompt_launches(model) -> dict:
+    """The audio-prompted SA-Open's launches counted from the model: a DiT
+    forward runs row 1 once a block and row 2 at each of its LayerNorms; a
+    request encodes the prompt once (the VAE encoder), runs STEPS forwards
+    (CFG at batch 2 in one call) and one decode; a training step encodes the
+    batch and its prompts (two encoder passes), runs the DiT forward twice
+    (block rematerialisation) and row 6 once a block."""
+    from stable_audio_tools_tpu_torch.models.autoencoders import (DecoderBlock, EncoderBlock,
+                                                                  ResidualUnit)
+    from stable_audio_tools_tpu_torch.ops.norms import LayerNorm
+    from stable_audio_tools_tpu_torch.ops.transformer import TransformerBlock
+
+    dit, ae = model.model.model, model.pretransform.model
+    blocks = sum(isinstance(m, TransformerBlock) for m in dit.modules())
+    fwd = {"flash_attention_prefix": blocks,
+           "fused_layer_norm": sum(isinstance(m, LayerNorm) for m in dit.modules())}
+    enc = tower_launches(ae.encoder, ResidualUnit, EncoderBlock)
+    dec = tower_launches(ae.decoder, ResidualUnit, DecoderBlock)
+    return dict(encode=enc, request=add_launches(enc, dec, add_launches(fwd, scale=STEPS)),
+                step=add_launches(enc, enc, add_launches(fwd, scale=2),
+                                  {"flash_attention_prefix_bwd": blocks}))
+
+
+def prompt_clip(n: int, seed: int, channels: int = 2):
+    """A seeded synthetic clip [channels, n] (partials under an envelope
+    over noise), f32 numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(n, dtype=np.float32) / 44100
+    tone = sum(np.sin(2 * np.pi * f * t + ph) for f, ph in
+               zip(rng.uniform(60, 3000, 4), rng.uniform(0, 2 * np.pi, 4))) / 6
+    audio = np.stack([np.roll(tone, 7 * c) for c in range(channels)])
+    return (audio + 0.02 * rng.standard_normal(audio.shape)).astype(np.float32)
+
+
+def audio_prompt_generation(dev) -> dict:
+    """`audio_prompt_config()` at full width, seeded random weights: one
+    request (batch 1, a 47.6 s stereo prompt, cfg 6, STEPS dpmpp-3m-sde
+    steps) after a 2-step warm-up: wall s, audio-s/s, peak GiB, launches
+    (pinned from the model), and the prompt's encode alone (the
+    conditioner's VAE encode, warm) in ms."""
+    from stable_audio_tools_tpu_torch.inference.generation import generate_diffusion_cond
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+
+    model = init_random_(create_model_from_config(audio_prompt_config(), dev),
+                         torch.Generator(device=dev).manual_seed(30)).eval()
+    want = audio_prompt_launches(model)
+    meta = [dict(PROMPT[0], audio_prompt=prompt_clip(SAMPLE_SIZE, 31), genre="jazz")]
+    run = lambda steps, seed: generate_diffusion_cond(
+        model, steps=steps, cfg_scale=6.0, conditioning=meta, batch_size=1,
+        sample_size=SAMPLE_SIZE, seed=seed, sampler_type="dpmpp-3m-sde",
+        sigma_min=0.3, sigma_max=500.0)
+    run(2, 0)
+    kernels = counters()
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    audio = run(STEPS, 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in kernels.items() if fn.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if tuple(audio.shape) != (1, 2, SAMPLE_SIZE) or not torch.isfinite(audio).all():
+        raise AssertionError(f"audio-prompted request: {tuple(audio.shape)}, finite "
+                             f"{bool(torch.isfinite(audio).all())}")
+    if launches != want["request"]:
+        raise AssertionError(f"audio-prompted request launches {launches}, expected "
+                             f"{want['request']}")
+    prompt = model.conditioner.conditioners["audio_prompt"]
+    with torch.inference_mode():
+        encode_ms = cuda_ms(lambda: prompt([meta[0]["audio_prompt"]], dev), 3)
+        cond = prompt([meta[0]["audio_prompt"]], dev)[0]
+    dim = audio_prompt_config()["model"]["conditioning"]["cond_dim"]
+    if tuple(cond.shape) != (1, dim, SAMPLE_SIZE // model.pretransform.downsampling_ratio):
+        raise AssertionError(f"audio prompt conditioning {tuple(cond.shape)}")
+    rec = dict(params=sum(p.numel() for p in model.parameters()), wall_s=wall, steps=STEPS,
+               audio_s_per_s=SAMPLE_SIZE / SR / wall, peak_gib=peak, launches=launches,
+               prompt_encode_ms=encode_ms, counts=want)
+    del model, audio, cond
+    torch.cuda.empty_cache()
+    return rec
+
+
+def audio_prompt_training(dev) -> dict:
+    """`audio_prompt_config()` trained through `train.build` and
+    `Trainer.fit` at batch TRAIN_BATCH x SAMPLE_SIZE on phase 4's synthetic
+    WAVs, a `custom_metadata_module` giving each its prompt, an audio prompt
+    (the clip reversed) and a genre: 1 warm-up step, then 3 timed; every
+    trainable parameter's gradient finite and not all zero after the first
+    (the list table's and the prompt projection's among them), none of the
+    VAE's trainable; launches pinned from the model; then one step in its
+    pieces (`step_split`: data, conditioning with the prompts' encode, the
+    batch's encode, forward+backward, optimizer, EMA)."""
+    from stable_audio_tools_tpu_torch import train
+
+    cfg = audio_prompt_config()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_audio_prompt_") as tmp:
+        cfg_path = os.path.join(tmp, "model.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        data = write_dataset(tmp, AP_WAVS)
+        with open(os.path.join(tmp, "metadata.py"), "w") as f:
+            f.write(AP_META_MODULE)
+        args = train.parse_args([
+            "--model-config", cfg_path, "--dataset-config", data,
+            "--batch-size", str(TRAIN_BATCH), "--num-workers", "4", "--seed", "0",
+            "--max-steps", str(AP_WARM_STEPS + AP_TIMED_STEPS), "--checkpoint-every", "0",
+            "--save-dir", os.path.join(tmp, "run")])
+        trainer, loader, _ = train.build(args, device=dev)
+        w = trainer.wrapper
+        names = list(w.params)
+        for want_name in ("conditioner.conditioners.genre.embedder.weight",
+                          "conditioner.conditioners.audio_prompt.proj_out.weight"):
+            if want_name not in names:
+                raise AssertionError(f"{want_name} does not train")
+        if any(".pretransform." in n or n.startswith("pretransform.") for n in names):
+            raise AssertionError("the VAE trains")
+        want = audio_prompt_launches(w.model)["step"]
+        trainer.fit(loader, max_steps=AP_WARM_STEPS, save_at_end=False)
+        bad = [n for n, p in w.params.items()
+               if p.grad is None or not torch.isfinite(p.grad).all() or not p.grad.abs().max() > 0]
+        if bad:
+            raise AssertionError(f"after step 1, {len(bad)} trainable parameters have no finite "
+                                 f"nonzero gradient: {bad[:8]}")
+        launches, peak = counted_fit(trainer, loader, AP_TIMED_STEPS, counters())
+        launches = {n: c for n, c in launches.items() if c}
+        if launches != add_launches(want, scale=AP_TIMED_STEPS):
+            raise AssertionError(f"audio-prompted training launches {launches} over "
+                                 f"{AP_TIMED_STEPS} steps, expected {want} a step")
+        losses = [h["train/loss"] for h in trainer.history]
+        if len(losses) != AP_WARM_STEPS + AP_TIMED_STEPS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"audio-prompted training losses: {losses}")
+        walls = [1e3 / h["train/steps_per_sec"] for h in trainer.history[AP_WARM_STEPS:]]
+        return dict(split=step_split(trainer, loader),
+                    losses=losses, step_ms=walls, step_ms_median=statistics.median(walls),
+                    audio_s_per_s=TRAIN_BATCH * SAMPLE_SIZE / SR / (statistics.median(walls) / 1e3),
+                    peak_gib=peak, launches=launches, step_counts=want,
+                    trainable_params=sum(p.numel() for p in w.params.values()))
+
+
+def codec_pass_launches(pt, samples: int) -> dict:
+    """A DAC codec pretransform's round trip counted from it: the chunked
+    encode and decode run one tower pass a group of `chunk_batch` (8) chunks
+    of 128 latents overlapping by 32; `tokenize` and `decode_tokens` one
+    unchunked pass each."""
+    from stable_audio_tools_tpu_torch.models.dac import (DACDecoderBlock, DACEncoderBlock,
+                                                         DACResidualUnit)
+
+    ae = pt.model
+    ratio = ae.downsampling_ratio
+    starts = ae._chunk_starts(samples, 128 * ratio, 96 * ratio)
+    groups = -(-len(starts) // 8)
+    enc = tower_launches(ae.encoder, DACResidualUnit, DACEncoderBlock)
+    dec = tower_launches(ae.decoder, DACResidualUnit, DACDecoderBlock)
+    return add_launches(add_launches(enc, dec, scale=groups), enc, dec)
+
+
+def dac_pretrained_round_trip(dev) -> dict:
+    """`dac_pretrained` 44 kHz (descript's published architecture, seeded
+    random weights, bf16 as the factory builds it on the card, chunked as the JAX
+    factory's default): 47.6 s of mono through encode -> decode (the DAC
+    RVQ quantizing on decode) and through tokenize -> decode_tokens, after a
+    warm-up round trip: wall s, audio-s/s, peak GiB, the busy share under
+    the profiler, launches pinned from the towers."""
+    from stable_audio_tools_tpu_torch.models.factory import (create_pretransform_from_config,
+                                                             init_random_)
+
+    pt = init_random_(create_pretransform_from_config(DAC_PRETRAINED, SR, dev),
+                      torch.Generator(device=dev).manual_seed(32)).eval()
+    audio = torch.from_numpy(prompt_clip(SAMPLE_SIZE, 33, channels=1))[None].to(dev)
+    want = codec_pass_launches(pt, SAMPLE_SIZE)
+
+    def round_trip():
+        z = pt.encode(audio)
+        codes = pt.tokenize(audio)
+        return z, pt.decode(z), codes, pt.decode_tokens(codes)
+
+    kernels = counters()
+    with torch.inference_mode():
+        round_trip()
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        z, out, codes, out_tokens = round_trip()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in kernels.items() if fn.launches}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        latents = SAMPLE_SIZE // pt.downsampling_ratio
+        if (tuple(z.shape) != (1, pt.encoded_channels, latents)
+                or tuple(codes.shape) != (1, pt.num_quantizers, latents)
+                or any(tuple(o.shape) != (1, 1, SAMPLE_SIZE) or not torch.isfinite(o).all()
+                       for o in (out, out_tokens))):
+            raise AssertionError(f"dac_pretrained round trip: latents {tuple(z.shape)}, codes "
+                                 f"{tuple(codes.shape)}, audio {tuple(out.shape)}")
+        if launches != want:
+            raise AssertionError(f"dac_pretrained round trip launches {launches}, expected {want}")
+        profile = profiled_window(round_trip)
+    rec = dict(params=sum(p.numel() for p in pt.parameters()), wall_s=wall,
+               audio_s_per_s=SAMPLE_SIZE / SR / wall, peak_gib=peak, launches=launches,
+               codes=list(codes.shape), device_busy=profile["device_busy"],
+               profiled_wall_ms=profile["wall_ms"], top_kernels_ms=profile["top_kernels_ms"])
+    del audio, z, out, codes, out_tokens
+    rec["f32_divergence"] = dac_f32_divergence(pt, dev)
+    del pt
+    torch.cuda.empty_cache()
+    return rec
+
+
+DAC_F32_SAMPLES = 8192  # 16 latents: one unchunked pass
+DAC_SPREAD = 2.0  # the card's bf16 distance from f32 over the CPU's bf16 distance
+
+
+def dac_f32_divergence(pt, dev) -> dict:
+    """The card's bf16 DAC codec (the factory's choice on the card) against
+    the same weights in f32 on the CPU (the JAX package's dtype) on 8,192
+    mono samples: relative L2 distance of the latents, of the audio decoded
+    from the f32 run's latents (quantized on decode) and from its codes, and
+    the share of codes that agree. Random weights at the published depth
+    grow bf16's roundings (the decoder's gains into its tanh), so the CPU's
+    own bf16 run of the same codec (the kernels' plain versions) measures
+    what bf16 gives, and each card distance is held within DAC_SPREAD times it."""
+    cpu = copy.deepcopy(pt).to("cpu")
+    x = torch.from_numpy(prompt_clip(DAC_F32_SAMPLES, 34, channels=1))[None]
+
+    def run(codec, x, z32, c32):
+        d = x.device
+        return (codec.encode(x), codec.tokenize(x), codec.decode(z32.to(d)),
+                codec.decode_tokens(c32.to(d)))
+
+    def rel2(got, want):
+        got, want = got.double().cpu(), want.double()
+        return ((got - want).norm() / want.norm()).item()
+
+    with torch.inference_mode():
+        cpu.model_half = False
+        z32, c32 = cpu.encode(x), cpu.tokenize(x)
+        f32 = (z32, c32, cpu.decode(z32), cpu.decode_tokens(c32))
+        cpu.model_half = True
+        cpu_bf16 = run(cpu, x, z32, c32)
+        card = run(pt, x.to(dev), z32, c32)
+    rec = {}
+    for i, name in ((0, "latents"), (2, "decode"), (3, "decode_tokens")):
+        rec[name] = dict(card=rel2(card[i], f32[i]), cpu_bf16=rel2(cpu_bf16[i], f32[i]))
+        if not rec[name]["card"] <= DAC_SPREAD * rec[name]["cpu_bf16"]:
+            raise AssertionError(f"dac_pretrained {name}: the card's bf16 is "
+                                 f"{rec[name]['card']:.4g} from f32, past twice the CPU's bf16 "
+                                 f"{rec[name]['cpu_bf16']:.4g}")
+    rec["codes_agree"] = dict(card=(card[1].cpu() == c32).double().mean().item(),
+                              cpu_bf16=(cpu_bf16[1] == c32).double().mean().item())
+    rec["tol"] = f"card rel L2 from f32 <= {DAC_SPREAD} x the CPU's bf16"
+    return rec
+
+
+def audiocraft_lm_generation(dev) -> dict:
+    """MusicGen-small (lm/musicgen_small_rvq.json) with its codec replaced by
+    `audiocraft_pretrained` facebook/encodec_32khz (SEANet with identity
+    skips + the EMA RVQ, f32, seeded random weights): AP_LM_FRAMES frames
+    KV-cached, batch 1, cfg LM_CFG, top_k LM_TOP_K: wall, ms a step, peak
+    GiB, row 2 pinned (3 norms a block a step)."""
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+    from stable_audio_tools_tpu_torch.models.lm import lm_generate_audio
+
+    cfg = lm_config()
+    cfg["model"]["pretransform"] = copy.deepcopy(ENCODEC_PRETRAINED)
+    model = init_random_(create_model_from_config(cfg, dev),
+                         torch.Generator(device=dev).manual_seed(34)).eval()
+    cond = model.conditioner(LM_PROMPT, dev)
+    gen = lambda frames, seed: lm_generate_audio(
+        model, cond, max_gen_len=frames, batch_size=1, cfg_scale=LM_CFG, top_k=LM_TOP_K,
+        generator=torch.Generator(device=dev).manual_seed(seed))
+    gen(8, 0)
+    S = model.pattern_provider.get_pattern(AP_LM_FRAMES).S
+    want = {"fused_layer_norm": 3 * model.lm.backbone.depth * (S - 1)}
+    kernels = counters()
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    audio = gen(AP_LM_FRAMES, 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in kernels.items() if fn.launches}
+    samples = AP_LM_FRAMES * model.pretransform.downsampling_ratio
+    if tuple(audio.shape) != (1, 1, samples) or not torch.isfinite(audio).all():
+        raise AssertionError(f"LM over encodec_32khz: audio {tuple(audio.shape)}")
+    if launches != want:
+        raise AssertionError(f"LM over encodec_32khz launches {launches}, expected {want}")
+    rec = dict(params=sum(p.numel() for p in model.parameters()),
+               codec_params=sum(p.numel() for p in model.pretransform.parameters()),
+               wall_s=wall, steps=S - 1, ms_per_step=wall / (S - 1) * 1e3,
+               audio_s_per_s=samples / LM_SR / wall,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, launches=launches)
+    del model, cond, audio
+    torch.cuda.empty_cache()
+    return rec
+
+
+def clap_audio_embed(dev) -> dict:
+    """A `clap_audio` conditioner on HTSAT-base (enable_fusion at its
+    default; seeded random weights, its BatchNorm statistics drawn too)
+    embedding CLAP_CLIPS clips of 10 s at 48 kHz: ms of one call (warm), and
+    the card against the CPU in f32 (TF32 off) within CLAP_TOL; it
+    launches none of the port's kernels (the JAX tower is plain flax, the
+    port's plain PyTorch)."""
+    from stable_audio_tools_tpu_torch.models.conditioners import (
+        create_multi_conditioner_from_conditioning_config)
+    from stable_audio_tools_tpu_torch.models.factory import init_random_
+    from stable_audio_tools_tpu_torch.ops.stft import _full_f32_convs
+
+    cpu = create_multi_conditioner_from_conditioning_config({"cond_dim": 768, "configs": [
+        {"id": "reference", "type": "clap_audio", "config": {"allow_random_init": True}}]},
+        device="cpu")
+    g = torch.Generator().manual_seed(35)
+    init_random_(cpu, g)
+    with torch.no_grad():
+        for name, buf in cpu.named_buffers():
+            if name.endswith("running_mean"):
+                buf.normal_(0.0, 0.1, generator=g)
+            elif name.endswith("running_var"):
+                buf.uniform_(0.5, 1.5, generator=g)
+    card = copy.deepcopy(cpu).to(dev).eval()
+    cpu.eval()
+    meta = [{"reference": prompt_clip(CLAP_SAMPLES, 36 + i)} for i in range(CLAP_CLIPS)]
+    kernels = counters()
+    with torch.inference_mode():
+        card(meta, dev)
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        ms = cuda_ms(lambda: card(meta, dev), 3)
+        launches = {n: fn.launches for n, fn in kernels.items() if fn.launches}
+        with _full_f32_convs():
+            tf32 = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+            try:
+                got = card(meta, dev)["reference"][0].cpu()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+            want = cpu(meta, "cpu")["reference"][0]
+    err = float((got - want).abs().max() / want.abs().max())
+    if launches:
+        raise AssertionError(f"clap_audio launched the port's kernels: {launches}")
+    if tuple(got.shape) != (CLAP_CLIPS, 1, 768) or not err <= CLAP_TOL:
+        raise AssertionError(f"clap_audio card vs CPU: shape {tuple(got.shape)}, rel err "
+                             f"{err:.3g} (tol {CLAP_TOL})")
+    rec = dict(params=sum(p.numel() for p in cpu.parameters()), ms=ms, clips=CLAP_CLIPS,
+               card_vs_cpu=err, tol=CLAP_TOL)
+    del cpu, card
+    torch.cuda.empty_cache()
+    return rec
+
+
+def signal_round_trips(dev) -> dict:
+    """Each signal-domain pretransform (SIGNAL_PRETRANSFORMS) on 47.6 s of
+    stereo: the encode + decode's ms (CUDA events, after a warm-up), the
+    reconstruction's error (max abs and relative L2, the PQMF's away from
+    the ends) within SIGNAL_TOL, and the encode against the CPU's on the
+    first 65,536 samples (1e-5 of the peak)."""
+    from stable_audio_tools_tpu_torch.models.factory import create_pretransform_from_config
+
+    x_np = prompt_clip(SAMPLE_SIZE, 37)
+    x = torch.from_numpy(x_np)[None].to(dev)
+    out = {}
+    for name, cfg in SIGNAL_PRETRANSFORMS.items():
+        pt = create_pretransform_from_config(cfg, SR, dev)
+        ratio = pt.downsampling_ratio
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: pt.decode(pt.encode(x)), 3)
+            z = pt.encode(x)
+            y = pt.decode(z)
+            edge = min(4096, SAMPLE_SIZE // 8)  # the PQMF's filter length and more
+            seg = slice(edge, SAMPLE_SIZE - edge) if name.startswith("pqmf") else slice(None)
+            d = (y - x)[..., seg]
+            rel_l2 = float(d.norm() / x[..., seg].norm())
+            small = torch.from_numpy(x_np[:, :65536])[None]
+            card_vs_cpu = float((pt.encode(small.to(dev)).cpu() - pt.encode(small)).abs().max()
+                                / pt.encode(small).abs().max())
+        if tuple(z.shape) != (1, 2 * ratio, SAMPLE_SIZE // ratio) or not rel_l2 <= SIGNAL_TOL[name] \
+                or not card_vs_cpu <= 1e-5:
+            raise AssertionError(f"{name}: latents {tuple(z.shape)}, round trip rel L2 {rel_l2:.3g} "
+                                 f"(tol {SIGNAL_TOL[name]}), card vs CPU {card_vs_cpu:.3g}")
+        out[name] = dict(ms=ms, max_abs_err=float(d.abs().max()), rel_l2=rel_l2,
+                         latents=list(z.shape), card_vs_cpu=card_vs_cpu)
+    return out
+
+
+class PosteriorMean:
+    """Within the block, a VAE bottleneck returns its posterior mean: the
+    card and the CPU draw different noise, and the card-vs-CPU checks hold
+    the kernels, not the random streams."""
+
+    def __enter__(self):
+        from stable_audio_tools_tpu_torch.models import bottleneck
+
+        self.module, self.saved = bottleneck, bottleneck.vae_sample
+        bottleneck.vae_sample = lambda x, generator=None, noise=None: (
+            x.chunk(2, dim=1)[0], torch.zeros((), device=x.device))
+
+    def __exit__(self, *exc):
+        self.module.vae_sample = self.saved
+
+
+def tiny_audio_prompt_config(dtype: str = "bfloat16") -> dict:
+    """`tiny_config()` with `audio_prompt_config()`'s two conditioners: the
+    prompt through the tiny VAE projected to cond_dim 64 and concatenated,
+    the genre cross-attended; the DiT in `dtype`."""
+    cfg = tiny_config()
+    m = cfg["model"]
+    m["conditioning"]["configs"] += [
+        {"id": "audio_prompt", "type": "pretransform",
+         "config": {"use_model_pretransform": True, "sample_rate": cfg["sample_rate"]}},
+        {"id": "genre", "type": "list", "config": {"options": list(AP_GENRES)}}]
+    d = m["diffusion"]
+    d["cross_attention_cond_ids"] = d["cross_attention_cond_ids"] + ["genre"]
+    d["input_concat_ids"] = ["audio_prompt"]
+    d["config"].update(input_concat_dim=64, compute_dtype=dtype)
+    cfg["training"].pop("demo", None)
+    return cfg
+
+
+def small_audio_prompt_checks(dev) -> dict:
+    """Phase 18(f), the tiny audio-prompted SA-Open twin (seeded weights,
+    bf16 DiT and VAE as SA-Open's) on the card against the CPU, within 5%
+    as phase 3: the prompt's conditioning (the bf16 VAE encode; the CPU's
+    own bf16 distance from its f32 encode is printed beside it), one CFG
+    denoiser call on each side's own conditioning (the card's prompt encode
+    flowing into the card's DiT) and one on the CPU's (the DiT's kernels
+    alone), and the decode; a 10-step request held to twice the CPU's own
+    bf16 distance from its f32 run (a random bf16 model compounds roundings
+    over the steps, as in phases 5 and 17); one training step's loss and
+    gradients (within 5%, as phase 4)."""
+    import zlib
+
+    from stable_audio_tools_tpu_torch.inference.generation import generate_diffusion_cond
+    from stable_audio_tools_tpu_torch.models.conditioners import FallbackTokenizer
+    from stable_audio_tools_tpu_torch.models.factory import create_model_from_config, init_random_
+    from stable_audio_tools_tpu_torch.training.factory import create_training_wrapper_from_config
+
+    def build(dtype):
+        model = init_random_(create_model_from_config(tiny_audio_prompt_config(dtype), "cpu"),
+                             torch.Generator().manual_seed(38))
+        t5 = model.conditioner.conditioners["prompt"]
+        t5.model.compute_dtype = torch.float32
+        t5.tokenizer = FallbackTokenizer(t5.tokenizer.max_length,
+                                         word_hash=lambda w: zlib.crc32(w.encode("utf-8")))
+        return model.eval()
+
+    T = 32 * 128
+    meta = [dict(PROMPT[0], audio_prompt=prompt_clip(T, 39), genre="folk")]
+    cpu, cpu32 = build("bfloat16"), build("float32")
+    gpu = copy.deepcopy(cpu).to(dev)
+    g = torch.Generator().manual_seed(40)
+    x, z = torch.randn(1, 16, 128, generator=g), torch.randn(1, 16, 128, generator=g)
+    t = torch.tensor([0.5])
+    rec = {}
+    with PosteriorMean(), torch.inference_mode():
+        # the prompt's conditioning: the bf16 VAE encode, and beside it the
+        # CPU's own bf16 distance from its f32 encode
+        prompt = lambda m, d: m.conditioner(meta, d)["audio_prompt"][0].float().cpu()
+        cpu_f32 = copy.deepcopy(cpu)
+        cpu_f32.pretransform.model_half = False
+        want, want32, got = prompt(cpu, "cpu"), prompt(cpu_f32, "cpu"), prompt(gpu, dev)
+        rec["prompt_rel_err"] = (got - want).abs().max().item() / want.abs().max().item()
+        rec["cpu_prompt_bf16_vs_f32"] = (want - want32).abs().max().item() / want32.abs().max().item()
+        # the denoiser on each side's own conditioning and on the CPU's (the
+        # DiT's kernels alone), and the decode
+        cond = cpu.get_conditioning_inputs(cpu.conditioner(meta, "cpu"))
+        errs = {}
+        for name, run in (
+            ("denoiser_own_cond", lambda m, d: m(x.to(d), t.to(d), cfg_scale=6.0,
+                                                 **m.get_conditioning_inputs(
+                                                     m.conditioner(meta, d)))),
+            ("denoiser", lambda m, d: m(x.to(d), t.to(d), cfg_scale=6.0, **{
+                k: v.to(d) if torch.is_tensor(v) else v for k, v in cond.items()})),
+            ("decode", lambda m, d: m.pretransform.decode(z.to(d))),
+        ):
+            want, got = run(cpu, "cpu").float(), run(gpu, dev).float().cpu()
+            rec[f"{name}_rel_err"] = ((got - want).abs().max().item()
+                                      / max(want.abs().max().item(), 1e-6))
+        request = lambda m, d: generate_diffusion_cond(
+            m, steps=10, cfg_scale=6.0, conditioning=meta, batch_size=1, sample_size=T,
+            seed=0, sampler_type="dpmpp-3m-sde", sigma_min=0.3, sigma_max=500.0,
+            noise=torch.randn(1, 16, 128, generator=torch.Generator().manual_seed(41)).to(d),
+            step_noise=lambda i, s: torch.randn(
+                s.shape, generator=torch.Generator().manual_seed(100 + i)).to(s.device, s.dtype)
+        ).float().cpu()
+        want, want32, got = request(cpu, "cpu"), request(cpu32, "cpu"), request(gpu, dev)
+        rec["request_rel_l2"] = float((got - want).norm() / want.norm())
+        rec["cpu_bf16_vs_f32_rel_l2"] = float((want - want32).norm() / want32.norm())
+    cfg = tiny_audio_prompt_config()
+    gb = torch.Generator().manual_seed(42)
+    B = 2
+    batch = dict(t=torch.rand(B, generator=gb), noise=torch.randn(B, 16, 128, generator=gb),
+                 cfg_dropout_mask=torch.tensor([False, True]))
+    audio = 0.3 * torch.randn(B, 2, T, generator=gb)
+    tmeta = [meta[0], dict(PROMPT[0], audio_prompt=prompt_clip(T, 43), genre="rock")]
+    out = {}
+    with PosteriorMean():
+        for name, model, d in (("cpu", build("bfloat16").train(), "cpu"),
+                               ("card", copy.deepcopy(cpu).train().to(dev), dev)):
+            w = create_training_wrapper_from_config(cfg, model)
+            aux = w.train_step(audio.to(d), tmeta, **{k: v.to(d) for k, v in batch.items()})
+            out[name] = (float(aux["loss"]), w)
+    (lc, wc), (lg, wg) = out["cpu"], out["card"]
+    errs = {n: float((wg.params[n].grad.float().cpu() - p.grad).abs().max() / p.grad.abs().max())
+            for n, p in wc.params.items() if p.grad is not None and p.grad.abs().max() > 0}
+    worst = max(errs, key=errs.get)
+    rec.update(loss_rel_err=abs(lg - lc) / abs(lc), grad_rel_err=errs[worst], worst_grad=worst)
+    return rec
+
+
+def phase_audio_prompt(dev) -> dict:
+    """Phase 18: (f) the tiny card-vs-CPU checks, (a) the audio-prompted
+    SA-Open's request and training, (b) `dac_pretrained` 44 kHz's round
+    trip, (c) MusicGen-small over `audiocraft_pretrained` encodec_32khz, (d)
+    `clap_audio` on HTSAT-base, (e) the signal-domain pretransforms."""
+    t_phase = time.perf_counter()
+    small, tol = small_audio_prompt_checks(dev), 0.05
+    if not (all(small[k] <= tol for k in ("prompt_rel_err", "denoiser_own_cond_rel_err",
+                                          "denoiser_rel_err", "decode_rel_err",
+                                          "loss_rel_err", "grad_rel_err"))
+            and small["request_rel_l2"] <= 2 * small["cpu_bf16_vs_f32_rel_l2"]):
+        raise AssertionError(f"phase 18 tiny checks card vs CPU: {small} (tol {tol}; the "
+                             "request within twice the CPU's bf16 distance from f32)")
+    rec = dict(small=small, small_tol=tol)
+    rec["request"] = audio_prompt_generation(dev)
+    rec["training"] = audio_prompt_training(dev)
+    torch.cuda.empty_cache()
+    rec["dac_pretrained"] = dac_pretrained_round_trip(dev)
+    rec["audiocraft_lm"] = audiocraft_lm_generation(dev)
+    rec["clap_audio"] = clap_audio_embed(dev)
+    rec["signal"] = signal_round_trips(dev)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+PHASES = tuple(range(1, 19))
 
 
 def parse_phases(argv) -> set:
@@ -6253,6 +6976,13 @@ def main(argv=None) -> int:
                       rec["snake_conv1d_dx"]["dac"]["cases"], rec["snake_conv1d_wgrad"]["dac"]["cases"]))
               + f"; every call launched its kernel; on {card}", flush=True)
 
+        print("phase 2 rows 12 / 3 / 4 at dac_pretrained 44 kHz's shapes (chunk groups [8, C, "
+              "65536] and the unchunked [1, C, 2097152]; cases, max err within 2 bf16 ulps): "
+              + "; ".join(f"{n} {len(rec[n]['dac_pretrained']['cases'])}, "
+                          f"{rec[n]['dac_pretrained']['max_abs_err']:.3g}"
+                          for n in ("snake_conv1d", "snake_conv1d_res", "snake_fused"))
+              + f"; every call launched its kernel; on {card}", flush=True)
+
         fw, bw = rec["flash_attention"]["taae"], rec["flash_attention_prefix_bwd"]["taae"]
         fmt = lambda v: "n/a" if v is None else f"{v:.4f}"
         print("phase 2 rows 5 | 6 at the TAAE's training shapes, head dim 128, window (31, 32) "
@@ -6344,7 +7074,8 @@ def main(argv=None) -> int:
                     if k.endswith("_ms") and isinstance(v, float))
                 + f"; gen step device busy {sp['gen_step_device_busy']:.1%}, top kernels ms "
                 f"{json.dumps(sp['gen_step_top_kernels_ms'])}; launches "
-                f"{json.dumps({k: v for k, v in r['launches'].items() if v})}; checkpoint "
+                f"{json.dumps({k: v for k, v in r['launches'].items() if v})}; stepped back to "
+                f"their own bits {r['stepped_back_to_own_bits']}; checkpoint "
                 f"{r['ckpt_gib']:.2f} GiB reloaded identical, resumed {r['resumed_steps']} steps")
 
     if want(6):
@@ -6630,6 +7361,50 @@ def main(argv=None) -> int:
 
         torch.cuda.empty_cache()
 
+    if want(18):
+        d18 = phase_audio_prompt(dev)
+        req, tr, dp, lm, clap = (d18[k] for k in ("request", "training", "dac_pretrained",
+                                                  "audiocraft_lm", "clap_audio"))
+        print(f"phase 18a audio-prompted SA-Open: {req['params'] / 1e9:.3f}B params, a "
+              f"{SAMPLE_SIZE}-sample stereo prompt through its VAE (input_concat 768) + a list "
+              f"label, {req['steps']} steps dpmpp-3m-sde cfg 6: wall {req['wall_s']:.3f} s, "
+              f"{req['audio_s_per_s']:.3f} audio-s/s, peak {req['peak_gib']:.2f} GiB, the "
+              f"prompt's encode {req['prompt_encode_ms']:.1f} ms, launches "
+              f"{json.dumps(req['launches'])}; training batch {TRAIN_BATCH} x {SAMPLE_SIZE} "
+              f"({tr['trainable_params'] / 1e9:.3f}B trainable): step {tr['step_ms_median']:.1f} "
+              f"ms median of {AP_TIMED_STEPS} ({', '.join(f'{x:.1f}' for x in tr['step_ms'])}), "
+              f"{tr['audio_s_per_s']:.2f} audio-s trained/s, peak {tr['peak_gib']:.2f} GiB, "
+              f"losses {', '.join(f'{x:.4g}' for x in tr['losses'])}, launches a step "
+              f"{json.dumps(tr['step_counts'])}; split ms " + ", ".join(
+                  f"{k[:-3]} {v:.1f}" for k, v in tr["split"].items()
+                  if k.endswith("_ms") and isinstance(v, float))
+              + f"; fwd+bwd device busy {tr['split']['fwd_bwd_device_busy']:.1%} on {card}",
+              flush=True)
+        print(f"phase 18b dac_pretrained 44khz: {dp['params'] / 1e6:.1f}M params (bf16), "
+              f"{SAMPLE_SIZE} mono samples through encode -> decode and tokenize -> "
+              f"decode_tokens (codes {dp['codes']}): wall {dp['wall_s']:.3f} s, "
+              f"{dp['audio_s_per_s']:.2f} audio-s/s, peak {dp['peak_gib']:.2f} GiB, profiled "
+              f"{dp['profiled_wall_ms']:.1f} ms at {dp['device_busy']:.1%} busy, top kernels ms "
+              f"{json.dumps(dp['top_kernels_ms'])}, launches {json.dumps(dp['launches'])}, "
+              f"bf16 vs f32 (rel L2, card; CPU bf16) " + ", ".join(
+                  f"{k} {v['card']:.4g}; {v['cpu_bf16']:.4g}"
+                  for k, v in dp["f32_divergence"].items() if isinstance(v, dict)) + "; "
+              f"18c MusicGen-small over encodec_32khz ({lm['codec_params'] / 1e6:.1f}M codec "
+              f"params): {AP_LM_FRAMES} frames KV-cached {lm['wall_s']:.3f} s, {lm['ms_per_step']:.2f}"
+              f" ms/step, {lm['audio_s_per_s']:.3f} audio-s/s, peak {lm['peak_gib']:.2f} GiB, "
+              f"launches {json.dumps(lm['launches'])}; 18d clap_audio HTSAT-base "
+              f"({clap['params'] / 1e6:.1f}M): {clap['clips']} x 10 s at 48 kHz {clap['ms']:.1f} "
+              f"ms, card vs CPU f32 {clap['card_vs_cpu']:.3g} (tol {clap['tol']}) on {card}",
+              flush=True)
+        print("phase 18e signal pretransforms, 2 x " + str(SAMPLE_SIZE) + " samples (round trip "
+              "ms; max abs err; rel L2; card vs CPU): " + "; ".join(
+                  f"{n} {r['ms']:.3f}; {r['max_abs_err']:.3g}; {r['rel_l2']:.3g}; "
+                  f"{r['card_vs_cpu']:.3g}" for n, r in d18["signal"].items())
+              + f"; 18f tiny card-vs-CPU {json.dumps({k: round(v, 4) if isinstance(v, float) else v for k, v in d18['small'].items()})}"
+              f" (tol {d18['small_tol']}); phase {d18['phase_s']:.1f} s on {card}", flush=True)
+
+        torch.cuda.empty_cache()
+
     if len(phases) < len(PHASES):
         print(f"phases run: {sorted(phases)} of 1-{len(PHASES)}; the kernels' record and the "
               "check that every kernel launched on some path need every phase", flush=True)
@@ -6670,7 +7445,11 @@ def main(argv=None) -> int:
                        "diffae_training": d17["training"]["launches"].get(n, 0),
                        "diffae_demo": d17["training"]["demo"]["launches"].get(n, 0),
                        "dac_rvq_round_trip": d17["dac_rvq_round_trip"]["launches"].get(n, 0),
-                       "dac_rvq_training": d17["dac_rvq_training"]["launches"].get(n, 0)}
+                       "dac_rvq_training": d17["dac_rvq_training"]["launches"].get(n, 0),
+                       "audio_prompt_request": d18["request"]["launches"].get(n, 0),
+                       "audio_prompt_training": d18["training"]["launches"].get(n, 0),
+                       "dac_pretrained_round_trip": d18["dac_pretrained"]["launches"].get(n, 0),
+                       "encodec_32khz_lm_generation": d18["audiocraft_lm"]["launches"].get(n, 0)}
             kernels.append(dict(name=n, route=r["route"], source=r["source"], replaces=r["replaces"],
                                 launches=sum(by_path.values()), launches_by_path=by_path,
                                 max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
@@ -6704,7 +7483,7 @@ def main(argv=None) -> int:
             "dac_training": {n: {k: v for k, v in dac[n].items() if k != "launches"}
                              for n in DAC_VAES},
             "codec_training": {k: v for k, v in codec.items() if k != "launches"},
-            "rf": rf, "taae": taae, "diffae": d17}))
+            "rf": rf, "taae": taae, "diffae": d17, "audio_prompt": d18}))
     print(card)
     if len(phases) < len(PHASES):  # a development run ends on what it ran, not on a pass
         print(json.dumps({"ok": True, "partial": sorted(phases)}))

@@ -239,3 +239,134 @@ def remove_weight_norm_from_model(module: torch.nn.Module) -> int:
         g.copy_(torch.sqrt(torch.sum(w ** 2, dim=tuple(range(1, w.dim())), keepdim=True)))
         n += 1
     return n
+
+
+def _seanet_layout(model: torch.nn.Module) -> tp.Dict[str, str]:
+    """The port's SEANet module names -> encodec's / audiocraft's `model.{n}`
+    Sequential names (what the JAX package's `import_seanet_encoder` /
+    `_decoder` read, io/checkpoints.py:350-395), per tower of a SEANet
+    `model` (empty for other towers):
+    encoder conv_in, per ratio R resnet blocks, an ELU and the down conv,
+    the LSTM, an ELU and conv_out; decoder conv_in, the LSTM, per ratio an
+    ELU, the transposed conv and R resnet blocks, an ELU and conv_out. A
+    resnet block's convs are `block.1` / `block.3`, every conv nested as
+    `conv.conv` (`convtr.convtr`)."""
+    from ..models.seanet import SEANetDecoder, SEANetEncoder
+
+    names = {}
+    if not (isinstance(model.encoder, SEANetEncoder) and isinstance(model.decoder, SEANetDecoder)):
+        return names
+    for tower, decoder in ((model.encoder, False), (model.decoder, True)):
+        pre = "decoder." if decoder else "encoder."
+        n_res = len(tower.blocks[0]["res"])
+        lstm = tower.lstm is not None
+        names[f"{pre}conv_in.conv"] = f"{pre}model.0.conv.conv"
+        base = 1
+        if decoder and lstm:
+            names[f"{pre}lstm.lstm"] = f"{pre}model.1.lstm"
+            base = 2
+        for i in range(len(tower.blocks)):
+            start = base + i * (n_res + 2)
+            first_res = start + 2 if decoder else start
+            for j in range(n_res):
+                for ours, theirs in (("conv1", "block.1"), ("conv2", "block.3"),
+                                     ("shortcut", "shortcut")):
+                    names[f"{pre}blocks.{i}.res.{j}.{ours}.conv"] = (
+                        f"{pre}model.{first_res + j}.{theirs}.conv.conv")
+            if decoder:
+                names[f"{pre}blocks.{i}.up.conv"] = f"{pre}model.{start + 1}.convtr.convtr"
+            else:
+                names[f"{pre}blocks.{i}.down.conv"] = f"{pre}model.{start + n_res + 1}.conv.conv"
+        end = base + len(tower.blocks) * (n_res + 2)
+        if not decoder and lstm:
+            names[f"{pre}lstm.lstm"] = f"{pre}model.{end}.lstm"
+            end += 1
+        names[f"{pre}conv_out.conv"] = f"{pre}model.{end + 1}.conv.conv"
+    return names
+
+
+def _codec_layout_to_port(model: torch.nn.Module, state_dict: tp.Mapping[str, torch.Tensor]
+                          ) -> tp.Dict[str, torch.Tensor]:
+    """A public codec's own layout -> the port's names (JAX
+    io/checkpoints.py:502 `import_codec_variables`): descript's raw DAC
+    (`encoder.block.*` for the reference wrapper's `encoder.encoder.block.*`,
+    likewise the decoder; `quantizer.quantizers.*` for
+    `bottleneck.quantizer.quantizers.*`), encodec's SEANet towers
+    (`_seanet_layout`) and its RVQ
+    (`quantizer.vq.layers.{i}._codebook.{embed, embed_avg, cluster_size}`,
+    stacked into `bottleneck.quantizer.{codebooks, ema_sums, ema_counts}`;
+    the sums default to embed x counts, the counts to 1). Names already the
+    port's pass as they are."""
+    own = model.state_dict()
+    seanet = {theirs: ours for ours, theirs in _seanet_layout(model).items()}
+    out: tp.Dict[str, torch.Tensor] = {}
+    layers: tp.Dict[int, tp.Dict[str, torch.Tensor]] = {}
+    for name, value in state_dict.items():
+        if name.startswith("quantizer.vq.layers."):
+            i, _, leaf = name[len("quantizer.vq.layers."):].split(".", 2)
+            layers.setdefault(int(i), {})[leaf] = value
+            continue
+        if name.startswith("quantizer.quantizers."):
+            name = "bottleneck." + name
+        stem, _, leaf = name.rpartition(".")
+        if stem in seanet:
+            name = f"{seanet[stem]}.{leaf}"
+        for tower in ("encoder", "decoder"):
+            nested = f"{tower}.{tower}.{name[len(tower) + 1:]}"
+            if name.startswith(tower + ".") and name not in own and nested in own:
+                name = nested
+        out[name] = value
+    if layers:
+        embeds = [layers[i]["embed"].float() for i in sorted(layers)]
+        counts = [layers[i]["cluster_size"].float() if "cluster_size" in layers[i]
+                  else torch.ones(e.shape[0]) for i, e in zip(sorted(layers), embeds)]
+        sums = [layers[i]["embed_avg"].float() if "embed_avg" in layers[i] else e * c[:, None]
+                for i, e, c in zip(sorted(layers), embeds, counts)]
+        out["bottleneck.quantizer.codebooks"] = torch.stack(embeds)
+        out["bottleneck.quantizer.ema_counts"] = torch.stack(counts)
+        out["bottleneck.quantizer.ema_sums"] = torch.stack(sums)
+        out["bottleneck.quantizer.initted"] = torch.tensor(True)
+    return out
+
+
+@torch.no_grad()
+def load_codec_state(model: torch.nn.Module, state_dict: tp.Mapping[str, torch.Tensor]) -> int:
+    """Load a codec checkpoint (descript's DAC, EnCodec / audiocraft, or the
+    port's own names) into the codec autoencoder `model` of a
+    `dac_pretrained` / `audiocraft_pretrained` pretransform. Every tensor of
+    the codec must be in the file with its shape: the codebooks are never
+    left random (JAX models/handle.py:93). Returns the number loaded."""
+    own = model.state_dict()
+    sd = _codec_layout_to_port(model, state_dict)
+    missing = [n for n in own if n not in sd]
+    wrong = [n for n in own if n in sd and tuple(sd[n].shape) != tuple(own[n].shape)]
+    if missing or wrong:
+        raise RuntimeError(f"the codec checkpoint lacks {len(missing)} tensors ({missing[:5]}) "
+                           f"and has {len(wrong)} of another shape ({wrong[:5]})")
+    loaded, _ = copy_state_dict(model, {n: sd[n] for n in own})
+    return loaded
+
+
+def codec_state_dict(model: torch.nn.Module) -> tp.Dict[str, torch.Tensor]:
+    """The codec autoencoder's tensors in the codec's own layout: the DAC
+    RVQ as `quantizer.quantizers.*`, the SEANet towers as encodec's
+    `model.{n}` names and the EMA RVQ as `quantizer.vq.layers.{i}._codebook.*`
+    (the layout `load_codec_state` and the JAX package's
+    `import_codec_variables` read)."""
+    seanet = _seanet_layout(model)
+    out: tp.Dict[str, torch.Tensor] = {}
+    for name, value in model.state_dict().items():
+        stem, _, leaf = name.rpartition(".")
+        if stem in seanet:
+            out[f"{seanet[stem]}.{leaf}"] = value
+        elif name.startswith("bottleneck.quantizer.quantizers."):
+            out[name[len("bottleneck."):]] = value
+        elif name in ("bottleneck.quantizer.codebooks", "bottleneck.quantizer.ema_counts",
+                      "bottleneck.quantizer.ema_sums"):
+            leaf = {"codebooks": "embed", "ema_counts": "cluster_size",
+                    "ema_sums": "embed_avg"}[name.rsplit(".", 1)[1]]
+            for i, v in enumerate(value):
+                out[f"quantizer.vq.layers.{i}._codebook.{leaf}"] = v.clone()
+        elif name != "bottleneck.quantizer.initted":
+            out[name] = value
+    return out

@@ -8,7 +8,10 @@ package's flat module names, the `UNet1d` or the DiT), of a
 `DiffusionAutoencoder`, of an
 `AudioLanguageModelWrapper` (with its codec's `quantizer_state` collection,
 where the RVQ codebooks live), of an `AudioAutoencoder` or of an
-`EncodecDiscriminator`, of ARC's discriminator heads and trainer state, and
+`EncodecDiscriminator`, of ARC's discriminator heads and trainer state, of
+the conditioners (`conditioner_state_dict`: the number, int, list and
+phoneme tables, the projections, a conditioner's own pretransform), of the
+HTSAT audio tower (`htsat_state_dict`, params and batch statistics), and
 the frozen T5 tower's own params
 (`T5Conditioner._t5.params`), which live outside it. The output is a flat
 {name: numpy array} in the port's names, which are
@@ -553,34 +556,122 @@ def adp_unet_cfg_state_dict(p: Mapping, prefix: str = "") -> StateDict:
     return out
 
 
+def conditioner_state_dict(mod: Mapping, prefix: str, own_pretransform: bool = False
+                           ) -> StateDict:
+    """One conditioner's flax params (`modules_<id>` of the JAX bank) -> the
+    port's under `prefix`: the number embedder, the int / list / phoneme
+    tables, the T5 / CLAP / phoneme / pretransform `proj_out`, the source
+    mix's `proj`, and with `own_pretransform` the conditioner's own
+    pretransform (`pretransform.model.*`; a conditioner on the model's
+    pretransform holds none, and the JAX package's copy of it is dropped)."""
+    out: StateDict = {}
+    emb = mod.get("embedder")
+    if emb is not None and "weights" in emb:  # NumberConditioner
+        out[f"{prefix}embedder.embedding.0.weights"] = _np(emb["weights"])
+        dense(out, f"{prefix}embedder.embedding.1", emb["to_out"])
+    elif emb is not None:  # ListConditioner
+        out[f"{prefix}embedder.weight"] = _np(emb["embedding"])
+    for table in ("int_embedder", "phoneme_embedder"):
+        if table in mod:
+            out[f"{prefix}{table}.weight"] = _np(mod[table]["embedding"])
+    proj = mod.get("proj")
+    if proj is not None and "proj_out" in proj:
+        dense(out, f"{prefix}proj_out", proj["proj_out"])
+    elif proj is not None:  # SourceMixConditioner's Dense
+        dense(out, f"{prefix}proj", proj)
+    if own_pretransform and "pretransform" in mod:
+        out.update(autoencoder_state_dict(mod["pretransform"]["model"],
+                                          f"{prefix}pretransform.model."))
+    return out
+
+
+def htsat_state_dict(variables: Mapping, prefix: str = "") -> StateDict:
+    """The JAX HTSAT's variables (`params` and `batch_stats`) -> laion-clap's
+    names under `prefix` (the inverse of JAX `import_htsat`,
+    models/htsat.py:438): LayerNorm scale -> weight, Dense and 2-D conv
+    kernels transposed, BatchNorm mean / var -> running_mean / running_var."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    out: StateDict = {}
+
+    def bn(name: str, p: Mapping, st: Mapping) -> None:
+        out[f"{name}.weight"], out[f"{name}.bias"] = _np(p["scale"]), _np(p["bias"])
+        out[f"{name}.running_mean"], out[f"{name}.running_var"] = _np(st["mean"]), _np(st["var"])
+
+    def conv2d(name: str, p: Mapping) -> None:
+        out[f"{name}.weight"] = _np(p["kernel"]).transpose(3, 2, 0, 1)
+        out[f"{name}.bias"] = _np(p["bias"])
+
+    bn(f"{prefix}bn0", params["bn0"], stats["bn0"])
+    pe = params["patch_embed"]
+    conv2d(f"{prefix}patch_embed.proj", pe["proj"])
+    _affine(out, f"{prefix}patch_embed.norm", pe["norm"])
+    if "mel_conv2d" in pe:
+        conv2d(f"{prefix}patch_embed.mel_conv2d", pe["mel_conv2d"])
+        fm, fst = pe["fusion_model"], stats["patch_embed"]["fusion_model"]
+        for ours, theirs, off in (("local", "local_att", 0), ("global", "global_att", 1)):
+            name = f"{prefix}patch_embed.fusion_model.{theirs}"
+            conv2d(f"{name}.{off}", fm[f"{ours}_conv1"])
+            bn(f"{name}.{off + 1}", fm[f"{ours}_bn1"], fst[f"{ours}_bn1"])
+            conv2d(f"{name}.{off + 3}", fm[f"{ours}_conv2"])
+            bn(f"{name}.{off + 4}", fm[f"{ours}_bn2"], fst[f"{ours}_bn2"])
+    i = 0
+    while f"layers_{i}" in params:
+        layer, name = params[f"layers_{i}"], f"{prefix}layers.{i}"
+        j = 0
+        while f"blocks_{j}" in layer:
+            b, bname = layer[f"blocks_{j}"], f"{name}.blocks.{j}"
+            _affine(out, f"{bname}.norm1", b["norm1"])
+            _affine(out, f"{bname}.norm2", b["norm2"])
+            dense(out, f"{bname}.attn.qkv", b["attn"]["qkv"])
+            dense(out, f"{bname}.attn.proj", b["attn"]["proj"])
+            out[f"{bname}.attn.relative_position_bias_table"] = _np(
+                b["attn"]["relative_position_bias_table"])
+            dense(out, f"{bname}.mlp.fc1", b["mlp"]["fc1"])
+            dense(out, f"{bname}.mlp.fc2", b["mlp"]["fc2"])
+            j += 1
+        if "downsample" in layer:
+            _affine(out, f"{name}.downsample.norm", layer["downsample"]["norm"])
+            dense(out, f"{name}.downsample.reduction", layer["downsample"]["reduction"])
+        i += 1
+    _affine(out, f"{prefix}norm", params["norm"])
+    return out
+
+
 def diffusion_cond_state_dict(params: Mapping, dim_heads: int = 64,
                               t5_params: Optional[Mapping[str, Mapping]] = None,
-                              roberta_params: Optional[Mapping[str, Mapping]] = None
-                              ) -> StateDict:
+                              roberta_params: Optional[Mapping[str, Mapping]] = None,
+                              htsat_variables: Optional[Mapping[str, Mapping]] = None,
+                              own_pretransform_ids: tuple = ()) -> StateDict:
     """`params` of a ConditionedDiffusionModelWrapper (a DiT with heads of
     `dim_heads`, or an ADP UNetCFG1d) -> the port's
     ConditionedDiffusionModelWrapper state_dict. `t5_params` maps a T5
     conditioner id to its tower's flax params, `roberta_params` a CLAP text
-    conditioner id to its RoBERTa tower's; the CLAP joint-space projection
-    (`text_projection`) is not part of either and keeps what the port's
-    conditioner loaded from the CLAP checkpoint."""
+    conditioner id to its RoBERTa tower's, `htsat_variables` a CLAP audio
+    conditioner id to its HTSAT's variables; the CLAP joint-space
+    projections (`text_projection`, `audio_projection`) are part of none and
+    keep what the port's conditioner loaded from the CLAP checkpoint. The
+    pretransform / source-mix conditioners in `own_pretransform_ids` carry
+    their own pretransform (`conditioner_state_dict`). The others share the
+    model's: flax binds the one pretransform module to the conditioner bank
+    that meets it first, so its params may lie there and not under
+    `pretransform`; they become the port's `pretransform.model.*` either
+    way."""
     out = diffusion_model_state_dict(params["model"], dim_heads, "model.model.")
-    if "pretransform" in params:
-        out.update(autoencoder_state_dict(params["pretransform"]["model"], "pretransform.model."))
+    shared = params.get("pretransform")
     for key, mod in params.get("conditioner", {}).items():
         cid = key[len("modules_"):]
-        pfx = f"conditioner.conditioners.{cid}."
-        if "embedder" in mod:  # NumberConditioner
-            out[f"{pfx}embedder.embedding.0.weights"] = _np(mod["embedder"]["weights"])
-            dense(out, f"{pfx}embedder.embedding.1", mod["embedder"]["to_out"])
-        if "int_embedder" in mod:  # IntConditioner
-            out[f"{pfx}int_embedder.weight"] = _np(mod["int_embedder"]["embedding"])
-        if "proj" in mod:  # T5 / CLAP projection
-            dense(out, f"{pfx}proj_out", mod["proj"]["proj_out"])
+        out.update(conditioner_state_dict(mod, f"conditioner.conditioners.{cid}.",
+                                          cid in own_pretransform_ids))
+        if cid not in own_pretransform_ids and shared is None:
+            shared = mod.get("pretransform")
+    if shared is not None:
+        out.update(autoencoder_state_dict(shared["model"], "pretransform.model."))
     for cid, p in (t5_params or {}).items():
         out.update(t5_state_dict(p, f"conditioner.conditioners.{cid}.model."))
     for cid, p in (roberta_params or {}).items():
         out.update(roberta_state_dict(p, f"conditioner.conditioners.{cid}.model."))
+    for cid, v in (htsat_variables or {}).items():
+        out.update(htsat_state_dict(v, f"conditioner.conditioners.{cid}.audio_branch."))
     return out
 
 

@@ -380,10 +380,11 @@ class AudioAutoencoder(nn.Module):
 
     def decode_audio(self, latents: torch.Tensor, chunked: bool = False, overlap: int = 32,
                      chunk_size: int = 128, chunk_batch: int = 8,
-                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                     generator: Optional[torch.Generator] = None,
+                     skip_bottleneck: bool = False) -> torch.Tensor:
         """latents [B, latent_dim, S] -> audio; `chunk_size` and `overlap` in
         latents; a noise-augmenting bottleneck draws from `generator`."""
-        decode = lambda z: self.decode(z, generator=generator)
+        decode = lambda z: self.decode(z, skip_bottleneck=skip_bottleneck, generator=generator)
         if not chunked or latents.shape[2] <= chunk_size:
             return decode(latents)
         spl = self.downsampling_ratio

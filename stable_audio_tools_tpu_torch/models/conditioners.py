@@ -1,7 +1,10 @@
 """Conditioners: metadata -> conditioning tensors; counterpart of
 stable_audio_tools_tpu/models/conditioners.py (IntConditioner :202,
-NumberConditioner :214, T5Conditioner :323, _FallbackTokenizer :517, CLAPTextConditioner :551 with
-CLAPProjModule :148, MultiConditioner :874).
+NumberConditioner :214, ListConditioner :226, PhonemeConditioner :267,
+T5Conditioner :323, _FallbackTokenizer :517, CLAPTextConditioner :551 with
+CLAPProjModule :148, CLAPAudioConditioner :725, SourceMixConditioner :807,
+PretransformConditioner :858, MultiConditioner :874 with its
+`pre_encoded_keys`).
 
 Unlike the JAX package, which splits each conditioner into a host half and a
 flax half, each conditioner here is one `nn.Module` whose
@@ -15,8 +18,13 @@ of `t5_model_name`; its weights are random unless loaded (the card has no
 The CLAP text tower is the port's own RoBERTa (models/roberta.py), loaded from
 the `text_branch.*` tensors of a CLAP checkpoint. Covered: the `t5`, `number`
 (SA-Open's), `clap_text` (SA-2.0's and SA-1.0's) and `int` (SA-1.0's)
-conditioner types; the CLAP audio branch (HTSAT) and the other types are
-later slices.
+conditioner types, `list` and `phoneme` (learned embedding tables), `clap_audio`
+(the port's HTSAT, models/htsat.py, and CLAP's `audio_projection`),
+`pretransform` and `source_mix` (a frozen pretransform's encode of audio in
+the metadata, then a trainable projection; `use_model_pretransform` takes
+the model's own pretransform, which then stays out of the conditioner's
+state dict, as the reference's `save_pretransform=False`). `lut` needs a
+Hugging Face tokenizer and is refused by name.
 """
 
 from __future__ import annotations
@@ -290,43 +298,307 @@ class IntConditioner(nn.Module):
         return emb, torch.ones(emb.shape[:2], dtype=torch.bool, device=device)
 
 
+class ListConditioner(nn.Module):
+    """One of `options` -> its embedding (index + 1; a value not among the
+    options takes row 0): a [B, 1, output_dim] token and an all-true mask
+    (JAX :95, :226)."""
+
+    def __init__(self, output_dim: int, options: tp.Sequence[str]):
+        super().__init__()
+        self.options = list(options)
+        self.embedder = nn.Embedding(len(self.options) + 1, output_dim)
+
+    def forward(self, values: tp.Sequence[str], device) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+        ints = [self.options.index(v) + 1 if v in self.options else 0 for v in values]
+        emb = self.embedder(torch.tensor(ints, dtype=torch.long, device=device))[:, None]
+        return emb, torch.ones(emb.shape[:2], dtype=torch.bool, device=device)
+
+
+class PhonemeConditioner(nn.Module):
+    """Text -> one embedding a character (JAX :121, :267): the character
+    table the JAX package takes when `g2p_en` is missing (ids min(ord, 127)
+    + 2, at most `max_length`, zero-padded to the batch's longest; vocab
+    130), then `proj_out` with `project_out`. The mask is all true, the
+    padding too, as in the JAX package. `g2p_en` is on neither machine; where
+    it imports, the JAX package would take its phoneme branch, which the port
+    has not ported, so it raises."""
+
+    VOCAB = 130
+
+    def __init__(self, output_dim: int, max_length: int = 1024, project_out: bool = False):
+        super().__init__()
+        try:
+            import g2p_en  # noqa: F401
+        except ImportError:
+            pass
+        else:
+            raise NotImplementedError(
+                "phoneme conditioner: g2p_en is installed, and its phoneme table is not "
+                "ported (the port builds the character table the JAX package uses without it)")
+        self.max_length = max_length
+        self.phoneme_embedder = nn.Embedding(self.VOCAB, output_dim)
+        self.proj_out = nn.Linear(output_dim, output_dim) if project_out else None
+
+    def forward(self, texts: tp.Sequence[str], device) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+        ids = [[min(ord(c), 127) + 2 for c in t[: self.max_length]] for t in texts]
+        longest = max(len(i) for i in ids)
+        ids = torch.tensor([i + [0] * (longest - len(i)) for i in ids], dtype=torch.long,
+                           device=device)
+        emb = self.phoneme_embedder(ids)
+        if self.proj_out is not None:
+            emb = self.proj_out(emb)
+        return emb, torch.ones(ids.shape, dtype=torch.bool, device=device)
+
+
+class _EncodeConditioner(nn.Module):
+    """Audio through a frozen pretransform under `no_grad` (the JAX
+    package's `stop_gradient`). With `own_pretransform` the pretransform is
+    this module's child (`pretransform.*`); else it is the model's, held
+    outside the module tree so that its weights live once, under the model's
+    `pretransform`."""
+
+    def __init__(self, pretransform: nn.Module, own_pretransform: bool):
+        super().__init__()
+        if own_pretransform:
+            self.pretransform = pretransform
+        else:
+            self.__dict__["pretransform"] = pretransform
+
+    def encode(self, audio: tp.Sequence[tp.Any], device) -> torch.Tensor:
+        """Clips [C, T] (numpy or tensors, one length) -> latents [B, C', S], f32."""
+        audio = torch.stack([torch.as_tensor(np.asarray(v, np.float32)) for v in audio])
+        audio = audio.to(device)
+        with torch.no_grad():
+            return self.pretransform.encode(audio[:, None] if audio.dim() == 2 else audio).float()
+
+
+class PretransformConditioner(_EncodeConditioner):
+    """Audio -> the frozen pretransform's latents, then `proj_out` where
+    the latent width is not `output_dim`: a [B, output_dim, S] tensor
+    (channels first, what `input_concat_ids` concatenates) and an all-true
+    [B, S] mask (JAX :164, :858)."""
+
+    def __init__(self, pretransform: nn.Module, output_dim: int, own_pretransform: bool = False):
+        super().__init__(pretransform, own_pretransform)
+        latent = pretransform.encoded_channels
+        self.proj_out = nn.Linear(latent, output_dim) if latent != output_dim else None
+
+    def forward(self, values: tp.Sequence[tp.Any], device) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+        latents = self.encode(values, device).transpose(1, 2)
+        if self.proj_out is not None:
+            latents = self.proj_out(latents)
+        return latents.transpose(1, 2), torch.ones(latents.shape[:2], dtype=torch.bool,
+                                                   device=device)
+
+
+class SourceMixConditioner(_EncodeConditioner):
+    """Stems -> their sum, encoded by the frozen pretransform, then the
+    trainable `proj` (always built): [B, output_dim, S] and an all-true mask
+    (JAX :807-856). A value is a dict of stems by `source_keys` (a missing
+    stem is left out; with none present, `source_length` zeros in one
+    channel) or one clip; the sum is taken on the host in f32."""
+
+    def __init__(self, pretransform: nn.Module, output_dim: int,
+                 source_keys: tp.Sequence[str] = ("source",),
+                 source_length: tp.Optional[int] = None, own_pretransform: bool = False):
+        super().__init__(pretransform, own_pretransform)
+        self.source_keys, self.source_length = tuple(source_keys), source_length
+        self.proj = nn.Linear(pretransform.encoded_channels, output_dim)
+
+    def mix(self, value: tp.Any) -> np.ndarray:
+        if not isinstance(value, dict):
+            mix = np.asarray(value, np.float32)
+        else:
+            stems = [np.asarray(value[k], np.float32) for k in self.source_keys if k in value]
+            if not stems and self.source_length:
+                stems = [np.zeros((1, self.source_length), np.float32)]
+            mix = sum(stems)
+        return mix[None] if mix.ndim == 1 else mix
+
+    def forward(self, values: tp.Sequence[tp.Any], device) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+        out = self.proj(self.encode([self.mix(v) for v in values], device).transpose(1, 2))
+        return out.transpose(1, 2), torch.ones(out.shape[:2], dtype=torch.bool, device=device)
+
+
+class CLAPAudioConditioner(nn.Module):
+    """CLAP's audio branch (JAX :725-805): each clip mixed down to mono,
+    repeat-padded or centre-cut to 10 s (`prepare_clap_audio`; the values
+    are taken as 48 kHz, unresampled, as in the JAX package), `clap_logmel`,
+    the HTSAT tower (models/htsat.py, widths from `HTSAT_DIMS`) and CLAP's
+    `audio_projection` relu(e W1 + b1) W2 + b2 to the 512-wide joint space;
+    then the trainable `proj_out` where 512 is not `output_dim` or
+    `project_out`. Out: [B, 1, output_dim] and an all-true mask.
+
+    The tower and projection come from `clap_ckpt_path` (laion-clap's
+    `audio_branch.*` and `audio_projection.*`) and are frozen; without a
+    checkpoint it is an error unless `allow_random_init` (the tower as
+    built, the projection the JAX package's seeded one).
+    `set_embed_fn(fn)` replaces the tower: fn(clips) -> [B, 512]."""
+
+    HTSAT_DIMS = {"HTSAT-tiny": 96, "HTSAT-base": 128, "HTSAT-large": 256}
+
+    def __init__(self, output_dim: int, clap_ckpt_path: tp.Optional[str] = None,
+                 audio_model_type: str = "HTSAT-base", enable_fusion: bool = True,
+                 project_out: bool = False, allow_random_init: bool = False,
+                 use_text_features: bool = False, feature_layer_ix: int = -1,
+                 finetune: bool = False):
+        super().__init__()
+        del use_text_features, feature_layer_ix  # the text branch's
+        if finetune:
+            raise NotImplementedError("finetune=True: the CLAP tower is frozen in this port")
+        from .htsat import HTSAT
+
+        self.dim = 512
+        self._embed_fn = None
+        self.audio_branch = HTSAT(embed_dim=self.HTSAT_DIMS[audio_model_type],
+                                  enable_fusion=enable_fusion)
+        n = self.audio_branch.num_features
+        self.audio_projection = nn.Sequential(nn.Linear(n, 512), nn.ReLU(), nn.Linear(512, 512))
+        if clap_ckpt_path:
+            sd = load_clap_state_dict(clap_ckpt_path)
+            own = list(self.state_dict())
+            missing = [k for k in own if k not in sd and not k.endswith("num_batches_tracked")]
+            if missing:
+                raise RuntimeError(f"CLAP checkpoint {clap_ckpt_path} lacks {len(missing)} "
+                                   f"tensors of the audio branch ({missing[:5]})")
+            if self.audio_projection[0].weight.device.type != "meta":  # meta: shapes only
+                self.load_state_dict({k: sd[k] for k in own if k in sd}, strict=False)
+        elif allow_random_init:
+            rng = np.random.RandomState(0)  # the JAX package's seeded projection
+            w1 = (rng.randn(n, 512) / np.sqrt(n)).astype(np.float32)
+            w2 = (rng.randn(512, 512) / np.sqrt(512)).astype(np.float32)
+            with torch.no_grad():
+                for lin, w in ((self.audio_projection[0], w1), (self.audio_projection[2], w2)):
+                    lin.weight.copy_(torch.from_numpy(w.T.copy()))
+                    lin.bias.zero_()
+        else:
+            raise RuntimeError(
+                "CLAPAudioConditioner has no clap_ckpt_path and allow_random_init is False: "
+                "give a local CLAP checkpoint or set allow_random_init=True to accept "
+                "random weights")
+        self.audio_branch.requires_grad_(False)
+        self.audio_projection.requires_grad_(False)
+        self.proj_out = (nn.Linear(self.dim, output_dim)
+                         if self.dim != output_dim or project_out else None)
+
+    def set_embed_fn(self, fn: tp.Optional[tp.Callable]) -> None:
+        self._embed_fn = fn
+
+    @torch.no_grad()
+    def features(self, values: tp.Sequence[tp.Any], device) -> torch.Tensor:
+        """Clips -> the 512-wide CLAP embeddings [B, 512], f32."""
+        if self._embed_fn is not None:
+            return torch.as_tensor(np.asarray(self._embed_fn(values), np.float32), device=device)
+        from .htsat import clap_logmel, prepare_clap_audio
+
+        batch = np.stack([prepare_clap_audio(np.asarray(v, np.float32).mean(axis=0)
+                                             if np.asarray(v).ndim > 1 else v) for v in values])
+        emb = self.audio_branch(clap_logmel(torch.from_numpy(batch).to(device)))
+        return self.audio_projection(emb)
+
+    def forward(self, values: tp.Sequence[tp.Any], device) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+        feats = self.features(values, device)[:, None, :]
+        if self.proj_out is not None:
+            feats = self.proj_out(feats)
+        return feats, torch.ones(feats.shape[:2], dtype=torch.bool, device=device)
+
+
 class MultiConditioner(nn.Module):
-    """batch metadata (a list of dicts) -> {key: (tensor, mask)}."""
+    """batch metadata (a list of dicts) -> {key: (tensor, mask)}. A key of
+    `pre_encoded_keys` has no module: its values, already embeddings, are
+    stacked as f32 and passed through with mask None (JAX
+    `MultiConditioner.gather_inputs` :884, `ConditionerBank` :924)."""
 
     def __init__(self, conditioners: tp.Dict[str, nn.Module],
-                 default_keys: tp.Optional[tp.Dict[str, str]] = None):
+                 default_keys: tp.Optional[tp.Dict[str, str]] = None,
+                 pre_encoded_keys: tp.Sequence[str] = ()):
         super().__init__()
         self.conditioners = nn.ModuleDict(conditioners)
         self.default_keys = dict(default_keys or {})
+        self.pre_encoded_keys = list(pre_encoded_keys)
+
+    def _values(self, key: str, batch_metadata: tp.List[tp.Dict[str, tp.Any]]) -> list:
+        values = []
+        for item in batch_metadata:
+            k = key if key in item else self.default_keys.get(key)
+            if k is None or k not in item:
+                raise ValueError(f"Conditioner key {key} not found in batch metadata")
+            v = item[k]
+            if isinstance(v, (list, tuple)) and len(v) == 1:
+                v = v[0]
+            values.append(v)
+        return values
 
     def forward(self, batch_metadata: tp.List[tp.Dict[str, tp.Any]], device):
         out = {}
+        for key in self.pre_encoded_keys:
+            values = self._values(key, batch_metadata)
+            out[key] = (torch.as_tensor(np.stack([np.asarray(v, np.float32) for v in values]),
+                                        device=device), None)
         for key, conditioner in self.conditioners.items():
-            values = []
-            for item in batch_metadata:
-                k = key if key in item else self.default_keys.get(key)
-                if k is None or k not in item:
-                    raise ValueError(f"Conditioner key {key} not found in batch metadata")
-                v = item[k]
-                if isinstance(v, (list, tuple)) and len(v) == 1:
-                    v = v[0]
-                values.append(v)
-            out[key] = conditioner(values, device)
+            out[key] = conditioner(self._values(key, batch_metadata), device)
         return out
 
 
-def create_multi_conditioner_from_conditioning_config(config: tp.Dict[str, tp.Any]) -> MultiConditioner:
+def _conditioner_pretransform(ccfg: tp.Dict[str, tp.Any], pretransform, device, ctype: str):
+    """Pop the pretransform keys of a `pretransform` / `source_mix` config
+    (JAX :975-999): (the pretransform, whether the conditioner owns it)."""
+    from .factory import create_pretransform_from_config
+
+    sample_rate = ccfg.pop("sample_rate", None)
+    if sample_rate is None:
+        raise ValueError(f"Sample rate must be specified for {ctype} conditioners")
+    use_model_pretransform = ccfg.pop("use_model_pretransform", False)
+    pretransform_config = ccfg.pop("pretransform_config", None)
+    ccfg.pop("pretransform_ckpt_path", None)  # read nowhere in the JAX package either
+    if use_model_pretransform:
+        if pretransform is None:
+            raise ValueError(f"{ctype} conditioner: use_model_pretransform, but the model "
+                             "has no pretransform")
+        return pretransform, False
+    own = create_pretransform_from_config(pretransform_config, sample_rate, device)
+    own.requires_grad_(False)
+    return own, True
+
+
+def create_multi_conditioner_from_conditioning_config(
+        config: tp.Dict[str, tp.Any], pretransform: tp.Optional[nn.Module] = None,
+        device=None) -> MultiConditioner:
+    """The conditioning config (JAX :952-1021) -> the MultiConditioner. The
+    `pretransform` / `source_mix` conditioners with `use_model_pretransform`
+    take `pretransform` (the model's); their own pretransforms are built on
+    `device` (default: torch's default device, which the model factories set).
+    A key of `pre_encoded_keys` builds no module."""
+    device = torch.get_default_device() if device is None else device
+    pre_encoded = list(config.get("pre_encoded_keys", []))
     conditioners = {}
     for info in config["configs"]:
+        cid, ctype = info["id"], info["type"]
+        if cid in pre_encoded:
+            continue
         ccfg = {"output_dim": config["cond_dim"], **info.get("config", {})}
-        if info["type"] == "t5":
-            conditioners[info["id"]] = T5Conditioner(**ccfg)
-        elif info["type"] == "number":
-            conditioners[info["id"]] = NumberConditioner(**ccfg)
-        elif info["type"] == "clap_text":
-            conditioners[info["id"]] = CLAPTextConditioner(**ccfg)
-        elif info["type"] == "int":
-            conditioners[info["id"]] = IntConditioner(**ccfg)
+        if ctype == "t5":
+            conditioners[cid] = T5Conditioner(**ccfg)
+        elif ctype == "number":
+            conditioners[cid] = NumberConditioner(**ccfg)
+        elif ctype == "clap_text":
+            conditioners[cid] = CLAPTextConditioner(**ccfg)
+        elif ctype == "clap_audio":
+            conditioners[cid] = CLAPAudioConditioner(**ccfg)
+        elif ctype == "int":
+            conditioners[cid] = IntConditioner(**ccfg)
+        elif ctype == "list":
+            conditioners[cid] = ListConditioner(ccfg["output_dim"], ccfg["options"])
+        elif ctype == "phoneme":
+            conditioners[cid] = PhonemeConditioner(**ccfg)
+        elif ctype in ("pretransform", "source_mix"):
+            pt, own = _conditioner_pretransform(ccfg, pretransform, device, ctype)
+            cls = PretransformConditioner if ctype == "pretransform" else SourceMixConditioner
+            conditioners[cid] = cls(pt, own_pretransform=own, **ccfg)
+        elif ctype == "lut":
+            raise NotImplementedError(
+                "the lut conditioner is not ported: it needs transformers' AutoTokenizer and a "
+                "downloaded tokenizer, which the card's machine has neither of")
         else:
-            raise NotImplementedError(f"conditioner type {info['type']} is not ported yet")
-    return MultiConditioner(conditioners, config.get("default_keys"))
+            raise ValueError(f"Unknown conditioner type: {ctype}")
+    return MultiConditioner(conditioners, config.get("default_keys"), pre_encoded)

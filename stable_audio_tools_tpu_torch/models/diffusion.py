@@ -15,10 +15,12 @@ objective "v") and an optional pretransform. The conditioned one also takes
 `adp_1d` (models/adp.py `UNet1DCondWrapper`); `DAU1DCondWrapper` is the
 diffusion autoencoder's (models/diffusion_ae.py).
 
-Trainable: the DiT and the conditioners' own layers (the number embedders, a
-T5 projection), which get gradients in the JAX package and the reference.
-Frozen (`requires_grad` off): the pretransform and the T5 tower, as in the
-reference.
+Trainable: the DiT and the conditioners' own layers (the number embedders,
+the list and phoneme tables, the T5, CLAP and audio-prompt projections),
+which get gradients in the JAX package and the reference. Frozen
+(`requires_grad` off): the pretransform (which a `pretransform` or
+`source_mix` conditioner with `use_model_pretransform` encodes with), the T5
+and CLAP towers, as in the reference.
 """
 
 from __future__ import annotations
@@ -253,7 +255,8 @@ def create_diffusion_cond_from_config(config: tp.Dict[str, tp.Any], device=None
         pretransform.requires_grad_(False)
     conditioning = model_config.get("conditioning")
     with device:
-        conditioner = (create_multi_conditioner_from_conditioning_config(conditioning)
+        conditioner = (create_multi_conditioner_from_conditioning_config(
+            conditioning, pretransform=pretransform, device=device)
                        if conditioning is not None else None)
         if diffusion["type"] == "dit":
             model = DiTWrapper(DiffusionTransformer(

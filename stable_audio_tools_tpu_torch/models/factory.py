@@ -13,8 +13,14 @@ also on the ADP `UNetCFG1d` and `UNet1d`, models/adp.py), `diffusion_uncond`
 `autoencoder` (Oobleck with the snake or ELU, TAAE, SEANet or DAC encoder
 and decoder; every bottleneck of the JAX factory: VAE, RVQ, RVQ-VAE, DAC
 RVQ, DAC RVQ-VAE, tanh, softnorm, Wasserstein, L2, FSQ and dithered FSQ)
-and the `autoencoder` pretransform; other types (the `local_attn` towers,
-the other pretransforms) raise NotImplementedError.
+and every pretransform of the JAX factory: `autoencoder`, the public codecs
+`dac_pretrained` (DAC 44 / 24 / 16 kHz or a custom DAC) and
+`audiocraft_pretrained` (EnCodec 32 kHz or a custom SEANet codec), from a
+local `ckpt_path` or seeded random, and the signal-domain `patched`,
+`wavelet` and `pqmf`. Other types (the `local_attn` towers) raise
+NotImplementedError, and so do the Oobleck's `antialias_activation` and
+`use_nearest_upsample`, which the JAX factory reads and the port does not
+build yet.
 
 Every factory takes the `device` the parameters are created on. The default
 is the current CUDA card, and without one the call raises: a model lands on
@@ -34,10 +40,14 @@ from . import bottleneck as B
 from .autoencoders import (AudioAutoencoder, OobleckDecoder, OobleckEncoder, TAAEDecoder,
                            TAAEEncoder)
 from .dac import DACDecoderWrapper, DACEncoderWrapper, Snake1d
-from .pretransforms import AutoencoderPretransform
+from .pretransforms import (AutoencoderPretransform, PatchedPretransform,
+                            PQMFPretransform, PretrainedCodecPretransform, WaveletPretransform)
 from .seanet import SEANetDecoder, SEANetEncoder
 
 _OOBLECK_KEYS = ("channels", "latent_dim", "c_mults", "strides", "use_snake")
+# Oobleck options the JAX factory builds (models/factory.py:71, :103) and the
+# port does not yet: refused by name when set (ROADMAP queue 1 item 5)
+_OOBLECK_UNPORTED = ("antialias_activation", "use_nearest_upsample")
 _SEANET_KEYS = ("channels", "dimension", "n_filters", "ratios", "n_residual_layers",
                 "dilation_base", "norm", "lstm", "kernel_size", "last_kernel_size",
                 "residual_kernel_size", "causal", "pad_mode", "true_skip", "compress")
@@ -112,6 +122,11 @@ def create_model_from_config_path(path: str, device: Device = None) -> nn.Module
 
 def _oobleck(section: Dict[str, Any], io_key: str, cls):
     cfg = section.get("config", {})
+    for key in _OOBLECK_UNPORTED:
+        if cfg.get(key):
+            raise NotImplementedError(
+                f"the Oobleck's {key} is not ported yet (ROADMAP queue 1 item 5); "
+                "without it the port would build a different model")
     kwargs = {k: cfg[k] for k in _OOBLECK_KEYS if k in cfg}
     if io_key in cfg:
         kwargs[io_key] = cfg[io_key]
@@ -188,16 +203,111 @@ def _autoencoder(config: Dict[str, Any]) -> AudioAutoencoder:
     )
 
 
+# the public DAC architectures (JAX models/factory.py:215-222)
+_DAC_ARCHS = {
+    "44khz": dict(strides=[2, 4, 8, 8], dec_rates=[8, 8, 4, 2], n_codebooks=9, ratio=512),
+    "24khz": dict(strides=[2, 4, 5, 8], dec_rates=[8, 5, 4, 2], n_codebooks=32, ratio=320),
+    "16khz": dict(strides=[2, 4, 5, 8], dec_rates=[8, 5, 4, 2], n_codebooks=12, ratio=320),
+}
+# MusicGen's EnCodec (JAX :275-279)
+_ENCODEC_ARCHS = {
+    "facebook/encodec_32khz": dict(ratios=[8, 5, 4, 4], n_filters=64, dimension=128,
+                                   num_quantizers=4, codebook_size=2048, channels=1),
+}
+
+
+def _dac_pretrained(cfg: Dict[str, Any], sample_rate: int,
+                    on_card: bool) -> PretrainedCodecPretransform:
+    """descript-audio-codec's DAC (JAX :207-265): the DAC towers and the DAC
+    RVQ, `quantize_on_decode` and `chunked` on unless the config says not.
+    `on_card`: it runs in bf16, as the card's snake kernels take bf16 alone
+    (the JAX package runs it in f32; models/pretransforms.py)."""
+    model_type = cfg.get("model_type", "44khz")
+    if model_type in _DAC_ARCHS:
+        arch = _DAC_ARCHS[model_type]
+    elif "strides" in cfg:
+        strides = list(cfg["strides"])
+        arch = dict(strides=strides, dec_rates=cfg.get("dec_rates", strides[::-1]),
+                    n_codebooks=cfg.get("n_codebooks", 9), ratio=math.prod(strides))
+    else:
+        raise ValueError(f"dac_pretrained model_type {model_type!r} is not one of "
+                         f"{sorted(_DAC_ARCHS)}; for a custom DAC pass strides/dec_rates/"
+                         "n_codebooks in the config instead")
+    latent = cfg.get("latent_dim", 1024)
+    n_codebooks = cfg.get("n_codebooks", arch["n_codebooks"])
+    codebook_size = cfg.get("codebook_size", 1024)
+    ae = _autoencoder({"sample_rate": sample_rate, "model": {
+        "encoder": {"type": "dac", "config": {"in_channels": 1, "d_model": cfg.get("d_model", 64),
+                                              "strides": arch["strides"]}},
+        "decoder": {"type": "dac", "config": {"latent_dim": latent,
+                                              "channels": cfg.get("channels", 1536),
+                                              "rates": arch["dec_rates"], "out_channels": 1}},
+        "bottleneck": {"type": "dac_rvq", "config": {
+            "input_dim": latent, "n_codebooks": n_codebooks, "codebook_size": codebook_size,
+            "codebook_dim": cfg.get("codebook_dim", 8),
+            "quantize_on_decode": cfg.get("quantize_on_decode", True)}},
+        "latent_dim": latent, "downsampling_ratio": arch["ratio"], "io_channels": 1}})
+    return PretrainedCodecPretransform(ae, n_codebooks, codebook_size, cfg.get("ckpt_path"),
+                                       scale=cfg.get("scale", 1.0),
+                                       chunked=cfg.get("chunked", True), model_half=on_card)
+
+
+def _audiocraft_pretrained(cfg: Dict[str, Any], sample_rate: int) -> PretrainedCodecPretransform:
+    """MusicGen's EnCodec (JAX :266-327): SEANet towers (identity skips
+    unless `true_skip` is false, `causal` as set) and the EMA RVQ; the
+    encoder takes the ratios reversed."""
+    model_type = cfg.get("model_type", "facebook/encodec_32khz")
+    arch = _ENCODEC_ARCHS.get(model_type, dict(
+        ratios=cfg.get("ratios", [8, 5, 4, 4]), n_filters=cfg.get("n_filters", 64),
+        dimension=cfg.get("dimension", 128), num_quantizers=cfg.get("num_quantizers", 4),
+        codebook_size=cfg.get("codebook_size", 2048), channels=cfg.get("channels", 1)))
+    ratios = list(arch["ratios"])
+    common = {"channels": arch["channels"], "dimension": arch["dimension"],
+              "n_filters": arch["n_filters"], "n_residual_layers": 1, "dilation_base": 2,
+              "lstm": 2, "norm": "weight_norm", "true_skip": cfg.get("true_skip", True),
+              "causal": cfg.get("causal", False)}
+    ae = _autoencoder({"sample_rate": sample_rate, "model": {
+        "encoder": {"type": "seanet", "config": {**common, "ratios": ratios[::-1]}},
+        "decoder": {"type": "seanet", "config": {**common, "ratios": ratios}},
+        "bottleneck": {"type": "rvq", "config": {"dim": arch["dimension"],
+                                                 "num_quantizers": arch["num_quantizers"],
+                                                 "codebook_size": arch["codebook_size"]}},
+        "latent_dim": arch["dimension"], "downsampling_ratio": math.prod(ratios),
+        "io_channels": arch["channels"]}})
+    return PretrainedCodecPretransform(ae, arch["num_quantizers"], arch["codebook_size"],
+                                       cfg.get("ckpt_path"), scale=cfg.get("scale", 1.0))
+
+
 def create_pretransform_from_config(config: Dict[str, Any], sample_rate: int,
-                                    device: Device = None) -> AutoencoderPretransform:
-    if config["type"] != "autoencoder":
-        raise NotImplementedError(f"{config['type']} pretransform is not ported yet")
-    ae = create_autoencoder_from_config({"model": config["config"], "sample_rate": sample_rate},
-                                        device)
-    return AutoencoderPretransform(ae, scale=config.get("scale", 1.0),
-                                   model_half=config.get("model_half", False),
-                                   chunked=config.get("chunked", False),
-                                   iterate_batch=config.get("iterate_batch", False))
+                                    device: Device = None) -> nn.Module:
+    """A pretransform config (JAX :154-341) -> the module, its parameters
+    (the autoencoders' and codecs') on `device`."""
+    p_type = config.get("type")
+    enable_grad = config.get("enable_grad", False)
+    device = resolve_device(device)
+    with device:
+        if p_type == "autoencoder":
+            ae = _autoencoder({"model": config["config"], "sample_rate": sample_rate})
+            return AutoencoderPretransform(ae, scale=config.get("scale", 1.0),
+                                           model_half=config.get("model_half", False),
+                                           chunked=config.get("chunked", False),
+                                           iterate_batch=config.get("iterate_batch", False))
+        if p_type == "dac_pretrained":
+            return _dac_pretrained(config.get("config", {}), sample_rate,
+                                   on_card=device.type == "cuda")
+        if p_type == "audiocraft_pretrained":
+            return _audiocraft_pretrained(config.get("config", {}), sample_rate)
+    cfg = config.get("config", {})
+    if p_type == "patched":
+        return PatchedPretransform(cfg.get("patch_size", 1), cfg.get("io_channels", 2),
+                                   enable_grad)
+    if p_type == "wavelet":
+        return WaveletPretransform(cfg["channels"], cfg["levels"], cfg["wavelet"], enable_grad)
+    if p_type == "pqmf":
+        return PQMFPretransform(**{k: cfg[k] for k in ("attenuation", "num_bands", "io_channels",
+                                                       "encoded_channels") if k in cfg},
+                                enable_grad=enable_grad)
+    raise NotImplementedError(f"Unknown pretransform type: {p_type}")
 
 
 @torch.no_grad()
@@ -214,8 +324,10 @@ def init_random_(model: nn.Module, generator: torch.Generator,
     Fourier weights ~ N(0, 1), weight-norm g = ||v||, LSTM weights ~
     N(0, 1/fan_in) with zero biases, RVQ codebooks ~ N(0, 1) (and their EMA sums),
     LayerScale 1e-5, DynamicTanh alpha 10, gamma 1, beta 0, adaLN's
-    scale / shift / gate ~ N(0, 1/dim) and memory tokens ~ N(0, 1), as the
-    JAX package initialises them."""
+    scale / shift / gate ~ N(0, 1/dim) and memory tokens ~ N(0, 1); the
+    HTSAT's 2-D convs ~ N(0, 1/fan_in), LayerNorms and BatchNorms 1 / 0
+    (running mean 0, variance 1) and relative position tables ~ N(0, 0.02);
+    as the JAX package initialises them."""
     from ..ops.activations import SnakeBeta
     from ..ops.conv import WNConv1d, WNConv2d, WNConvTranspose1d
     from ..ops.embeddings import FourierFeatures
@@ -223,6 +335,7 @@ def init_random_(model: nn.Module, generator: torch.Generator,
     from ..ops.transformer import ContinuousTransformer, TransformerBlock
     from .bottleneck import ResidualVQ
     from .conditioners import LearnedPositionalEmbedding
+    from .htsat import WindowAttention
     from .t5 import T5LayerNorm
 
     def normal_(p, std):
@@ -233,7 +346,7 @@ def init_random_(model: nn.Module, generator: torch.Generator,
     for m in model.modules():
         if id(m) in kept:
             continue
-        if isinstance(m, (nn.Linear, nn.Conv1d)):
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             normal_(m.weight, 1.0 / math.sqrt(m.weight[0].numel()))
             if m.bias is not None:
                 m.bias.zero_()
@@ -259,9 +372,16 @@ def init_random_(model: nn.Module, generator: torch.Generator,
             m.bias.zero_()
         elif isinstance(m, Snake1d):
             m.alpha.fill_(1.0)
-        elif isinstance(m, nn.GroupNorm):
+        elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+        elif isinstance(m, WindowAttention):
+            normal_(m.relative_position_bias_table, 0.02)
         elif isinstance(m, T5LayerNorm):
             m.weight.fill_(1.0)
         elif isinstance(m, SnakeBeta):

@@ -382,7 +382,8 @@ def create_audio_lm_from_config(config: tp.Dict[str, tp.Any], device=None
             ff_mult=backbone_cfg.get("ff_mult", 4),
             compute_dtype=backbone_cfg.get("compute_dtype"))
         lm = AudioLanguageModel(backbone, num_quantizers, codebook_size)
-        conditioner = (create_multi_conditioner_from_conditioning_config(conditioning)
+        conditioner = (create_multi_conditioner_from_conditioning_config(
+            conditioning, pretransform=pretransform, device=device)
                        if conditioning is not None else None)
     return AudioLanguageModelWrapper(
         lm, conditioner, pretransform, min_input_length=min_input_length,

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import typing as tp
 from functools import lru_cache
 
 import numpy as np
@@ -61,16 +62,35 @@ def stft_mag(x: torch.Tensor, n_fft: int, hop_length: int, win_length: int,
 
 
 @lru_cache(maxsize=32)
-def mel_filterbank(sr: int, n_fft: int, n_mels: int) -> np.ndarray:
+def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float = 0.0,
+                   fmax: tp.Optional[float] = None, htk: bool = True,
+                   norm: tp.Optional[str] = None) -> np.ndarray:
     """Triangular mel filterbank, f32 [n_mels, n_fft // 2 + 1] (JAX :72):
-    the HTK mel scale from 0 to sr / 2, without normalisation."""
-    def hz_to_mel(f):
-        return 2595.0 * np.log10(1.0 + np.asarray(f) / 700.0)
+    by default the HTK mel scale from 0 to sr / 2, without normalisation;
+    `htk=False, norm="slaney"` gives librosa's defaults (the Slaney scale,
+    linear below 1 kHz, and each band scaled to unit area), what laion-clap's
+    log-mel front end builds."""
+    fmax = fmax or sr / 2
+    if htk:
+        def hz_to_mel(f):
+            return 2595.0 * np.log10(1.0 + np.asarray(f) / 700.0)
 
-    def mel_to_hz(m):
-        return 700.0 * (10.0 ** (np.asarray(m) / 2595.0) - 1.0)
+        def mel_to_hz(m):
+            return 700.0 * (10.0 ** (np.asarray(m) / 2595.0) - 1.0)
+    else:
+        log_step = np.log(6.4) / 27.0
 
-    freqs = mel_to_hz(np.linspace(hz_to_mel(0.0), hz_to_mel(sr / 2), n_mels + 2))
+        def hz_to_mel(f):
+            f = np.asarray(f, np.float64)
+            return np.where(f >= 1000.0,
+                            15.0 + np.log(np.maximum(f, 1e-10) / 1000.0) / log_step,
+                            f / (200.0 / 3.0))
+
+        def mel_to_hz(m):
+            m = np.asarray(m, np.float64)
+            return np.where(m >= 15.0, 1000.0 * np.exp(log_step * (m - 15.0)), 200.0 / 3.0 * m)
+
+    freqs = mel_to_hz(np.linspace(hz_to_mel(fmin), hz_to_mel(fmax), n_mels + 2))
     fft_freqs = np.linspace(0, sr / 2, n_fft // 2 + 1)
     fb = np.zeros((n_mels, n_fft // 2 + 1), np.float32)
     for i in range(n_mels):
@@ -78,6 +98,8 @@ def mel_filterbank(sr: int, n_fft: int, n_mels: int) -> np.ndarray:
         up = (fft_freqs - lo) / max(ctr - lo, 1e-8)
         down = (hi - fft_freqs) / max(hi - ctr, 1e-8)
         fb[i] = np.clip(np.minimum(up, down), 0, None)
+    if norm == "slaney":
+        fb *= (2.0 / (freqs[2: n_mels + 2] - freqs[:n_mels]))[:, None].astype(np.float32)
     return fb
 
 
